@@ -1,0 +1,163 @@
+"""ACVNet backbone and its DiffuVolume variant, eval only.
+
+Counterpart of ``diffuvolume_tpu/models/acv.py`` (``ACVNet``:
+``build_cost_volume``, ``denoise``, the baseline eval forward).  Module names
+follow the reference state dict, so its checkpoints load with
+``load_state_dict``.  Images enter as ``(B, H, W, 3)`` and disparities leave
+as ``(B, H, W)``, the JAX package's layouts; inside, features are NCHW and
+volumes NCDHW.
+
+The volume work runs on the port's kernels: the group-wise correlation
+volume (``gwc_volume``), the concat volume (``concat_volume``), the per-step
+attention × noise multiply (``dhw_mul``) and the fused regression head
+(``fused_upsample_softargmin``).  The 2-D and 3-D convolutions are PyTorch
+convolutions.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn as nn
+
+from diffuvolume_tpu_torch.models.layers import (
+    ACVFeatureExtractor,
+    ConvBN,
+    DynamicHead,
+    HeadConv3D,
+    HourglassACV,
+    convbn_3d,
+    init_weights,
+)
+from diffuvolume_tpu_torch.ops.kernels.concat_volume import concat_volume, dhw_mul
+from diffuvolume_tpu_torch.ops.kernels.fused_head import fused_upsample_softargmin
+from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume
+
+
+class ConcatEntry(NamedTuple):
+    """The DDIM model's scan-invariant inputs to ``denoise``: the concat
+    volume ``(B, 2C, D, H4, W4)`` built without attention, and the softmaxed
+    attention ``(B, D, H4, W4)`` that each step multiplies in with its noise."""
+
+    volume: torch.Tensor
+    att: torch.Tensor
+
+
+def _classif() -> nn.Sequential:
+    return nn.Sequential(convbn_3d(32, 32, 3, 1, 1), nn.ReLU(inplace=True), HeadConv3D(32))
+
+
+class ACVNet(nn.Module):
+    """ACVNet with attention-filtered concat volume, optionally with the
+    DiffuVolume time embedding (``diffusion=True``)."""
+
+    def __init__(self, max_disp: int = 192, diffusion: bool = True, scale: float = 1.0,
+                 num_groups: int = 40, concat_channels: int = 32):
+        super().__init__()
+        self.max_disp = max_disp
+        self.diffusion = diffusion
+        self.scale = scale
+        self.num_groups = num_groups
+        relu = lambda: nn.ReLU(inplace=True)  # noqa: E731
+
+        self.feature_extraction = ACVFeatureExtractor()
+        self.concatconv = nn.Sequential(
+            ConvBN(320, 128, 3, 1, 1), relu(),
+            nn.Conv2d(128, concat_channels, 1, bias=False),
+        )
+
+        def patch_conv(ch, dil):
+            return nn.Conv3d(ch, ch, (1, 3, 3), stride=1, padding=(0, dil, dil),
+                             dilation=(1, dil, dil), groups=ch, bias=False)
+
+        self.patch = patch_conv(num_groups, 1)
+        self.patch_l1 = patch_conv(8, 1)
+        self.patch_l2 = patch_conv(16, 2)
+        self.patch_l3 = patch_conv(16, 3)
+        self.dres1_att_ = nn.Sequential(
+            convbn_3d(num_groups, 32, 3, 1, 1), relu(), convbn_3d(32, 32, 3, 1, 1))
+        self.dres2_att_ = HourglassACV(32)
+        self.classif_att_ = _classif()
+        if diffusion:
+            self.time_embedding = DynamicHead(max_disp // 4)
+        self.dres0 = nn.Sequential(
+            convbn_3d(2 * concat_channels, 32, 3, 1, 1), relu(),
+            convbn_3d(32, 32, 3, 1, 1), relu())
+        self.dres1 = nn.Sequential(
+            convbn_3d(32, 32, 3, 1, 1), relu(), convbn_3d(32, 32, 3, 1, 1))
+        self.dres2 = HourglassACV(32)
+        self.dres3 = HourglassACV(32)
+        self.classif0 = _classif()
+        self.classif1 = _classif()
+        self.classif2 = _classif()
+
+    def init_weights(self, generator: torch.Generator) -> "ACVNet":
+        """Draw every weight from ``generator`` (see ``layers.init_weights``)."""
+        init_weights(self, generator)
+        return self
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.classif2[2].weight.dtype
+
+    # ---- volume construction ----
+
+    def build_cost_volume(self, left: torch.Tensor, right: torch.Tensor):
+        """``(B, H, W, 3)`` images → ``(cl, cr, att)``: the concat features
+        ``(B, C, H4, W4)`` and the attention softmaxed over disparity
+        ``(B, D, H4, W4)`` in the model's dtype.  The JAX module path's
+        ``ac_volume`` is ``att[:, None] · build_concat_volume(cl, cr, D)``."""
+        dt = self.dtype
+        left = left.to(dt).permute(0, 3, 1, 2).contiguous()
+        right = right.to(dt).permute(0, 3, 1, 2).contiguous()
+        feat_l = self.feature_extraction(left)
+        feat_r = self.feature_extraction(right)
+        gwc = gwc_volume(feat_l.contiguous(), feat_r.contiguous(),
+                         self.max_disp // 4, self.num_groups)
+        gwc = self.patch(gwc)
+        patch_volume = torch.cat([
+            self.patch_l1(gwc[:, :8]),
+            self.patch_l2(gwc[:, 8:24]),
+            self.patch_l3(gwc[:, 24:40]),
+        ], dim=1)
+        att = self.dres2_att_(self.dres1_att_(patch_volume))
+        att_weights = self.classif_att_(att)[:, 0]  # (B, D, H4, W4)
+        cl = self.concatconv(feat_l).contiguous()
+        cr = self.concatconv(feat_r).contiguous()
+        att = torch.softmax(att_weights.float(), dim=1).to(dt).contiguous()
+        return cl, cr, att
+
+    # ---- aggregation and regression (eval: only the last head) ----
+
+    def _aggregate_and_regress(self, volume: torch.Tensor, out_hw):
+        cost0 = self.dres0(volume)
+        cost0 = self.dres1(cost0) + cost0
+        out2 = self.dres3(self.dres2(cost0))
+        cost = self.classif2(out2)[:, 0]
+        return fused_upsample_softargmin(cost.float().contiguous(), self.max_disp, out_hw)
+
+    # ---- diffusion-conditioned single pass ----
+
+    def denoise(self, entry: ConcatEntry, latent: torch.Tensor, t: torch.Tensor,
+                out_hw: tuple[int, int]):
+        """Multiply the noisy latent's transform into the volume, aggregate,
+        regress.  Returns ``(disp (B,H,W), unc (B,H,W), transformed
+        (B,D,H4,W4))``, all float32; ``transformed`` is the time-embedded
+        volume rescaled to [0, 1], which the sampler inverts from."""
+        noise = self.time_embedding(latent, t)
+        noise = noise.clamp(-self.scale, self.scale)
+        noise = (noise / self.scale + 1.0) / 2.0
+        vol = dhw_mul(entry.volume, entry.att, noise.to(entry.att.dtype).contiguous())
+        disp, unc = self._aggregate_and_regress(vol, out_hw)
+        return disp, unc, noise.float()
+
+    # ---- baseline eval forward ----
+
+    def forward(self, left: torch.Tensor, right: torch.Tensor) -> list[torch.Tensor]:
+        """Eval forward: ``[disp (B, H, W)]`` from ``(B, H, W, 3)`` images."""
+        out_hw = (left.shape[1], left.shape[2])
+        cl, cr, att = self.build_cost_volume(left, right)
+        vol = concat_volume(cl, cr, self.max_disp // 4, att=att)
+        disp, _ = self._aggregate_and_regress(vol, out_hw)
+        return [disp]

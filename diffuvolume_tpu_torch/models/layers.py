@@ -1,0 +1,265 @@
+"""Building blocks of ACVNet in the reference's layout and module names.
+
+Counterpart of the ACV subset of ``diffuvolume_tpu/models/layers.py``.  The
+modules are built from ``nn.Sequential`` containers with the reference's
+indices (``convbn`` = ``Sequential(conv, bn)``, activations as their own
+entries), so a reference state dict loads by name.  Tensors are NCHW /
+NCDHW inside the network.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """x · tanh(softplus(x))."""
+    return x * torch.tanh(F.softplus(x))
+
+
+def _ntuple(x, n):
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,) * n
+
+
+class ConvBN(nn.Sequential):
+    """Conv (2-D or 3-D) without bias, then BatchNorm: the reference's
+    ``convbn`` / ``convbn_3d`` (children ``0`` conv, ``1`` bn).
+
+    Padding follows the reference's rule, per axis: ``dilation`` where the
+    dilation is above 1, else ``pad``.  ``kernel_size``, ``pad`` and
+    ``dilation`` may be tuples, as for the ``(1, 3, 3)`` patch form.
+    """
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, pad=0, dilation=1,
+                 groups=1, dims=2):
+        k = _ntuple(kernel_size, dims)
+        dil = _ntuple(dilation, dims)
+        padding = tuple(di if di > 1 else pi
+                        for di, pi in zip(dil, _ntuple(pad, dims)))
+        conv = (nn.Conv2d if dims == 2 else nn.Conv3d)(
+            in_ch, out_ch, k, stride=stride, padding=padding, dilation=dil,
+            groups=groups, bias=False,
+        )
+        bn = (nn.BatchNorm2d if dims == 2 else nn.BatchNorm3d)(out_ch)
+        super().__init__(conv, bn)
+
+
+def convbn_3d(in_ch, out_ch, kernel_size, stride, pad) -> ConvBN:
+    return ConvBN(in_ch, out_ch, kernel_size, stride, pad, dims=3)
+
+
+class HeadConv3D(nn.Conv3d):
+    """The ``(3,3,3) C→1`` classifier-head conv, no bias."""
+
+    def __init__(self, in_ch: int = 32):
+        super().__init__(in_ch, 1, 3, stride=1, padding=1, bias=False)
+
+
+class ConvTransposeBN(nn.Sequential):
+    """``ConvTranspose3d`` (no bias) then BatchNorm3d, in the reference's
+    orientation: weight ``(in, out, k, k, k)``.  The JAX package stores this
+    kernel flipped in conv orientation; ``tools/weights.py`` undoes that."""
+
+    def __init__(self, in_ch, out_ch, kernel_size=3, stride=2, padding=1,
+                 output_padding=1):
+        super().__init__(
+            nn.ConvTranspose3d(in_ch, out_ch, kernel_size, stride=stride,
+                               padding=padding, output_padding=output_padding,
+                               bias=False),
+            nn.BatchNorm3d(out_ch),
+        )
+
+
+class BasicBlock(nn.Module):
+    """2-D residual block (reference ``BasicBlock``, expansion 1)."""
+
+    def __init__(self, in_ch, out_ch, stride=1, pad=1, dilation=1,
+                 downsample=False):
+        super().__init__()
+        self.conv1 = nn.Sequential(
+            ConvBN(in_ch, out_ch, 3, stride, pad, dilation), nn.ReLU(inplace=True)
+        )
+        self.conv2 = ConvBN(out_ch, out_ch, 3, 1, pad, dilation)
+        self.downsample = ConvBN(in_ch, out_ch, 1, stride, 0) if downsample else None
+
+    def forward(self, x):
+        out = self.conv2(self.conv1(x))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return out + x
+
+
+class AttentionBlock3D(nn.Module):
+    """Windowed multi-head self-attention over a ``(B, C, D, H, W)`` volume.
+
+    ``(4,4,4)`` windows; H and W are zero-padded to window multiples, and a
+    position may attend across the pad boundary only with a −1000 logit
+    penalty; then a 1×1×1 conv.  Plain einsum and softmax.
+    """
+
+    def __init__(self, channels: int, num_heads: int = 16, block=(4, 4, 4)):
+        super().__init__()
+        self.num_heads = num_heads
+        self.block = tuple(block)
+        self.qkv_3d = nn.Linear(channels, 3 * channels, bias=True)
+        self.final1x1 = nn.Conv3d(channels, channels, 1, bias=True)
+
+    def forward(self, x):
+        b, c, d0, h0, w0 = x.shape
+        b0, b1, b2 = self.block
+        if d0 % b0:
+            raise ValueError(f"depth {d0} is not a multiple of {b0}")
+        pad_b = (b1 - h0 % b1) % b1
+        pad_r = (b2 - w0 % b2) % b2
+        x_p = F.pad(x, (0, pad_r, 0, pad_b)).permute(0, 2, 3, 4, 1)  # B,D,H,W,C
+        _, d, h, w, _ = x_p.shape
+        nd, nh, nw = d // b0, h // b1, w // b2
+        n, blk, heads = nd * nh * nw, b0 * b1 * b2, self.num_heads
+
+        win = x_p.reshape(b, nd, b0, nh, b1, nw, b2, c).permute(0, 1, 3, 5, 2, 4, 6, 7)
+        win = win.reshape(b, n, blk, c)
+        qkv = self.qkv_3d(win).reshape(b, n, blk, 3, heads, c // heads)
+        q, k, v = (qkv[..., i, :, :].permute(0, 1, 3, 2, 4) for i in range(3))
+        attn = torch.einsum("bnhqd,bnhkd->bnhqk", q, k) * (c // heads) ** -0.5
+
+        if pad_b > 0 or pad_r > 0:
+            pad_flag = torch.zeros((h, w), dtype=attn.dtype, device=x.device)
+            if pad_b > 0:
+                pad_flag[-pad_b:, :] = 1.0
+            if pad_r > 0:
+                pad_flag[:, -pad_r:] = 1.0
+            pf = pad_flag.reshape(nh, b1, nw, b2).permute(0, 2, 1, 3).reshape(
+                nh * nw, b1 * b2)
+            amask = pf[:, None, :] - pf[:, :, None]
+            amask = torch.where(amask != 0, -1000.0, 0.0).to(attn.dtype)
+            attn = attn + amask.repeat(nd, b0, b0)[None, :, None]
+
+        attn = torch.softmax(attn, dim=-1)
+        out = torch.einsum("bnhqk,bnhkd->bnhqd", attn, v)
+        out = out.permute(0, 1, 3, 2, 4).reshape(b, nd, nh, nw, b0, b1, b2, c)
+        out = out.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(b, d, h, w, c)
+        out = out[:, :, :h0, :w0].permute(0, 4, 1, 2, 3)
+        return self.final1x1(out.contiguous())
+
+
+class HourglassACV(nn.Module):
+    """ACV 3-D hourglass with window attention at the bottleneck."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        relu = lambda: nn.ReLU(inplace=True)  # noqa: E731
+        self.conv1 = nn.Sequential(convbn_3d(ch, 2 * ch, 3, 2, 1), relu())
+        self.conv2 = nn.Sequential(convbn_3d(2 * ch, 2 * ch, 3, 1, 1), relu())
+        self.conv3 = nn.Sequential(convbn_3d(2 * ch, 4 * ch, 3, 2, 1), relu())
+        self.conv4 = nn.Sequential(convbn_3d(4 * ch, 4 * ch, 3, 1, 1), relu())
+        self.attention_block = AttentionBlock3D(4 * ch, num_heads=16, block=(4, 4, 4))
+        self.conv5 = ConvTransposeBN(4 * ch, 2 * ch)
+        self.conv6 = ConvTransposeBN(2 * ch, ch)
+        self.redir1 = convbn_3d(ch, ch, 1, 1, 0)
+        self.redir2 = convbn_3d(2 * ch, 2 * ch, 1, 1, 0)
+
+    def forward(self, x):
+        c2 = self.conv2(self.conv1(x))
+        c4 = self.attention_block(self.conv4(self.conv3(c2)))
+        c5 = torch.relu(self.conv5(c4) + self.redir2(c2))
+        return torch.relu(self.conv6(c5) + self.redir1(x))
+
+
+class ACVFeatureExtractor(nn.Module):
+    """ResNet-style trunk: ``(B, 3, H, W)`` → ``(B, 320, H/4, W/4)``, the
+    concatenation of layer2 (64), layer3 (128) and layer4 (128)."""
+
+    def __init__(self):
+        super().__init__()
+        relu = lambda: nn.ReLU(inplace=True)  # noqa: E731
+        self.firstconv = nn.Sequential(
+            ConvBN(3, 32, 3, 2, 1), relu(),
+            ConvBN(32, 32, 3, 1, 1), relu(),
+            ConvBN(32, 32, 3, 1, 1), relu(),
+        )
+        self.layer1 = self._make_layer(32, 32, 3, 1, 1)
+        self.layer2 = self._make_layer(32, 64, 16, 2, 1)
+        self.layer3 = self._make_layer(64, 128, 3, 1, 1)
+        self.layer4 = self._make_layer(128, 128, 3, 1, 2)
+
+    @staticmethod
+    def _make_layer(in_ch, out_ch, blocks, stride, dilation):
+        downsample = stride != 1 or in_ch != out_ch
+        layers = [BasicBlock(in_ch, out_ch, stride, 1, dilation, downsample)]
+        layers += [BasicBlock(out_ch, out_ch, 1, 1, dilation) for _ in range(blocks - 1)]
+        return nn.Sequential(*layers)
+
+    def forward(self, x):
+        x = self.layer1(self.firstconv(x))
+        l2 = self.layer2(x)
+        l3 = self.layer3(l2)
+        l4 = self.layer4(l3)
+        return torch.cat([l2, l3, l4], dim=1)
+
+
+class SinusoidalTimeEmbed(nn.Module):
+    """Sinusoidal timestep embedding, ``(B,)`` → ``(B, dim)`` float32."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, t):
+        half = self.dim // 2
+        freq = torch.exp(
+            torch.arange(half, dtype=torch.float32, device=t.device)
+            * -(math.log(10000.0) / (half - 1))
+        )
+        ang = t.float()[:, None] * freq[None, :]
+        return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+class DynamicHead(nn.Module):
+    """Time-embedding head: adds a per-bin shift to the noisy ``(B, D, H, W)``
+    volume (reference ``head.py``; ``time_mlp`` / ``block_time_mlp``)."""
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.time_mlp = nn.Sequential(
+            SinusoidalTimeEmbed(d_model),
+            nn.Linear(d_model, 4 * d_model),
+            nn.GELU(),
+            nn.Linear(4 * d_model, 4 * d_model),
+        )
+        self.block_time_mlp = nn.Sequential(nn.SiLU(), nn.Linear(4 * d_model, d_model))
+
+    def forward(self, noisy, t):
+        emb = self.time_mlp[0](t).to(self.time_mlp[1].weight.dtype)
+        ss = self.block_time_mlp(self.time_mlp[1:](emb))
+        return noisy + ss[:, :, None, None]
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's initialisation scheme, drawn from ``generator``
+    (CPU): convs and deconvs normal(0, sqrt(2/n)) with n = kernel volume ×
+    output channels; Linear xavier-uniform; every bias 0; BatchNorm weight
+    1, bias 0, running mean 0, running variance 1."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+                out_ch = m.weight.shape[1 if isinstance(m, nn.ConvTranspose3d) else 0]
+                n = math.prod(m.kernel_size) * out_ch
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                               * math.sqrt(2.0 / n))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                fan_out, fan_in = m.weight.shape
+                bound = math.sqrt(6.0 / (fan_in + fan_out))
+                m.weight.copy_(torch.rand(m.weight.shape, generator=generator)
+                               * (2 * bound) - bound)
+                m.bias.zero_()
+            elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)

@@ -1,0 +1,93 @@
+"""Stereo cost-volume builders in the reference's layout.
+
+Counterpart of ``diffuvolume_tpu/ops/cost_volume.py``, but in PyTorch's
+layout: features ``(B, C, H, W)``, volumes ``(B, C, D, H, W)`` (the layout the
+reference builds and ``F.conv3d`` takes).  Each function here is the plain
+version of a kernel in ``ops/kernels/``:
+
+* ``build_gwc_volume``          → ``ops/kernels/gwc_volume.py``
+* ``concat_volume_mul``         → ``ops/kernels/concat_volume.py`` (build)
+* ``volume_dhw_mul``            → ``ops/kernels/concat_volume.py`` (multiply)
+
+The multiplies are taken in float32 and rounded once to the volume's dtype,
+in the order the kernels take them, so a kernel and its plain version agree
+exactly on the same inputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def groupwise_correlation(
+    fea1: torch.Tensor, fea2: torch.Tensor, num_groups: int
+) -> torch.Tensor:
+    """Per-group mean of ``fea1·fea2``: ``(B, C, H, W)`` → ``(B, G, H, W)``."""
+    b, c, h, w = fea1.shape
+    if c % num_groups:
+        raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    cpg = c // num_groups
+    prod = fea1.float() * fea2.float()
+    return prod.view(b, num_groups, cpg, h, w).mean(dim=2).to(fea1.dtype)
+
+
+def build_gwc_volume(
+    left: torch.Tensor, right: torch.Tensor, max_disp: int, num_groups: int
+) -> torch.Tensor:
+    """Group-wise correlation volume ``(B, G, D, H, W)``.
+
+    ``vol[b, g, d, h, w] = mean_{c∈g} left[b,c,h,w]·right[b,c,h,w-d]`` for
+    ``w ≥ d``, zero elsewhere.
+    """
+    b, c, h, w = left.shape
+    vol = left.new_zeros((b, num_groups, max_disp, h, w))
+    for d in range(min(max_disp, w)):
+        if d == 0:
+            vol[:, :, 0] = groupwise_correlation(left, right, num_groups)
+        else:
+            vol[:, :, d, :, d:] = groupwise_correlation(
+                left[..., d:], right[..., :-d], num_groups
+            )
+    return vol
+
+
+def build_concat_volume(
+    left: torch.Tensor, right: torch.Tensor, max_disp: int, mask_ref: bool = False
+) -> torch.Tensor:
+    """Concatenation volume ``(B, 2C, D, H, W)``.
+
+    ``vol[:, :C, d, h, w] = left[:, :, h, w]`` at every ``d`` (with
+    ``mask_ref=True`` only where ``w ≥ d``); ``vol[:, C:, d, h, w] =
+    right[:, :, h, w-d]`` where ``w ≥ d``, zero elsewhere.
+    """
+    b, c, h, w = left.shape
+    vol = left.new_zeros((b, 2 * c, max_disp, h, w))
+    if not mask_ref:
+        vol[:, :c] = left[:, :, None]
+    for d in range(min(max_disp, w)):
+        if d == 0:
+            vol[:, c:, 0] = right
+            if mask_ref:
+                vol[:, :c, 0] = left
+        else:
+            vol[:, c:, d, :, d:] = right[..., :-d]
+            if mask_ref:
+                vol[:, :c, d, :, d:] = left[..., d:]
+    return vol
+
+
+def concat_volume_mul(
+    cl: torch.Tensor, cr: torch.Tensor, max_disp: int, att: torch.Tensor | None = None
+) -> torch.Tensor:
+    """``build_concat_volume(cl, cr, D)`` times ``att`` (``(B, D, H, W)``)
+    broadcast over channels when it is given."""
+    vol = build_concat_volume(cl, cr, max_disp)
+    if att is None:
+        return vol
+    return (vol.float() * att.float()[:, None]).to(vol.dtype)
+
+
+def volume_dhw_mul(vol: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+    """``vol (B, C, D, H, W) × (m1 ⊙ m2) (B, D, H, W)`` broadcast over ``C``."""
+    m = m1.float() * m2.float()
+    return (vol.float() * m[:, None]).to(vol.dtype)

@@ -1,0 +1,165 @@
+"""Build ``diffuvolume_tpu_torch/csrc/*.cu`` into one shared library and load it.
+
+The sources have a plain C interface (no PyTorch headers), so each file
+compiles in seconds.  On first use every ``.cu`` is compiled by its own
+``nvcc`` process, all started together, then linked with ``-shared`` into
+``build/kernels/libdvkernels_<hash>.so`` at the repository root; the hash
+covers the sources and flags, so an unchanged tree reuses its library.  The
+library is loaded with ``ctypes``.  A missing ``nvcc``, a failed build, or a
+non-zero CUDA error code returned by a launch raises.
+
+Nothing here runs at import time: the CPU tests import every kernel module
+but never build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# C entry points: name → argument types.  Every one ends with (dtype code,
+# device index, stream) and returns the CUDA error code of the launch
+# (cudaGetLastError()), 0 on success.
+SIGNATURES = {
+    # cost, disp, unc, b, d4, h4, w4, d, h, w, align_corners
+    "dv_fused_head": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
+    # left, right, out, b, c, h, w, groups, d
+    "dv_gwc_volume": [_P, _P, _P, _I, _I, _I, _I, _I, _I],
+    # cl, cr, att|0, out, b, c, d, h, w
+    "dv_concat_volume": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
+    # vol, m1, m2, out, b, c, dhw
+    "dv_dhw_mul": [_P, _P, _P, _P, _I, _I, _L],
+}
+_TAIL = [_I, _I, _P]
+
+# dtype codes shared with csrc/common.cuh
+DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + CFLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, float]:
+    """Compile and link the library if it is not built yet.
+
+    Returns ``(path, seconds spent building)`` (0 when it was cached).
+    """
+    out = BUILD_DIR / f"libdvkernels_{source_hash()}.so"
+    if out.exists():
+        return out, 0.0
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    stem = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+        cmd = [nvcc, *ARCH_FLAGS, *CFLAGS, "-I", str(CSRC), "-c", str(src),
+               "-o", str(obj)]
+        procs.append((src, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        objs.append(obj)
+    logs, failed = [], []
+    for src, proc in procs:
+        text, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    log_path = BUILD_DIR / f"{out.stem}.log"
+    log_path.write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}; see {log_path}\n"
+                           + "\n".join(logs))
+    tmp = BUILD_DIR / f"{stem}.so"
+    link = subprocess.run(
+        [nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0
+
+
+def build_log() -> str:
+    """The compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills) of the current sources' build, or '' if it was not built here."""
+    path = BUILD_DIR / f"libdvkernels_{source_hash()}.log"
+    return path.read_text() if path.exists() else ""
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes + _TAIL
+        fn.restype = ctypes.c_int
+    lib.dv_error_string.argtypes = [ctypes.c_int]
+    lib.dv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, like, *args) -> None:
+    """Call C entry point ``name`` on ``like``'s device and current stream,
+    with ``like``'s dtype code; raise on a non-zero CUDA error code."""
+    import torch
+
+    code = DTYPE_CODES.get(str(like.dtype))
+    if code is None:
+        raise TypeError(f"kernels take float32 or bfloat16, got {like.dtype}")
+    stream = torch.cuda.current_stream(like.device).cuda_stream
+    lib = library()
+    err = getattr(lib, name)(*args, code, like.device.index, stream)
+    if err != 0:
+        msg = lib.dv_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def check_cuda(*tensors) -> None:
+    """Every tensor on one CUDA device and contiguous; raise otherwise."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels run on CUDA tensors, got one on {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")

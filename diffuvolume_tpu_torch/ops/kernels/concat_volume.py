@@ -1,0 +1,79 @@
+"""Concat cost volume and the per-step attention × noise multiply.
+
+Kernels: ``csrc/concat_volume.cu``.  ``concat_volume`` replaces
+``diffuvolume_tpu/ops/pallas/conv3d.py:pack_concat_k`` (plain version
+``ops/cost_volume.py:concat_volume_mul``); ``dhw_mul`` replaces
+``diffuvolume_tpu/ops/pallas/conv3d.py:packed_dhw_mul_k`` (plain version
+``ops/cost_volume.py:volume_dhw_mul``).
+
+The inference pipeline builds the scan-invariant volume once with
+``att=None`` and each DDIM step pays only ``dhw_mul(volume, att, noise)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from diffuvolume_tpu_torch.ops.cost_volume import concat_volume_mul, volume_dhw_mul
+from diffuvolume_tpu_torch.ops.kernels import _build
+
+
+def _check_map(m: torch.Tensor, like: torch.Tensor, shape) -> None:
+    if tuple(m.shape) != tuple(shape) or m.dtype != like.dtype:
+        raise ValueError(
+            f"map must be {tuple(shape)} {like.dtype}, got {tuple(m.shape)} {m.dtype}"
+        )
+
+
+def concat_volume(
+    cl: torch.Tensor, cr: torch.Tensor, max_disp: int, att: torch.Tensor | None = None
+) -> torch.Tensor:
+    """``(B, C, H, W)`` features → ``(B, 2C, D, H, W)`` concat volume: the left
+    features at every ``d``, the right shifted by ``d`` (0 for ``w < d``),
+    times ``att`` (``(B, D, H, W)`` in the features' dtype) when it is given.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    if cl.device.type == "cpu":
+        return concat_volume_mul(cl, cr, max_disp, att)
+    if cl.shape != cr.shape or cl.dtype != cr.dtype or cl.dim() != 4:
+        raise ValueError("cl/cr must be (B, C, H, W) of one shape and dtype")
+    b, c, h, w = cl.shape
+    if att is not None:
+        _check_map(att, cl, (b, max_disp, h, w))
+    _build.check_cuda(cl, cr, *([] if att is None else [att]))
+    out = torch.empty((b, 2 * c, max_disp, h, w), dtype=cl.dtype, device=cl.device)
+    _build.launch(
+        "dv_concat_volume", cl, cl.data_ptr(), cr.data_ptr(),
+        None if att is None else att.data_ptr(), out.data_ptr(), b, c, max_disp, h, w,
+    )
+    concat_volume.launches += 1
+    return out
+
+
+def dhw_mul(vol: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+    """``vol (B, C, D, H, W) × (m1 ⊙ m2)`` with the ``(B, D, H, W)`` maps
+    broadcast over channels, into a new volume (``vol`` is left as it is, so
+    the scan-invariant volume serves every step).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    if vol.device.type == "cpu":
+        return volume_dhw_mul(vol, m1, m2)
+    if vol.dim() != 5:
+        raise ValueError(f"vol must be (B, C, D, H, W), got {tuple(vol.shape)}")
+    b, c, d, h, w = vol.shape
+    for m in (m1, m2):
+        _check_map(m, vol, (b, d, h, w))
+    _build.check_cuda(vol, m1, m2)
+    out = torch.empty_like(vol)
+    _build.launch(
+        "dv_dhw_mul", vol, vol.data_ptr(), m1.data_ptr(), m2.data_ptr(), out.data_ptr(),
+        b, c, d * h * w,
+    )
+    dhw_mul.launches += 1
+    return out
+
+
+concat_volume.launches = 0
+dhw_mul.launches = 0

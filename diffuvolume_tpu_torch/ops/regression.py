@@ -1,0 +1,108 @@
+"""Disparity regression, uncertainty and linear resampling.
+
+Counterpart of ``diffuvolume_tpu/ops/regression.py``.  Linear resizes are
+contractions with dense interpolation matrices (two non-zero taps per row),
+the same formulation as the JAX package, so the two agree to float32
+rounding.  ``upsample_cost_and_regress`` + ``disparity_uncertainty`` are the
+plain version of the fused head kernel (``ops/kernels/fused_head.py``).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def disparity_regression(prob: torch.Tensor, max_disp: int) -> torch.Tensor:
+    """Soft-argmin: ``Σ_d d·prob[:, d]`` for ``(B, D, H, W)`` probabilities."""
+    d = torch.arange(max_disp, dtype=prob.dtype, device=prob.device)
+    return torch.einsum("bdhw,d->bhw", prob, d)
+
+
+def disparity_uncertainty(
+    prob: torch.Tensor, disp: torch.Tensor, max_disp: int
+) -> torch.Tensor:
+    """Renewal confidence ``Σ_d |d - disp|·prob[:, d]`` → ``(B, H, W)``."""
+    d = torch.arange(max_disp, dtype=prob.dtype, device=prob.device)
+    diff = (disp[:, None] - d[None, :, None, None]).abs()
+    return (diff * prob).sum(dim=1)
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarray:
+    """Dense 1-D linear interpolation matrix ``M`` (``y = M @ x``), float32.
+
+    ``align_corners=False`` uses half-pixel centres (torch's default);
+    ``True`` maps endpoints to endpoints.  Source coordinates are clamped to
+    the input (edge replication), as torch does.
+    """
+    if in_size == out_size:
+        return np.eye(in_size, dtype=np.float32)
+    out = np.arange(out_size, dtype=np.float64)
+    if align_corners:
+        if out_size == 1:
+            src = np.zeros_like(out)
+        else:
+            src = out * (in_size - 1) / (out_size - 1)
+    else:
+        src = (out + 0.5) * (in_size / out_size) - 0.5
+    src = np.clip(src, 0.0, in_size - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    w_hi = src - lo
+    m = np.zeros((out_size, in_size), dtype=np.float64)
+    m[np.arange(out_size), lo] += 1.0 - w_hi
+    m[np.arange(out_size), hi] += w_hi
+    return m.astype(np.float32)
+
+
+def resize_linear(
+    x: torch.Tensor, out_size: int, axis: int, align_corners: bool = False
+) -> torch.Tensor:
+    """Linear resize along one axis by an interpolation-matrix contraction."""
+    in_size = x.shape[axis]
+    if in_size == out_size:
+        return x
+    m = torch.as_tensor(
+        _interp_matrix(in_size, out_size, align_corners), device=x.device
+    ).to(x.dtype)
+    moved = x.movedim(axis, -1)
+    return torch.matmul(moved, m.t()).movedim(-1, axis)
+
+
+def resize_bilinear(
+    x: torch.Tensor,
+    out_hw: tuple[int, int],
+    h_axis: int,
+    w_axis: int,
+    align_corners: bool = False,
+) -> torch.Tensor:
+    """Bilinear resize over two axes (separable linear resizes)."""
+    x = resize_linear(x, out_hw[0], h_axis, align_corners)
+    return resize_linear(x, out_hw[1], w_axis, align_corners)
+
+
+def resize_volume_trilinear(
+    cost: torch.Tensor, out_dhw: tuple[int, int, int], align_corners: bool = False
+) -> torch.Tensor:
+    """Trilinear resize of a ``(B, D, H, W)`` volume to ``out_dhw``."""
+    cost = resize_linear(cost, out_dhw[0], 1, align_corners)
+    cost = resize_linear(cost, out_dhw[1], 2, align_corners)
+    return resize_linear(cost, out_dhw[2], 3, align_corners)
+
+
+def upsample_cost_and_regress(
+    cost: torch.Tensor,
+    max_disp: int,
+    out_hw: tuple[int, int],
+    align_corners: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Upsample ``(B, D4, H4, W4)`` logits to ``(B, max_disp, H, W)``, softmax
+    over disparity, soft-argmin.  Returns ``(pred (B,H,W), prob)``."""
+    up = resize_volume_trilinear(
+        cost, (max_disp, out_hw[0], out_hw[1]), align_corners
+    )
+    prob = torch.softmax(up, dim=1)
+    return disparity_regression(prob, max_disp), prob

@@ -1,0 +1,152 @@
+"""JAX-package variables → the port's ``state_dict``.
+
+The inverse of the JAX package's ``convert_acv_state_dict``, with its own copy
+of the rule table (reference state-dict key ↔ flax variable path).  Input is
+the JAX package's variables as a nested dict of numpy arrays,
+``{"params": ..., "batch_stats": ...}``; output is a dict of CPU tensors that
+``ACVNet.load_state_dict`` takes.  The layout changes are exact:
+
+* conv kernel ``(kd, kh, kw, I, O)`` / ``(kh, kw, I, O)`` → ``(O, I, ...)``;
+* deconv kernel, stored pre-flipped in conv orientation ``(k, k, k, I, O)``
+  → un-flipped ``(I, O, k, k, k)``;
+* Linear ``(I, O)`` → ``(O, I)``;
+* BatchNorm ``scale``/``bias``/``mean``/``var`` → ``weight``/``bias``/
+  ``running_mean``/``running_var`` (plus ``num_batches_tracked`` = 0).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+
+def _conv(k: np.ndarray) -> np.ndarray:
+    if k.ndim == 4:
+        return k.transpose(3, 2, 0, 1)
+    if k.ndim == 5:
+        return k.transpose(4, 3, 0, 1, 2)
+    raise ValueError(k.shape)
+
+
+def _deconv(k: np.ndarray) -> np.ndarray:
+    return k.transpose(3, 4, 0, 1, 2)[:, :, ::-1, ::-1, ::-1]
+
+
+def _linear(k: np.ndarray) -> np.ndarray:
+    return k.T
+
+
+Rule = tuple[str, str, str, Callable | None]  # torch key, collection, flax path, transform
+
+
+def _bn(tp: str, fn: str) -> list[Rule]:
+    return [
+        (f"{tp}.weight", "params", f"{fn}/scale", None),
+        (f"{tp}.bias", "params", f"{fn}/bias", None),
+        (f"{tp}.running_mean", "batch_stats", f"{fn}/mean", None),
+        (f"{tp}.running_var", "batch_stats", f"{fn}/var", None),
+    ]
+
+
+def _convbn(tp: str, fn: str) -> list[Rule]:
+    return [(f"{tp}.0.weight", "params", f"{fn}/conv/kernel", _conv)] + _bn(
+        f"{tp}.1", f"{fn}/bn")
+
+
+def _hourglass(tp: str, fn: str) -> list[Rule]:
+    rules = []
+    for i in (1, 2, 3, 4):
+        rules += _convbn(f"{tp}.conv{i}.0", f"{fn}/conv{i}")
+    ab, fab = f"{tp}.attention_block", f"{fn}/attention_block"
+    rules += [
+        (f"{ab}.qkv_3d.weight", "params", f"{fab}/qkv/kernel", _linear),
+        (f"{ab}.qkv_3d.bias", "params", f"{fab}/qkv/bias", None),
+        (f"{ab}.final1x1.weight", "params", f"{fab}/final1x1/kernel", _conv),
+        (f"{ab}.final1x1.bias", "params", f"{fab}/final1x1/bias", None),
+    ]
+    for i in (5, 6):
+        rules.append((f"{tp}.conv{i}.0.weight", "params", f"{fn}/conv{i}/kernel", _deconv))
+        rules += _bn(f"{tp}.conv{i}.1", f"{fn}/conv{i}/bn")
+    for r in (1, 2):
+        rules += _convbn(f"{tp}.redir{r}", f"{fn}/redir{r}")
+    return rules
+
+
+def _basic_block(tp: str, fn: str, downsample: bool) -> list[Rule]:
+    rules = _convbn(f"{tp}.conv1.0", f"{fn}/conv1") + _convbn(f"{tp}.conv2", f"{fn}/conv2")
+    if downsample:
+        rules += _convbn(f"{tp}.downsample", f"{fn}/downsample")
+    return rules
+
+
+def _feature_extractor(tp: str, fn: str) -> list[Rule]:
+    rules = []
+    for i, seq in enumerate((0, 2, 4)):
+        rules += _convbn(f"{tp}.firstconv.{seq}", f"{fn}/firstconv{i}")
+    for layer, blocks, ds_first in (
+        ("layer1", 3, False), ("layer2", 16, True), ("layer3", 3, True),
+        ("layer4", 3, False),
+    ):
+        for i in range(blocks):
+            rules += _basic_block(f"{tp}.{layer}.{i}", f"{fn}/{layer}_{i}",
+                                  i == 0 and ds_first)
+    return rules
+
+
+def acv_rules(diffusion: bool = True) -> list[Rule]:
+    """Every ACVNet(_DDIM) state-dict key with its flax variable path."""
+    rules = _feature_extractor("feature_extraction", "feature_extraction")
+    rules += _convbn("concatconv.0", "concatconv0")
+    rules.append(("concatconv.2.weight", "params", "concatconv1/kernel", _conv))
+    for p in ("patch", "patch_l1", "patch_l2", "patch_l3"):
+        rules.append((f"{p}.weight", "params", f"{p}/conv/kernel", _conv))
+    rules += _convbn("dres1_att_.0", "dres1_att_0")
+    rules += _convbn("dres1_att_.2", "dres1_att_1")
+    rules += _hourglass("dres2_att_", "dres2_att_")
+    rules += _convbn("classif_att_.0", "classif_att_0")
+    rules.append(("classif_att_.2.weight", "params", "classif_att_1/kernel", _conv))
+    if diffusion:
+        te = "time_embedding"
+        for tk, fk in (("time_mlp.1", "time1"), ("time_mlp.3", "time2"),
+                       ("block_time_mlp.1", "block")):
+            rules += [
+                (f"{te}.{tk}.weight", "params", f"{te}/{fk}/kernel", _linear),
+                (f"{te}.{tk}.bias", "params", f"{te}/{fk}/bias", None),
+            ]
+    rules += _convbn("dres0.0", "dres0_0")
+    rules += _convbn("dres0.2", "dres0_1")
+    rules += _convbn("dres1.0", "dres1_0")
+    rules += _convbn("dres1.2", "dres1_1")
+    rules += _hourglass("dres2", "dres2")
+    rules += _hourglass("dres3", "dres3")
+    for k in (0, 1, 2):
+        rules += _convbn(f"classif{k}.0", f"classif{k}_0")
+        rules.append((f"classif{k}.2.weight", "params", f"classif{k}_1/kernel", _conv))
+    return rules
+
+
+def _get(tree, path: str):
+    node = tree
+    for part in path.split("/"):
+        node = node[part]
+    return np.asarray(node)
+
+
+def state_dict_from_jax(variables, diffusion: bool = True) -> dict[str, torch.Tensor]:
+    """The port's ``ACVNet`` state dict from the JAX package's variables."""
+    return state_dict_from_rules(variables, acv_rules(diffusion))
+
+
+def state_dict_from_rules(variables, rules: list[Rule]) -> dict[str, torch.Tensor]:
+    """A state dict from ``variables`` by the given rules."""
+    sd = {}
+    for key, coll, path, transform in rules:
+        w = _get(variables[coll], path)
+        if transform is not None:
+            w = transform(w)
+        sd[key] = torch.from_numpy(np.ascontiguousarray(w, dtype=np.float32))
+        if key.endswith(".running_var"):
+            sd[key.removesuffix("running_var") + "num_batches_tracked"] = torch.tensor(0)
+    return sd

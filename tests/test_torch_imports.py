@@ -1,0 +1,38 @@
+"""The port and chip_smoke.py import nothing of JAX, flax or the JAX package.
+
+Read from the sources with ``ast``, not from ``sys.modules``: the
+interpreter here may import jax at start-up.
+"""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "diffuvolume_tpu")
+FILES = sorted((ROOT / "diffuvolume_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    names = list(_imported(ast.parse(path.read_text(), str(path))))
+    bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_checker_catches_an_import():
+    src = "import jax.numpy as jnp\nfrom diffuvolume_tpu.models import acv\n"
+    bad = [n for n in _imported(ast.parse(src)) if n.split(".")[0] in FORBIDDEN]
+    assert bad == ["jax.numpy", "diffuvolume_tpu.models"]

@@ -1,0 +1,47 @@
+"""Shared helpers of the port's parity tests (``test_torch_*.py``).
+
+The port's seeded random-weight ACVNets are turned into the JAX package's
+variables with the JAX package's own ``convert_acv_state_dict``, so both
+sides run the same weights.  Tensors cross between the two as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from diffuvolume_tpu.tools.convert_torch import convert_acv_state_dict
+from diffuvolume_tpu_torch.tools.random_weights import calibrate_heads, random_acv
+
+
+def to_jax_variables(model) -> dict:
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    return convert_acv_state_dict(sd, diffusion=model.diffusion)
+
+
+def stereo_pair(seed: int, b: int, h: int, w: int, shift: int = 3):
+    """Normalised ``(B, H, W, 3)`` float32 images; the right is the left
+    shifted by ``shift`` pixels."""
+    left = np.random.default_rng(seed).standard_normal((b, h, w, 3)).astype(np.float32) * 0.3
+    return left, np.roll(left, -shift, axis=2)
+
+
+def calibrated_pair(max_disp: int, left: np.ndarray, right: np.ndarray, seed: int = 0):
+    """``(baseline, ddim)`` port models with calibrated heads (logit std 3)."""
+    g = torch.Generator().manual_seed(seed)
+    lt, rt = torch.from_numpy(left), torch.from_numpy(right)
+    models = []
+    for diffusion in (False, True):
+        models.append(calibrate_heads(random_acv(max_disp, diffusion, g), lt, rt))
+    return tuple(models)
+
+
+def nhwc(x: torch.Tensor) -> np.ndarray:
+    """Port NCHW / NCDHW tensor → the JAX package's channels-last array."""
+    x = x.detach().cpu().numpy()
+    return np.moveaxis(x, 1, -1)
+
+
+def nchw(x) -> torch.Tensor:
+    """The JAX package's channels-last array → the port's NCHW / NCDHW tensor."""
+    return torch.from_numpy(np.array(np.moveaxis(np.asarray(x), -1, 1)))
