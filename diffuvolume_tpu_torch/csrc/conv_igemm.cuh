@@ -1,0 +1,429 @@
+// Implicit-GEMM 3-D convolution on channels-last (NDHWC) volumes, shared by
+// csrc/conv3d_fold.cu (convolution, stride 1/2, k 3/1) and csrc/conv3d_up.cu
+// (ConvTranspose3d k3 s2 p1 op1).
+//
+// GEMM view.  A block owns BH output rows of BM = 64 positions along W at one
+// (b, d) and BN output channels: M = BH·BM positions, N = BN channels,
+// K = taps × C_in; BH = min(8, 256 / BN), so each of its 8 warps holds 64
+// accumulators a thread.  A stage is one kd tap and one chunk of CK = 32 (or
+// 16) input channels: the block copies (cp.async) the input rows that its
+// output rows reach in that plane, each as a strip of W positions covering
+// every kw tap, and the chunk's weights for all (kh, kw) taps; then every
+// warp reads its operands with ldmatrix and runs bf16 m16n8k16 tensor-core
+// products (mma.sync) for its tiles and all taps into float32 accumulators.
+// Tap (kh, kw) of output (r, m) reads strip row r·rs + off_h, position
+// m·rs + off_w (rs: the stride).  A plane in the padding is skipped; strip
+// positions outside the input are zero.
+//
+// Transposed conv in gather form.  Output o takes input i = (o + 1 - k) / 2
+// where that is an integer in range: even o takes k = 1 (i = o/2), odd o
+// takes k = 0 (i = (o+1)/2) and k = 2 (i = (o-1)/2).  A block of the
+// transposed conv holds one output parity per axis, so every row of its tile
+// shares one tap list and reads dense input positions.
+//
+// Epilogue in float32: + bias, + residual (same shape as the output), ReLU,
+// one rounding to bfloat16.  The float32 form is a plain FMA kernel (no TF32)
+// used where the agreement with the CPU is checked.
+#pragma once
+
+#include "common.cuh"
+
+namespace dv {
+namespace igemm {
+
+constexpr int BM = 64;       // output positions along W per row of a block
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+
+struct Params {
+  const void* x;
+  const void* w;       // (k, k, k, C_in, C_out): tap-major, then C_in, then C_out
+  const float* bias;   // (C_out,) or null
+  const void* res;     // output-shaped residual or null
+  void* out;
+  int b, d_in, h_in, w_in, cin;
+  int d_out, h_out, w_out, cout;
+  int ks, stride, pad, relu;
+};
+
+// The taps of one axis: tap t reads kernel index k[t] at input base + off[t].
+struct Taps {
+  int n;
+  int k[3];
+  int off[3];
+};
+
+__device__ __forceinline__ Taps conv_taps(int ks) {
+  Taps t;
+  t.n = ks;
+  for (int i = 0; i < 3; ++i) t.k[i] = t.off[i] = i;
+  return t;
+}
+
+// ConvTranspose k3 s2 p1 op1, output o = 2i + parity.
+__device__ __forceinline__ Taps up_taps(int parity) {
+  Taps t;
+  if (parity == 0) {
+    t.n = 1;
+    t.k[0] = 1; t.off[0] = 0;
+  } else {
+    t.n = 2;
+    t.k[0] = 0; t.off[0] = 1;
+    t.k[1] = 2; t.off[1] = 0;
+  }
+  t.k[2] = t.off[2] = 0;
+  return t;
+}
+
+// Tile configuration for BN output channels and CK input channels a
+// stage: BH output rows of BM positions, so that each of the 8 warps holds
+// MT 16-position tiles × BN/8 8-channel tiles of accumulators (64 floats a
+// thread, 32 at BN 16).
+template <int BN, int CK>
+struct Cfg {
+  static constexpr int BH = 256 / BN < 8 ? 256 / BN : 8;
+  static constexpr int MT = BH * (BM / 16) / kWarps;
+  static constexpr int N8 = BN / 8;
+  // Row strides in elements.  Strip positions and weight rows are an odd
+  // multiple of 16 bytes apart, so the 8 rows one ldmatrix phase reads fall
+  // in 8 different 16-byte bank groups.
+  static constexpr int lda = CK + 8;
+  static constexpr int ldb = BN + 8;
+  static constexpr int ldc = BN + 4;   // float32 epilogue rows
+  static __host__ __device__ int rows(bool up, int stride, int ks) {
+    return up ? BH + 1 : (BH - 1) * stride + ks;
+  }
+  static __host__ __device__ int cols(bool up, int stride, int ks) {
+    return up ? BM + 1 : (BM - 1) * stride + ks;
+  }
+  static __host__ __device__ int taps(bool up, int ks) { return up ? 4 : ks * ks; }
+  static __host__ __device__ size_t a_elems(bool up, int stride, int ks) {
+    return static_cast<size_t>(rows(up, stride, ks)) * cols(up, stride, ks) * lda;
+  }
+  static __host__ __device__ size_t bytes(bool up, int stride, int ks) {
+    const size_t ab = a_elems(up, stride, ks) * 2 + static_cast<size_t>(taps(up, ks)) * CK * ldb * 2;
+    const size_t c = static_cast<size_t>(BH) * BM * ldc * 4;
+    return ab > c ? ab : c;
+  }
+};
+
+// 16-byte global → shared copy that bypasses registers; a false `valid`
+// writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// Four 8×8 b16 matrices from shared memory (lane l gives the shared-space
+// byte address of row l % 8 of matrix l / 8); `.trans` hands each thread a
+// column pair instead.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], unsigned a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// c (16×8 float32) += a (16×16 bf16, row-major) · b (16×8 bf16, col-major).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two blocks an SM (at most 128 registers a thread), so that one block's
+// copies overlap the other's products.
+template <bool UP, int BN, int CK>
+__global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
+  using bf16 = __nv_bfloat16;
+  using C = Cfg<BN, CK>;
+  constexpr int BH = C::BH, MT = C::MT, N8 = C::N8;
+  constexpr int lda = C::lda, ldb = C::ldb, ldc = C::ldc;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+
+  // Block → (W tile, [W parity,] N tile) × ([H parity,] row tile) × (b, d).
+  const int ntw = ((UP ? p.w_in : p.w_out) + BM - 1) / BM;
+  int bx = blockIdx.x;
+  const int wt = bx % ntw;
+  bx /= ntw;
+  int pw = 0;
+  if (UP) { pw = bx % 2; bx /= 2; }
+  const int n0 = bx * BN;
+  int hy = blockIdx.y;
+  int ph = 0;
+  if (UP) { ph = hy % 2; hy /= 2; }
+  const int b = blockIdx.z / p.d_out;
+  const int dz = blockIdx.z % p.d_out;
+
+  const Taps td = UP ? up_taps(dz % 2) : conv_taps(p.ks);
+  const Taps th = UP ? up_taps(ph) : conv_taps(p.ks);
+  const Taps tw = UP ? up_taps(pw) : conv_taps(p.ks);
+  const int rs = UP ? 1 : p.stride;  // strip step between neighbouring outputs
+  const int dbase = UP ? dz / 2 : dz * p.stride - p.pad;
+  const int hbase = UP ? hy * BH : hy * BH * p.stride - p.pad;
+  const int wbase = UP ? wt * BM : wt * BM * p.stride - p.pad;
+  const int rows = C::rows(UP, p.stride, p.ks);
+  const int cols = C::cols(UP, p.stride, p.ks);
+  const int ntap = th.n * tw.n;
+  bf16* as = reinterpret_cast<bf16*>(smem);
+  bf16* bs = as + C::a_elems(UP, p.stride, p.ks);
+  const unsigned as_s = static_cast<unsigned>(__cvta_generic_to_shared(as));
+  const unsigned bs_s = static_cast<unsigned>(__cvta_generic_to_shared(bs));
+  const bf16* x = static_cast<const bf16*>(p.x);
+  const bf16* w = static_cast<const bf16*>(p.w);
+
+  float acc[MT][N8][4];
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < N8; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[t][j][k] = 0.f;
+
+  // C_out not a multiple of 8 (the heads): the weight columns past C_out
+  // are zeroed once here and never written by a stage.
+  const int nreal = p.cout - n0 < BN ? p.cout - n0 : BN;
+  if (p.cout % 8 != 0) {
+    for (int i = tid; i < C::taps(UP, p.ks) * CK * ldb; i += kThreads) bs[i] = __float2bfloat16(0.f);
+  }
+
+  // This lane's row / column within the 16×16 blocks that ldmatrix reads.
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+  const int b_row = lane & 15, b_col = (lane >> 4) * 8;
+
+  // A stage is one input plane (one kd tap) and one chunk of CK input
+  // channels: every (kh, kw) tap of the block reads the staged strips.
+  for (int a = 0; a < td.n; ++a) {
+    const int di = dbase + td.off[a];
+    if (di < 0 || di >= p.d_in) continue;  // padding plane: contributes 0
+    const bf16* xplane = x + (static_cast<size_t>(b) * p.d_in + di) * p.h_in *
+                                 static_cast<size_t>(p.w_in) * p.cin;
+    for (int c0 = 0; c0 < p.cin; c0 += CK) {
+      __syncthreads();  // the previous stage's products are done
+      constexpr int vpr = CK / 8;
+      for (int row = 0; row < rows; ++row) {
+        const int hi = hbase + row;
+        const bool hok = hi >= 0 && hi < p.h_in;
+        const bf16* xrow = xplane + (hok ? static_cast<size_t>(hi) * p.w_in * p.cin : 0) + c0;
+        bf16* dst = as + static_cast<size_t>(row) * cols * lda;
+        for (int i = tid; i < cols * vpr; i += kThreads) {
+          const int col = i / vpr, v = i % vpr;
+          const int wi = wbase + col;
+          const bool ok = hok && wi >= 0 && wi < p.w_in;
+          cp_async16(dst + col * lda + v * 8, ok ? xrow + static_cast<size_t>(wi) * p.cin + v * 8 : x,
+                     ok);
+        }
+      }
+      if (p.cout % 8 == 0) {
+        constexpr int nv = BN / 8;
+        for (int i = tid; i < ntap * CK * nv; i += kThreads) {
+          const int n = (i % nv) * 8, rest = i / nv;
+          const int k = rest % CK, tp = rest / CK;
+          const int tap = (td.k[a] * p.ks + th.k[tp / tw.n]) * p.ks + tw.k[tp % tw.n];
+          const bool ok = n0 + n < p.cout;
+          cp_async16(bs + (tp * CK + k) * ldb + n,
+                     ok ? w + (static_cast<size_t>(tap) * p.cin + c0 + k) * p.cout + n0 + n : w,
+                     ok);
+        }
+      } else {
+        for (int i = tid; i < ntap * CK * nreal; i += kThreads) {
+          const int n = i % nreal, rest = i / nreal;
+          const int k = rest % CK, tp = rest / CK;
+          const int tap = (td.k[a] * p.ks + th.k[tp / tw.n]) * p.ks + tw.k[tp % tw.n];
+          bs[(tp * CK + k) * ldb + n] = w[(static_cast<size_t>(tap) * p.cin + c0 + k) * p.cout + n0 + n];
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();
+
+#pragma unroll
+      for (int hi = 0; hi < 3; ++hi) {
+        if (hi >= th.n) break;
+#pragma unroll
+        for (int wi = 0; wi < 3; ++wi) {
+          if (wi >= tw.n) break;
+          const unsigned bb = bs_s + 2 * ((hi * tw.n + wi) * CK * ldb + b_row * ldb + b_col);
+          unsigned ab[MT];
+#pragma unroll
+          for (int t = 0; t < MT; ++t) {
+            const int tile = warp * MT + t;
+            const int r = tile / (BM / 16), m0 = (tile % (BM / 16)) * 16;
+            ab[t] = as_s + 2 * (((r * rs + th.off[hi]) * cols + (m0 + a_row) * rs +
+                                 tw.off[wi]) * lda + a_col);
+          }
+#pragma unroll
+          for (int kk = 0; kk < CK; kk += 16) {
+            unsigned fa[MT][4];
+#pragma unroll
+            for (int t = 0; t < MT; ++t) ldsm_x4(fa[t], ab[t] + 2 * kk);
+#pragma unroll
+            for (int nb = 0; nb < BN / 16; ++nb) {
+              unsigned fb[4];
+              ldsm_x4_trans(fb, bb + 2 * (kk * ldb + nb * 16));
+#pragma unroll
+              for (int t = 0; t < MT; ++t) {
+                mma_bf16(acc[t][2 * nb], fa[t], fb[0], fb[1]);
+                mma_bf16(acc[t][2 * nb + 1], fa[t], fb[2], fb[3]);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // strips and weights are dead; reuse the space for C
+  float* cs = reinterpret_cast<float*>(smem);
+  {
+    const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      const int tile = warp * MT + t;
+      const int r = tile / (BM / 16), m0 = (tile % (BM / 16)) * 16;
+      float* c = cs + (r * BM + m0 + g) * ldc + 2 * q;
+#pragma unroll
+      for (int j = 0; j < N8; ++j) {
+        *reinterpret_cast<float2*>(c + j * 8) = make_float2(acc[t][j][0], acc[t][j][1]);
+        *reinterpret_cast<float2*>(c + 8 * ldc + j * 8) = make_float2(acc[t][j][2], acc[t][j][3]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // Epilogue: 8 channels (16 bytes) a thread where C_out allows, else one.
+  const bf16* res = static_cast<const bf16*>(p.res);
+  bf16* out = static_cast<bf16*>(p.out);
+  const int vec = p.cout % 8 == 0 ? 8 : 1;
+  const int nvec = vec == 8 ? BN / 8 : nreal;
+  for (int e = tid; e < BH * BM * nvec; e += kThreads) {
+    const int n = (e % nvec) * vec;
+    const int m = (e / nvec) % BM;
+    const int r = e / (nvec * BM);
+    const int co = n0 + n;
+    const int i = hy * BH + r;  // output row (conv) or half-res row (transposed)
+    const int wj = wt * BM + m;
+    if (co >= p.cout || i >= (UP ? p.h_in : p.h_out) || wj >= (UP ? p.w_in : p.w_out)) continue;
+    const int ho = UP ? 2 * i + ph : i;
+    const int wo = UP ? 2 * wj + pw : wj;
+    const size_t o =
+        (((static_cast<size_t>(b) * p.d_out + dz) * p.h_out + ho) * p.w_out + wo) * p.cout + co;
+    const float* c = cs + (r * BM + m) * ldc + n;
+    if (vec == 8) {
+      float v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = c[k] + (p.bias ? p.bias[co + k] : 0.f);
+      if (res) {
+        const uint4 rv = *reinterpret_cast<const uint4*>(res + o);
+        const bf16* rr = reinterpret_cast<const bf16*>(&rv);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] += __bfloat162float(rr[k]);
+      }
+      uint4 ov;
+      bf16* oo = reinterpret_cast<bf16*>(&ov);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) oo[k] = __float2bfloat16(p.relu ? fmaxf(v[k], 0.f) : v[k]);
+      *reinterpret_cast<uint4*>(out + o) = ov;
+    } else {
+      float v = c[0] + (p.bias ? p.bias[co] : 0.f);
+      if (res) v += __bfloat162float(res[o]);
+      out[o] = __float2bfloat16(p.relu ? fmaxf(v, 0.f) : v);
+    }
+  }
+}
+
+// float32: one thread per output element, taps and input channels in order.
+template <bool UP>
+__global__ void direct_f32(Params p) {
+  const long long total = static_cast<long long>(p.b) * p.d_out * p.h_out * p.w_out * p.cout;
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const int co = static_cast<int>(e % p.cout);
+  long long pos = e / p.cout;
+  const int wo = static_cast<int>(pos % p.w_out); pos /= p.w_out;
+  const int ho = static_cast<int>(pos % p.h_out); pos /= p.h_out;
+  const int dz = static_cast<int>(pos % p.d_out);
+  const int b = static_cast<int>(pos / p.d_out);
+  const float* x = static_cast<const float*>(p.x);
+  const float* w = static_cast<const float*>(p.w);
+  const Taps td = UP ? up_taps(dz % 2) : conv_taps(p.ks);
+  const Taps th = UP ? up_taps(ho % 2) : conv_taps(p.ks);
+  const Taps tw = UP ? up_taps(wo % 2) : conv_taps(p.ks);
+  const int db = UP ? dz / 2 : dz * p.stride - p.pad;
+  const int hb = UP ? ho / 2 : ho * p.stride - p.pad;
+  const int wb = UP ? wo / 2 : wo * p.stride - p.pad;
+  float acc = 0.f;
+  for (int a = 0; a < td.n; ++a) {
+    const int di = db + td.off[a];
+    if (di < 0 || di >= p.d_in) continue;
+    for (int c = 0; c < th.n; ++c) {
+      const int hi = hb + th.off[c];
+      if (hi < 0 || hi >= p.h_in) continue;
+      for (int t = 0; t < tw.n; ++t) {
+        const int wi = wb + tw.off[t];
+        if (wi < 0 || wi >= p.w_in) continue;
+        const float* xp =
+            x + (((static_cast<size_t>(b) * p.d_in + di) * p.h_in + hi) * p.w_in + wi) * p.cin;
+        const float* wp =
+            w + static_cast<size_t>((td.k[a] * p.ks + th.k[c]) * p.ks + tw.k[t]) * p.cin * p.cout +
+            co;
+        for (int ci = 0; ci < p.cin; ++ci) acc = fmaf(xp[ci], wp[static_cast<size_t>(ci) * p.cout], acc);
+      }
+    }
+  }
+  if (p.bias) acc += p.bias[co];
+  if (p.res) acc += static_cast<const float*>(p.res)[e];
+  if (p.relu) acc = fmaxf(acc, 0.f);
+  static_cast<float*>(p.out)[e] = acc;
+}
+
+template <bool UP, int BN, int CK>
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  constexpr int BH = Cfg<BN, CK>::BH;
+  const size_t smem = Cfg<BN, CK>::bytes(UP, p.stride, p.ks);
+  cudaError_t e = cudaFuncSetAttribute(igemm_bf16<UP, BN, CK>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int ntn = ceil_div(p.cout, BN);
+  dim3 grid;
+  if (UP) {
+    grid = dim3(ceil_div(p.w_in, BM) * 2 * ntn, ceil_div(p.h_in, BH) * 2, p.b * p.d_out);
+  } else {
+    grid = dim3(ceil_div(p.w_out, BM) * ntn, ceil_div(p.h_out, BH), p.b * p.d_out);
+  }
+  igemm_bf16<UP, BN, CK><<<grid, kThreads, smem, stream>>>(p);
+  return end();
+}
+
+// Input channels a stage: 32, or 16 where C_in is not a multiple of 32.
+template <bool UP, int BN>
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  return p.cin % 32 == 0 ? launch_bf16<UP, BN, 32>(p, stream) : launch_bf16<UP, BN, 16>(p, stream);
+}
+
+template <bool UP>
+int launch(const Params& p, int dtype, cudaStream_t stream) {
+  if (dtype == kBF16) {
+    if (p.cout <= 16) return launch_bf16<UP, 16>(p, stream);
+    if (p.cout <= 32) return launch_bf16<UP, 32>(p, stream);
+    if (p.cout <= 64) return launch_bf16<UP, 64>(p, stream);
+    return launch_bf16<UP, 128>(p, stream);
+  }
+  const long long total = static_cast<long long>(p.b) * p.d_out * p.h_out * p.w_out * p.cout;
+  constexpr int threads = 256;
+  direct_f32<UP><<<ceil_div(total, threads), threads, 0, stream>>>(p);
+  return end();
+}
+
+}  // namespace igemm
+}  // namespace dv

@@ -37,8 +37,10 @@ from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume
 
 class ConcatEntry(NamedTuple):
     """The DDIM model's scan-invariant inputs to ``denoise``: the concat
-    volume ``(B, 2C, D, H4, W4)`` built without attention, and the softmaxed
-    attention ``(B, D, H4, W4)`` that each step multiplies in with its noise."""
+    volume built without attention (``(B, 2C, D, H4, W4)`` on the module
+    path, ``(B, D, H4, W4, 2C)`` on the folded path of ``models/acv_fold.py``),
+    and the softmaxed attention ``(B, D, H4, W4)`` that each step multiplies
+    in with its noise."""
 
     volume: torch.Tensor
     att: torch.Tensor
@@ -103,11 +105,10 @@ class ACVNet(nn.Module):
 
     # ---- volume construction ----
 
-    def build_cost_volume(self, left: torch.Tensor, right: torch.Tensor):
-        """``(B, H, W, 3)`` images → ``(cl, cr, att)``: the concat features
-        ``(B, C, H4, W4)`` and the attention softmaxed over disparity
-        ``(B, D, H4, W4)`` in the model's dtype.  The JAX module path's
-        ``ac_volume`` is ``att[:, None] · build_concat_volume(cl, cr, D)``."""
+    def features(self, left: torch.Tensor, right: torch.Tensor):
+        """``(B, H, W, 3)`` images → ``(feat_l, feat_r, patch_volume)``: the
+        trunk features ``(B, 320, H4, W4)`` and the GWC volume after the
+        patch convs ``(B, G, D, H4, W4)``, in the model's dtype."""
         dt = self.dtype
         left = left.to(dt).permute(0, 3, 1, 2).contiguous()
         right = right.to(dt).permute(0, 3, 1, 2).contiguous()
@@ -121,12 +122,26 @@ class ACVNet(nn.Module):
             self.patch_l2(gwc[:, 8:24]),
             self.patch_l3(gwc[:, 24:40]),
         ], dim=1)
-        att = self.dres2_att_(self.dres1_att_(patch_volume))
-        att_weights = self.classif_att_(att)[:, 0]  # (B, D, H4, W4)
+        return feat_l, feat_r, patch_volume
+
+    def concat_and_attention(self, feat_l, feat_r, att_weights):
+        """``(cl, cr, att)`` from the trunk features and the attention
+        logits ``(B, D, H4, W4)``: the concat features and the logits
+        softmaxed over disparity, in the model's dtype."""
         cl = self.concatconv(feat_l).contiguous()
         cr = self.concatconv(feat_r).contiguous()
-        att = torch.softmax(att_weights.float(), dim=1).to(dt).contiguous()
+        att = torch.softmax(att_weights.float(), dim=1).to(self.dtype).contiguous()
         return cl, cr, att
+
+    def build_cost_volume(self, left: torch.Tensor, right: torch.Tensor):
+        """``(B, H, W, 3)`` images → ``(cl, cr, att)``: the concat features
+        ``(B, C, H4, W4)`` and the attention softmaxed over disparity
+        ``(B, D, H4, W4)`` in the model's dtype.  The JAX module path's
+        ``ac_volume`` is ``att[:, None] · build_concat_volume(cl, cr, D)``."""
+        feat_l, feat_r, patch_volume = self.features(left, right)
+        att = self.dres2_att_(self.dres1_att_(patch_volume))
+        att_weights = self.classif_att_(att)[:, 0]  # (B, D, H4, W4)
+        return self.concat_and_attention(feat_l, feat_r, att_weights)
 
     # ---- aggregation and regression (eval: only the last head) ----
 
@@ -145,12 +160,16 @@ class ACVNet(nn.Module):
         regress.  Returns ``(disp (B,H,W), unc (B,H,W), transformed
         (B,D,H4,W4))``, all float32; ``transformed`` is the time-embedded
         volume rescaled to [0, 1], which the sampler inverts from."""
-        noise = self.time_embedding(latent, t)
-        noise = noise.clamp(-self.scale, self.scale)
-        noise = (noise / self.scale + 1.0) / 2.0
+        noise = self.embed_noise(latent, t)
         vol = dhw_mul(entry.volume, entry.att, noise.to(entry.att.dtype).contiguous())
         disp, unc = self._aggregate_and_regress(vol, out_hw)
         return disp, unc, noise.float()
+
+    def embed_noise(self, latent: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """The time-embedded latent clamped to ±scale and rescaled to [0, 1]."""
+        noise = self.time_embedding(latent, t)
+        noise = noise.clamp(-self.scale, self.scale)
+        return (noise / self.scale + 1.0) / 2.0
 
     # ---- baseline eval forward ----
 

@@ -1,0 +1,199 @@
+"""ACVNet's folded path: eval BatchNorm folded into the 3-D conv weights,
+channels-last volumes, every 3-D conv on the port's fold-conv kernels.
+
+Counterpart of the JAX package's packed path (``diffuvolume_tpu/models/
+acv.py``: ``_fold_convbn_params`` / ``_fold_convbn_tree`` /
+``_fold_deconv_tree``, ``_hourglass_packed``, ``_aggregate_packed``,
+``acv_denoise_fast``, ``_attention_volume_packed``).  Eval only.
+
+``fold_acv(model)`` folds once into a ``FoldedACV``: per conv, the weight
+``(k, k, k, C_in, C_out)`` in the model's dtype (folded in float32, then
+cast, as the JAX code does) and the bias ``(C_out,)`` in float32.
+Fold once per model and pass the ``FoldedACV`` to
+``eval/pipeline.py:acv_ddim_inference`` (fold again after changing the
+model's weights); given the ``ACVNet``, the pipeline folds it for that call.
+The volumes between convs are ``(B, D, H4, W4, C)``; the modules the folded
+path does not touch (feature trunk, concat convs, depthwise patch convs,
+window attention, time embedding) run as they are on the module path.
+
+The path needs D, H/4 and W/4 to be multiples of 4 (two stride-2 levels
+that the transposed convs undo); on any other shape it raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from diffuvolume_tpu_torch.models.acv import ACVNet, ConcatEntry
+from diffuvolume_tpu_torch.models.layers import (
+    AttentionBlock3D,
+    ConvBN,
+    ConvTransposeBN,
+    HeadConv3D,
+    HourglassACV,
+)
+from diffuvolume_tpu_torch.ops.kernels.concat_volume import concat_volume, dhw_mul
+from diffuvolume_tpu_torch.ops.kernels.conv3d_fold import (
+    conv1x1_fold_p,
+    conv3d_fold_p,
+    conv3d_fold_s2,
+    conv3d_fold_x2,
+)
+from diffuvolume_tpu_torch.ops.kernels.conv3d_up import conv3d_fold_up
+from diffuvolume_tpu_torch.ops.kernels.fused_head import fused_upsample_softargmin
+from diffuvolume_tpu_torch.ops.kernels.layout import pack, unpack
+
+
+class FoldedConv(NamedTuple):
+    w: torch.Tensor               # (k, k, k, C_in, C_out), model dtype
+    b: torch.Tensor | None        # (C_out,) float32
+
+
+def _bn_scale_shift(bn) -> tuple[torch.Tensor, torch.Tensor]:
+    scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    return scale, bn.bias.float() - bn.running_mean.float() * scale
+
+
+def fold_convbn(m: ConvBN, c_slot: int | None = None) -> FoldedConv:
+    """``Conv3d → BatchNorm3d`` (eval) as one conv; the weight's input
+    channels zero-padded to ``c_slot`` when it is given."""
+    conv, bn = m[0], m[1]
+    scale, shift = _bn_scale_shift(bn)
+    w = (conv.weight.float() * scale[:, None, None, None, None]).permute(2, 3, 4, 1, 0)
+    if c_slot is not None and c_slot > w.shape[3]:
+        w = F.pad(w, (0, 0, 0, c_slot - w.shape[3]))
+    return FoldedConv(w.to(conv.weight.dtype).contiguous(), shift.contiguous())
+
+
+def fold_deconvbn(m: ConvTransposeBN) -> FoldedConv:
+    """``ConvTranspose3d → BatchNorm3d`` (eval) as one transposed conv.  The
+    weight is ``(C_in, C_out, k, k, k)``, so the scale goes on dim 1."""
+    deconv, bn = m[0], m[1]
+    scale, shift = _bn_scale_shift(bn)
+    w = (deconv.weight.float() * scale[None, :, None, None, None]).permute(2, 3, 4, 0, 1)
+    return FoldedConv(w.to(deconv.weight.dtype).contiguous(), shift.contiguous())
+
+
+def fold_head(conv: HeadConv3D) -> FoldedConv:
+    """The classifier head's ``C → 1`` conv: no BatchNorm, no bias."""
+    return FoldedConv(conv.weight.permute(2, 3, 4, 1, 0).contiguous(), None)
+
+
+class FoldedHourglass(NamedTuple):
+    conv1: FoldedConv
+    conv2: FoldedConv
+    conv3: FoldedConv
+    conv4: FoldedConv
+    conv5: FoldedConv
+    conv6: FoldedConv
+    redir1: FoldedConv
+    redir2: FoldedConv
+    attention: AttentionBlock3D
+
+
+def fold_hourglass(hg: HourglassACV) -> FoldedHourglass:
+    return FoldedHourglass(
+        *(fold_convbn(getattr(hg, f"conv{i}")[0]) for i in (1, 2, 3, 4)),
+        fold_deconvbn(hg.conv5), fold_deconvbn(hg.conv6),
+        fold_convbn(hg.redir1), fold_convbn(hg.redir2), hg.attention_block,
+    )
+
+
+def hourglass_folded(hg: FoldedHourglass, x: torch.Tensor) -> torch.Tensor:
+    """``HourglassACV`` on a ``(B, D, H, W, C)`` volume (``acv.py:301-356``):
+    conv1 s2 → conv2 → conv3 s2 → conv4 → unpack → attention → pack →
+    conv5 = relu(deconv + redir2) → conv6 = relu(deconv + redir1)."""
+    c1 = conv3d_fold_s2(x, *hg.conv1, relu=True)
+    c2 = conv3d_fold_p(c1, *hg.conv2, relu=True)
+    c3 = conv3d_fold_s2(c2, *hg.conv3, relu=True)
+    c4 = conv3d_fold_p(c3, *hg.conv4, relu=True)
+    c4 = pack(hg.attention(unpack(c4)))
+    c5 = conv3d_fold_up(c4, *hg.conv5, residual=conv1x1_fold_p(c2, *hg.redir2), relu=True)
+    return conv3d_fold_up(c5, *hg.conv6, residual=conv1x1_fold_p(x, *hg.redir1), relu=True)
+
+
+def _check_geometry(d: int, h4: int, w4: int) -> None:
+    if d % 4 or h4 % 4 or w4 % 4:
+        raise ValueError(
+            f"the folded path needs D, H/4 and W/4 to be multiples of 4, got {d}, {h4}, {w4}")
+
+
+class FoldedACV:
+    """An eval ``ACVNet`` with its 3-D conv chains folded (see the module
+    docstring).  Holds the model for the modules it runs unfolded."""
+
+    def __init__(self, model: ACVNet):
+        if model.training:
+            raise ValueError("BatchNorm folding needs an eval-mode model")
+        self.model = model
+        self.att_slot = -(-model.num_groups // 16) * 16  # 40 → 48, the kernels' K step
+        self.dres1_att_0 = fold_convbn(model.dres1_att_[0], self.att_slot)
+        self.dres1_att_1 = fold_convbn(model.dres1_att_[2])
+        self.dres2_att_ = fold_hourglass(model.dres2_att_)
+        self.classif_att_0 = fold_convbn(model.classif_att_[0])
+        self.classif_att_1 = fold_head(model.classif_att_[2])
+        self.dres0_0 = fold_convbn(model.dres0[0])
+        self.dres0_1 = fold_convbn(model.dres0[2])
+        self.dres1_0 = fold_convbn(model.dres1[0])
+        self.dres1_1 = fold_convbn(model.dres1[2])
+        self.dres2 = fold_hourglass(model.dres2)
+        self.dres3 = fold_hourglass(model.dres3)
+        self.classif2_0 = fold_convbn(model.classif2[0])
+        self.classif2_1 = fold_head(model.classif2[2])
+
+    def build_cost_volume(self, left: torch.Tensor, right: torch.Tensor):
+        """``ACVNet.build_cost_volume`` with the attention chain folded
+        (``acv.py:546-654``, its ``build_gwc_volume`` branch): the 40-channel
+        patch volume is packed into a 48-channel slot for dres1_att_0."""
+        m = self.model
+        _check_geometry(m.max_disp // 4, left.shape[1] // 4, left.shape[2] // 4)
+        feat_l, feat_r, patch_volume = m.features(left, right)
+        a = conv3d_fold_x2(pack(patch_volume, self.att_slot), *self.dres1_att_0, relu=True)
+        a = conv3d_fold_p(a, *self.dres1_att_1)
+        a = hourglass_folded(self.dres2_att_, a)
+        a = conv3d_fold_p(a, *self.classif_att_0, relu=True)
+        att_weights = conv3d_fold_p(a, *self.classif_att_1)[..., 0]  # (B, D, H4, W4)
+        return m.concat_and_attention(feat_l, feat_r, att_weights)
+
+    def aggregate(self, volume: torch.Tensor, out_hw: tuple[int, int]):
+        """``(B, D, H4, W4, 2C)`` volume → ``(disp, unc)`` at ``out_hw``
+        (``acv.py:385-488``): dres0 → dres1 + residual → two hourglasses →
+        classif2 → the fused head."""
+        _check_geometry(*volume.shape[1:4])
+        x = conv3d_fold_x2(volume, *self.dres0_0, relu=True)
+        y = conv3d_fold_p(x, *self.dres0_1, relu=True)
+        z = conv3d_fold_p(y, *self.dres1_0, relu=True)
+        c0 = conv3d_fold_p(z, *self.dres1_1, residual=y)
+        out2 = hourglass_folded(self.dres3, hourglass_folded(self.dres2, c0))
+        h = conv3d_fold_p(out2, *self.classif2_0, relu=True)
+        cost = conv3d_fold_p(h, *self.classif2_1)[..., 0]  # (B, D, H4, W4)
+        return fused_upsample_softargmin(cost.float().contiguous(), self.model.max_disp, out_hw)
+
+    def denoise(self, entry: ConcatEntry, latent: torch.Tensor, t: torch.Tensor,
+                out_hw: tuple[int, int]):
+        """``ACVNet.denoise`` on the folded path (``acv_denoise_fast``,
+        ``acv.py:491-509``); ``entry.volume`` is channels-last."""
+        noise = self.model.embed_noise(latent, t)
+        vol = dhw_mul(entry.volume, entry.att, noise.to(entry.att.dtype).contiguous(),
+                      channels_last=True)
+        disp, unc = self.aggregate(vol, out_hw)
+        return disp, unc, noise.float()
+
+    def forward(self, left: torch.Tensor, right: torch.Tensor) -> list[torch.Tensor]:
+        """The baseline eval forward: ``[disp (B, H, W)]``."""
+        cl, cr, att = self.build_cost_volume(left, right)
+        vol = concat_volume(cl, cr, self.model.max_disp // 4, att=att, channels_last=True)
+        disp, _ = self.aggregate(vol, (left.shape[1], left.shape[2]))
+        return [disp]
+
+    __call__ = forward
+
+
+def fold_acv(model: ACVNet) -> FoldedACV:
+    """Fold ``model`` (eval) into a ``FoldedACV``."""
+    with torch.no_grad():
+        return FoldedACV(model)
+

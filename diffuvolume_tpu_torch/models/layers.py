@@ -98,7 +98,8 @@ class AttentionBlock3D(nn.Module):
 
     ``(4,4,4)`` windows; H and W are zero-padded to window multiples, and a
     position may attend across the pad boundary only with a −1000 logit
-    penalty; then a 1×1×1 conv.  Plain einsum and softmax.
+    penalty; then a 1×1×1 conv (``final1x1``, applied as a matmul over
+    channels).  Plain einsum and softmax.
     """
 
     def __init__(self, channels: int, num_heads: int = 16, block=(4, 4, 4)):
@@ -142,8 +143,11 @@ class AttentionBlock3D(nn.Module):
         out = torch.einsum("bnhqk,bnhkd->bnhqd", attn, v)
         out = out.permute(0, 1, 3, 2, 4).reshape(b, nd, nh, nw, b0, b1, b2, c)
         out = out.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(b, d, h, w, c)
-        out = out[:, :, :h0, :w0].permute(0, 4, 1, 2, 3)
-        return self.final1x1(out.contiguous())
+        # final1x1 as a product over channels-last positions (a matmul, not a
+        # 3-D conv), then back to NCDHW.
+        out = F.linear(out[:, :, :h0, :w0], self.final1x1.weight.flatten(1),
+                       self.final1x1.bias)
+        return out.permute(0, 4, 1, 2, 3).contiguous()
 
 
 class HourglassACV(nn.Module):

@@ -9,6 +9,9 @@ version of a kernel in ``ops/kernels/``:
 * ``concat_volume_mul``         → ``ops/kernels/concat_volume.py`` (build)
 * ``volume_dhw_mul``            → ``ops/kernels/concat_volume.py`` (multiply)
 
+The last two also come channels-last (``(B, D, H, W, C)``), the layout of
+the folded path's conv kernels.
+
 The multiplies are taken in float32 and rounded once to the volume's dtype,
 in the order the kernels take them, so a kernel and its plain version agree
 exactly on the same inputs.
@@ -77,17 +80,22 @@ def build_concat_volume(
 
 
 def concat_volume_mul(
-    cl: torch.Tensor, cr: torch.Tensor, max_disp: int, att: torch.Tensor | None = None
+    cl: torch.Tensor, cr: torch.Tensor, max_disp: int, att: torch.Tensor | None = None,
+    channels_last: bool = False,
 ) -> torch.Tensor:
     """``build_concat_volume(cl, cr, D)`` times ``att`` (``(B, D, H, W)``)
-    broadcast over channels when it is given."""
+    broadcast over channels when it is given; ``channels_last`` returns it
+    as ``(B, D, H, W, 2C)``."""
     vol = build_concat_volume(cl, cr, max_disp)
-    if att is None:
-        return vol
-    return (vol.float() * att.float()[:, None]).to(vol.dtype)
+    if att is not None:
+        vol = (vol.float() * att.float()[:, None]).to(vol.dtype)
+    return vol.permute(0, 2, 3, 4, 1).contiguous() if channels_last else vol
 
 
-def volume_dhw_mul(vol: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
-    """``vol (B, C, D, H, W) × (m1 ⊙ m2) (B, D, H, W)`` broadcast over ``C``."""
+def volume_dhw_mul(vol: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
+                   channels_last: bool = False) -> torch.Tensor:
+    """``vol (B, C, D, H, W) × (m1 ⊙ m2) (B, D, H, W)`` broadcast over ``C``;
+    with ``channels_last`` the volume is ``(B, D, H, W, C)``."""
     m = m1.float() * m2.float()
-    return (vol.float() * m[:, None]).to(vol.dtype)
+    m = m[..., None] if channels_last else m[:, None]
+    return (vol.float() * m).to(vol.dtype)

@@ -43,6 +43,17 @@ SIGNATURES = {
     "dv_concat_volume": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
     # vol, m1, m2, out, b, c, dhw
     "dv_dhw_mul": [_P, _P, _P, _P, _I, _I, _L],
+    # the same two, channels-last output / volume
+    "dv_concat_volume_cl": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
+    "dv_dhw_mul_cl": [_P, _P, _P, _P, _I, _I, _L],
+    # x, w, bias|0, res|0, out, b, d, h, w, cin, cout, ks, stride, relu
+    "dv_conv3d_fold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I],
+    # x, w, bias|0, res|0, out, b, d, h, w, cin, cout, relu
+    "dv_conv3d_up": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
+    # x, out, b, c, s, c_slot
+    "dv_pack": [_P, _P, _I, _I, _L, _I],
+    # x, out, b, c, s
+    "dv_unpack": [_P, _P, _I, _I, _L],
 }
 _TAIL = [_I, _I, _P]
 

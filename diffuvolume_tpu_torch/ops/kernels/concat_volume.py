@@ -8,6 +8,8 @@ Kernels: ``csrc/concat_volume.cu``.  ``concat_volume`` replaces
 
 The inference pipeline builds the scan-invariant volume once with
 ``att=None`` and each DDIM step pays only ``dhw_mul(volume, att, noise)``.
+Both take ``channels_last=True`` on the folded path (``(B, D, H, W, C)``
+volumes for the conv kernels) and write NCDHW on the module path.
 """
 
 from __future__ import annotations
@@ -25,51 +27,76 @@ def _check_map(m: torch.Tensor, like: torch.Tensor, shape) -> None:
         )
 
 
+def _check_vectors(c: int, t: torch.Tensor, what: str) -> None:
+    """The channels-last kernels move 16 bytes of channels a thread."""
+    if c * t.element_size() % 16:
+        raise ValueError(f"channels-last {what} needs C in whole 16-byte vectors "
+                         f"({16 // t.element_size()} channels of {t.dtype}), got {c}")
+
+
 def concat_volume(
-    cl: torch.Tensor, cr: torch.Tensor, max_disp: int, att: torch.Tensor | None = None
+    cl: torch.Tensor, cr: torch.Tensor, max_disp: int, att: torch.Tensor | None = None,
+    channels_last: bool = False,
 ) -> torch.Tensor:
     """``(B, C, H, W)`` features → ``(B, 2C, D, H, W)`` concat volume: the left
     features at every ``d``, the right shifted by ``d`` (0 for ``w < d``),
     times ``att`` (``(B, D, H, W)`` in the features' dtype) when it is given.
+    ``channels_last`` writes it as ``(B, D, H, W, 2C)``, the folded path's
+    layout; on a CUDA tensor it takes C in whole 16-byte vectors (8 bf16 or
+    4 float32 channels).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
     if cl.device.type == "cpu":
-        return concat_volume_mul(cl, cr, max_disp, att)
+        return concat_volume_mul(cl, cr, max_disp, att, channels_last)
     if cl.shape != cr.shape or cl.dtype != cr.dtype or cl.dim() != 4:
         raise ValueError("cl/cr must be (B, C, H, W) of one shape and dtype")
     b, c, h, w = cl.shape
     if att is not None:
         _check_map(att, cl, (b, max_disp, h, w))
     _build.check_cuda(cl, cr, *([] if att is None else [att]))
-    out = torch.empty((b, 2 * c, max_disp, h, w), dtype=cl.dtype, device=cl.device)
+    if channels_last:
+        _check_vectors(c, cl, "concat_volume")
+    shape = (b, max_disp, h, w, 2 * c) if channels_last else (b, 2 * c, max_disp, h, w)
+    out = torch.empty(shape, dtype=cl.dtype, device=cl.device)
     _build.launch(
-        "dv_concat_volume", cl, cl.data_ptr(), cr.data_ptr(),
-        None if att is None else att.data_ptr(), out.data_ptr(), b, c, max_disp, h, w,
+        "dv_concat_volume_cl" if channels_last else "dv_concat_volume", cl, cl.data_ptr(),
+        cr.data_ptr(), None if att is None else att.data_ptr(), out.data_ptr(), b, c,
+        max_disp, h, w,
     )
     concat_volume.launches += 1
     return out
 
 
-def dhw_mul(vol: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+def dhw_mul(vol: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
+            channels_last: bool = False) -> torch.Tensor:
     """``vol (B, C, D, H, W) × (m1 ⊙ m2)`` with the ``(B, D, H, W)`` maps
     broadcast over channels, into a new volume (``vol`` is left as it is, so
-    the scan-invariant volume serves every step).
+    the scan-invariant volume serves every step).  With ``channels_last`` the
+    volume is ``(B, D, H, W, C)``, C in whole 16-byte vectors on a CUDA
+    tensor.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
     if vol.device.type == "cpu":
-        return volume_dhw_mul(vol, m1, m2)
+        return volume_dhw_mul(vol, m1, m2, channels_last)
     if vol.dim() != 5:
-        raise ValueError(f"vol must be (B, C, D, H, W), got {tuple(vol.shape)}")
-    b, c, d, h, w = vol.shape
+        raise ValueError(f"vol must be 5-D, got {tuple(vol.shape)}")
+    if channels_last:
+        b, d, h, w, c = vol.shape
+    else:
+        b, c, d, h, w = vol.shape
     for m in (m1, m2):
         _check_map(m, vol, (b, d, h, w))
     _build.check_cuda(vol, m1, m2)
+    if channels_last:
+        _check_vectors(c, vol, "dhw_mul")
+        if vol.data_ptr() % 16:
+            raise ValueError("the channels-last volume must be 16-byte aligned")
     out = torch.empty_like(vol)
     _build.launch(
-        "dv_dhw_mul", vol, vol.data_ptr(), m1.data_ptr(), m2.data_ptr(), out.data_ptr(),
-        b, c, d * h * w,
+        "dv_dhw_mul_cl" if channels_last else "dv_dhw_mul", vol, vol.data_ptr(),
+        m1.data_ptr(), m2.data_ptr(), out.data_ptr(), b, c, d * h * w,
     )
     dhw_mul.launches += 1
     return out

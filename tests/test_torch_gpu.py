@@ -10,8 +10,11 @@ import torch
 
 from diffuvolume_tpu_torch.ops import cost_volume as plain
 from diffuvolume_tpu_torch.ops.kernels import concat_volume as kc
+from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
+from diffuvolume_tpu_torch.ops.kernels import conv3d_up as kup
 from diffuvolume_tpu_torch.ops.kernels import fused_head as kf
 from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
+from diffuvolume_tpu_torch.ops.kernels import layout as kl
 
 pytestmark = pytest.mark.gpu
 
@@ -105,3 +108,178 @@ def test_wrappers_refuse_bad_input(dev):
         kc.dhw_mul(_randn(dev, 1, 2, 4, 2, 3), x, x.cpu())
     with pytest.raises(ValueError):
         kf.fused_upsample_softargmin(x.transpose(2, 3), 8, (4, 6))
+
+
+# -- the folded path's kernels ------------------------------------------------
+
+# float32: the FMA kernel against cuDNN's float32 conv (TF32 off), summation
+# order only.  bfloat16: both sum float32 products of the same bf16 inputs and
+# round once, so they differ by at most one bf16 ulp (2⁻⁷ relative) plus the
+# float32 summation noise.
+CONV_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-4, 2.0 ** -7)}
+
+
+def _conv_inputs(dev, dtype, shape, cin, cout, k, seed):
+    b, d, h, w = shape
+    x = _randn(dev, b, d, h, w, cin, seed=seed).to(dtype)
+    wt = (_randn(dev, k, k, k, cin, cout, seed=seed + 1) * 0.1).to(dtype)
+    bias = _randn(dev, cout, seed=seed + 2)
+    return x, wt, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,shape,residual,relu", [
+    (32, 32, (1, 8, 6, 70), True, True),     # W beyond one 64-wide tile, odd edge
+    (64, 64, (2, 4, 5, 9), False, True),     # odd H: the block's second row masked
+    (128, 128, (1, 3, 4, 7), True, False),   # two input-channel chunks
+    (32, 1, (1, 8, 6, 20), False, False),    # C_out 1: the classifier head
+    (64, 32, (1, 4, 4, 12), False, True),    # the wide entry
+])
+def test_conv3d_fold_p(dev, dtype, cin, cout, shape, residual, relu):
+    x, wt, bias = _conv_inputs(dev, dtype, shape, cin, cout, 3, seed=10)
+    res = _randn(dev, *shape, cout, seed=13).to(dtype) if residual else None
+    got = kconv.conv3d_fold_p(x, wt, bias, residual=res, relu=relu)
+    want = kconv.conv3d_fold_plain(x, wt, bias, 1, res, relu)
+    torch.cuda.synchronize()
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3d_fold_x2_zero_filled_slot(dev, dtype):
+    """40 real channels packed into a 48-channel slot with zero weights on
+    the fill: equal to the 40-channel conv."""
+    x40 = _randn(dev, 1, 40, 8, 4, 12, seed=20).to(dtype)
+    w40 = (_randn(dev, 3, 3, 3, 40, 32, seed=21) * 0.1).to(dtype)
+    w48 = torch.nn.functional.pad(w40, (0, 0, 0, 8))
+    bias = _randn(dev, 32, seed=22)
+    got = kconv.conv3d_fold_x2(kl.pack(x40, 48), w48, bias, relu=True)
+    want = kconv.conv3d_fold_plain(kl.pack_plain(x40), w40, bias, 1, None, True)
+    torch.cuda.synchronize()
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,shape", [(32, (1, 8, 8, 130)), (64, (1, 4, 5, 11))])
+def test_conv3d_fold_s2(dev, dtype, cin, shape):
+    """Stride 2, C_out = 2·C_in; odd H/W give ⌈n/2⌉ outputs."""
+    x, wt, bias = _conv_inputs(dev, dtype, shape, cin, 2 * cin, 3, seed=30)
+    got = kconv.conv3d_fold_s2(x, wt, bias, relu=True)
+    want = kconv.conv3d_fold_plain(x, wt, bias, 2, None, True)
+    torch.cuda.synchronize()
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [32, 64])
+def test_conv1x1_fold_p(dev, dtype, c):
+    x, wt, bias = _conv_inputs(dev, dtype, (1, 4, 3, 70), c, c, 1, seed=40)
+    got = kconv.conv1x1_fold_p(x, wt, bias)
+    want = kconv.conv3d_fold_plain(x, wt, bias, 1, None, False)
+    torch.cuda.synchronize()
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,shape", [(128, 64, (1, 3, 4, 35)), (64, 32, (2, 2, 3, 5))])
+def test_conv3d_fold_up(dev, dtype, cin, cout, shape):
+    """Transposed conv to double size, + bias + residual, ReLU; odd input
+    sizes so every parity meets an edge."""
+    x, wt, bias = _conv_inputs(dev, dtype, shape, cin, cout, 3, seed=50)
+    b, d, h, w = shape
+    res = _randn(dev, b, 2 * d, 2 * h, 2 * w, cout, seed=53).to(dtype)
+    got = kup.conv3d_fold_up(x, wt, bias, residual=res, relu=True)
+    want = kup.conv3d_up_plain(x, wt, bias, res, True)
+    torch.cuda.synchronize()
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,c_slot,shape", [(40, 48, (1, 5, 3, 7)), (128, 128, (2, 3, 4, 9))])
+def test_pack_unpack(dev, dtype, c, c_slot, shape):
+    """Copies only: exact, and unpack inverts pack on the real channels."""
+    x = _randn(dev, shape[0], c, *shape[1:], seed=60).to(dtype)
+    pk = kl.pack(x, c_slot)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, kl.pack_plain(x, c_slot))
+    back = kl.unpack(pk)
+    torch.cuda.synchronize()
+    assert torch.equal(back, kl.unpack_plain(pk))
+    assert torch.equal(back[:, :c], x) and not back[:, c:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_att", [False, True])
+@pytest.mark.parametrize("c", [8, 32])
+def test_concat_volume_channels_last(dev, dtype, with_att, c):
+    """W not a multiple of the 32-wide tile, D > W at the low end; one
+    16-byte vector a side (C = 8 bf16) and the main path's C = 32: exact."""
+    b, d, h, w = 2, 12, 3, 37
+    cl, cr = (_randn(dev, b, c, h, w, seed=s).to(dtype) for s in (3, 4))
+    att = torch.softmax(_randn(dev, b, d, h, w, seed=5), 1).to(dtype) if with_att else None
+    got = kc.concat_volume(cl, cr, d, att, channels_last=True)
+    want = plain.concat_volume_mul(cl, cr, d, att, channels_last=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 8])
+def test_dhw_mul_channels_last(dev, dtype, c):
+    """The main path's C = 64 and one 16-byte bf16 vector (C = 8): exact."""
+    b, d, h, w = 2, 6, 5, 7
+    vol = _randn(dev, b, d, h, w, c, seed=6).to(dtype)
+    m1, m2 = (torch.rand((b, d, h, w), device=dev).to(dtype) for _ in range(2))
+    got = kc.dhw_mul(vol, m1, m2, channels_last=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain.volume_dhw_mul(vol, m1, m2, channels_last=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_channels_last_volume_refuses_partial_vectors(dev, dtype):
+    """C = 6 fills no whole 16-byte vector: both channels-last forms raise."""
+    cl = _randn(dev, 1, 6, 3, 9).to(dtype)
+    with pytest.raises(ValueError, match="16-byte"):
+        kc.concat_volume(cl, cl, 4, channels_last=True)
+    m = torch.rand((1, 4, 3, 9), device=dev).to(dtype)
+    with pytest.raises(ValueError, match="16-byte"):
+        kc.dhw_mul(_randn(dev, 1, 4, 3, 9, 6).to(dtype), m, m, channels_last=True)
+
+
+def test_fold_wrappers_refuse_bad_input(dev):
+    """Wrong dtype, non-contiguous input, a CPU/CUDA mix, a bf16 channel
+    count the tensor cores cannot step over, a misshapen residual."""
+    x, wt, bias = _conv_inputs(dev, torch.bfloat16, (1, 4, 4, 8), 32, 32, 3, seed=70)
+    with pytest.raises(TypeError):
+        kconv.conv3d_fold_p(x.half(), wt.half(), bias)
+    with pytest.raises(TypeError):
+        kconv.conv3d_fold_p(x, wt.float(), bias)
+    with pytest.raises(ValueError):
+        kconv.conv3d_fold_p(x.transpose(2, 3), wt, bias)
+    with pytest.raises(ValueError):
+        kconv.conv3d_fold_p(x, wt, bias.cpu())
+    with pytest.raises(ValueError):
+        kconv.conv3d_fold_p(x[..., :24].contiguous(), wt[:, :, :, :24].contiguous(), bias)
+    with pytest.raises(ValueError):
+        kconv.conv3d_fold_p(x, wt, bias, residual=x[:, :2].contiguous())
+    with pytest.raises(ValueError):
+        kup.conv3d_fold_up(x, wt, bias, residual=x)
+    with pytest.raises(ValueError):
+        kl.unpack(x.transpose(1, 2))
+    with pytest.raises(ValueError):
+        kl.pack(x.permute(0, 4, 1, 2, 3))
+
+
+def test_fold_launch_counts(dev):
+    """Each folded-path wrapper counts its own launches only."""
+    counters = (kconv.conv3d_fold_p, kconv.conv3d_fold_x2, kconv.conv3d_fold_s2,
+                kconv.conv1x1_fold_p, kup.conv3d_fold_up, kl.pack, kl.unpack)
+    x, wt, bias = _conv_inputs(dev, torch.bfloat16, (1, 4, 4, 8), 32, 64, 3, seed=80)
+    before = [f.launches for f in counters]
+    kconv.conv3d_fold_s2(x, wt, bias)
+    assert [f.launches for f in counters] == [before[0], before[1], before[2] + 1,
+                                              *before[3:]]

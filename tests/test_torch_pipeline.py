@@ -8,6 +8,10 @@ calibrated to logit std 10, so that the renewal filter keeps some pixels
 and replaces others (at unscaled random weights the logits reach ±1e5 and
 every comparison is noise).  The JAX draws of ``ddim_sample`` are made from
 the same key in the order it makes them and injected into the port.
+
+Every test runs on both of the port's paths (``packed=True``, the folded
+path of ``models/acv_fold.py``; ``packed=False``, the module path) against
+the same JAX run.
 """
 
 import numpy as np
@@ -21,6 +25,7 @@ from diffuvolume_tpu.eval.pipeline import _stages
 from diffuvolume_tpu.models.acv import ACVNet as JACV
 from diffuvolume_tpu_torch.diffusion import DDIMConfig
 from diffuvolume_tpu_torch.eval.pipeline import acv_ddim_inference, acv_prep
+from diffuvolume_tpu_torch.models.acv_fold import fold_acv
 from diffuvolume_tpu_torch.tools.random_weights import calibrate_heads, random_pair
 from torch_parity import nhwc, stereo_pair, to_jax_variables
 
@@ -41,7 +46,7 @@ def jax_draws(key, cfg, shape):
 
 
 @pytest.fixture(scope="module")
-def run():
+def jax_run():
     left, right = stereo_pair(0, 1, H, W)
     lt, rt = torch.from_numpy(left), torch.from_numpy(right)
     bm, dm = random_pair(MD, torch.Generator().manual_seed(0))
@@ -57,11 +62,18 @@ def run():
     key = jax.random.PRNGKey(3)
     jbase, jlat, jac = prep(bv, dv, left, right)
     jfinal = sample(dv, jac, jbase, jlat, key)
-    ns = jax_draws(key, jcfg, jlat.shape)
-    final, base = acv_ddim_inference(bm, dm, left, right, CFG, device="cpu", noise_source=ns)
-    return dict(left=lt, right=rt, bm=bm, dm=dm, final=final, base=base,
+    return dict(left=lt, right=rt, bm=bm, dm=dm, ns=jax_draws(key, jcfg, jlat.shape),
                 jbase=np.asarray(jbase), jlat=np.asarray(jlat), jac=np.asarray(jac),
                 jfinal=np.asarray(jfinal))
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["packed", "module"])
+def run(request, jax_run):
+    r = dict(jax_run, packed=request.param)
+    r["final"], r["base"] = acv_ddim_inference(
+        r["bm"], r["dm"], r["left"].numpy(), r["right"].numpy(), CFG, device="cpu",
+        noise_source=r["ns"], packed=r["packed"])
+    return r
 
 
 def test_prep_stage_matches(run):
@@ -69,10 +81,14 @@ def test_prep_stage_matches(run):
     (measured 2.5e-3 to 4.0e-3 px over torch thread counts 1–8; bound 1e-2),
     the encoded latent (3.8e-4; 2e-3), and the attention-filtered volume
     (1e-4 of its largest value)."""
-    base, latent, entry = acv_prep(run["bm"], run["dm"], run["left"], run["right"], CFG)
+    base, latent, entry = acv_prep(run["bm"], run["dm"], run["left"], run["right"], CFG,
+                                   run["packed"])
     np.testing.assert_allclose(base.numpy(), run["jbase"], rtol=0, atol=1e-2)
     np.testing.assert_allclose(latent.numpy(), run["jlat"], rtol=0, atol=2e-3)
-    ac = nhwc(entry.att[:, None] * entry.volume)
+    if run["packed"]:  # the folded path's volume is channels-last already
+        ac = (entry.volume * entry.att[..., None]).numpy()
+    else:
+        ac = nhwc(entry.att[:, None] * entry.volume)
     assert np.abs(ac - run["jac"]).max() <= 1e-4 * np.abs(run["jac"]).max()
 
 
@@ -95,9 +111,10 @@ def test_final_disparity_matches(run):
 def test_renewal_takes_both_branches(run):
     """At the first step some pixels pass the renewal test and most do not,
     so the comparison above covers both branches."""
-    base, latent, entry = acv_prep(run["bm"], run["dm"], run["left"], run["right"], CFG)
-    disp, unc, _ = run["dm"].denoise(entry, latent, torch.tensor([999], dtype=torch.int32),
-                                     (H, W))
+    base, latent, entry = acv_prep(run["bm"], run["dm"], run["left"], run["right"], CFG,
+                                   run["packed"])
+    denoise = (fold_acv(run["dm"]) if run["packed"] else run["dm"]).denoise
+    disp, unc, _ = denoise(entry, latent, torch.tensor([999], dtype=torch.int32), (H, W))
     keep = ((disp - base).abs() < CFG.consistency_tau) & (unc < CFG.uncertainty_tau)
     assert 0.0 < keep.float().mean().item() < 0.5
 
@@ -108,4 +125,5 @@ def test_entry_point_refuses_missing_card(run):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        acv_ddim_inference(run["bm"], run["dm"], run["left"].numpy(), run["right"].numpy(), CFG)
+        acv_ddim_inference(run["bm"], run["dm"], run["left"].numpy(), run["right"].numpy(), CFG,
+                           packed=run["packed"])
