@@ -6,25 +6,30 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the kernels from ``diffuvolume_tpu_torch/csrc`` (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, at every
-     shape the main path gives it, in float32 (TF32 off) and bfloat16:
-     max-abs error against the stated tolerance, kernel / plain times (CUDA
-     events), the time of one PyTorch call computing the same function where
-     there is one, and the bound (bytes or operations over the H100's peak
-     rates); the convs with the epilogue the path gives each shape, and
-     their total over one pair's launches;
-  4. agreement on a small input: the whole two-pass pipeline on the card
-     against the same pipeline on the CPU (plain versions), float32, same
-     seeded weights and injected draws, on the folded path and on the module
-     path;
-  5. the main path: ACV two-pass DDIM-5 at 512×960, batch 1, bfloat16 model,
+     shape the two paths (ACV, PCW) give it, in float32 (TF32 off) and
+     bfloat16: max-abs error against the stated tolerance, kernel / plain
+     times (CUDA events), the time of one PyTorch call computing the same
+     function where there is one, and the bound (bytes or operations over
+     the H100's peak rates); the convs with the epilogue (none, ReLU, Mish)
+     each path gives each shape, and their total over one pair's launches;
+  4. agreement on a small input: each whole two-pass pipeline (ACV, PCW) on
+     the card against the same pipeline on the CPU (plain versions),
+     float32, same seeded weights and injected draws, on the folded path
+     and on the module path;
+  5. the ACV main path: two-pass DDIM-5 at 512×960, batch 1, bfloat16 model,
      folded path (``packed=True``), weights and images from a fixed seed;
      one warm-up pair, 30 timed pairs (pairs/s with median and spread),
      per-pair kernel launch counts (asserted), an op census of one pair (no
-     3-D BatchNorm, no 3-D conv but the depthwise patch convs), output
-     finite in [0, 191];
-  6. the module path (``packed=False``) the same way, 5 timed pairs;
-  7. one ``kernels`` JSON line, the card line, and the result line.
-Everything printed is also written to ``chiprun_out/chip_smoke.json``.
+     3-D BatchNorm, no 3-D conv), output finite in [0, 191];
+  6. the ACV module path (``packed=False``) the same way, 5 timed pairs;
+  7. the PCW path: PCWNet two-pass KITTI12 DDIM-3 at 384×1248, batch 1,
+     bfloat16 model, folded path; one warm-up pair, 10 timed pairs, launch
+     counts (asserted), a census with no 3-D BatchNorm and no 3-D conv, a
+     finite (1, 384, 1248) output; then its module path, 3 timed pairs;
+  8. one ``kernels`` JSON line, the card line, and the result line.
+Each path's launch counts are set to 0 just before it is driven and read
+just after.  Everything printed is also written to
+``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -55,6 +60,17 @@ STEPS = 5
 TIMED_PAIRS = 30
 MODULE_TIMED_PAIRS = 5
 FULL, HALF, QUARTER = (D4, H4, W4), (D4 // 2, H4 // 2, W4 // 2), (D4 // 4, H4 // 4, W4 // 4)
+ATT_SLOT = 48
+
+# The PCW path: PCWNet, KITTI 2012 at the size the reference pads KITTI to.
+PCW_H, PCW_W = 384, 1248
+PCW_D4, PCW_H4, PCW_W4 = MAIN_DISP // 4, PCW_H // 4, PCW_W // 4
+PCW_CC, PCW_SLOT, PCW_STEPS = 12, 64, 3
+PCW_TIMED_PAIRS = 10
+PCW_MODULE_TIMED_PAIRS = 3
+P1, P2, P3, P4 = ((PCW_D4 >> k, PCW_H4 >> k, PCW_W4 >> k) for k in range(4))
+# The PCW volumes: (scale, D, H, W), each 40 groups + 12 + 12 in a 64 slot.
+PCW_VOLUMES = [(f"1/{4 << k}", *dhw) for k, dhw in enumerate((P1, P2, P3, P4))]
 
 
 def log(*args):
@@ -307,11 +323,203 @@ def volume_cl_checks(dev) -> dict:
     return out
 
 
+def dtype_tag(dt) -> str:
+    return str(dt).split(".")[1]
+
+
+def front_checks(dev) -> dict:
+    """Phase 3, rows 16, 10 and 17, and rows 1 and 4 at the PCW path's
+    shapes: the GWC volume in the conv slot (ACV's 48 slot; PCW's four
+    64-slot scales), the patch stencils, the uncertainty at a query, the
+    fused head with align-corners and the one-map multiply."""
+    import torch.nn.functional as F
+
+    from diffuvolume_tpu_torch.ops import cost_volume as plain
+    from diffuvolume_tpu_torch.ops.kernels import concat_volume as kc
+    from diffuvolume_tpu_torch.ops.kernels import depthwise as kd
+    from diffuvolume_tpu_torch.ops.kernels import fused_head as kf
+    from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
+
+    g = torch.Generator().manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    bf16_ulp = 2.0 ** -7
+    out = {}
+
+    # -- row 16: (label, D, H, W, cc, slot, mask_ref, launches per ACV / PCW pair)
+    log("gwc_volume_packed  features (1,320,H,W) [+ concat (1,12,H,W)] → (1,D,H,W,slot)")
+    cases, errs = [], {}
+    vol_cases = [("ACV 40 in 48", D4, H4, W4, 0, ATT_SLOT, False, 2, 0)]
+    vol_cases += [(f"PCW {sc}", d, h, w, PCW_CC, PCW_SLOT, True, 0, 2)
+                  for sc, d, h, w in PCW_VOLUMES]
+    for label, d, h, w, cc, slot, mask_ref, acv_n, pcw_n in vol_cases:
+        l32, r32 = randn(1, FEAT_C, h, w), randn(1, FEAT_C, h, w)
+        cat32 = dict(cat_l=randn(1, cc, h, w), cat_r=randn(1, cc, h, w)) if cc else {}
+        log(f"  {label}: D {d}, (H, W) ({h},{w}), slot {slot}, mask_ref {mask_ref}")
+        e = {}
+        for dt, rtol in ((torch.float32, 1e-5), (torch.bfloat16, bf16_ulp)):
+            tag = dtype_tag(dt)
+            args = (l32.to(dt), r32.to(dt), d, GROUPS, slot)
+            kw = dict(mask_ref=mask_ref, **{k: v.to(dt) for k, v in cat32.items()})
+            got, want = kg.gwc_volume_packed(*args, **kw), plain.gwc_volume_slot(*args, **kw)
+            torch.cuda.synchronize()
+            e[tag] = check(tag, got, want, 1e-6, rtol)
+            errs[tag] = max(errs.get(tag, 0.0), e[tag])
+            del got, want
+        lb, rb = l32.bfloat16(), r32.bfloat16()
+        cb = {k: v.bfloat16() for k, v in cat32.items()}
+        pairs_dw = sum(max(w - k, 0) for k in range(d))
+        nbytes = (2 * lb.numel() + 2 * cc * h * w + d * h * w * slot) * 2
+        ops = 2 * FEAT_C * h * pairs_dw
+        b_ms, by = bound(nbytes, ops)
+        rec = dict(label=label, dhw=[d, h, w], cc=cc, slot=slot, mask_ref=mask_ref,
+                   per_pair=acv_n + pcw_n, per_pair_acv=acv_n, per_pair_pcw=pcw_n, errs=e,
+                   ms=time_ms(lambda: kg.gwc_volume_packed(lb, rb, d, GROUPS, slot,
+                                                           mask_ref=mask_ref, **cb), 20),
+                   plain_ms=time_ms(lambda: plain.gwc_volume_slot(lb, rb, d, GROUPS, slot,
+                                                                  mask_ref=mask_ref, **cb), 2),
+                   library_ms=None, bound_ms=b_ms, bound_by=by, ops_ms=ops / F32_OPS_PER_S * 1e3)
+        log(f"  bf16 {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, bound {b_ms:.4f} ms by "
+            f"{by}); {acv_n} per ACV pair, {pcw_n} per PCW pair")
+        cases.append(rec)
+    # No one PyTorch call builds a group-wise correlation volume: library null.
+    out["gwc_volume_packed"] = mixed(cases, errs)
+
+    # -- row 10: the two patch stencils on the ACV slot volume
+    log(f"depthwise_hw_p  (1,{D4},{H4},{W4},{ATT_SLOT}): patch (dil 1), patch_l1/2/3 (dil 1,2,3)")
+    x32 = randn(1, D4, H4, W4, ATT_SLOT)
+    x32[..., GROUPS:] = 0.0
+    dil_l = (1,) * 8 + (2,) * 16 + (3,) * 16 + (1,) * (ATT_SLOT - GROUPS)
+    cases, errs = [], {}
+    for label, dil in (("patch, dilation 1", (1,) * ATT_SLOT), ("patch_l1/2/3, dilation 1/2/3",
+                                                                  dil_l)):
+        wt = randn(3, 3, ATT_SLOT) * 0.3
+        wt[..., GROUPS:] = 0.0
+        e = {}
+        for dt in (torch.float32, torch.bfloat16):
+            tag = dtype_tag(dt)
+            got = kd.depthwise_hw_p(x32.to(dt), wt, dil)
+            want = kd.depthwise_hw_plain(x32.to(dt), wt, dil)
+            torch.cuda.synchronize()
+            e[tag] = check(f"{label} {tag}", got, want, *CONV_TOL[tag])
+            errs[tag] = max(errs.get(tag, 0.0), e[tag])
+            del got, want
+        xb = x32.bfloat16()
+        # The library: one grouped F.conv3d on channels-last bf16 operands;
+        # the mixed dilations as one 7×7 kernel with each channel's taps at
+        # its own spacing (zeros between).
+        r, wt_host = max(dil), wt.cpu()
+        w_lib = torch.zeros((ATT_SLOT, 1, 1, 2 * r + 1, 2 * r + 1))
+        for c, dc in enumerate(dil):
+            for i in range(3):
+                for j in range(3):
+                    w_lib[c, 0, 0, r + (i - 1) * dc, r + (j - 1) * dc] = wt_host[i, j, c]
+        w_lib = w_lib.to(dev, torch.bfloat16)
+        x_cl = xb.permute(0, 4, 1, 2, 3)
+
+        def library():
+            return F.conv3d(x_cl, w_lib, padding=(0, r, r), groups=ATT_SLOT)
+        lib_err = float((library().permute(0, 2, 3, 4, 1).float()
+                         - kd.depthwise_hw_p(xb, wt, dil).float()).abs().max())
+        vox = D4 * H4 * W4
+        b_ms, by = bound(2 * vox * ATT_SLOT * 2, 2 * 9 * GROUPS * vox)
+        rec = dict(label=label, dil=sorted(set(dil)), per_pair=2, per_pair_acv=2, per_pair_pcw=0,
+                   errs=e, ms=time_ms(lambda: kd.depthwise_hw_p(xb, wt, dil), 20),
+                   plain_ms=time_ms(lambda: kd.depthwise_hw_plain(xb, wt, dil), 3),
+                   library_ms=time_ms(library, 20), library_max_abs_vs_kernel=lib_err,
+                   bound_ms=b_ms, bound_by=by, ops_ms=2 * 9 * GROUPS * vox / F32_OPS_PER_S * 1e3)
+        log(f"  bf16 {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, library "
+            f"{rec['library_ms']:.4f} [max |Δ| to the kernel {lib_err:.2e}], bound {b_ms:.4f} ms "
+            f"by {by}); 2 per ACV pair")
+        cases.append(rec)
+    out["depthwise_hw_p"] = mixed(cases, errs)
+    del x32
+
+    # -- row 17: the uncertainty at a query, and row 1 at the PCW shape
+    hw = PCW_H * PCW_W
+    cost32 = randn(1, PCW_D4, PCW_H4, PCW_W4) * 3.0
+    q = torch.rand((1, PCW_H, PCW_W), generator=g).to(dev) * (MAIN_DISP - 1)
+    log(f"fused_uncertainty_at  cost (1,{PCW_D4},{PCW_H4},{PCW_W4}) + query → "
+        f"(1,{PCW_H},{PCW_W}), D={MAIN_DISP}, align_corners")
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = dtype_tag(dt)
+        got = kf.fused_uncertainty_at(cost32.to(dt), q, MAIN_DISP, (PCW_H, PCW_W), True)
+        want = kf.fused_uncertainty_at_plain(cost32.to(dt), q, MAIN_DISP, (PCW_H, PCW_W), True)
+        torch.cuda.synchronize()
+        errs[tag] = check(tag, got, want, 1e-4, 1e-4)
+    nbytes = cost32.numel() * 4 + 2 * hw * 4
+    ops = hw * (9 * PCW_D4 + 9 * MAIN_DISP + 2)
+    b_ms, by = bound(nbytes, ops)
+    # No one PyTorch call: library null.
+    out["fused_uncertainty_at"] = mixed([dict(
+        label="PCW (1,48,96,312) → (1,384,1248)", per_pair=PCW_STEPS, per_pair_acv=0,
+        per_pair_pcw=PCW_STEPS, errs=errs,
+        ms=time_ms(lambda: kf.fused_uncertainty_at(cost32, q, MAIN_DISP, (PCW_H, PCW_W), True),
+                   30),
+        plain_ms=time_ms(lambda: kf.fused_uncertainty_at_plain(
+            cost32, q, MAIN_DISP, (PCW_H, PCW_W), True), 3),
+        library_ms=None, bound_ms=b_ms, bound_by=by, ops_ms=ops / F32_OPS_PER_S * 1e3)], errs,
+        dtype="float32")
+
+    log("fused_upsample_softargmin at the PCW shape (align_corners), 4 per PCW pair")
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = dtype_tag(dt)
+        disp, unc = kf.fused_upsample_softargmin(cost32.to(dt), MAIN_DISP, (PCW_H, PCW_W), True)
+        pd, pu = kf.fused_upsample_softargmin_plain(cost32.to(dt), MAIN_DISP, (PCW_H, PCW_W),
+                                                    True)
+        torch.cuda.synchronize()
+        errs[tag] = max(check(f"{tag} disp", disp, pd, 1e-4, 1e-4),
+                        check(f"{tag} unc", unc, pu, 1e-4, 1e-4))
+    b_ms, by = bound(cost32.numel() * 4 + 2 * hw * 4, hw * (9 * PCW_D4 + 13 * MAIN_DISP + 2))
+    out["fused_head_pcw"] = dict(
+        errs=errs, ms=time_ms(lambda: kf.fused_upsample_softargmin(
+            cost32, MAIN_DISP, (PCW_H, PCW_W), True), 30),
+        plain_ms=time_ms(lambda: kf.fused_upsample_softargmin_plain(
+            cost32, MAIN_DISP, (PCW_H, PCW_W), True), 3),
+        library_ms=None, bound=(b_ms, by), dtype="float32", per_pair_pcw=1 + PCW_STEPS)
+    log(f"  {out['fused_head_pcw']['ms']:.4f} ms (plain {out['fused_head_pcw']['plain_ms']:.4f}, "
+        f"bound {b_ms:.4f} ms by {by})")
+    del cost32, q
+
+    # -- row 4 with one map: PCW's noise into the 32-channel combine volume
+    log(f"dhw_mul, one map  vol (1,{PCW_D4},{PCW_H4},{PCW_W4},32) × noise; 3 per PCW pair")
+    vol32 = randn(1, PCW_D4, PCW_H4, PCW_W4, 32)
+    m32 = torch.rand((1, PCW_D4, PCW_H4, PCW_W4), generator=g).to(dev)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = dtype_tag(dt)
+        got = kc.dhw_mul(vol32.to(dt), m32.to(dt), None, channels_last=True)
+        want = plain.volume_dhw_mul(vol32.to(dt), m32.to(dt), None, channels_last=True)
+        torch.cuda.synchronize()
+        errs[tag] = check(tag, got, want, 0.0, 0.0)
+    vb, mb = vol32.bfloat16(), m32.bfloat16()
+    b_ms, by = bound(2 * vb.numel() * 2 + mb.numel() * 2, vb.numel())
+    out["dhw_mul_one_map_pcw"] = dict(
+        errs=errs, ms=time_ms(lambda: kc.dhw_mul(vb, mb, None, channels_last=True), 20),
+        plain_ms=time_ms(lambda: plain.volume_dhw_mul(vb, mb, None, True), 3),
+        library_ms=time_ms(lambda: torch.mul(vb, mb[..., None]), 20), bound=(b_ms, by),
+        dtype="bfloat16", per_pair_pcw=PCW_STEPS)
+    r = out["dhw_mul_one_map_pcw"]
+    log(f"  bf16 {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library torch.mul "
+        f"{r['library_ms']:.4f}, bound {b_ms:.4f} ms by {by})")
+    for k in ("gwc_volume_packed", "depthwise_hw_p", "fused_uncertainty_at"):
+        v = out[k]
+        lib = "null" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
+        log(f"  {k}: {v['ms']:.4f} ms per launch (plain {v['plain_ms']:.4f} ms, library {lib}, "
+            f"bound {v['bound'][0]:.4f} ms by {v['bound'][1]})")
+    return out
+
+
 class ConvCase(NamedTuple):
-    """One main-path conv shape: its wrapper (row), kind ("p" 3×3×3 stride
-    1, "s2" stride 2, "k1" 1×1×1, "up" transposed), channels, input (D, H,
-    W), launches per pair and the epilogue the path gives it.  ``real_cin``:
-    the input channels that carry data when the slot holds zero fill."""
+    """One path's conv shape: its wrapper (row), kind ("p" 3×3×3 stride 1,
+    "s2" stride 2, "k1" 1×1×1, "up" transposed), channels, input (D, H, W),
+    launches per pair and the epilogue the path gives it (``act`` None,
+    "relu" or "mish").  ``real_cin``: the input channels that carry data
+    when the slot holds zero fill."""
     row: str
     label: str
     kind: str
@@ -320,7 +528,7 @@ class ConvCase(NamedTuple):
     dhw: tuple
     per_pair: int
     residual: bool = False
-    relu: bool = True
+    act: str | None = "relu"
     bias: bool = True
     real_cin: int | None = None
 
@@ -334,23 +542,73 @@ class ConvCase(NamedTuple):
 # ReLU), the transposed conv5 and conv6 (+ redir, ReLU).
 CONV_CASES = [
     ConvCase("conv3d_fold_p", "32→32", "p", 32, 32, FULL, 20),
-    ConvCase("conv3d_fold_p", "32→32, no ReLU", "p", 32, 32, FULL, 2, relu=False),
+    ConvCase("conv3d_fold_p", "32→32, no ReLU", "p", 32, 32, FULL, 2, act=None),
     ConvCase("conv3d_fold_p", "32→32 + residual, no ReLU", "p", 32, 32, FULL, 6,
-             residual=True, relu=False),
+             residual=True, act=None),
     ConvCase("conv3d_fold_p", "32→1 head, no bias or ReLU", "p", 32, 1, FULL, 8,
-             relu=False, bias=False),
+             act=None, bias=False),
     ConvCase("conv3d_fold_p", "64→64 half", "p", 64, 64, HALF, 14),
     ConvCase("conv3d_fold_p", "128→128 quarter", "p", 128, 128, QUARTER, 14),
     ConvCase("conv3d_fold_x2", "64→32", "p", 64, 32, FULL, 6),
     ConvCase("conv3d_fold_x2", "40 in a 48 slot→32", "p", 48, 32, FULL, 2, real_cin=GROUPS),
     ConvCase("conv3d_fold_s2", "32→64 full→half", "s2", 32, 64, FULL, 14),
     ConvCase("conv3d_fold_s2", "64→128 half→quarter", "s2", 64, 128, HALF, 14),
-    ConvCase("conv1x1_fold_p", "32→32, no ReLU", "k1", 32, 32, FULL, 14, relu=False),
-    ConvCase("conv1x1_fold_p", "64→64 half, no ReLU", "k1", 64, 64, HALF, 14, relu=False),
+    ConvCase("conv1x1_fold_p", "32→32, no ReLU", "k1", 32, 32, FULL, 14, act=None),
+    ConvCase("conv1x1_fold_p", "64→64 half, no ReLU", "k1", 64, 64, HALF, 14, act=None),
     ConvCase("conv3d_fold_up", "128→64 quarter→half + residual", "up", 128, 64, QUARTER, 14,
              residual=True),
     ConvCase("conv3d_fold_up", "64→32 half→full + residual", "up", 64, 32, HALF, 14,
              residual=True),
+]
+
+
+# The conv launches of one PCW pair: 2 volume builds (baseline + DDIM prep;
+# each: dres0_0 wide entry, dres0_1, dres1_0, dres1_1 + residual, and
+# HourglassUp: at each of 1/8, 1/16, 1/32 a bare stride-2 conv, the combine
+# conv as the volume's part then the rest + residual, a conv; back up the
+# transposed conv7/8/9, each + its 1×1 redir) and 4 aggregation passes
+# (baseline + 3 DDIM steps; each: 3 Mish hourglasses, classif3_0 and the
+# 32→1 head).  Mish wherever the reference applies one.
+PCW_CONV_CASES = [
+    ConvCase("conv3d_fold_p", "32→32, Mish", "p", 32, 32, P1, 8, act="mish"),
+    ConvCase("conv3d_fold_p", "32→32 + residual, no act", "p", 32, 32, P1, 2, residual=True,
+             act=None),
+    ConvCase("conv3d_fold_p", "32→1 head, no bias or act", "p", 32, 1, P1, 4, act=None,
+             bias=False),
+    ConvCase("conv3d_fold_p", "1/8 volume part of combine1, 64→64", "p", 64, 64, P2, 2,
+             act=None, bias=False),
+    ConvCase("conv3d_fold_p", "combine1 64→64 + residual, Mish", "p", 64, 64, P2, 2,
+             residual=True, act="mish"),
+    ConvCase("conv3d_fold_p", "64→64 half, Mish", "p", 64, 64, P2, 14, act="mish"),
+    ConvCase("conv3d_fold_p", "1/16 volume part of combine2, 64→128", "p", 64, 128, P3, 2,
+             act=None, bias=False),
+    ConvCase("conv3d_fold_p", "combine2 128→128 + residual, Mish", "p", 128, 128, P3, 2,
+             residual=True, act="mish"),
+    ConvCase("conv3d_fold_p", "128→128 quarter, Mish", "p", 128, 128, P3, 14, act="mish"),
+    ConvCase("conv3d_fold_p", "1/32 volume part of combine3, 64→128", "p", 64, 128, P4, 2,
+             act=None, bias=False),
+    ConvCase("conv3d_fold_p", "combine3 128→128 at 1/32 + residual, Mish", "p", 128, 128, P4,
+             2, residual=True, act="mish"),
+    ConvCase("conv3d_fold_p", "conv6 128→128 at 1/32, Mish", "p", 128, 128, P4, 2, act="mish"),
+    ConvCase("conv3d_fold_x2", "64→32, Mish", "p", 64, 32, P1, 2, act="mish"),
+    ConvCase("conv3d_fold_s2", "32→64 full→half, no bias or act", "s2", 32, 64, P1, 2,
+             act=None, bias=False),
+    ConvCase("conv3d_fold_s2", "64→128 half→quarter, no bias or act", "s2", 64, 128, P2, 2,
+             act=None, bias=False),
+    ConvCase("conv3d_fold_s2", "128→128 quarter→1/32, no bias or act", "s2", 128, 128, P3, 2,
+             act=None, bias=False),
+    ConvCase("conv3d_fold_s2", "32→64 full→half, Mish", "s2", 32, 64, P1, 12, act="mish"),
+    ConvCase("conv3d_fold_s2", "64→128 half→quarter, Mish", "s2", 64, 128, P2, 12,
+             act="mish"),
+    ConvCase("conv1x1_fold_p", "32→32, no act", "k1", 32, 32, P1, 14, act=None),
+    ConvCase("conv1x1_fold_p", "64→64 half, no act", "k1", 64, 64, P2, 14, act=None),
+    ConvCase("conv1x1_fold_p", "128→128 quarter, no act", "k1", 128, 128, P3, 2, act=None),
+    ConvCase("conv3d_fold_up", "128→128 1/32→quarter + residual, Mish", "up", 128, 128, P4, 2,
+             residual=True, act="mish"),
+    ConvCase("conv3d_fold_up", "128→64 quarter→half + residual, Mish", "up", 128, 64, P3, 14,
+             residual=True, act="mish"),
+    ConvCase("conv3d_fold_up", "64→32 half→full + residual, Mish", "up", 64, 32, P2, 14,
+             residual=True, act="mish"),
 ]
 
 
@@ -383,16 +641,16 @@ def case_calls(case: ConvCase, op: dict):
     from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
     from diffuvolume_tpu_torch.ops.kernels import conv3d_up as kup
 
-    x, w, bias, res, relu = op["x"], op["w"], op["bias"], op["res"], case.relu
+    x, w, bias, res, act = op["x"], op["w"], op["bias"], op["res"], case.act
     if case.kind == "up":
-        return (lambda: kup.conv3d_fold_up(x, w, bias, residual=res, relu=relu),
-                lambda: kup.conv3d_up_plain(x, w, bias, res, relu))
+        return (lambda: kup.conv3d_fold_up(x, w, bias, residual=res, act=act),
+                lambda: kup.conv3d_up_plain(x, w, bias, res, act))
     fn = getattr(kconv, case.row)
     if case.row == "conv3d_fold_p":
-        kernel = lambda: fn(x, w, bias, residual=res, relu=relu)  # noqa: E731
+        kernel = lambda: fn(x, w, bias, residual=res, act=act)  # noqa: E731
     else:
-        kernel = lambda: fn(x, w, bias, relu=relu)  # noqa: E731
-    return kernel, lambda: kconv.conv3d_fold_plain(x, w, bias, op["stride"], res, relu)
+        kernel = lambda: fn(x, w, bias, act=act)  # noqa: E731
+    return kernel, lambda: kconv.conv3d_fold_plain(x, w, bias, op["stride"], res, act)
 
 
 # float32: the FMA kernel against cuDNN's float32 conv (TF32 off), summation
@@ -401,13 +659,15 @@ def case_calls(case: ConvCase, op: dict):
 CONV_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 2.0 ** -7)}
 
 
-def conv_checks(dev) -> dict:
-    """Phase 3, rows 5-9: the fold-conv kernels at every main-path shape
-    (``CONV_CASES``), each with the epilogue the path gives it."""
+def conv_checks(dev, cases: list[ConvCase], path: str, iters: int = 20) -> dict:
+    """Phase 3, rows 5-9: the fold-conv kernels at every shape of one path
+    (``CONV_CASES``, ``PCW_CONV_CASES``), each with the epilogue the path
+    gives it; ``iters`` timed launches of the kernel and of the library."""
     import torch.nn.functional as F
 
+    log(f"-- the {path} path's conv shapes")
     rows: dict[str, tuple[dict, list]] = {}
-    for i, case in enumerate(CONV_CASES):
+    for i, case in enumerate(cases):
         (d, h, w), cin, cout = case.dhw, case.cin, case.cout
         errs, e = rows.setdefault(case.row, ({}, []))[0], {}
         for dt in (torch.float32, torch.bfloat16):
@@ -423,8 +683,8 @@ def conv_checks(dev) -> dict:
             e[tag] = check(f"{tag}", got, want, *CONV_TOL[tag])
             errs[tag] = max(errs.get(tag, 0.0), e[tag])
             del got, want
-        ms = time_ms(kernel, 20)
-        plain_ms = time_ms(plain, 3)
+        ms = time_ms(kernel, iters)
+        plain_ms = time_ms(plain, 2)
         # The library: cuDNN on channels-last bf16 operands, with the case's
         # bias (no residual, no ReLU); never called by the port.
         ks, stride = op["ks"], op["stride"]
@@ -446,7 +706,7 @@ def conv_checks(dev) -> dict:
             lib_ref = F.conv3d(x_cl.float(), w_lib.float(), bias, stride=stride,
                                padding=(ks - 1) // 2)
         lib_err = float((library().float() - lib_ref).abs().max())
-        library_ms = time_ms(library, 20)
+        library_ms = time_ms(library, iters)
         # The bound counts the function the path needs: the real input
         # channels, not the slot's zero fill.
         o = op["out_dhw"]
@@ -463,7 +723,7 @@ def conv_checks(dev) -> dict:
             f"{case.per_pair} per pair")
         rows[case.row][1].append(dict(
             label=case.label, cin=cin, real_cin=cin_f, cout=cout, in_dhw=[d, h, w],
-            out_dhw=list(o), residual=case.residual, relu=case.relu, bias=case.bias,
+            out_dhw=list(o), residual=case.residual, act=case.act, bias=case.bias,
             per_pair=case.per_pair, errs=e, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
             library_max_abs_vs_f32=lib_err, bound_ms=b_ms, bound_by=by,
             ops_ms=2 * macs / BF16_TC_OPS_PER_S * 1e3, macs=macs, bytes=nbytes))
@@ -471,7 +731,7 @@ def conv_checks(dev) -> dict:
     cases = [c for _, rec in rows.values() for c in rec]
     totals = {k: sum(c[k] * c["per_pair"] for c in cases)
               for k in ("ms", "bound_ms", "library_ms", "plain_ms")}
-    log(f"  one pair's conv launches: kernels {totals['ms']:.2f} ms, bound "
+    log(f"  one {path} pair's conv launches: kernels {totals['ms']:.2f} ms, bound "
         f"{totals['bound_ms']:.2f} ms, library {totals['library_ms']:.2f} ms, plain "
         f"{totals['plain_ms']:.2f} ms")
     out = {row: mixed(rec, errs) for row, (errs, rec) in rows.items()}
@@ -485,11 +745,10 @@ def layout_checks(dev) -> dict:
 
     g = torch.Generator().manual_seed(4)
     out = {}
-    # (label, C, c_slot, (D, H, W), per pair): the patch volume into its
-    # 48-channel slot (one per attention chain) and the hourglass bottleneck
-    # after the attention block (one per hourglass).
-    for name, cases in (("pack", [("40→48 slot, full", GROUPS, 48, FULL, 2),
-                                   ("128, quarter", 128, 128, QUARTER, 14)]),
+    # (label, C, c_slot, (D, H, W), per pair): the hourglass bottleneck
+    # after the attention block (one per hourglass).  The patch volume no
+    # longer goes through a pack: it is built in its slot (row 16).
+    for name, cases in (("pack", [("128, quarter", 128, 128, QUARTER, 14)]),
                         ("unpack", [("128, quarter", 128, 128, QUARTER, 14)])):
         errs, rec = {}, []
         for label, c, c_slot, (d, h, w), per_pair in cases:
@@ -523,58 +782,100 @@ def layout_checks(dev) -> dict:
     return out
 
 
-def small_agreement(dev) -> dict:
-    """Phase 4: the pipeline on the card against the CPU, float32, 32×64,
-    max_disp 64, on both paths.  The tolerance is the one the CPU parity test
-    calibrated against the JAX package (tests/test_torch_pipeline.py)."""
-    from diffuvolume_tpu_torch.diffusion import DDIMConfig
-    from diffuvolume_tpu_torch.eval.pipeline import acv_ddim_inference
-    from diffuvolume_tpu_torch.tools.random_weights import calibrate_heads, random_pair
+def agree(name: str, cpu_run, card_run) -> dict:
+    """One pipeline on the card against the CPU: the bounds the CPU parity
+    tests calibrated against the JAX package (tests/test_torch_pipeline.py)."""
+    cpu_final, cpu_base = cpu_run()
+    final, base = card_run()
+    torch.cuda.synchronize()
+    e_base = (base.cpu() - cpu_base).abs()
+    e_final = (final.cpu() - cpu_final).abs()
+    res = dict(baseline_max=float(e_base.max()), final_max=float(e_final.max()),
+               final_mean=float(e_final.mean()))
+    log(f"  {name}: baseline max |Δ| {res['baseline_max']:.3e} px (tol 1e-2); "
+        f"final max |Δ| {res['final_max']:.3e} px (tol 0.1), mean "
+        f"{res['final_mean']:.3e} px (tol 5e-3)")
+    if not (res["baseline_max"] < 1e-2 and res["final_max"] < 0.1
+            and res["final_mean"] < 5e-3):
+        raise AssertionError(f"the {name} pipeline on the card disagrees with the CPU")
+    return res
 
-    h, w, md = 32, 64, 64
-    rng = np.random.default_rng(0)
-    left = rng.standard_normal((1, h, w, 3)).astype(np.float32) * 0.3
-    right = np.roll(left, -3, axis=2)
-    cfg = DDIMConfig(max_disp=md, num_bins=md // 4)
-    shape = (cfg.sampling_steps, 1, md // 4, h // 4, w // 4)
-    ns = {"z": rng.standard_normal(shape).astype(np.float32),
-          "replace": rng.uniform(size=shape).astype(np.float32)}
-    bm, dm = random_pair(md, torch.Generator().manual_seed(0))
-    calibrate_heads(bm, torch.from_numpy(left), torch.from_numpy(right), target_std=10.0)
-    dm.load_state_dict(bm.state_dict(), strict=False)
-    bg, dg = copy.deepcopy(bm).to(dev), copy.deepcopy(dm).to(dev)
+
+def small_agreement(dev) -> dict:
+    """Phase 4: each pipeline on the card against the CPU, float32, on both
+    paths: ACV DDIM-5 at 32×64, max_disp 64; PCW KITTI12 DDIM-3 at 64×64,
+    max_disp 192 (the sizes of tests/test_torch_pipeline.py and
+    tests/test_torch_pcw_pipeline.py)."""
+    from diffuvolume_tpu_torch.diffusion import DDIMConfig
+    from diffuvolume_tpu_torch.diffusion.ddim import KITTI12_DDIM
+    from diffuvolume_tpu_torch.eval.pipeline import acv_ddim_inference, pcw_ddim_inference
+    from diffuvolume_tpu_torch.tools.random_weights import (
+        calibrate_heads,
+        calibrate_pcw,
+        random_pair,
+        random_pcw_pair,
+    )
+
     out = {}
-    for packed in (True, False):
-        name = "folded" if packed else "module"
-        cpu_final, cpu_base = acv_ddim_inference(bm, dm, left, right, cfg, device="cpu",
-                                                 noise_source=ns, packed=packed)
-        final, base = acv_ddim_inference(bg, dg, left, right, cfg, device=dev,
-                                         noise_source=ns, packed=packed)
-        torch.cuda.synchronize()
-        e_base = (base.cpu() - cpu_base).abs()
-        e_final = (final.cpu() - cpu_final).abs()
-        res = dict(baseline_max=float(e_base.max()), final_max=float(e_final.max()),
-                   final_mean=float(e_final.mean()))
-        log(f"  {name} path: baseline max |Δ| {res['baseline_max']:.3e} px (tol 1e-2); "
-            f"final max |Δ| {res['final_max']:.3e} px (tol 0.1), mean "
-            f"{res['final_mean']:.3e} px (tol 5e-3)")
-        if not (res["baseline_max"] < 1e-2 and res["final_max"] < 0.1
-                and res["final_mean"] < 5e-3):
-            raise AssertionError(f"the {name} pipeline on the card disagrees with the CPU")
-        out[name] = res
+    for seed, model in enumerate(("acv", "pcw")):
+        h, w, md = (32, 64, 64) if model == "acv" else (64, 64, MAIN_DISP)
+        rng = np.random.default_rng(seed)
+        left = rng.standard_normal((1, h, w, 3)).astype(np.float32) * 0.3
+        right = np.roll(left, -3, axis=2)
+        lt, rt = torch.from_numpy(left), torch.from_numpy(right)
+        gen = torch.Generator().manual_seed(0)
+        if model == "acv":
+            cfg, infer = DDIMConfig(max_disp=md, num_bins=md // 4), acv_ddim_inference
+            bm, dm = random_pair(md, gen)
+            calibrate_heads(bm, lt, rt, target_std=10.0)
+        else:
+            cfg, infer = KITTI12_DDIM, pcw_ddim_inference
+            bm, dm = random_pcw_pair(md, gen)
+            calibrate_pcw(bm, lt, rt)
+        dm.load_state_dict(bm.state_dict(), strict=False)
+        shape = (1, md // 4, h // 4, w // 4)
+        steps = (cfg.sampling_steps, *shape)
+        ns = {"z": rng.standard_normal(steps).astype(np.float32),
+              "replace": (rng.uniform(size=steps) if cfg.replace_mode == "uniform"
+                          else rng.standard_normal(steps)).astype(np.float32)}
+        if cfg.init_mode == "noise":
+            ns["init"] = rng.standard_normal(shape).astype(np.float32)
+        bg, dg = copy.deepcopy(bm).to(dev), copy.deepcopy(dm).to(dev)
+        for packed in (True, False):
+            name = f"{model} {'folded' if packed else 'module'} path"
+            out[name] = agree(
+                name,
+                lambda: infer(bm, dm, left, right, cfg, device="cpu", noise_source=ns,
+                              packed=packed),
+                lambda: infer(bg, dg, left, right, cfg, device=dev, noise_source=ns,
+                              packed=packed))
     return out
 
 
 def expected_launches(packed: bool) -> dict:
-    """Launches per pair: 6 aggregation passes (baseline + 5 DDIM steps) and
-    2 attention chains (baseline + DDIM prep).  The convs are
+    """ACV launches per pair: 6 aggregation passes (baseline + 5 DDIM steps)
+    and 2 attention chains (baseline + DDIM prep).  The convs are
     ``CONV_CASES``; an aggregation pass has 2 pack + 2 unpack, an attention
-    chain 2 pack + 1 unpack."""
-    out = {"fused_head": 6, "gwc_volume": 2, "concat_volume": 2, "dhw_mul": STEPS}
-    folded = {"pack": 16, "unpack": 14}
+    chain 2 pack + 1 unpack and, on the folded path, its GWC volume in the
+    slot and 2 patch stencils (the module path builds the NCDHW volume)."""
+    out = {"fused_head": 6, "concat_volume": 2, "dhw_mul": STEPS,
+           "gwc_volume": 0 if packed else 2}
+    folded = {"pack": 14, "unpack": 14, "gwc_volume_packed": 2, "depthwise_hw_p": 4}
     for case in CONV_CASES:
         folded[case.row] = folded.get(case.row, 0) + case.per_pair
     out.update({k: (v if packed else 0) for k, v in folded.items()})
+    return out
+
+
+def pcw_expected_launches(packed: bool) -> dict:
+    """PCW launches per pair: 2 volume builds (4 scales each, on both paths),
+    4 aggregation passes (one fused head each), 3 DDIM steps (the noise
+    multiply and the uncertainty at the refined disparity); the folded
+    path's convs are ``PCW_CONV_CASES``."""
+    out = {"gwc_volume_packed": 8, "fused_head": 4, "fused_uncertainty_at": PCW_STEPS,
+           "dhw_mul": PCW_STEPS}
+    for case in PCW_CONV_CASES:
+        out[case.row] = out.get(case.row, 0) + (case.per_pair if packed else 0)
     return out
 
 
@@ -603,6 +904,65 @@ def op_census(fn) -> dict:
     return seen
 
 
+def drive(dev, counters, pairs: int, pair, stages, steps: int, expected: dict, packed: bool,
+          out_shape: tuple) -> dict:
+    """Drive one path: one warm-up pair, then ``pairs`` timed pairs (each
+    ended by a synchronise) with the launch counts set to 0 just before and
+    read just after; one more pair split into its prep and its ``steps``
+    DDIM steps (``stages() -> (t0, t1, t2)``), and one under the op census.
+    Asserts the per-pair launch counts, no 3-D BatchNorm or 3-D conv on the
+    folded path, and a finite output of ``out_shape``."""
+    pair(100)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    times = []
+    for i in range(pairs):
+        t0 = time.perf_counter()
+        final, _ = pair(i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        t0, t1, t2 = stages()
+    census = op_census(lambda: pair(200))
+
+    per_pair = {k: v / pairs for k, v in launches.items()}
+    expected = {k: expected.get(k, 0) for k in counters}
+    fin = final.float()
+    ms_sorted = sorted(t * 1e3 for t in times)
+    res = dict(
+        pair_s=times, pairs_per_s=pairs / sum(times),
+        pair_ms_median=float(np.median(ms_sorted)), pair_ms_min=ms_sorted[0],
+        pair_ms_max=ms_sorted[-1], pair_ms_p10=float(np.percentile(ms_sorted, 10)),
+        pair_ms_p90=float(np.percentile(ms_sorted, 90)),
+        prep_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3 / steps,
+        peak_mem_bytes=peak, launches=launches, launches_per_pair=per_pair, census=census,
+        out_shape=list(fin.shape), out_min=float(fin.min()), out_max=float(fin.max()),
+        finite=bool(torch.isfinite(fin).all()),
+    )
+    log(f"  {pairs} pairs: {res['pairs_per_s']:.4f} pairs/s (total work over total "
+        f"time); ms per pair median {res['pair_ms_median']:.2f}, p10 {res['pair_ms_p10']:.2f}, "
+        f"p90 {res['pair_ms_p90']:.2f}, min {res['pair_ms_min']:.2f}, "
+        f"max {res['pair_ms_max']:.2f}")
+    log(f"  prep {res['prep_ms']:.1f} ms, per DDIM step {res['step_ms']:.1f} ms, "
+        f"peak memory {peak / 2**30:.3f} GiB")
+    log(f"  launches per pair: {per_pair}")
+    log(f"  expected:          {expected}")
+    log(f"  op census of one pair: {census}")
+    log(f"  output {tuple(fin.shape)} in [{res['out_min']:.3f}, {res['out_max']:.3f}], "
+        f"finite={res['finite']}")
+    if per_pair != expected:
+        raise AssertionError(f"launch counts {per_pair} != {expected}")
+    if packed and (census["batch_norm_5d"] or census["conv_5d"]):
+        raise AssertionError(f"the folded path ran a 3-D BatchNorm or a 3-D conv: {census}")
+    if not (res["finite"] and tuple(fin.shape) == out_shape):
+        raise AssertionError(f"the output is not a finite {out_shape} map")
+    return res
+
+
 def main_path(dev, counters, packed: bool, pairs: int) -> dict:
     """Phases 5 and 6: ACV two-pass DDIM-5 at 512×960, bfloat16 model."""
     from diffuvolume_tpu_torch.diffusion import DDIMConfig, ddim_sample, make_schedule
@@ -620,68 +980,54 @@ def main_path(dev, counters, packed: bool, pairs: int) -> dict:
         return acv_ddim_inference(bm, dm, left, right, cfg, device=dev, generator=gen,
                                   packed=packed)
 
-    pair(100)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for f in counters.values():
-        f.launches = 0
-    times = []
-    for i in range(pairs):
-        t0 = time.perf_counter()
-        final, base = pair(i)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = {k: f.launches for k, f in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
-
-    # One more pair split into its stages, and one under the op census (not
-    # counted above).
-    with torch.no_grad():
+    def stages():
         t0 = time.perf_counter()
         b_disp, b_lat, entry = acv_prep(bm, dm, left, right, cfg, packed)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        sched = make_schedule(1000, device=dev)
-        ddim_sample(sched, cfg, lambda lat, t: dm.denoise(entry, lat, t, (MAIN_H, MAIN_W)),
+        ddim_sample(make_schedule(1000, device=dev), cfg,
+                    lambda lat, t: dm.denoise(entry, lat, t, (MAIN_H, MAIN_W)),
                     b_disp, b_lat, generator=torch.Generator(device=dev).manual_seed(7))
         torch.cuda.synchronize()
-        t2 = time.perf_counter()
-    census = op_census(lambda: pair(200))
+        return t0, t1, time.perf_counter()
 
-    per_pair = {k: v / pairs for k, v in launches.items()}
-    expected = expected_launches(packed)
-    fin = final.float()
-    ms_sorted = sorted(t * 1e3 for t in times)
-    res = dict(
-        pair_s=times, pairs_per_s=pairs / sum(times),
-        pair_ms_median=float(np.median(ms_sorted)), pair_ms_min=ms_sorted[0],
-        pair_ms_max=ms_sorted[-1], pair_ms_p10=float(np.percentile(ms_sorted, 10)),
-        pair_ms_p90=float(np.percentile(ms_sorted, 90)),
-        prep_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3 / STEPS,
-        peak_mem_bytes=peak, launches=launches, launches_per_pair=per_pair, census=census,
-        out_shape=list(fin.shape), out_min=float(fin.min()), out_max=float(fin.max()),
-        finite=bool(torch.isfinite(fin).all()),
-    )
-    log(f"  {pairs} pairs: {res['pairs_per_s']:.4f} pairs/s (total work over total "
-        f"time); ms per pair median {res['pair_ms_median']:.2f}, p10 {res['pair_ms_p10']:.2f}, "
-        f"p90 {res['pair_ms_p90']:.2f}, min {res['pair_ms_min']:.2f}, "
-        f"max {res['pair_ms_max']:.2f}")
-    log(f"  prep {res['prep_ms']:.1f} ms, per DDIM step {res['step_ms']:.1f} ms, "
-        f"peak memory {peak / 2**30:.2f} GiB")
-    log(f"  launches per pair: {per_pair}")
-    log(f"  expected:          {expected}")
-    log(f"  op census of one pair: {census}")
-    log(f"  output {tuple(fin.shape)} in [{res['out_min']:.3f}, {res['out_max']:.3f}], "
-        f"finite={res['finite']}")
-    if per_pair != expected:
-        raise AssertionError(f"launch counts {per_pair} != {expected}")
-    if packed and (census["batch_norm_5d"] or set(census["conv_5d"]) - {"depthwise"}):
-        raise AssertionError(f"the folded path ran a 3-D BatchNorm or a non-depthwise 3-D "
-                             f"conv: {census}")
-    if not (res["finite"] and res["out_min"] >= 0.0 and res["out_max"] <= MAIN_DISP - 1
-            and tuple(fin.shape) == (1, MAIN_H, MAIN_W)):
-        raise AssertionError("main-path output is not a finite (1,512,960) map in [0,191]")
+    res = drive(dev, counters, pairs, pair, stages, STEPS, expected_launches(packed), packed,
+                (1, MAIN_H, MAIN_W))
+    if not (res["out_min"] >= 0.0 and res["out_max"] <= MAIN_DISP - 1):
+        raise AssertionError("the ACV output is not in [0, 191]")
     return res
+
+
+def pcw_path(dev, counters, packed: bool, pairs: int) -> dict:
+    """Phase 7: PCWNet two-pass KITTI12 DDIM-3 at 384×1248, bfloat16 model."""
+    from diffuvolume_tpu_torch.diffusion import ddim_sample, make_schedule
+    from diffuvolume_tpu_torch.diffusion.ddim import KITTI12_DDIM as cfg
+    from diffuvolume_tpu_torch.eval.pipeline import pcw_ddim_inference, pcw_prep
+    from diffuvolume_tpu_torch.models.pcw_fold import fold_pcw
+    from diffuvolume_tpu_torch.tools.random_weights import seeded_pcw_path
+
+    bm, dm, left, right = seeded_pcw_path(dev, PCW_H, PCW_W, MAIN_DISP)
+    if packed:  # folded once, as a caller running many pairs does
+        bm, dm = fold_pcw(bm), fold_pcw(dm)
+
+    def pair(i):
+        gen = torch.Generator(device=dev).manual_seed(i)
+        return pcw_ddim_inference(bm, dm, left, right, cfg, device=dev, generator=gen,
+                                  packed=packed)
+
+    def stages():
+        t0 = time.perf_counter()
+        b_disp, b_lat, entry = pcw_prep(bm, dm, left, right, cfg, packed)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ddim_sample(make_schedule(1000, device=dev), cfg,
+                    lambda lat, t: dm.denoise(entry, lat, t, (PCW_H, PCW_W)),
+                    b_disp, b_lat, generator=torch.Generator(device=dev).manual_seed(7))
+        torch.cuda.synchronize()
+        return t0, t1, time.perf_counter()
+
+    return drive(dev, counters, pairs, pair, stages, PCW_STEPS, pcw_expected_launches(packed),
+                 packed, (1, PCW_H, PCW_W))
 
 
 KERNEL_META = {  # name → (source, TPU kernel file:line, its function)
@@ -707,6 +1053,13 @@ KERNEL_META = {  # name → (source, TPU kernel file:line, its function)
              "diffuvolume_tpu/ops/pallas/conv3d.py:675", "pack_padded_k"),
     "unpack": ("diffuvolume_tpu_torch/csrc/layout.cu",
                "diffuvolume_tpu/ops/pallas/conv3d.py:1140", "unpack_padded_k"),
+    "gwc_volume_packed": ("diffuvolume_tpu_torch/csrc/gwc_volume.cu",
+                          "diffuvolume_tpu/ops/pallas/gwc_volume.py:132", "gwc_volume_packed"),
+    "depthwise_hw_p": ("diffuvolume_tpu_torch/csrc/depthwise_hw.cu",
+                       "diffuvolume_tpu/ops/pallas/conv3d.py:792", "depthwise_hw_p"),
+    "fused_uncertainty_at": ("diffuvolume_tpu_torch/csrc/fused_head.cu",
+                             "diffuvolume_tpu/ops/pallas/fused_head.py:195",
+                             "fused_uncertainty_at"),
 }
 
 
@@ -719,9 +1072,10 @@ def main() -> int:
     from diffuvolume_tpu_torch.ops.kernels import concat_volume as kc
     from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
     from diffuvolume_tpu_torch.ops.kernels import conv3d_up as kup
+    from diffuvolume_tpu_torch.ops.kernels import depthwise as kd
+    from diffuvolume_tpu_torch.ops.kernels import fused_head as kf
+    from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
     from diffuvolume_tpu_torch.ops.kernels import layout as kl
-    from diffuvolume_tpu_torch.ops.kernels.fused_head import fused_upsample_softargmin
-    from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume
 
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
@@ -743,31 +1097,44 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log("  " + line.strip())
 
-    log("== 3. kernels against their plain versions (main-path shapes)")
+    log("== 3. kernels against their plain versions (both paths' shapes)")
     ncdhw = kernel_checks(dev)
-    checks = {**ncdhw, **volume_cl_checks(dev), **conv_checks(dev), **layout_checks(dev)}
+    checks = {**ncdhw, **volume_cl_checks(dev), **front_checks(dev),
+              **conv_checks(dev, CONV_CASES, "ACV"), **layout_checks(dev)}
+    checks["pcw_convs"] = conv_checks(dev, PCW_CONV_CASES, "PCW", iters=10)
+    t_checks = time.perf_counter() - t_start
 
-    log("== 4. small input: pipeline on the card against the CPU (float32)")
+    log("== 4. small input: each pipeline on the card against the CPU (float32)")
     agreement = small_agreement(dev)
 
-    counters = {"fused_head": fused_upsample_softargmin, "gwc_volume": gwc_volume,
+    counters = {"fused_head": kf.fused_upsample_softargmin, "gwc_volume": kg.gwc_volume,
                 "concat_volume": kc.concat_volume, "dhw_mul": kc.dhw_mul,
                 "conv3d_fold_p": kconv.conv3d_fold_p, "conv3d_fold_x2": kconv.conv3d_fold_x2,
                 "conv3d_fold_s2": kconv.conv3d_fold_s2, "conv3d_fold_up": kup.conv3d_fold_up,
-                "conv1x1_fold_p": kconv.conv1x1_fold_p, "pack": kl.pack, "unpack": kl.unpack}
-    log("== 5. main path: ACV two-pass DDIM-5, 512×960, B=1, bfloat16, folded (packed=True)")
-    run = main_path(dev, counters, packed=True, pairs=TIMED_PAIRS)
-    log("== 6. module path (packed=False), same inputs")
-    module_run = main_path(dev, counters, packed=False, pairs=MODULE_TIMED_PAIRS)
+                "conv1x1_fold_p": kconv.conv1x1_fold_p, "pack": kl.pack, "unpack": kl.unpack,
+                "gwc_volume_packed": kg.gwc_volume_packed, "depthwise_hw_p": kd.depthwise_hw_p,
+                "fused_uncertainty_at": kf.fused_uncertainty_at}
+    runs = {}
+    log("== 5. ACV main path: two-pass DDIM-5, 512×960, B=1, bfloat16, folded (packed=True)")
+    runs["acv_folded"] = main_path(dev, counters, packed=True, pairs=TIMED_PAIRS)
+    log("== 6. ACV module path (packed=False), same inputs")
+    runs["acv_module"] = main_path(dev, counters, packed=False, pairs=MODULE_TIMED_PAIRS)
+    log(f"== 7. PCW path: two-pass KITTI12 DDIM-3, {PCW_H}×{PCW_W}, B=1, bfloat16, folded")
+    runs["pcw_folded"] = pcw_path(dev, counters, packed=True, pairs=PCW_TIMED_PAIRS)
+    log("   PCW module path (packed=False), same inputs")
+    runs["pcw_module"] = pcw_path(dev, counters, packed=False, pairs=PCW_MODULE_TIMED_PAIRS)
 
     kernels = []
     for name, (source, replaces, tpu_fn) in KERNEL_META.items():
         c = checks[name]
+        launches = {path: r["launches"][name] for path, r in runs.items()}
+        if not sum(launches.values()):
+            raise AssertionError(f"{name} was launched on no path")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "tpu_kernel": f"{replaces.split(':')[0]}:{tpu_fn}",
-            "launches": run["launches"][name],
-            "launches_per_pair": run["launches_per_pair"][name],
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "launches_per_pair": {path: r["launches_per_pair"][name] for path, r in runs.items()},
             "max_abs_err": c["errs"]["float32"],
             "max_abs_err_bf16": c["errs"]["bfloat16"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
@@ -775,15 +1142,14 @@ def main() -> int:
         })
     kind = torch.cuda.get_device_name(0)
     elapsed = time.perf_counter() - t_start
-    log(f"== done in {elapsed:.1f} s")
+    log(f"== done in {elapsed:.1f} s (phases 1-3: {t_checks:.1f} s)")
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "build_s": build_s, "kernels": kernels, "kernel_checks": checks,
                    "ncdhw_volume_checks": {k: ncdhw[k] for k in ("concat_volume", "dhw_mul")},
-                   "agreement": agreement, "main_path": run, "module_path": module_run,
-                   "elapsed_s": elapsed}, f, indent=1)
+                   "agreement": agreement, "runs": runs, "elapsed_s": elapsed}, f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,7 +9,9 @@
 //   Plain version: ops/cost_volume.py concat_volume_mul.
 //
 // dv_dhw_mul: out = vol (B, C, D, H, W) × (m1 ⊙ m2) (B, D, H, W), the map
-// broadcast over channels (the DDIM step's attention × noise).
+// broadcast over channels (the ACV DDIM step's attention × noise); m2 may be
+// null, and then the map is m1 alone (the PCW step's noise on its 32-channel
+// combine volume).
 //   Replaces diffuvolume_tpu/ops/pallas/conv3d.py:packed_dhw_mul_k.
 //   Plain version: ops/cost_volume.py volume_dhw_mul.
 //
@@ -79,7 +81,7 @@ __global__ void dhw_mul_kernel(const T* __restrict__ vol, const T* __restrict__ 
   if (pos >= dhw) return;
   const int b = blockIdx.y;
   const size_t map_off = static_cast<size_t>(b) * dhw + pos;
-  const float m = to_f32(m1[map_off]) * to_f32(m2[map_off]);
+  const float m = to_f32(m1[map_off]) * (m2 ? to_f32(m2[map_off]) : 1.f);
   const size_t base = static_cast<size_t>(b) * c * dhw + pos;
 #pragma unroll 8
   for (int ch = 0; ch < c; ++ch) {
@@ -156,7 +158,7 @@ __global__ void dhw_mul_cl_kernel(const T* __restrict__ vol, const T* __restrict
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= positions * nvec) return;
   const long long pos = i / nvec;
-  const float m = to_f32(m1[pos]) * to_f32(m2[pos]);
+  const float m = to_f32(m1[pos]) * (m2 ? to_f32(m2[pos]) : 1.f);
   const size_t off = static_cast<size_t>(pos) * c + static_cast<size_t>(i % nvec) * kVec;
   uint4 raw = *reinterpret_cast<const uint4*>(vol + off);
   T* v = reinterpret_cast<T*>(&raw);

@@ -3,8 +3,9 @@
 //   out (B, 2D, 2H, 2W, Co) = act(deconv(x (B, D, H, W, Ci), w) + bias (+ res))
 // with w (3, 3, 3, Ci, Co) in the transposed conv's own tap order
 // (out[2i - 1 + k] += x[i]·w[k]; PyTorch's (Ci, Co, k, k, k) weight
-// permuted), act ReLU or none.  The hourglass adds its redir branch as the
-// residual before the ReLU: conv5 = relu(deconv(c4) + redir2(c2)).
+// permuted), act none, ReLU or Mish (conv_igemm.cuh Act).  The hourglass
+// adds its redir branch as the residual before the activation:
+// conv5 = act(deconv(c4) + redir2(c2)).
 //   Replaces diffuvolume_tpu/ops/pallas/conv3d.py:conv3d_fold_up (the k3
 //   form; its k4 form serves IGEV and waits for that slice).
 //   Plain version: ops/kernels/conv3d_up.py conv3d_up_plain.
@@ -22,13 +23,13 @@
 #include "conv_igemm.cuh"
 
 DV_EXPORT int dv_conv3d_up(const void* x, const void* w, const void* bias, const void* res,
-                           void* out, int b, int d, int h, int wd, int cin, int cout, int relu,
+                           void* out, int b, int d, int h, int wd, int cin, int cout, int act,
                            int dtype, int device, void* stream) {
   if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
   dv::igemm::Params p;
   p.x = x; p.w = w; p.bias = static_cast<const float*>(bias); p.res = res; p.out = out;
   p.b = b; p.d_in = d; p.h_in = h; p.w_in = wd; p.cin = cin; p.cout = cout;
-  p.ks = 3; p.stride = 2; p.pad = 1; p.relu = relu;
+  p.ks = 3; p.stride = 2; p.pad = 1; p.act = act;
   p.d_out = 2 * d; p.h_out = 2 * h; p.w_out = 2 * wd;
   return dv::igemm::launch<true>(p, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -21,9 +21,10 @@
 // transposed conv holds one output parity per axis, so every row of its tile
 // shares one tap list and reads dense input positions.
 //
-// Epilogue in float32: + bias, + residual (same shape as the output), ReLU,
-// one rounding to bfloat16.  The float32 form is a plain FMA kernel (no TF32)
-// used where the agreement with the CPU is checked.
+// Epilogue in float32: + bias, + residual (same shape as the output), the
+// activation (none, ReLU or Mish), one rounding to bfloat16.  The float32
+// form is a plain FMA kernel (no TF32) used where the agreement with the CPU
+// is checked.
 #pragma once
 
 #include "common.cuh"
@@ -43,8 +44,26 @@ struct Params {
   void* out;
   int b, d_in, h_in, w_in, cin;
   int d_out, h_out, w_out, cout;
-  int ks, stride, pad, relu;
+  int ks, stride, pad, act;  // act: an Act code
 };
+
+// Activation codes, as in ops/kernels/conv3d_fold.py ACT_CODES.
+enum Act { kActNone = 0, kActRelu = 1, kActMish = 2 };
+
+// Mish as the TPU kernels take it (diffuvolume_tpu/ops/pallas/conv3d.py
+// _apply_act): x·tanh(softplus(x)) = x·((1+eˣ)² − 1)/((1+eˣ)² + 1), one exp;
+// x above 20 passes through (tanh has saturated), which also keeps eˣ finite.
+// Always in float32, so a bf16 output never sees the intermediate.
+__device__ __forceinline__ float activate(float x, int act) {
+  if (act == kActRelu) return fmaxf(x, 0.f);
+  if (act == kActMish) {
+    if (x > 20.f) return x;
+    const float z = expf(x);
+    const float t = (1.f + z) * (1.f + z);
+    return x * (t - 1.f) / (t + 1.f);
+  }
+  return x;
+}
 
 // The taps of one axis: tap t reads kernel index k[t] at input base + off[t].
 struct Taps {
@@ -331,12 +350,12 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
       uint4 ov;
       bf16* oo = reinterpret_cast<bf16*>(&ov);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) oo[k] = __float2bfloat16(p.relu ? fmaxf(v[k], 0.f) : v[k]);
+      for (int k = 0; k < 8; ++k) oo[k] = __float2bfloat16(activate(v[k], p.act));
       *reinterpret_cast<uint4*>(out + o) = ov;
     } else {
       float v = c[0] + (p.bias ? p.bias[co] : 0.f);
       if (res) v += __bfloat162float(res[o]);
-      out[o] = __float2bfloat16(p.relu ? fmaxf(v, 0.f) : v);
+      out[o] = __float2bfloat16(activate(v, p.act));
     }
   }
 }
@@ -382,8 +401,7 @@ __global__ void direct_f32(Params p) {
   }
   if (p.bias) acc += p.bias[co];
   if (p.res) acc += static_cast<const float*>(p.res)[e];
-  if (p.relu) acc = fmaxf(acc, 0.f);
-  static_cast<float*>(p.out)[e] = acc;
+  static_cast<float*>(p.out)[e] = activate(acc, p.act);
 }
 
 template <bool UP, int BN, int CK>

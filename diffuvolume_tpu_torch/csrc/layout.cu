@@ -2,9 +2,9 @@
 // kernels.
 //
 // dv_pack:   x (B, C, S) → out (B, S, c_slot), S = D·H·W, channels
-//            C..c_slot zero-filled (the 40-channel patch volume enters the
-//            48-slot conv; the attention block's output re-enters the
-//            hourglass).
+//            C..c_slot zero-filled (the attention block's output re-enters
+//            the hourglass; the slot fill serves volumes narrower than the
+//            conv's 16-channel step).
 //   Replaces diffuvolume_tpu/ops/pallas/conv3d.py:pack_padded_k.
 // dv_unpack: x (B, S, C) → out (B, C, S) (the hourglass bottleneck enters
 //            the attention block).
@@ -13,8 +13,7 @@
 //
 // What bounds them on the H100: bytes; one read and one write of the volume
 // (the 128-channel bottleneck at (12, 32, 60) is 5.9 MB each way in bf16,
-// 3.5 µs at 3.35 TB/s; the 48-slot patch volume at (48, 128, 240) reads 113
-// MB and writes 136 MB).
+// 3.5 µs at 3.35 TB/s).
 //
 // Design: the classic shared-memory transpose.  A 32×32 tile (32 positions
 // × 32 channels) is read coalesced along the input's minor axis and written

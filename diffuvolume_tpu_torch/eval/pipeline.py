@@ -1,19 +1,21 @@
-"""Two-model DDIM inference for the ACVNet backbone.
+"""Two-model DDIM inference for the ACVNet and PCWNet backbones.
 
-Counterpart of ``diffuvolume_tpu/eval/pipeline.py:acv_ddim_inference``: pass 1
-runs the frozen baseline for an initial disparity; pass 2 feeds it to the
-DiffuVolume model as conditioning and runs the short DDIM loop.  As in the
-JAX package's packed pipeline, the prep builds the DDIM model's concat
-volume once, without attention, and each denoise step pays only the
-attention × noise multiply.
+Counterpart of ``diffuvolume_tpu/eval/pipeline.py:acv_ddim_inference`` and
+``pcw_ddim_inference``: pass 1 runs the frozen baseline for an initial
+disparity; pass 2 feeds it to the DiffuVolume model as conditioning and runs
+the short DDIM loop.  As in the JAX package's packed pipelines, the prep
+builds the DDIM model's volume once (ACV: the concat volume without
+attention; PCW: the fused multi-scale combine volume), and each denoise step
+pays only the multiply of its noise into it.
 
 ``packed=True`` (the default) runs both passes on the folded path
-(``models/acv_fold.py``: BatchNorm folded into the 3-D conv kernels,
-channels-last volumes), the counterpart of the JAX package's
-``acv_prep_fast`` / ``acv_denoise_fast``; ``packed=False`` runs the module
-path.  A shape the folded path cannot take raises; it does not switch path.
-Folding costs a few hundred small device ops: a caller that runs many pairs
-passes ``fold_acv(model)`` for each model, folded once.
+(``models/acv_fold.py``, ``models/pcw_fold.py``: BatchNorm folded into the
+3-D conv kernels, channels-last volumes), the counterpart of the JAX
+package's ``acv_prep_fast`` / ``acv_denoise_fast`` and ``pcw_prep_fast`` /
+``pcw_denoise_fast``; ``packed=False`` runs the module path.  A shape the
+folded path cannot take raises; it does not switch path.  Folding costs a
+few hundred small device ops: a caller that runs many pairs passes
+``fold_acv(model)`` / ``fold_pcw(model)`` for each model, folded once.
 """
 
 from __future__ import annotations
@@ -22,27 +24,61 @@ import torch
 
 from diffuvolume_tpu_torch.diffusion import DDIMConfig, ddim_sample, make_schedule
 from diffuvolume_tpu_torch.diffusion.codec import encode_disparity_volume
+from diffuvolume_tpu_torch.diffusion.ddim import KITTI12_DDIM
 from diffuvolume_tpu_torch.models.acv import ACVNet, ConcatEntry
 from diffuvolume_tpu_torch.models.acv_fold import FoldedACV, fold_acv
+from diffuvolume_tpu_torch.models.pcw import PCWEntry, PCWNet
+from diffuvolume_tpu_torch.models.pcw_fold import FoldedPCW, fold_pcw
 from diffuvolume_tpu_torch.ops.kernels.concat_volume import concat_volume
 from diffuvolume_tpu_torch.ops.regression import resize_bilinear
 from diffuvolume_tpu_torch.utils.device import resolve_device
 
+_FOLDS = {FoldedACV: fold_acv, FoldedPCW: fold_pcw}
 
-def _check_on(model: ACVNet, dev: torch.device) -> None:
+
+def _check_on(model, dev: torch.device) -> None:
     p = next(model.parameters())
     if p.device.type != dev.type or (dev.index is not None and p.device.index != dev.index):
         raise ValueError(f"model is on {p.device}, inference asked for {dev}")
 
 
-def _on_path(model: ACVNet | FoldedACV, packed: bool) -> ACVNet | FoldedACV:
-    """The model that runs ``packed``'s path: a ``FoldedACV`` as it is, an
-    ``ACVNet`` folded on the folded path and as it is on the module path."""
-    if isinstance(model, FoldedACV):
+def _on_path(model, packed: bool, folded: type):
+    """The model that runs ``packed``'s path: a fold (``folded``) as it is,
+    a model folded on the folded path and as it is on the module path."""
+    if isinstance(model, folded):
         if not packed:
-            raise TypeError("a FoldedACV runs only the folded path (packed=True)")
+            raise TypeError(f"a {folded.__name__} runs only the folded path (packed=True)")
         return model
-    return fold_acv(model) if packed else model
+    return _FOLDS[folded](model) if packed else model
+
+
+def _baseline_latent(baseline_disp: torch.Tensor, cfg: DDIMConfig, h4: int, w4: int):
+    """Conditioning: clamp → bilinear ↓4 → /4 → the encoded latent."""
+    disp_q = resize_bilinear(
+        baseline_disp.clamp(0.0, cfg.max_disp - 1), (h4, w4), 1, 2) / 4.0
+    return encode_disparity_volume(disp_q, cfg.num_bins, cfg.scale)
+
+
+def _inputs(models, folded: type, packed: bool, left, right, device):
+    dev = resolve_device(device)
+    models = [_on_path(m, packed, folded) for m in models]
+    for model in models:
+        _check_on(model.model if packed else model, dev)
+    left = torch.as_tensor(left, device=dev, dtype=torch.float32)
+    right = torch.as_tensor(right, device=dev, dtype=torch.float32)
+    return dev, models, left, right
+
+
+def _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
+            noise_source, out_hw):
+    sched = make_schedule(1000, device=dev)
+
+    def denoise_fn(latent, t):
+        return ddim_model.denoise(entry, latent, t, out_hw)
+
+    final, _ = ddim_sample(sched, cfg, denoise_fn, baseline_disp, baseline_latent,
+                           generator=generator, noise_source=noise_source)
+    return final, baseline_disp.float()
 
 
 @torch.no_grad()
@@ -51,15 +87,13 @@ def acv_prep(baseline_model: ACVNet | FoldedACV, ddim_model: ACVNet | FoldedACV,
     """Pass 1 and the sampler's inputs: ``(baseline_disp (B,H,W), baseline_latent
     (B,D,H4,W4), ConcatEntry)``; the entry's volume is channels-last when
     ``packed``."""
-    h4, w4 = left.shape[1] // 4, left.shape[2] // 4
-    baseline_model, ddim_model = (_on_path(m, packed) for m in (baseline_model, ddim_model))
+    baseline_model, ddim_model = (_on_path(m, packed, FoldedACV)
+                                  for m in (baseline_model, ddim_model))
     baseline_disp = baseline_model(left, right)[-1]
     cl, cr, att = ddim_model.build_cost_volume(left, right)
     entry = ConcatEntry(concat_volume(cl, cr, cfg.num_bins, channels_last=packed), att)
-    # Conditioning: clamp → bilinear ↓4 → /4.
-    disp_q = resize_bilinear(
-        baseline_disp.clamp(0.0, cfg.max_disp - 1), (h4, w4), 1, 2) / 4.0
-    baseline_latent = encode_disparity_volume(disp_q, cfg.num_bins, cfg.scale)
+    baseline_latent = _baseline_latent(baseline_disp, cfg, left.shape[1] // 4,
+                                       left.shape[2] // 4)
     return baseline_disp, baseline_latent, entry
 
 
@@ -93,20 +127,57 @@ def acv_ddim_inference(
 
     Returns ``(final_disp (B,H,W), baseline_disp (B,H,W))``, float32.
     """
-    dev = resolve_device(device)
-    baseline_model, ddim_model = (_on_path(m, packed) for m in (baseline_model, ddim_model))
-    for model in (baseline_model, ddim_model):
-        _check_on(model.model if packed else model, dev)
-    left = torch.as_tensor(left, device=dev, dtype=torch.float32)
-    right = torch.as_tensor(right, device=dev, dtype=torch.float32)
-    out_hw = (left.shape[1], left.shape[2])
+    dev, (baseline_model, ddim_model), left, right = _inputs(
+        (baseline_model, ddim_model), FoldedACV, packed, left, right, device)
     baseline_disp, baseline_latent, entry = acv_prep(
         baseline_model, ddim_model, left, right, cfg, packed)
-    sched = make_schedule(1000, device=dev)
+    return _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
+                   noise_source, (left.shape[1], left.shape[2]))
 
-    def denoise_fn(latent, t):
-        return ddim_model.denoise(entry, latent, t, out_hw)
 
-    final, _ = ddim_sample(sched, cfg, denoise_fn, baseline_disp, baseline_latent,
-                           generator=generator, noise_source=noise_source)
-    return final, baseline_disp.float()
+@torch.no_grad()
+def pcw_prep(baseline_model: PCWNet | FoldedPCW, ddim_model: PCWNet | FoldedPCW,
+             left: torch.Tensor, right: torch.Tensor, cfg: DDIMConfig = KITTI12_DDIM,
+             packed: bool = True):
+    """Pass 1 and the sampler's inputs (``_pcw_stages``'s prep): ``(baseline_disp
+    (B,H,W), baseline_latent (B,D,H4,W4), PCWEntry)``; the entry's combine
+    volume is channels-last when ``packed``."""
+    baseline_model, ddim_model = (_on_path(m, packed, FoldedPCW)
+                                  for m in (baseline_model, ddim_model))
+    baseline_disp = baseline_model(left, right)[-1]
+    combine, _, fl, fr = ddim_model.build_cost_volume(left, right)
+    baseline_latent = _baseline_latent(baseline_disp, cfg, left.shape[1] // 4,
+                                       left.shape[2] // 4)
+    return baseline_disp, baseline_latent, PCWEntry(combine, fl, fr)
+
+
+@torch.no_grad()
+def pcw_ddim_inference(
+    baseline_model: PCWNet | FoldedPCW,
+    ddim_model: PCWNet | FoldedPCW,
+    left,
+    right,
+    cfg: DDIMConfig = KITTI12_DDIM,
+    *,
+    device: str | torch.device | None = None,
+    generator: torch.Generator | None = None,
+    noise_source: dict | None = None,
+    packed: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-pass DiffuVolume inference for the PCWNet backbone (the reference's
+    KITTI12 contract: the frozen PCWNet pass, then the DDIM-3 model with the
+    KITTI12 sampler variant, ``KITTI12_DDIM``).
+
+    Arguments as ``acv_ddim_inference``'s, with ``PCWNet``s (``diffusion``
+    off / on) or their ``fold_pcw`` results.  The folded path needs H, W and
+    ``max_disp`` to be multiples of 32 (three stride-2 levels below 1/4);
+    it raises on any other shape.
+
+    Returns ``(final_disp (B,H,W), baseline_disp (B,H,W))``, float32.
+    """
+    dev, (baseline_model, ddim_model), left, right = _inputs(
+        (baseline_model, ddim_model), FoldedPCW, packed, left, right, device)
+    baseline_disp, baseline_latent, entry = pcw_prep(
+        baseline_model, ddim_model, left, right, cfg, packed)
+    return _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
+                   noise_source, (left.shape[1], left.shape[2]))

@@ -105,17 +105,21 @@ class ACVNet(nn.Module):
 
     # ---- volume construction ----
 
+    def trunk(self, left: torch.Tensor, right: torch.Tensor):
+        """``(B, H, W, 3)`` images → the trunk features ``(B, 320, H4, W4)``
+        of both views, in the model's dtype."""
+        dt = self.dtype
+        left = left.to(dt).permute(0, 3, 1, 2).contiguous()
+        right = right.to(dt).permute(0, 3, 1, 2).contiguous()
+        return (self.feature_extraction(left).contiguous(),
+                self.feature_extraction(right).contiguous())
+
     def features(self, left: torch.Tensor, right: torch.Tensor):
         """``(B, H, W, 3)`` images → ``(feat_l, feat_r, patch_volume)``: the
         trunk features ``(B, 320, H4, W4)`` and the GWC volume after the
         patch convs ``(B, G, D, H4, W4)``, in the model's dtype."""
-        dt = self.dtype
-        left = left.to(dt).permute(0, 3, 1, 2).contiguous()
-        right = right.to(dt).permute(0, 3, 1, 2).contiguous()
-        feat_l = self.feature_extraction(left)
-        feat_r = self.feature_extraction(right)
-        gwc = gwc_volume(feat_l.contiguous(), feat_r.contiguous(),
-                         self.max_disp // 4, self.num_groups)
+        feat_l, feat_r = self.trunk(left, right)
+        gwc = gwc_volume(feat_l, feat_r, self.max_disp // 4, self.num_groups)
         gwc = self.patch(gwc)
         patch_volume = torch.cat([
             self.patch_l1(gwc[:, :8]),

@@ -8,13 +8,21 @@ acv.py``: ``_fold_convbn_params`` / ``_fold_convbn_tree`` /
 
 ``fold_acv(model)`` folds once into a ``FoldedACV``: per conv, the weight
 ``(k, k, k, C_in, C_out)`` in the model's dtype (folded in float32, then
-cast, as the JAX code does) and the bias ``(C_out,)`` in float32.
+cast, as the JAX code does) and the bias ``(C_out,)`` in float32; the patch
+convs' per-channel stencils ``(3, 3, 48)`` in float32 with their dilations.
 Fold once per model and pass the ``FoldedACV`` to
 ``eval/pipeline.py:acv_ddim_inference`` (fold again after changing the
 model's weights); given the ``ACVNet``, the pipeline folds it for that call.
-The volumes between convs are ``(B, D, H4, W4, C)``; the modules the folded
-path does not touch (feature trunk, concat convs, depthwise patch convs,
-window attention, time embedding) run as they are on the module path.
+The volumes between convs are ``(B, D, H4, W4, C)``.  The attention chain's
+front is channels-last from the start (``acv.py:595-612`` of the JAX
+package): the GWC volume is written straight into its 48-channel slot
+(``gwc_volume_packed``), the patch convs run on it as two per-channel
+stencil launches (``depthwise_hw_p``), and ``dres1_att_0`` reads it.  The
+modules the folded path does not touch (feature trunk, concat convs, window
+attention, time embedding) run as they are on the module path.
+
+The folding helpers and ``hourglass_folded`` also serve PCWNet's folded
+path (``models/pcw_fold.py``), with Mish in the epilogues.
 
 The path needs D, H/4 and W/4 to be multiples of 4 (two stride-2 levels
 that the transposed convs undo); on any other shape it raises.
@@ -33,8 +41,8 @@ from diffuvolume_tpu_torch.models.layers import (
     ConvBN,
     ConvTransposeBN,
     HeadConv3D,
-    HourglassACV,
 )
+from diffuvolume_tpu_torch.ops.cost_volume import slot_width
 from diffuvolume_tpu_torch.ops.kernels.concat_volume import concat_volume, dhw_mul
 from diffuvolume_tpu_torch.ops.kernels.conv3d_fold import (
     conv1x1_fold_p,
@@ -43,7 +51,9 @@ from diffuvolume_tpu_torch.ops.kernels.conv3d_fold import (
     conv3d_fold_x2,
 )
 from diffuvolume_tpu_torch.ops.kernels.conv3d_up import conv3d_fold_up
+from diffuvolume_tpu_torch.ops.kernels.depthwise import depthwise_hw_p
 from diffuvolume_tpu_torch.ops.kernels.fused_head import fused_upsample_softargmin
+from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume_packed
 from diffuvolume_tpu_torch.ops.kernels.layout import pack, unpack
 
 
@@ -77,9 +87,34 @@ def fold_deconvbn(m: ConvTransposeBN) -> FoldedConv:
     return FoldedConv(w.to(deconv.weight.dtype).contiguous(), shift.contiguous())
 
 
-def fold_head(conv: HeadConv3D) -> FoldedConv:
-    """The classifier head's ``C → 1`` conv: no BatchNorm, no bias."""
+def fold_head(conv: HeadConv3D | torch.nn.Conv3d) -> FoldedConv:
+    """A bare ``Conv3d``, no BatchNorm and no bias: the classifier heads'
+    ``C → 1`` conv, PCW's strided ``HourglassUp`` convs."""
     return FoldedConv(conv.weight.permute(2, 3, 4, 1, 0).contiguous(), None)
+
+
+class FoldedStencil(NamedTuple):
+    w: torch.Tensor               # (3, 3, C) float32, one (1, 3, 3) stencil a channel
+    dil: tuple[int, ...]          # the dilation of each channel
+
+
+def fold_patch_convs(model: ACVNet, c_slot: int) -> tuple[FoldedStencil, FoldedStencil]:
+    """The patch convs (``acv.py:72-79``) as per-channel stencils on the
+    ``c_slot``-channel volume: ``patch`` on all G channels at dilation 1,
+    then ``patch_l1 / l2 / l3`` on channels 0–7, 8–23 and 24–39 at
+    dilations 1, 2 and 3; the fill channels get zero weights (dilation 1)."""
+
+    def stencil(parts):
+        w = torch.zeros((3, 3, c_slot), dtype=torch.float32, device=model.patch.weight.device)
+        dil = [1] * c_slot
+        for conv, lo in parts:
+            n = conv.weight.shape[0]
+            w[:, :, lo:lo + n] = conv.weight.float()[:, 0, 0].permute(1, 2, 0)
+            dil[lo:lo + n] = [conv.dilation[1]] * n
+        return FoldedStencil(w.contiguous(), tuple(dil))
+
+    return (stencil([(model.patch, 0)]),
+            stencil([(model.patch_l1, 0), (model.patch_l2, 8), (model.patch_l3, 24)]))
 
 
 class FoldedHourglass(NamedTuple):
@@ -91,28 +126,32 @@ class FoldedHourglass(NamedTuple):
     conv6: FoldedConv
     redir1: FoldedConv
     redir2: FoldedConv
-    attention: AttentionBlock3D
+    attention: AttentionBlock3D | None
 
 
-def fold_hourglass(hg: HourglassACV) -> FoldedHourglass:
+def fold_hourglass(hg) -> FoldedHourglass:
+    """``HourglassACV`` (window attention at the bottleneck) or PCW's
+    ``HourglassMish`` (none): the same six convs and two redirs."""
     return FoldedHourglass(
         *(fold_convbn(getattr(hg, f"conv{i}")[0]) for i in (1, 2, 3, 4)),
         fold_deconvbn(hg.conv5), fold_deconvbn(hg.conv6),
-        fold_convbn(hg.redir1), fold_convbn(hg.redir2), hg.attention_block,
+        fold_convbn(hg.redir1), fold_convbn(hg.redir2), getattr(hg, "attention_block", None),
     )
 
 
-def hourglass_folded(hg: FoldedHourglass, x: torch.Tensor) -> torch.Tensor:
-    """``HourglassACV`` on a ``(B, D, H, W, C)`` volume (``acv.py:301-356``):
-    conv1 s2 → conv2 → conv3 s2 → conv4 → unpack → attention → pack →
-    conv5 = relu(deconv + redir2) → conv6 = relu(deconv + redir1)."""
-    c1 = conv3d_fold_s2(x, *hg.conv1, relu=True)
-    c2 = conv3d_fold_p(c1, *hg.conv2, relu=True)
-    c3 = conv3d_fold_s2(c2, *hg.conv3, relu=True)
-    c4 = conv3d_fold_p(c3, *hg.conv4, relu=True)
-    c4 = pack(hg.attention(unpack(c4)))
-    c5 = conv3d_fold_up(c4, *hg.conv5, residual=conv1x1_fold_p(c2, *hg.redir2), relu=True)
-    return conv3d_fold_up(c5, *hg.conv6, residual=conv1x1_fold_p(x, *hg.redir1), relu=True)
+def hourglass_folded(hg: FoldedHourglass, x: torch.Tensor, act: str = "relu") -> torch.Tensor:
+    """The hourglass on a ``(B, D, H, W, C)`` volume (``acv.py:301-356``,
+    ``pcw.py:186-205``): conv1 s2 → conv2 → conv3 s2 → conv4 → [unpack →
+    attention → pack] → conv5 = act(deconv + redir2) → conv6 = act(deconv +
+    redir1)."""
+    c1 = conv3d_fold_s2(x, *hg.conv1, act=act)
+    c2 = conv3d_fold_p(c1, *hg.conv2, act=act)
+    c3 = conv3d_fold_s2(c2, *hg.conv3, act=act)
+    c4 = conv3d_fold_p(c3, *hg.conv4, act=act)
+    if hg.attention is not None:
+        c4 = pack(hg.attention(unpack(c4)))
+    c5 = conv3d_fold_up(c4, *hg.conv5, residual=conv1x1_fold_p(c2, *hg.redir2), act=act)
+    return conv3d_fold_up(c5, *hg.conv6, residual=conv1x1_fold_p(x, *hg.redir1), act=act)
 
 
 def _check_geometry(d: int, h4: int, w4: int) -> None:
@@ -129,7 +168,8 @@ class FoldedACV:
         if model.training:
             raise ValueError("BatchNorm folding needs an eval-mode model")
         self.model = model
-        self.att_slot = -(-model.num_groups // 16) * 16  # 40 → 48, the kernels' K step
+        self.att_slot = slot_width(model.num_groups)  # 40 → 48, the kernels' K step
+        self.patch, self.patch_l123 = fold_patch_convs(model, self.att_slot)
         self.dres1_att_0 = fold_convbn(model.dres1_att_[0], self.att_slot)
         self.dres1_att_1 = fold_convbn(model.dres1_att_[2])
         self.dres2_att_ = fold_hourglass(model.dres2_att_)
@@ -145,16 +185,20 @@ class FoldedACV:
         self.classif2_1 = fold_head(model.classif2[2])
 
     def build_cost_volume(self, left: torch.Tensor, right: torch.Tensor):
-        """``ACVNet.build_cost_volume`` with the attention chain folded
-        (``acv.py:546-654``, its ``build_gwc_volume`` branch): the 40-channel
-        patch volume is packed into a 48-channel slot for dres1_att_0."""
+        """``ACVNet.build_cost_volume`` with the attention chain folded and
+        channels-last from the GWC volume on (``acv.py:546-654`` of the JAX
+        package, its packed branch, ``595-612``): the trunk, the 40-group
+        volume written into its 48-channel slot, the two patch stencils, then
+        ``dres1_att_0`` on the slot."""
         m = self.model
         _check_geometry(m.max_disp // 4, left.shape[1] // 4, left.shape[2] // 4)
-        feat_l, feat_r, patch_volume = m.features(left, right)
-        a = conv3d_fold_x2(pack(patch_volume, self.att_slot), *self.dres1_att_0, relu=True)
+        feat_l, feat_r = m.trunk(left, right)
+        vol = gwc_volume_packed(feat_l, feat_r, m.max_disp // 4, m.num_groups, self.att_slot)
+        vol = depthwise_hw_p(depthwise_hw_p(vol, *self.patch), *self.patch_l123)
+        a = conv3d_fold_x2(vol, *self.dres1_att_0, act="relu")
         a = conv3d_fold_p(a, *self.dres1_att_1)
         a = hourglass_folded(self.dres2_att_, a)
-        a = conv3d_fold_p(a, *self.classif_att_0, relu=True)
+        a = conv3d_fold_p(a, *self.classif_att_0, act="relu")
         att_weights = conv3d_fold_p(a, *self.classif_att_1)[..., 0]  # (B, D, H4, W4)
         return m.concat_and_attention(feat_l, feat_r, att_weights)
 
@@ -163,12 +207,12 @@ class FoldedACV:
         (``acv.py:385-488``): dres0 → dres1 + residual → two hourglasses →
         classif2 → the fused head."""
         _check_geometry(*volume.shape[1:4])
-        x = conv3d_fold_x2(volume, *self.dres0_0, relu=True)
-        y = conv3d_fold_p(x, *self.dres0_1, relu=True)
-        z = conv3d_fold_p(y, *self.dres1_0, relu=True)
+        x = conv3d_fold_x2(volume, *self.dres0_0, act="relu")
+        y = conv3d_fold_p(x, *self.dres0_1, act="relu")
+        z = conv3d_fold_p(y, *self.dres1_0, act="relu")
         c0 = conv3d_fold_p(z, *self.dres1_1, residual=y)
         out2 = hourglass_folded(self.dres3, hourglass_folded(self.dres2, c0))
-        h = conv3d_fold_p(out2, *self.classif2_0, relu=True)
+        h = conv3d_fold_p(out2, *self.classif2_0, act="relu")
         cost = conv3d_fold_p(h, *self.classif2_1)[..., 0]  # (B, D, H4, W4)
         return fused_upsample_softargmin(cost.float().contiguous(), self.model.max_disp, out_hw)
 

@@ -1,10 +1,12 @@
-"""Building blocks of ACVNet in the reference's layout and module names.
+"""Building blocks of ACVNet and PCWNet in the reference's layout and module
+names.
 
-Counterpart of the ACV subset of ``diffuvolume_tpu/models/layers.py``.  The
-modules are built from ``nn.Sequential`` containers with the reference's
+Counterpart of the ACV and PCW subset of ``diffuvolume_tpu/models/layers.py``.
+The modules are built from ``nn.Sequential`` containers with the reference's
 indices (``convbn`` = ``Sequential(conv, bn)``, activations as their own
-entries), so a reference state dict loads by name.  Tensors are NCHW /
-NCDHW inside the network.
+entries), so a reference state dict loads by name.  ``ACTS`` names the
+activation modules (``"relu"`` for ACVNet, ``"mish"`` for PCWNet).  Tensors
+are NCHW / NCDHW inside the network.
 """
 
 from __future__ import annotations
@@ -18,7 +20,22 @@ import torch.nn.functional as F
 
 def mish(x: torch.Tensor) -> torch.Tensor:
     """x · tanh(softplus(x))."""
-    return x * torch.tanh(F.softplus(x))
+    return F.mish(x)
+
+
+class Mish(nn.Module):
+    """The reference's ``Mish`` module: x · tanh(softplus(x))."""
+
+    def forward(self, x):
+        return mish(x)
+
+
+# Activation name → module factory, the counterpart of the JAX package's
+# ``_ACTS`` for the activations the port's models use.
+ACTS = {
+    "relu": lambda: nn.ReLU(inplace=True),
+    "mish": Mish,
+}
 
 
 def _ntuple(x, n):
@@ -75,13 +92,15 @@ class ConvTransposeBN(nn.Sequential):
 
 
 class BasicBlock(nn.Module):
-    """2-D residual block (reference ``BasicBlock``, expansion 1)."""
+    """2-D residual block (reference ``BasicBlock``, expansion 1), with the
+    activation after conv1 named by ``act`` (ReLU for ACVNet, Mish for
+    PCWNet's ``BasicBlockMish``)."""
 
     def __init__(self, in_ch, out_ch, stride=1, pad=1, dilation=1,
-                 downsample=False):
+                 downsample=False, act: str = "relu"):
         super().__init__()
         self.conv1 = nn.Sequential(
-            ConvBN(in_ch, out_ch, 3, stride, pad, dilation), nn.ReLU(inplace=True)
+            ConvBN(in_ch, out_ch, 3, stride, pad, dilation), ACTS[act]()
         )
         self.conv2 = ConvBN(out_ch, out_ch, 3, 1, pad, dilation)
         self.downsample = ConvBN(in_ch, out_ch, 1, stride, 0) if downsample else None

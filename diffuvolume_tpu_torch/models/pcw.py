@@ -1,0 +1,341 @@
+"""PCWNet backbone and its DiffuVolume variant, eval only.
+
+Counterpart of ``diffuvolume_tpu/models/pcw.py`` (``PCWNet``:
+``build_cost_volume``, ``refine``, ``denoise``, the baseline eval forward):
+Mish activations, a feature pyramid to 1/32 with a group-wise + concat
+volume at each of 1/4 … 1/32, a multi-scale ``HourglassUp`` that fuses them,
+three Mish hourglasses, and a full-resolution warp-correlation refinement.
+Module names follow the reference state dict (KITTI12 ``pwcnet_ddim.py``,
+the keys ``tools/weights.py:pcw_rules`` lists), so its checkpoints load with
+``load_state_dict``.  Images enter as ``(B, H, W, 3)`` and disparities leave
+as ``(B, H, W)``; inside, features are NCHW and volumes NCDHW.
+
+The volume work runs on the port's kernels: each scale's volume is built by
+``gwc_volume_packed`` (then permuted to NCDHW), the step's noise multiply by
+``dhw_mul`` with one map, the head by ``fused_upsample_softargmin`` and the
+renewal score against the refined disparity by ``fused_uncertainty_at``.
+The 2-D and 3-D convolutions are PyTorch convolutions; ``models/pcw_fold.py``
+runs the 3-D ones on the port's kernels.  Eval runs one 2B trunk pass for
+both views.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn as nn
+
+from diffuvolume_tpu_torch.models.layers import (
+    ACTS,
+    BasicBlock,
+    ConvBN,
+    ConvTransposeBN,
+    DynamicHead,
+    HeadConv3D,
+    convbn_3d,
+    init_weights,
+)
+from diffuvolume_tpu_torch.ops.cost_volume import build_signed_correlation_volume
+from diffuvolume_tpu_torch.ops.kernels.concat_volume import dhw_mul
+from diffuvolume_tpu_torch.ops.kernels.fused_head import (
+    fused_uncertainty_at,
+    fused_upsample_softargmin,
+)
+from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume_packed
+from diffuvolume_tpu_torch.ops.regression import resize_bilinear
+from diffuvolume_tpu_torch.ops.sampling import warp_right_to_left
+
+# The refinement's signed correlation reaches ±24 px (pwcnet_ddim.py:486-502).
+REFINE_MAX_OFFSET = 24
+
+
+class PCWEntry(NamedTuple):
+    """The DDIM model's scan-invariant inputs to ``denoise``: the combine
+    volume (``(B, 32, D, H4, W4)`` on the module path, ``(B, D, H4, W4, 32)``
+    on the folded path) and the trunk features of both views, which the
+    refinement reads."""
+
+    volume: torch.Tensor
+    fl: dict
+    fr: dict
+
+
+def _make_layer(in_ch, out_ch, blocks, stride, dilation, act) -> nn.Sequential:
+    downsample = stride != 1 or in_ch != out_ch
+    layers = [BasicBlock(in_ch, out_ch, stride, 1, dilation, downsample, act)]
+    layers += [BasicBlock(out_ch, out_ch, 1, 1, dilation, act=act) for _ in range(blocks - 1)]
+    return nn.Sequential(*layers)
+
+
+def _head2d(in_ch, mid, out_ch, act) -> nn.Sequential:
+    """``Sequential(convbn 3×3, act, Conv2d 1×1)``: the gw and concat heads."""
+    return nn.Sequential(ConvBN(in_ch, mid, 3, 1, 1), ACTS[act](),
+                         nn.Conv2d(mid, out_ch, 1, bias=False))
+
+
+def _convbn3d_act(in_ch, out_ch, stride, act) -> nn.Sequential:
+    return nn.Sequential(convbn_3d(in_ch, out_ch, 3, stride, 1), ACTS[act]())
+
+
+class PCWFeatureExtractor(nn.Module):
+    """Pyramid to 1/32 (pwcnet_ddim.py:12-128): ``(B, 3, H, W)`` → the gw
+    features (320 channels at 1/4, 1/8, 1/16, 1/32), the concat features
+    (``concat_channels`` at each) and the 32-channel refinement feature."""
+
+    def __init__(self, concat_channels: int = 12, act: str = "mish"):
+        super().__init__()
+        a = ACTS[act]
+        self.firstconv = nn.Sequential(
+            ConvBN(3, 32, 3, 2, 1), a(), ConvBN(32, 32, 3, 1, 1), a(),
+            ConvBN(32, 32, 3, 1, 1), a())
+        self.layer1 = _make_layer(32, 32, 3, 1, 1, act)
+        self.layer2 = _make_layer(32, 64, 16, 2, 1, act)
+        self.layer3 = _make_layer(64, 128, 3, 1, 1, act)
+        self.layer4 = _make_layer(128, 128, 3, 1, 2, act)
+        self.layer5 = _make_layer(128, 192, 3, 2, 1, act)
+        self.layer7 = _make_layer(192, 256, 3, 2, 1, act)
+        self.layer9 = _make_layer(256, 512, 3, 2, 1, act)
+        self.layer11 = _head2d(320, 320, 320, act)
+        self.gw2 = _head2d(192, 320, 320, act)
+        self.gw3 = _head2d(256, 320, 320, act)
+        self.gw4 = _head2d(512, 320, 320, act)
+        self.layer_refine = nn.Sequential(ConvBN(320, 128, 3, 1, 1), a(),
+                                          ConvBN(128, 32, 1, 1, 0), a())
+        self.lastconv = _head2d(320, 128, concat_channels, act)
+        self.concat2 = _head2d(192, 128, concat_channels, act)
+        self.concat3 = _head2d(256, 128, concat_channels, act)
+        self.concat4 = _head2d(512, 128, concat_channels, act)
+
+    def forward(self, x) -> dict[str, torch.Tensor]:
+        x = self.layer1(self.firstconv(x))
+        l2 = self.layer2(x)
+        l3 = self.layer3(l2)
+        l4 = self.layer4(l3)
+        l5 = self.layer5(l4)
+        l6 = self.layer7(l5)
+        l7 = self.layer9(l6)
+        combine = torch.cat([l2, l3, l4], dim=1)  # 320 channels at 1/4
+        return {
+            "gw1": self.layer11(combine), "gw2": self.gw2(l5), "gw3": self.gw3(l6),
+            "gw4": self.gw4(l7),
+            "concat1": self.lastconv(combine), "concat2": self.concat2(l5),
+            "concat3": self.concat3(l6), "concat4": self.concat4(l7),
+            "refine": self.layer_refine(combine),
+        }
+
+
+class HourglassUp(nn.Module):
+    """The multi-scale combining hourglass (pwcnet_ddim.py:131-205): strided
+    3-D convs down to 1/32, each level fused with that scale's volume by a
+    conv over the concatenation, transposed convs back up with skips."""
+
+    def __init__(self, ch: int, act: str = "mish"):
+        super().__init__()
+        self.act = ACTS[act]()
+        self.conv1 = nn.Conv3d(ch, 2 * ch, 3, 2, 1, bias=False)
+        self.conv2 = _convbn3d_act(2 * ch, 2 * ch, 1, act)
+        self.conv3 = nn.Conv3d(2 * ch, 4 * ch, 3, 2, 1, bias=False)
+        self.conv4 = _convbn3d_act(4 * ch, 4 * ch, 1, act)
+        self.conv5 = nn.Conv3d(4 * ch, 4 * ch, 3, 2, 1, bias=False)
+        self.conv6 = _convbn3d_act(4 * ch, 4 * ch, 1, act)
+        self.conv7 = ConvTransposeBN(4 * ch, 4 * ch)
+        self.conv8 = ConvTransposeBN(4 * ch, 2 * ch)
+        self.conv9 = ConvTransposeBN(2 * ch, ch)
+        # Each scale's volume has 2·ch channels (40 groups + 2 × 12 concat).
+        self.combine1 = _convbn3d_act(4 * ch, 2 * ch, 1, act)
+        self.combine2 = _convbn3d_act(6 * ch, 4 * ch, 1, act)
+        self.combine3 = _convbn3d_act(6 * ch, 4 * ch, 1, act)
+        self.redir1 = convbn_3d(ch, ch, 1, 1, 0)
+        self.redir2 = convbn_3d(2 * ch, 2 * ch, 1, 1, 0)
+        self.redir3 = convbn_3d(4 * ch, 4 * ch, 1, 1, 0)
+
+    def forward(self, x, feature4, feature5, feature6):
+        conv1 = self.combine1(torch.cat([self.conv1(x), feature4], dim=1))
+        conv2 = self.conv2(conv1)
+        conv3 = self.combine2(torch.cat([self.conv3(conv2), feature5], dim=1))
+        conv4 = self.conv4(conv3)
+        conv5 = self.combine3(torch.cat([self.conv5(conv4), feature6], dim=1))
+        conv6 = self.conv6(conv5)
+        conv7 = self.act(self.conv7(conv6) + self.redir3(conv4))
+        conv8 = self.act(self.conv8(conv7) + self.redir2(conv2))
+        return self.act(self.conv9(conv8) + self.redir1(x))
+
+
+class HourglassMish(nn.Module):
+    """The plain hourglass without attention (pwcnet_ddim.py:208-248)."""
+
+    def __init__(self, ch: int, act: str = "mish"):
+        super().__init__()
+        self.act = ACTS[act]()
+        self.conv1 = _convbn3d_act(ch, 2 * ch, 2, act)
+        self.conv2 = _convbn3d_act(2 * ch, 2 * ch, 1, act)
+        self.conv3 = _convbn3d_act(2 * ch, 4 * ch, 2, act)
+        self.conv4 = _convbn3d_act(4 * ch, 4 * ch, 1, act)
+        self.conv5 = ConvTransposeBN(4 * ch, 2 * ch)
+        self.conv6 = ConvTransposeBN(2 * ch, ch)
+        self.redir1 = convbn_3d(ch, ch, 1, 1, 0)
+        self.redir2 = convbn_3d(2 * ch, 2 * ch, 1, 1, 0)
+
+    def forward(self, x):
+        c2 = self.conv2(self.conv1(x))
+        c4 = self.conv4(self.conv3(c2))
+        c5 = self.act(self.conv5(c4) + self.redir2(c2))
+        return self.act(self.conv6(c5) + self.redir1(x))
+
+
+class RefineNetV3(nn.Module):
+    """Full-resolution dilated refinement net → residual disparity
+    (pwcnet_ddim.py:251-306); input 146 channels."""
+
+    def __init__(self, in_ch: int = 146, act: str = "mish"):
+        super().__init__()
+        a = ACTS[act]
+        self.conv1 = nn.Sequential(ConvBN(in_ch, 128, 3, 1, 1), a())
+        self.conv2 = nn.Sequential(ConvBN(128, 128, 3, 1, 1), a())
+        self.conv3 = nn.Sequential(ConvBN(128, 128, 3, 1, 2, 2), a())
+        self.conv4 = nn.Sequential(ConvBN(128, 128, 3, 1, 4, 4), a())
+        self.conv5 = nn.Sequential(BasicBlock(128, 96, 1, 1, 8, True, act))
+        self.conv6 = nn.Sequential(BasicBlock(96, 64, 1, 1, 16, True, act))
+        self.conv7 = nn.Sequential(BasicBlock(64, 32, 1, 1, 1, True, act))
+        self.conv8 = nn.Conv2d(32, 1, 3, 1, 1, bias=False)
+
+    def forward(self, x, disp):
+        for i in range(1, 9):
+            x = getattr(self, f"conv{i}")(x)
+        return disp + x[:, 0].float()
+
+
+def _classif(act) -> nn.Sequential:
+    return nn.Sequential(convbn_3d(32, 32, 3, 1, 1), ACTS[act](), HeadConv3D(32))
+
+
+class PCWNet(nn.Module):
+    """PCWNet with multi-scale volume fusion (the concat-volume variant),
+    optionally with the DiffuVolume time embedding (``diffusion=True``)."""
+
+    def __init__(self, max_disp: int = 192, diffusion: bool = True, scale: float = 1.0,
+                 num_groups: int = 40, concat_channels: int = 12, act: str = "mish"):
+        super().__init__()
+        self.max_disp = max_disp
+        self.diffusion = diffusion
+        self.scale = scale
+        self.num_groups = num_groups
+        self.concat_channels = concat_channels
+        self.act = act
+        a = ACTS[act]
+        vol_ch = num_groups + 2 * concat_channels
+        self.feature_extraction = PCWFeatureExtractor(concat_channels, act)
+        self.dres0 = nn.Sequential(convbn_3d(vol_ch, 32, 3, 1, 1), a(),
+                                   convbn_3d(32, 32, 3, 1, 1), a())
+        self.dres1 = nn.Sequential(convbn_3d(32, 32, 3, 1, 1), a(), convbn_3d(32, 32, 3, 1, 1))
+        self.combine1 = HourglassUp(32, act)
+        if diffusion:
+            self.time_embedding = DynamicHead(max_disp // 4)
+        self.dres2 = HourglassMish(32, act)
+        self.dres3 = HourglassMish(32, act)
+        self.dres4 = HourglassMish(32, act)
+        for k in range(5):
+            setattr(self, f"classif{k}", _classif(act))
+        self.refinenet3 = RefineNetV3(act=act)
+        self.dispupsample = nn.Sequential(ConvBN(1, 32, 1, 1, 0), a())
+
+    def init_weights(self, generator: torch.Generator) -> "PCWNet":
+        """Draw every weight from ``generator`` (see ``layers.init_weights``)."""
+        init_weights(self, generator)
+        return self
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.classif3[2].weight.dtype
+
+    # ---- volume construction (pwcnet_ddim.py:605-641) ----
+
+    def features(self, left: torch.Tensor, right: torch.Tensor):
+        """``(B, H, W, 3)`` images → ``(fl, fr)``: the trunk's feature dicts of
+        both views, from one 2B pass, in the model's dtype."""
+        b = left.shape[0]
+        x = torch.cat([left, right], dim=0).to(self.dtype).permute(0, 3, 1, 2).contiguous()
+        feat = self.feature_extraction(x)
+        return ({k: v[:b].contiguous() for k, v in feat.items()},
+                {k: v[b:].contiguous() for k, v in feat.items()})
+
+    def volumes(self, fl: dict, fr: dict) -> list[torch.Tensor]:
+        """The four scales' volumes ``(B, D_s, H_s, W_s, 64)`` channels-last:
+        group-wise correlation, then the concat halves with the reference
+        side zeroed where ``w < d`` too, as KITTI12's concat volume is."""
+        md, g = self.max_disp, self.num_groups
+        return [gwc_volume_packed(fl[f"gw{i}"], fr[f"gw{i}"], md // (4 << (i - 1)), g,
+                                  cat_l=fl[f"concat{i}"], cat_r=fr[f"concat{i}"],
+                                  mask_ref=True)
+                for i in (1, 2, 3, 4)]
+
+    def build_cost_volume(self, left: torch.Tensor, right: torch.Tensor):
+        """``(B, H, W, 3)`` images → ``(combine (B, 32, D, H4, W4), cost0, fl,
+        fr)``: the fused multi-scale volume that the diffusion latent
+        multiplies."""
+        fl, fr = self.features(left, right)
+        c = self.num_groups + 2 * self.concat_channels
+        v1, v2, v3, v4 = (v[..., :c].permute(0, 4, 1, 2, 3).contiguous()
+                          for v in self.volumes(fl, fr))
+        cost0 = self.dres0(v1)
+        cost0 = self.dres1(cost0) + cost0
+        return self.combine1(cost0, v2, v3, v4), cost0, fl, fr
+
+    # ---- heads and refinement ----
+
+    def _head_cost(self, x: torch.Tensor) -> torch.Tensor:
+        return self.classif3(x)[:, 0].float().contiguous()  # (B, D, H4, W4)
+
+    def refine(self, pred3: torch.Tensor, fl: dict, fr: dict, out_hw: tuple[int, int]):
+        """Full-resolution warp + signed correlation refinement
+        (pwcnet_ddim.py:486-502, 712-734).  The prefix (resize, warp,
+        correlation) runs in float32; the refinement convs in the model's
+        dtype.  Returns the refined disparity ``(B, H, W)`` float32."""
+        dt = self.dtype
+        rl = resize_bilinear(fl["refine"].float(), out_hw, 2, 3, align_corners=True)
+        rr = resize_bilinear(fr["refine"].float(), out_hw, 2, 3, align_corners=True)
+        rr_warp = warp_right_to_left(rr, pred3)
+        corr = build_signed_correlation_volume(rl, rr_warp, REFINE_MAX_OFFSET)
+        p = pred3[:, None].to(dt)
+        x = torch.cat([(rl - rr_warp).to(dt), rl.to(dt), self.dispupsample(p), p, corr.to(dt)],
+                      dim=1)  # 32 + 32 + 32 + 1 + 49 = 146 channels
+        return self.refinenet3(x, pred3.float())
+
+    def embed_noise(self, latent: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """The time-embedded latent clamped to ±scale and rescaled to [0, 1]."""
+        noise = self.time_embedding(latent, t)
+        noise = noise.clamp(-self.scale, self.scale)
+        return (noise / self.scale + 1.0) / 2.0
+
+    def _aggregate(self, volume: torch.Tensor, fl: dict, fr: dict, out_hw, want_unc: bool):
+        out = self.dres4(self.dres3(self.dres2(volume)))
+        cost3 = self._head_cost(out)
+        pred3, _ = fused_upsample_softargmin(cost3, self.max_disp, out_hw, align_corners=True)
+        disp = self.refine(pred3, fl, fr, out_hw)
+        unc = (fused_uncertainty_at(cost3, disp, self.max_disp, out_hw, align_corners=True)
+               if want_unc else None)
+        return disp, unc
+
+    # ---- diffusion-conditioned single pass (pwcnet_ddim.py:467-530) ----
+
+    def denoise(self, entry: PCWEntry, latent: torch.Tensor, t: torch.Tensor,
+                out_hw: tuple[int, int]):
+        """Multiply the noisy latent's transform into the combine volume,
+        aggregate, regress, refine, and score the uncertainty against the
+        refined disparity (the reference's ``Σ|d − disp_finetune|·p3``).
+        Returns ``(disp_finetune, unc, transformed)``, float32."""
+        noise = self.embed_noise(latent, t)
+        vol = dhw_mul(entry.volume, noise.to(entry.volume.dtype).contiguous(), None)
+        disp, unc = self._aggregate(vol, entry.fl, entry.fr, out_hw, want_unc=True)
+        return disp, unc, noise.float()
+
+    # ---- baseline eval forward ----
+
+    def forward(self, left: torch.Tensor, right: torch.Tensor) -> list[torch.Tensor]:
+        """Eval forward: ``[disp_finetune (B, H, W)]`` from ``(B, H, W, 3)``
+        images."""
+        combine, _, fl, fr = self.build_cost_volume(left, right)
+        disp, _ = self._aggregate(combine, fl, fr, (left.shape[1], left.shape[2]),
+                                  want_unc=False)
+        return [disp]

@@ -37,18 +37,24 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     # cost, disp, unc, b, d4, h4, w4, d, h, w, align_corners
     "dv_fused_head": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
+    # cost, query, unc, b, d4, h4, w4, d, h, w, align_corners
+    "dv_fused_uncertainty_at": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
     # left, right, out, b, c, h, w, groups, d
     "dv_gwc_volume": [_P, _P, _P, _I, _I, _I, _I, _I, _I],
+    # left, right, cat_l|0, cat_r|0, out, b, c, cc, h, w, groups, d, slot, mask_ref
+    "dv_gwc_volume_slot": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I],
+    # x, wt, dil, out, b, d, h, w, c
+    "dv_depthwise_hw": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
     # cl, cr, att|0, out, b, c, d, h, w
     "dv_concat_volume": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
-    # vol, m1, m2, out, b, c, dhw
+    # vol, m1, m2|0, out, b, c, dhw
     "dv_dhw_mul": [_P, _P, _P, _P, _I, _I, _L],
     # the same two, channels-last output / volume
     "dv_concat_volume_cl": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
     "dv_dhw_mul_cl": [_P, _P, _P, _P, _I, _I, _L],
-    # x, w, bias|0, res|0, out, b, d, h, w, cin, cout, ks, stride, relu
+    # x, w, bias|0, res|0, out, b, d, h, w, cin, cout, ks, stride, act
     "dv_conv3d_fold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I],
-    # x, w, bias|0, res|0, out, b, d, h, w, cin, cout, relu
+    # x, w, bias|0, res|0, out, b, d, h, w, cin, cout, act
     "dv_conv3d_up": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
     # x, out, b, c, s, c_slot
     "dv_pack": [_P, _P, _I, _I, _L, _I],

@@ -4,7 +4,7 @@ Kernels: ``csrc/concat_volume.cu``.  ``concat_volume`` replaces
 ``diffuvolume_tpu/ops/pallas/conv3d.py:pack_concat_k`` (plain version
 ``ops/cost_volume.py:concat_volume_mul``); ``dhw_mul`` replaces
 ``diffuvolume_tpu/ops/pallas/conv3d.py:packed_dhw_mul_k`` (plain version
-``ops/cost_volume.py:volume_dhw_mul``).
+``ops/cost_volume.py:volume_dhw_mul``), with one map or two.
 
 The inference pipeline builds the scan-invariant volume once with
 ``att=None`` and each DDIM step pays only ``dhw_mul(volume, att, noise)``.
@@ -68,11 +68,12 @@ def concat_volume(
     return out
 
 
-def dhw_mul(vol: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
+def dhw_mul(vol: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor | None,
             channels_last: bool = False) -> torch.Tensor:
     """``vol (B, C, D, H, W) × (m1 ⊙ m2)`` with the ``(B, D, H, W)`` maps
     broadcast over channels, into a new volume (``vol`` is left as it is, so
-    the scan-invariant volume serves every step).  With ``channels_last`` the
+    the scan-invariant volume serves every step).  ``m2`` may be None: the
+    map is then ``m1`` alone (PCW's noise).  With ``channels_last`` the
     volume is ``(B, D, H, W, C)``, C in whole 16-byte vectors on a CUDA
     tensor.
 
@@ -86,9 +87,10 @@ def dhw_mul(vol: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
         b, d, h, w, c = vol.shape
     else:
         b, c, d, h, w = vol.shape
-    for m in (m1, m2):
+    maps = [m1] if m2 is None else [m1, m2]
+    for m in maps:
         _check_map(m, vol, (b, d, h, w))
-    _build.check_cuda(vol, m1, m2)
+    _build.check_cuda(vol, *maps)
     if channels_last:
         _check_vectors(c, vol, "dhw_mul")
         if vol.data_ptr() % 16:
@@ -96,7 +98,7 @@ def dhw_mul(vol: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
     out = torch.empty_like(vol)
     _build.launch(
         "dv_dhw_mul_cl" if channels_last else "dv_dhw_mul", vol, vol.data_ptr(),
-        m1.data_ptr(), m2.data_ptr(), out.data_ptr(), b, c, d * h * w,
+        m1.data_ptr(), None if m2 is None else m2.data_ptr(), out.data_ptr(), b, c, d * h * w,
     )
     dhw_mul.launches += 1
     return out

@@ -13,8 +13,10 @@ its own launch count:
 
 Plain version: ``conv3d_fold_plain``.  Layouts: activations ``(B, D, H, W,
 C)``, weights ``(k, k, k, C_in, C_out)`` in the model's dtype, bias
-``(C_out,)`` float32.  A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises.
+``(C_out,)`` float32.  The epilogue's activation ``act`` is ``None``,
+``"relu"`` (ACVNet) or ``"mish"`` (PCWNet), taken in float32 before the one
+rounding.  A CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -25,9 +27,27 @@ import torch.nn.functional as F
 from diffuvolume_tpu_torch.ops.kernels import _build
 
 
+# The kernels' activation codes (csrc/conv_igemm.cuh Act).
+ACT_CODES = {None: 0, "relu": 1, "mish": 2}
+
+
+def apply_act(y: torch.Tensor, act: str | None) -> torch.Tensor:
+    """The epilogue's activation on a float32 tensor.  Mish is taken as the
+    kernels take it: ``x·((1+eˣ)² − 1)/((1+eˣ)² + 1)``, ``x`` itself above
+    20."""
+    if act is None:
+        return y
+    if act == "relu":
+        return torch.relu(y)
+    if act == "mish":
+        t = (1.0 + torch.exp(y.clamp(max=20.0))) ** 2
+        return torch.where(y > 20.0, y, y * (t - 1.0) / (t + 1.0))
+    raise ValueError(f"act must be one of {list(ACT_CODES)}, got {act!r}")
+
+
 def conv3d_fold_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
                       stride: int = 1, residual: torch.Tensor | None = None,
-                      relu: bool = False) -> torch.Tensor:
+                      act: str | None = None) -> torch.Tensor:
     """``act(conv(x, w) + bias + residual)`` in float32 through ``F.conv3d``,
     rounded once to ``x``'s dtype; zero padding ``(k - 1) / 2``."""
     k = w.shape[0]
@@ -36,9 +56,7 @@ def conv3d_fold_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | Non
     y = y.permute(0, 2, 3, 4, 1)
     if residual is not None:
         y = y + residual.float()
-    if relu:
-        y = torch.relu(y)
-    return y.to(x.dtype).contiguous()
+    return apply_act(y, act).to(x.dtype).contiguous()
 
 
 def check_operands(x, w, bias, residual, out_shape, what: str) -> None:
@@ -68,12 +86,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _fold(x, w, bias, stride, residual, relu, ks, wrapper):
+def act_code(act: str | None) -> int:
+    if act not in ACT_CODES:
+        raise ValueError(f"act must be one of {list(ACT_CODES)}, got {act!r}")
+    return ACT_CODES[act]
+
+
+def _fold(x, w, bias, stride, residual, act, ks, wrapper):
     if w.shape[:3] != (ks, ks, ks):
         raise ValueError(f"{wrapper.__name__} takes a {ks}×{ks}×{ks} kernel, got "
                          f"{tuple(w.shape[:3])}")
+    code = act_code(act)
     if x.device.type == "cpu":
-        return conv3d_fold_plain(x, w, bias, stride, residual, relu)
+        return conv3d_fold_plain(x, w, bias, stride, residual, act)
     b, d, h, wd, cin = x.shape
     pad = (ks - 1) // 2
     osz = [(n + 2 * pad - ks) // stride + 1 for n in (d, h, wd)]
@@ -81,34 +106,34 @@ def _fold(x, w, bias, stride, residual, relu, ks, wrapper):
     check_operands(x, w, bias, residual, out_shape, wrapper.__name__)
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     _build.launch("dv_conv3d_fold", x, x.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual),
-                  out.data_ptr(), b, d, h, wd, cin, w.shape[4], ks, stride, int(relu))
+                  out.data_ptr(), b, d, h, wd, cin, w.shape[4], ks, stride, code)
     wrapper.launches += 1
     return out
 
 
 def conv3d_fold_p(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
-                  residual: torch.Tensor | None = None, relu: bool = False) -> torch.Tensor:
+                  residual: torch.Tensor | None = None, act: str | None = None) -> torch.Tensor:
     """3×3×3 stride-1 conv, ``(B, D, H, W, C) → (B, D, H, W, Co)``."""
-    return _fold(x, w, bias, 1, residual, relu, 3, conv3d_fold_p)
+    return _fold(x, w, bias, 1, residual, act, 3, conv3d_fold_p)
 
 
 def conv3d_fold_x2(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
-                   relu: bool = False) -> torch.Tensor:
+                   act: str | None = None) -> torch.Tensor:
     """The wide entry conv (C_in 64, or 48 with zero-filled slots → 32);
     the same kernel as ``conv3d_fold_p``, counted apart."""
-    return _fold(x, w, bias, 1, None, relu, 3, conv3d_fold_x2)
+    return _fold(x, w, bias, 1, None, act, 3, conv3d_fold_x2)
 
 
 def conv3d_fold_s2(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
-                   relu: bool = False) -> torch.Tensor:
+                   act: str | None = None) -> torch.Tensor:
     """3×3×3 stride-2 conv, ``(B, D, H, W, C) → (B, ⌈D/2⌉, ⌈H/2⌉, ⌈W/2⌉, Co)``."""
-    return _fold(x, w, bias, 2, None, relu, 3, conv3d_fold_s2)
+    return _fold(x, w, bias, 2, None, act, 3, conv3d_fold_s2)
 
 
 def conv1x1_fold_p(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
-                   relu: bool = False) -> torch.Tensor:
+                   act: str | None = None) -> torch.Tensor:
     """1×1×1 conv, ``(B, D, H, W, C) → (B, D, H, W, Co)``."""
-    return _fold(x, w, bias, 1, None, relu, 1, conv1x1_fold_p)
+    return _fold(x, w, bias, 1, None, act, 1, conv1x1_fold_p)
 
 
 conv3d_fold_p.launches = 0

@@ -1,15 +1,25 @@
-"""Group-wise correlation volume.
+"""Group-wise correlation volumes.
 
-Kernel: ``csrc/gwc_volume.cu`` (replaces
-``diffuvolume_tpu/ops/pallas/gwc_volume.py:gwc_volume_pallas``).
-Plain version: ``ops/cost_volume.py:build_gwc_volume``.
+Kernels: ``csrc/gwc_volume.cu``.
+
+* ``gwc_volume`` replaces ``diffuvolume_tpu/ops/pallas/gwc_volume.py:
+  gwc_volume_pallas``: the NCDHW volume of the ACV module path.  Plain
+  version: ``ops/cost_volume.py:build_gwc_volume``.
+* ``gwc_volume_packed`` replaces ``gwc_volume_packed`` of the same file: the
+  volume written straight into the channels-last slot that the folded conv
+  chain reads, with the concat halves fused in (the ACV attention chain's 40
+  channels in a 48 slot; PCW's 40 + 12 + 12 in 64).  Plain version:
+  ``ops/cost_volume.py:gwc_volume_slot``.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from diffuvolume_tpu_torch.ops.cost_volume import build_gwc_volume
+from diffuvolume_tpu_torch.ops.cost_volume import build_gwc_volume, gwc_volume_slot, slot_width
 from diffuvolume_tpu_torch.ops.kernels import _build
 
 
@@ -40,4 +50,50 @@ def gwc_volume(
     return out
 
 
+def gwc_volume_packed(
+    left: torch.Tensor, right: torch.Tensor, max_disp: int, num_groups: int,
+    slot: int | None = None, cat_l: torch.Tensor | None = None,
+    cat_r: torch.Tensor | None = None, mask_ref: bool = False,
+) -> torch.Tensor:
+    """``(B, C, H, W)`` features (and ``(B, cc, H, W)`` concat features) →
+    ``(B, D, H, W, slot)``: per ``(d, h, w)`` the ``G`` group means of
+    ``left·right(w − d)`` (0 for ``w < d``), then ``cat_l`` (0 for ``w < d``
+    when ``mask_ref``), then ``cat_r(w − d)`` (0 for ``w < d``), then zeros.
+    ``slot`` defaults to the smallest multiple of 16 that holds ``G + 2cc``.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    if (cat_l is None) != (cat_r is None):
+        raise ValueError("give both concat halves or neither")
+    cc = 0 if cat_l is None else cat_l.shape[1]
+    slot = slot_width(num_groups + 2 * cc) if slot is None else slot
+    if left.device.type == "cpu":
+        return gwc_volume_slot(left, right, max_disp, num_groups, slot, cat_l, cat_r, mask_ref)
+    if left.shape != right.shape or left.dtype != right.dtype or left.dim() != 4:
+        raise ValueError("left/right must be (B, C, H, W) of one shape and dtype")
+    b, c, h, w = left.shape
+    if c % num_groups:
+        raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    if slot % 16 or slot < num_groups + 2 * cc:
+        raise ValueError(f"slot must be a multiple of 16 holding {num_groups + 2 * cc} "
+                         f"channels, got {slot}")
+    cats = []
+    if cc:
+        for t in (cat_l, cat_r):
+            if tuple(t.shape) != (b, cc, h, w) or t.dtype != left.dtype:
+                raise ValueError(f"concat features must be {(b, cc, h, w)} {left.dtype}, "
+                                 f"got {tuple(t.shape)} {t.dtype}")
+        cats = [cat_l, cat_r]
+    _build.check_cuda(left, right, *cats)
+    out = torch.empty((b, max_disp, h, w, slot), dtype=left.dtype, device=left.device)
+    _build.launch(
+        "dv_gwc_volume_slot", left, left.data_ptr(), right.data_ptr(),
+        cat_l.data_ptr() if cc else None, cat_r.data_ptr() if cc else None, out.data_ptr(),
+        b, c, cc, h, w, num_groups, max_disp, slot, int(mask_ref),
+    )
+    gwc_volume_packed.launches += 1
+    return out
+
+
 gwc_volume.launches = 0
+gwc_volume_packed.launches = 0

@@ -1,15 +1,17 @@
-"""Where one main-path pair spends its device time.
+"""Where one pair spends its device time.
 
-    python -m diffuvolume_tpu_torch.tools.profile_acv [--pairs N] [--path folded|module]
+    python -m diffuvolume_tpu_torch.tools.profile_acv [--model acv|pcw]
+        [--pairs N] [--path folded|module]
 
-Runs ACV two-pass DDIM-5 at 512×960, batch 1, bfloat16 (the inputs of
-``chip_smoke.py``'s main path) on the folded path (``packed=True``, the
-default) or the module path, one warm-up pair, then ``N`` pairs under
-``torch.profiler``.  Prints the device time per pair by kernel group and the
-top kernels, the wall time per pair (profiled, and over ``N`` pairs run
-without the profiler, which adds host time of its own) and the device's
-idle share (1 − device busy / unprofiled wall), and writes them to
-``chiprun_out/profile_acv_<path>.json``.  Needs a CUDA device.
+Runs the inputs of ``chip_smoke.py``'s paths: ACV two-pass DDIM-5 at
+512×960 (``--model acv``, the default) or PCW two-pass KITTI12 DDIM-3 at
+384×1248 (``--model pcw``), batch 1, bfloat16, on the folded path
+(``packed=True``, the default) or the module path; one warm-up pair, then
+``N`` pairs under ``torch.profiler``.  Prints the device time per pair by
+kernel group and the top kernels, the wall time per pair (profiled, and over
+``N`` pairs run without the profiler, which adds host time of its own) and
+the device's idle share (1 − device busy / unprofiled wall), and writes them
+to ``chiprun_out/profile_<model>_<path>.json``.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -24,15 +26,20 @@ import time
 import torch
 
 from diffuvolume_tpu_torch.diffusion import DDIMConfig
-from diffuvolume_tpu_torch.eval.pipeline import acv_ddim_inference
+from diffuvolume_tpu_torch.diffusion.ddim import KITTI12_DDIM
+from diffuvolume_tpu_torch.eval.pipeline import acv_ddim_inference, pcw_ddim_inference
 from diffuvolume_tpu_torch.models.acv_fold import fold_acv
-from diffuvolume_tpu_torch.tools.random_weights import seeded_main_path
+from diffuvolume_tpu_torch.models.pcw_fold import fold_pcw
+from diffuvolume_tpu_torch.tools.random_weights import seeded_main_path, seeded_pcw_path
 from diffuvolume_tpu_torch.utils.device import resolve_device
 
 # Kernel name → group, first match wins.
 GROUPS = [
     ("port: fused head", r"fused_head_kernel"),
+    ("port: uncertainty at query", r"fused_unc_at_kernel"),
     ("port: gwc volume", r"gwc_kernel"),
+    ("port: gwc volume in the slot", r"gwc_slot_kernel"),
+    ("port: patch stencils", r"depthwise_hw_kernel"),
     ("port: concat volume", r"concat_kernel|concat_cl_kernel"),
     ("port: dhw multiply", r"dhw_mul_kernel|dhw_mul_cl"),
     ("port: 3-D conv, folded (conv3d_fold.cu)", r"igemm_bf16<false|direct_f32<false"),
@@ -40,9 +47,11 @@ GROUPS = [
     ("port: layout pack / unpack", r"to_last_kernel|to_first_kernel"),
     ("conv / deconv (cuDNN, CUTLASS)", r"conv|cudnn|xmma|implicit|wgrad|dgrad|fprop|winograd|sm90_"),
     ("matmul (attention, resizes)", r"gemm|cublas|cutlass"),
-    # On the folded path every BatchNorm left is the 2-D feature trunk's
-    # (chip_smoke.py's op census shows no 3-D one).
+    # On the folded path every BatchNorm left is a 2-D one (the feature
+    # trunk's; PCW's refinement net's): chip_smoke.py's op census shows no
+    # 3-D one.
     ("batch norm", r"batch_norm|bn_"),
+    ("grid sample (PCW refinement warp)", r"grid_sampler"),
     ("softmax", r"softmax"),
     ("copies / layout", r"copy|transpose|permute|cat|pad|Memcpy|Memset"),
     ("elementwise / reduce", r"elementwise|reduce|vectorized|unrolled"),
@@ -58,6 +67,7 @@ def group_of(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("acv", "pcw"), default="acv")
     ap.add_argument("--pairs", type=int, default=2)
     ap.add_argument("--path", choices=("folded", "module"), default="folded")
     args = ap.parse_args(argv)
@@ -65,15 +75,18 @@ def main(argv=None) -> int:
     dev = resolve_device(None)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    bm, dm, left, right = seeded_main_path(dev)
+    if args.model == "acv":
+        bm, dm, left, right = seeded_main_path(dev)
+        cfg, infer, fold = DDIMConfig(), acv_ddim_inference, fold_acv
+    else:
+        bm, dm, left, right = seeded_pcw_path(dev)
+        cfg, infer, fold = KITTI12_DDIM, pcw_ddim_inference, fold_pcw
     if packed:  # folded once, as a caller running many pairs does
-        bm, dm = fold_acv(bm), fold_acv(dm)
-    cfg = DDIMConfig()
+        bm, dm = fold(bm), fold(dm)
 
     def pair(i):
         gen = torch.Generator(device=dev).manual_seed(i)
-        return acv_ddim_inference(bm, dm, left, right, cfg, device=dev, generator=gen,
-                                  packed=packed)
+        return infer(bm, dm, left, right, cfg, device=dev, generator=gen, packed=packed)
 
     pair(100)
     torch.cuda.synchronize()
@@ -103,8 +116,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     idle = 1 - device_ms / plain_wall_ms
-    print(f"{card}, {args.path} path: wall {plain_wall_ms:.2f} ms/pair ({wall_ms:.2f} under the "
-          f"profiler), device busy {device_ms:.2f} ms/pair, idle share {idle:.3f}")
+    print(f"{card}, {args.model} {args.path} path: wall {plain_wall_ms:.2f} ms/pair "
+          f"({wall_ms:.2f} under the profiler), device busy {device_ms:.2f} ms/pair, "
+          f"idle share {idle:.3f}")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:10.3f} ms  {ms / device_ms:6.1%}  {g}")
     print("top kernels:")
@@ -112,8 +126,9 @@ def main(argv=None) -> int:
     for name, ms in top:
         print(f"  {ms:10.3f} ms  {name[:110]}")
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", f"profile_acv_{args.path}.json"), "w") as f:
-        json.dump({"card": card, "path": args.path, "wall_ms_per_pair": plain_wall_ms,
+    with open(os.path.join("chiprun_out", f"profile_{args.model}_{args.path}.json"), "w") as f:
+        json.dump({"card": card, "model": args.model, "path": args.path,
+                   "wall_ms_per_pair": plain_wall_ms,
                    "profiled_wall_ms_per_pair": wall_ms, "device_ms_per_pair": device_ms,
                    "idle_share": idle, "groups_ms": groups,
                    "top_kernels_ms": dict(top)}, f, indent=1)

@@ -1,11 +1,13 @@
-"""Seeded random-weight ACVNets for runs without the released checkpoints.
+"""Seeded random-weight ACVNets and PCWNets for runs without the released
+checkpoints.
 
-At random initialisation the network's logits reach ±1e5 (the attention
-head's ±1e8): the softmaxes are one-hot and the sampler's renewal branches
-flip on rounding noise, so two correct implementations disagree by pixels.
-``calibrate_heads`` rescales the two head kernels the eval path uses so that
-the logits on given images have a chosen spread, which makes a disparity
-comparison between implementations meaningful.
+At random initialisation the networks' logits reach ±1e5 (ACV's attention
+head ±1e8; PCW's 1e7–1e9): the softmaxes are one-hot and the sampler's
+renewal branches flip on rounding noise, so two correct implementations
+disagree by pixels.  ``calibrate_heads`` / ``calibrate_pcw`` rescale the
+head kernels the eval path uses so that the logits on given images have a
+chosen spread (and, for PCW, the refinement residual a chosen size), which
+makes a disparity comparison between implementations meaningful.
 """
 
 from __future__ import annotations
@@ -14,14 +16,13 @@ import torch
 import torch.nn as nn
 
 from diffuvolume_tpu_torch.models.acv import ACVNet
+from diffuvolume_tpu_torch.models.layers import BasicBlock
+from diffuvolume_tpu_torch.models.pcw import PCWNet
 
 
-def random_acv(max_disp: int, diffusion: bool, generator: torch.Generator) -> ACVNet:
-    """An eval-mode ``ACVNet`` on the CPU in float32, every weight and
-    BatchNorm statistic drawn from ``generator``: the JAX package's
-    initialisation, then BatchNorm weight and running variance uniform in
-    [0.5, 1.5), bias and running mean normal with std 0.1."""
-    model = ACVNet(max_disp=max_disp, diffusion=diffusion).init_weights(generator)
+def _draw_batchnorm(model: nn.Module, generator: torch.Generator) -> None:
+    """BatchNorm weight and running variance uniform in [0.5, 1.5), bias and
+    running mean normal with std 0.1."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
@@ -30,6 +31,14 @@ def random_acv(max_disp: int, diffusion: bool, generator: torch.Generator) -> AC
                 m.bias.copy_(torch.randn(n, generator=generator) * 0.1)
                 m.running_mean.copy_(torch.randn(n, generator=generator) * 0.1)
                 m.running_var.copy_(torch.rand(n, generator=generator) + 0.5)
+
+
+def random_acv(max_disp: int, diffusion: bool, generator: torch.Generator) -> ACVNet:
+    """An eval-mode ``ACVNet`` on the CPU in float32, every weight and
+    BatchNorm statistic drawn from ``generator``: the JAX package's
+    initialisation, then ``_draw_batchnorm``."""
+    model = ACVNet(max_disp=max_disp, diffusion=diffusion).init_weights(generator)
+    _draw_batchnorm(model, generator)
     return model.eval()
 
 
@@ -75,3 +84,73 @@ def calibrate_heads(model: ACVNet, left: torch.Tensor, right: torch.Tensor,
             hook.remove()
         head[2].weight.mul_(target_std / float(seen[0]))
     return model
+
+
+# PCW's trunk stacks 34 residual blocks; at the JAX package's initialisation
+# each add multiplies the activations' spread, so on a 64×64 float32 input
+# the gw features reach std 1e6–7e7, the concat features 4e8, the combine
+# volume 8e13 and the head's logits 1e15: far past where bfloat16's 8 bits
+# and the float32 sums of the 3-D convs leave a comparison anything to say.
+# The rule that tames it: each residual branch's last BatchNorm weight
+# (``conv2``) is scaled by this, so a block adds a tenth of its input's
+# spread; the same input then gives features of std 1–11, a combine volume
+# of std 2.3 and logits of std 32 before calibration.
+PCW_RESIDUAL_BN_SCALE = 0.1
+
+
+def random_pcw(max_disp: int, diffusion: bool, generator: torch.Generator) -> PCWNet:
+    """An eval-mode ``PCWNet`` on the CPU in float32, every weight and
+    BatchNorm statistic drawn from ``generator``: the JAX package's
+    initialisation, ``_draw_batchnorm``, then each 2-D residual block's
+    ``conv2`` BatchNorm weight times ``PCW_RESIDUAL_BN_SCALE``."""
+    model = PCWNet(max_disp=max_disp, diffusion=diffusion).init_weights(generator)
+    _draw_batchnorm(model, generator)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BasicBlock):
+                m.conv2[1].weight.mul_(PCW_RESIDUAL_BN_SCALE)
+    return model.eval()
+
+
+@torch.no_grad()
+def calibrate_pcw(model: PCWNet, left: torch.Tensor, right: torch.Tensor,
+                  logit_std: float = 10.0, residual_std: float = 1.0) -> PCWNet:
+    """Scale ``classif3``'s head so that its logits on ``left``/``right``
+    have standard deviation ``logit_std``, then ``refinenet3.conv8`` so that
+    the refinement residual has ``residual_std`` px."""
+    for conv, target in ((model.classif3[2], logit_std),
+                         (model.refinenet3.conv8, residual_std)):
+        seen = []
+        hook = conv.register_forward_hook(lambda m, i, o: seen.append(o.float().std()))
+        try:
+            model(left, right)
+        finally:
+            hook.remove()
+        conv.weight.mul_(target / float(seen[0]))
+    return model
+
+
+def random_pcw_pair(max_disp: int, generator: torch.Generator) -> tuple[PCWNet, PCWNet]:
+    """``(baseline, ddim)`` PCWNets; the DDIM model shares the baseline's
+    weights and draws only its time embedding."""
+    baseline = random_pcw(max_disp, False, generator)
+    ddim = random_pcw(max_disp, True, generator)
+    ddim.load_state_dict(baseline.state_dict(), strict=False)
+    return baseline, ddim
+
+
+@torch.no_grad()
+def seeded_pcw_path(device, h: int = 384, w: int = 1248, max_disp: int = 192):
+    """The PCW path's inputs from seed 0: ``(baseline, ddim, left, right)``,
+    the models from ``random_pcw_pair`` in bfloat16 on ``device``, calibrated
+    by ``calibrate_pcw`` on the images (logit std 10, residual 1 px), the
+    images ``(1, h, w, 3)`` float32 with std 0.3, the right shifted 3 px."""
+    g = torch.Generator().manual_seed(0)
+    left = (torch.randn((1, h, w, 3), generator=g) * 0.3).to(device)
+    right = torch.roll(left, -3, dims=2)
+    baseline, ddim = random_pcw_pair(max_disp, g)
+    baseline = baseline.to(device, torch.bfloat16)
+    ddim = ddim.to(device, torch.bfloat16)
+    calibrate_pcw(baseline, left, right)
+    ddim.load_state_dict(baseline.state_dict(), strict=False)
+    return baseline, ddim, left, right

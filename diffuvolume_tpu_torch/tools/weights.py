@@ -1,10 +1,12 @@
 """JAX-package variables → the port's ``state_dict``.
 
-The inverse of the JAX package's ``convert_acv_state_dict``, with its own copy
-of the rule table (reference state-dict key ↔ flax variable path).  Input is
-the JAX package's variables as a nested dict of numpy arrays,
+The inverse of the JAX package's ``convert_acv_state_dict`` and
+``convert_pcw_state_dict``, with its own copy of their rule tables
+(reference state-dict key ↔ flax variable path).  Input is the JAX
+package's variables as a nested dict of numpy arrays,
 ``{"params": ..., "batch_stats": ...}``; output is a dict of CPU tensors that
-``ACVNet.load_state_dict`` takes.  The layout changes are exact:
+``ACVNet.load_state_dict`` / ``PCWNet.load_state_dict`` takes.  The layout
+changes are exact:
 
 * conv kernel ``(kd, kh, kw, I, O)`` / ``(kh, kw, I, O)`` → ``(O, I, ...)``;
 * deconv kernel, stored pre-flipped in conv orientation ``(k, k, k, I, O)``
@@ -55,20 +57,26 @@ def _convbn(tp: str, fn: str) -> list[Rule]:
         f"{tp}.1", f"{fn}/bn")
 
 
-def _hourglass(tp: str, fn: str) -> list[Rule]:
+def _deconvbn(tp: str, fn: str) -> list[Rule]:
+    return [(f"{tp}.0.weight", "params", f"{fn}/kernel", _deconv)] + _bn(f"{tp}.1", f"{fn}/bn")
+
+
+def _hourglass(tp: str, fn: str, attention: bool = True) -> list[Rule]:
+    """ACV's hourglass (window attention at the bottleneck) or PCW's Mish
+    hourglass (``attention=False``)."""
     rules = []
     for i in (1, 2, 3, 4):
         rules += _convbn(f"{tp}.conv{i}.0", f"{fn}/conv{i}")
-    ab, fab = f"{tp}.attention_block", f"{fn}/attention_block"
-    rules += [
-        (f"{ab}.qkv_3d.weight", "params", f"{fab}/qkv/kernel", _linear),
-        (f"{ab}.qkv_3d.bias", "params", f"{fab}/qkv/bias", None),
-        (f"{ab}.final1x1.weight", "params", f"{fab}/final1x1/kernel", _conv),
-        (f"{ab}.final1x1.bias", "params", f"{fab}/final1x1/bias", None),
-    ]
+    if attention:
+        ab, fab = f"{tp}.attention_block", f"{fn}/attention_block"
+        rules += [
+            (f"{ab}.qkv_3d.weight", "params", f"{fab}/qkv/kernel", _linear),
+            (f"{ab}.qkv_3d.bias", "params", f"{fab}/qkv/bias", None),
+            (f"{ab}.final1x1.weight", "params", f"{fab}/final1x1/kernel", _conv),
+            (f"{ab}.final1x1.bias", "params", f"{fab}/final1x1/bias", None),
+        ]
     for i in (5, 6):
-        rules.append((f"{tp}.conv{i}.0.weight", "params", f"{fn}/conv{i}/kernel", _deconv))
-        rules += _bn(f"{tp}.conv{i}.1", f"{fn}/conv{i}/bn")
+        rules += _deconvbn(f"{tp}.conv{i}", f"{fn}/conv{i}")
     for r in (1, 2):
         rules += _convbn(f"{tp}.redir{r}", f"{fn}/redir{r}")
     return rules
@@ -78,6 +86,17 @@ def _basic_block(tp: str, fn: str, downsample: bool) -> list[Rule]:
     rules = _convbn(f"{tp}.conv1.0", f"{fn}/conv1") + _convbn(f"{tp}.conv2", f"{fn}/conv2")
     if downsample:
         rules += _convbn(f"{tp}.downsample", f"{fn}/downsample")
+    return rules
+
+
+def _time_embedding() -> list[Rule]:
+    te, rules = "time_embedding", []
+    for tk, fk in (("time_mlp.1", "time1"), ("time_mlp.3", "time2"),
+                   ("block_time_mlp.1", "block")):
+        rules += [
+            (f"{te}.{tk}.weight", "params", f"{te}/{fk}/kernel", _linear),
+            (f"{te}.{tk}.bias", "params", f"{te}/{fk}/bias", None),
+        ]
     return rules
 
 
@@ -108,13 +127,7 @@ def acv_rules(diffusion: bool = True) -> list[Rule]:
     rules += _convbn("classif_att_.0", "classif_att_0")
     rules.append(("classif_att_.2.weight", "params", "classif_att_1/kernel", _conv))
     if diffusion:
-        te = "time_embedding"
-        for tk, fk in (("time_mlp.1", "time1"), ("time_mlp.3", "time2"),
-                       ("block_time_mlp.1", "block")):
-            rules += [
-                (f"{te}.{tk}.weight", "params", f"{te}/{fk}/kernel", _linear),
-                (f"{te}.{tk}.bias", "params", f"{te}/{fk}/bias", None),
-            ]
+        rules += _time_embedding()
     rules += _convbn("dres0.0", "dres0_0")
     rules += _convbn("dres0.2", "dres0_1")
     rules += _convbn("dres1.0", "dres1_0")
@@ -124,6 +137,64 @@ def acv_rules(diffusion: bool = True) -> list[Rule]:
     for k in (0, 1, 2):
         rules += _convbn(f"classif{k}.0", f"classif{k}_0")
         rules.append((f"classif{k}.2.weight", "params", f"classif{k}_1/kernel", _conv))
+    return rules
+
+
+def _head2d(tp: str, fn: str) -> list[Rule]:
+    """``Sequential(convbn, act, Conv2d 1×1)`` → ``{fn}_0`` (ConvBN), ``{fn}_1``."""
+    return _convbn(f"{tp}.0", f"{fn}_0") + [(f"{tp}.2.weight", "params", f"{fn}_1/kernel", _conv)]
+
+
+def _hourglass_up(tp: str, fn: str) -> list[Rule]:
+    rules = []
+    for i in (1, 3, 5):  # bare strided Conv3d
+        rules.append((f"{tp}.conv{i}.weight", "params", f"{fn}/conv{i}/kernel", _conv))
+    for i in (2, 4, 6):
+        rules += _convbn(f"{tp}.conv{i}.0", f"{fn}/conv{i}")
+    for i in (7, 8, 9):
+        rules += _deconvbn(f"{tp}.conv{i}", f"{fn}/conv{i}")
+    for i in (1, 2, 3):
+        rules += _convbn(f"{tp}.combine{i}.0", f"{fn}/combine{i}")
+        rules += _convbn(f"{tp}.redir{i}", f"{fn}/redir{i}")
+    return rules
+
+
+def pcw_rules(diffusion: bool = True) -> list[Rule]:
+    """Every PCWNet (KITTI12 ``pwcnet_ddim.py``, the concat-volume variant)
+    state-dict key with its flax variable path."""
+    fe = "feature_extraction"
+    rules = []
+    for i, seq in enumerate((0, 2, 4)):
+        rules += _convbn(f"{fe}.firstconv.{seq}", f"{fe}/firstconv{i}")
+    for layer, blocks, ds_first in (
+        ("layer1", 3, False), ("layer2", 16, True), ("layer3", 3, True),
+        ("layer4", 3, False), ("layer5", 3, True), ("layer7", 3, True), ("layer9", 3, True),
+    ):
+        for i in range(blocks):
+            rules += _basic_block(f"{fe}.{layer}.{i}", f"{fe}/{layer}_{i}", i == 0 and ds_first)
+    for head in ("gw2", "gw3", "gw4", "layer11", "lastconv", "concat2", "concat3", "concat4"):
+        rules += _head2d(f"{fe}.{head}", f"{fe}/{head}")
+    rules += _convbn(f"{fe}.layer_refine.0", f"{fe}/layer_refine_0")
+    rules += _convbn(f"{fe}.layer_refine.2", f"{fe}/layer_refine_1")
+    rules += _convbn("dres0.0", "dres0_0")
+    rules += _convbn("dres0.2", "dres0_1")
+    rules += _convbn("dres1.0", "dres1_0")
+    rules += _convbn("dres1.2", "dres1_1")
+    rules += _hourglass_up("combine1", "combine1")
+    if diffusion:
+        rules += _time_embedding()
+    for d in (2, 3, 4):
+        rules += _hourglass(f"dres{d}", f"dres{d}", attention=False)
+    for k in range(5):
+        rules += _convbn(f"classif{k}.0", f"classif{k}_0")
+        rules.append((f"classif{k}.2.weight", "params", f"classif{k}_1/kernel", _conv))
+    rn = "refinenet3"
+    for i in (1, 2, 3, 4):
+        rules += _convbn(f"{rn}.conv{i}.0", f"{rn}/conv{i}")
+    for i in (5, 6, 7):  # one BasicBlock each, Sequential index 0
+        rules += _basic_block(f"{rn}.conv{i}.0", f"{rn}/conv{i}", True)
+    rules.append((f"{rn}.conv8.weight", "params", f"{rn}/conv8/kernel", _conv))
+    rules += _convbn("dispupsample.0", "dispupsample")
     return rules
 
 
@@ -137,6 +208,11 @@ def _get(tree, path: str):
 def state_dict_from_jax(variables, diffusion: bool = True) -> dict[str, torch.Tensor]:
     """The port's ``ACVNet`` state dict from the JAX package's variables."""
     return state_dict_from_rules(variables, acv_rules(diffusion))
+
+
+def pcw_state_dict_from_jax(variables, diffusion: bool = True) -> dict[str, torch.Tensor]:
+    """The port's ``PCWNet`` state dict from the JAX package's variables."""
+    return state_dict_from_rules(variables, pcw_rules(diffusion))
 
 
 def state_dict_from_rules(variables, rules: list[Rule]) -> dict[str, torch.Tensor]:

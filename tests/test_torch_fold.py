@@ -63,7 +63,8 @@ def test_conv3d_fold_p_matches_pallas(c, co, d, h, w, residual, relu):
         w_real=w, h_real=h, tile_h=th, interpret=True)
     want = np.asarray(pc.unpack_padded(out, d, h, w, co, th))
     got = kconv.conv3d_fold_p(_t(x), _t(k), None if bias is None else _t(bias),
-                              residual=_t(r) if residual else None, relu=relu)
+                              residual=_t(r) if residual else None,
+                              act="relu" if relu else None)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
@@ -75,7 +76,7 @@ def test_conv3d_fold_x2_matches_pallas():
                             jnp.asarray(b), relu=True, w_real=w, h_real=h, tile_h=th,
                             interpret=True)
     want = np.asarray(pc.unpack_padded(out, d, h, w, 32, th))
-    got = kconv.conv3d_fold_x2(_t(x), _t(k), _t(b), relu=True)
+    got = kconv.conv3d_fold_x2(_t(x), _t(k), _t(b), act="relu")
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
@@ -92,7 +93,7 @@ def test_patch_entry_slot_matches_pallas():
     want = np.asarray(pc.unpack_padded(out, d, h, w, 32, th))
     slot = kl.pack(_t(np.moveaxis(x40, -1, 1)), 48)
     k48 = np.pad(k40, ((0, 0),) * 3 + ((0, 8), (0, 0)))
-    got = kconv.conv3d_fold_x2(slot, _t(k48), _t(b), relu=True)
+    got = kconv.conv3d_fold_x2(slot, _t(k48), _t(b), act="relu")
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
@@ -104,7 +105,7 @@ def test_conv3d_fold_s2_matches_pallas(c, d, h, w, th):
                             h_real=h, tile_h=th, interpret=True)
     want = np.asarray(pc.unpack_padded_k(out, d // 2, h // 2, w // 2, 2 * c,
                                          tile_h=th // 2, interpret=True))
-    got = kconv.conv3d_fold_s2(_t(x), _t(k), _t(b), relu=True)
+    got = kconv.conv3d_fold_s2(_t(x), _t(k), _t(b), act="relu")
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
@@ -122,7 +123,7 @@ def test_conv3d_fold_up_matches_pallas(c, d, h, w, th):
                             w_real=w, h_real=h, tile_h=th, interpret=True)
     want = np.asarray(pc.unpack_padded_k(out, 2 * d, 2 * h, 2 * w, co, tile_h=2 * th,
                                          interpret=True))
-    got = kup.conv3d_fold_up(_t(x), _t(k[::-1, ::-1, ::-1]), _t(b), residual=_t(r), relu=True)
+    got = kup.conv3d_fold_up(_t(x), _t(k[::-1, ::-1, ::-1]), _t(b), residual=_t(r), act="relu")
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 

@@ -12,6 +12,7 @@ from diffuvolume_tpu_torch.ops import cost_volume as plain
 from diffuvolume_tpu_torch.ops.kernels import concat_volume as kc
 from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
 from diffuvolume_tpu_torch.ops.kernels import conv3d_up as kup
+from diffuvolume_tpu_torch.ops.kernels import depthwise as kd
 from diffuvolume_tpu_torch.ops.kernels import fused_head as kf
 from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
 from diffuvolume_tpu_torch.ops.kernels import layout as kl
@@ -138,8 +139,9 @@ def _conv_inputs(dev, dtype, shape, cin, cout, k, seed):
 def test_conv3d_fold_p(dev, dtype, cin, cout, shape, residual, relu):
     x, wt, bias = _conv_inputs(dev, dtype, shape, cin, cout, 3, seed=10)
     res = _randn(dev, *shape, cout, seed=13).to(dtype) if residual else None
-    got = kconv.conv3d_fold_p(x, wt, bias, residual=res, relu=relu)
-    want = kconv.conv3d_fold_plain(x, wt, bias, 1, res, relu)
+    act = "relu" if relu else None
+    got = kconv.conv3d_fold_p(x, wt, bias, residual=res, act=act)
+    want = kconv.conv3d_fold_plain(x, wt, bias, 1, res, act)
     torch.cuda.synchronize()
     atol, rtol = CONV_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
@@ -153,8 +155,8 @@ def test_conv3d_fold_x2_zero_filled_slot(dev, dtype):
     w40 = (_randn(dev, 3, 3, 3, 40, 32, seed=21) * 0.1).to(dtype)
     w48 = torch.nn.functional.pad(w40, (0, 0, 0, 8))
     bias = _randn(dev, 32, seed=22)
-    got = kconv.conv3d_fold_x2(kl.pack(x40, 48), w48, bias, relu=True)
-    want = kconv.conv3d_fold_plain(kl.pack_plain(x40), w40, bias, 1, None, True)
+    got = kconv.conv3d_fold_x2(kl.pack(x40, 48), w48, bias, act="relu")
+    want = kconv.conv3d_fold_plain(kl.pack_plain(x40), w40, bias, 1, None, "relu")
     torch.cuda.synchronize()
     atol, rtol = CONV_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
@@ -165,8 +167,8 @@ def test_conv3d_fold_x2_zero_filled_slot(dev, dtype):
 def test_conv3d_fold_s2(dev, dtype, cin, shape):
     """Stride 2, C_out = 2·C_in; odd H/W give ⌈n/2⌉ outputs."""
     x, wt, bias = _conv_inputs(dev, dtype, shape, cin, 2 * cin, 3, seed=30)
-    got = kconv.conv3d_fold_s2(x, wt, bias, relu=True)
-    want = kconv.conv3d_fold_plain(x, wt, bias, 2, None, True)
+    got = kconv.conv3d_fold_s2(x, wt, bias, act="relu")
+    want = kconv.conv3d_fold_plain(x, wt, bias, 2, None, "relu")
     torch.cuda.synchronize()
     atol, rtol = CONV_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
@@ -177,7 +179,7 @@ def test_conv3d_fold_s2(dev, dtype, cin, shape):
 def test_conv1x1_fold_p(dev, dtype, c):
     x, wt, bias = _conv_inputs(dev, dtype, (1, 4, 3, 70), c, c, 1, seed=40)
     got = kconv.conv1x1_fold_p(x, wt, bias)
-    want = kconv.conv3d_fold_plain(x, wt, bias, 1, None, False)
+    want = kconv.conv3d_fold_plain(x, wt, bias, 1, None, None)
     torch.cuda.synchronize()
     atol, rtol = CONV_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
@@ -191,8 +193,8 @@ def test_conv3d_fold_up(dev, dtype, cin, cout, shape):
     x, wt, bias = _conv_inputs(dev, dtype, shape, cin, cout, 3, seed=50)
     b, d, h, w = shape
     res = _randn(dev, b, 2 * d, 2 * h, 2 * w, cout, seed=53).to(dtype)
-    got = kup.conv3d_fold_up(x, wt, bias, residual=res, relu=True)
-    want = kup.conv3d_up_plain(x, wt, bias, res, True)
+    got = kup.conv3d_fold_up(x, wt, bias, residual=res, act="relu")
+    want = kup.conv3d_up_plain(x, wt, bias, res, "relu")
     torch.cuda.synchronize()
     atol, rtol = CONV_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
@@ -282,4 +284,170 @@ def test_fold_launch_counts(dev):
     before = [f.launches for f in counters]
     kconv.conv3d_fold_s2(x, wt, bias)
     assert [f.launches for f in counters] == [before[0], before[1], before[2] + 1,
+                                              *before[3:]]
+
+
+# -- the ACV prep front and the PCW path's kernels ---------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,g,cc,h,w,d,slot,mask_ref", [
+    (1, 80, 40, 0, 3, 37, 12, 48, False),    # ACV's 40 in 48; W past one 32-wide tile
+    (2, 80, 40, 12, 2, 39, 6, 64, True),     # PCW's 1/32 shape class: W = 39, mask_ref
+    (1, 80, 40, 12, 2, 39, 6, 64, False),
+    (1, 320, 40, 12, 2, 70, 48, 64, True),   # C = 320, D = 48 > W/2
+    (1, 24, 8, 4, 3, 9, 12, 32, True),       # cpg 3: no 16-byte product reads; D > W
+])
+def test_gwc_volume_packed(dev, dtype, b, c, g, cc, h, w, d, slot, mask_ref):
+    """The group means: float32 to 1e-5 relative (summation order), bf16 to
+    one rounding of the float32 result; the concat channels and the fill
+    copied exactly."""
+    left, right = (_randn(dev, b, c, h, w, seed=s).to(dtype) for s in (1, 2))
+    cats = {}
+    if cc:
+        cats = dict(cat_l=_randn(dev, b, cc, h, w, seed=3).to(dtype),
+                    cat_r=_randn(dev, b, cc, h, w, seed=4).to(dtype))
+    got = kg.gwc_volume_packed(left, right, d, g, slot, mask_ref=mask_ref, **cats)
+    want = plain.gwc_volume_slot(left.float(), right.float(), d, g, slot,
+                                 mask_ref=mask_ref, **{k: v.float() for k, v in cats.items()})
+    torch.cuda.synchronize()
+    rel = 1e-5 if dtype == torch.float32 else BF16_REL
+    torch.testing.assert_close(got[..., :g].float(), want[..., :g], rtol=rel, atol=1e-6)
+    assert torch.equal(got[..., g:].float(), want[..., g:])
+
+
+def test_gwc_volume_packed_refuses_bad_operands(dev):
+    left = _randn(dev, 1, 80, 2, 9)
+    cat = _randn(dev, 1, 12, 2, 9)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kg.gwc_volume_packed(left, left, 4, 40, 56)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kg.gwc_volume_packed(left, left, 4, 40, 48, cat_l=cat, cat_r=cat)
+    with pytest.raises(ValueError, match="concat features"):
+        kg.gwc_volume_packed(left, left, 4, 40, cat_l=cat, cat_r=cat[:, :8].contiguous())
+    with pytest.raises(ValueError, match="groups"):
+        kg.gwc_volume_packed(left, left, 4, 30)
+
+
+DIL_48 = (1,) * 8 + (2,) * 16 + (3,) * 16 + (1,) * 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,dil", [((2, 3, 9, 37, 48), DIL_48), ((1, 4, 5, 7, 48), (1,) * 48),
+                                       ((1, 2, 4, 3, 16), (3,) * 8 + (1,) * 8)])
+def test_depthwise_hw_p(dev, dtype, shape, dil):
+    """Every dilation reaches past the H and W edges (zero there) and never
+    across D: float32 to 1e-4 (summation order), bf16 within one rounding."""
+    x = _randn(dev, *shape, seed=7).to(dtype)
+    wt = _randn(dev, 3, 3, shape[-1], seed=8)
+    got = kd.depthwise_hw_p(x, wt, dil)
+    want = kd.depthwise_hw_plain(x, wt, dil)
+    torch.cuda.synchronize()
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_depthwise_hw_p_refuses_bad_operands(dev):
+    x = _randn(dev, 1, 2, 4, 5, 16).to(torch.bfloat16)
+    wt = _randn(dev, 3, 3, 16)
+    with pytest.raises(ValueError, match="one dilation each"):
+        kd.depthwise_hw_p(x, wt, (1,) * 4 + (2,) * 12)
+    with pytest.raises(TypeError):
+        kd.depthwise_hw_p(x, wt.to(torch.bfloat16), (1,) * 16)
+    with pytest.raises(ValueError):
+        kd.depthwise_hw_p(x.transpose(2, 3), wt, (1,) * 16)
+
+
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes", [((12, 4, 8), (48, 16, 32)), ((48, 8, 39), (192, 32, 156))])
+def test_fused_uncertainty_at(dev, dtype, align_corners, sizes):
+    """1e-4 absolute/relative against the float32 plain version on the same
+    (rounded) logits, as the fused head is held."""
+    (d4, h4, w4), (d, h, w) = sizes
+    cost = (_randn(dev, 2, d4, h4, w4, seed=9) * 3).to(dtype)
+    q = torch.rand((2, h, w), device=dev) * (d - 1)
+    got = kf.fused_uncertainty_at(cost, q, d, (h, w), align_corners)
+    want = kf.fused_uncertainty_at_plain(cost, q, d, (h, w), align_corners)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_fused_uncertainty_at_refuses_bad_query(dev):
+    cost = _randn(dev, 1, 4, 2, 3)
+    with pytest.raises(ValueError, match="query"):
+        kf.fused_uncertainty_at(cost, torch.zeros((1, 8, 12), device=dev).half(), 16, (8, 12))
+    with pytest.raises(ValueError, match="query"):
+        kf.fused_uncertainty_at(cost, torch.zeros((1, 8, 11), device=dev), 16, (8, 12))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "mish"])
+@pytest.mark.parametrize("kind,cin,cout,shape", [
+    ("p", 32, 32, (1, 8, 6, 70)),
+    ("p", 128, 128, (1, 6, 12, 39)),     # PCW's 1/32 level: W = 39, fewer rows than a block
+    ("p", 64, 128, (1, 6, 12, 39)),      # the 1/32 volume's part of combine3
+    ("s2", 128, 128, (1, 12, 24, 78)),   # conv5: 1/16 → 1/32
+    ("k1", 128, 128, (1, 12, 24, 78)),   # redir3
+    ("up", 128, 128, (1, 6, 12, 39)),    # conv7: 1/32 → 1/16
+    ("up", 64, 32, (1, 3, 4, 9)),
+])
+def test_conv_epilogues(dev, dtype, act, kind, cin, cout, shape):
+    """Mish and no activation on every conv form, with the residual on the
+    stride-1 and transposed forms, at PCW's odd shapes; inputs at std 3 so
+    Mish's negative tail and its pass-through above 20 are both reached."""
+    k = 1 if kind == "k1" else 3
+    x, wt, bias = _conv_inputs(dev, dtype, shape, cin, cout, k, seed=90)
+    x = (x.float() * 3).to(dtype)
+    b, d, h, w = shape
+    if kind == "up":
+        res = _randn(dev, b, 2 * d, 2 * h, 2 * w, cout, seed=91).to(dtype)
+        got = kup.conv3d_fold_up(x, wt, bias, residual=res, act=act)
+        want = kup.conv3d_up_plain(x, wt, bias, res, act)
+    elif kind == "p":
+        res = _randn(dev, b, d, h, w, cout, seed=92).to(dtype)
+        got = kconv.conv3d_fold_p(x, wt, bias, residual=res, act=act)
+        want = kconv.conv3d_fold_plain(x, wt, bias, 1, res, act)
+    else:
+        fn = kconv.conv3d_fold_s2 if kind == "s2" else kconv.conv1x1_fold_p
+        got = fn(x, wt, bias, act=act)
+        want = kconv.conv3d_fold_plain(x, wt, bias, 2 if kind == "s2" else 1, None, act)
+    torch.cuda.synchronize()
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_conv_refuses_unknown_act(dev):
+    x, wt, bias = _conv_inputs(dev, torch.bfloat16, (1, 2, 2, 4), 16, 16, 3, seed=93)
+    with pytest.raises(ValueError, match="act must be"):
+        kconv.conv3d_fold_p(x, wt, bias, act="gelu")
+    with pytest.raises(ValueError, match="act must be"):
+        kup.conv3d_fold_up(x, wt, bias, act="leaky")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_dhw_mul_one_map(dev, dtype, channels_last):
+    """PCW's step multiplies the noise alone: exact, and the same as a map
+    of ones for the second."""
+    b, c, d, h, w = 1, 32, 6, 5, 7
+    shape = (b, d, h, w, c) if channels_last else (b, c, d, h, w)
+    vol = _randn(dev, *shape, seed=94).to(dtype)
+    m = torch.rand((b, d, h, w), device=dev).to(dtype)
+    got = kc.dhw_mul(vol, m, None, channels_last=channels_last)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain.volume_dhw_mul(vol, m, None, channels_last))
+    assert torch.equal(got, kc.dhw_mul(vol, m, torch.ones_like(m), channels_last=channels_last))
+
+
+def test_new_launch_counts(dev):
+    """The three new wrappers count their own launches only."""
+    counters = (kg.gwc_volume_packed, kd.depthwise_hw_p, kf.fused_uncertainty_at,
+                kf.fused_upsample_softargmin, kg.gwc_volume)
+    before = [f.launches for f in counters]
+    feat = _randn(dev, 1, 16, 2, 9)
+    vol = kg.gwc_volume_packed(feat, feat, 4, 8)
+    kd.depthwise_hw_p(vol, _randn(dev, 3, 3, 16), (1,) * 16)
+    kf.fused_uncertainty_at(_randn(dev, 1, 4, 2, 3), torch.zeros((1, 8, 12), device=dev), 16,
+                            (8, 12))
+    assert [f.launches for f in counters] == [before[0] + 1, before[1] + 1, before[2] + 1,
                                               *before[3:]]

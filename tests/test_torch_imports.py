@@ -36,3 +36,13 @@ def test_checker_catches_an_import():
     src = "import jax.numpy as jnp\nfrom diffuvolume_tpu.models import acv\n"
     bad = [n for n in _imported(ast.parse(src)) if n.split(".")[0] in FORBIDDEN]
     assert bad == ["jax.numpy", "diffuvolume_tpu.models"]
+
+
+@pytest.mark.parametrize("module", [
+    "models/pcw.py", "models/pcw_fold.py", "ops/sampling.py", "ops/kernels/depthwise.py",
+    "ops/kernels/gwc_volume.py", "ops/kernels/fused_head.py", "tools/weights.py",
+    "tools/random_weights.py", "eval/pipeline.py",
+])
+def test_pcw_slice_modules_are_checked(module):
+    """The PCW slice's modules are among the files checked above."""
+    assert ROOT / "diffuvolume_tpu_torch" / module in FILES

@@ -1,8 +1,9 @@
 """Shared helpers of the port's parity tests (``test_torch_*.py``).
 
-The port's seeded random-weight ACVNets are turned into the JAX package's
-variables with the JAX package's own ``convert_acv_state_dict``, so both
-sides run the same weights.  Tensors cross between the two as numpy arrays.
+The port's seeded random-weight ACVNets and PCWNets are turned into the JAX
+package's variables with the JAX package's own ``convert_acv_state_dict`` /
+``convert_pcw_state_dict``, so both sides run the same weights.  Tensors
+cross between the two as numpy arrays.
 """
 
 from __future__ import annotations
@@ -11,12 +12,39 @@ import numpy as np
 import torch
 
 from diffuvolume_tpu.tools.convert_torch import convert_acv_state_dict
-from diffuvolume_tpu_torch.tools.random_weights import calibrate_heads, random_acv
+from diffuvolume_tpu.tools.convert_torch_pcw import convert_pcw_state_dict
+from diffuvolume_tpu_torch.models.pcw import PCWNet
+from diffuvolume_tpu_torch.tools.random_weights import (
+    calibrate_heads,
+    calibrate_pcw,
+    random_acv,
+    random_pcw_pair,
+)
+from diffuvolume_tpu_torch.tools.weights import pcw_state_dict_from_jax
 
 
 def to_jax_variables(model) -> dict:
     sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
-    return convert_acv_state_dict(sd, diffusion=model.diffusion)
+    convert = convert_pcw_state_dict if isinstance(model, PCWNet) else convert_acv_state_dict
+    return convert(sd, diffusion=model.diffusion)
+
+
+def pcw_pair(max_disp: int, left: np.ndarray, right: np.ndarray, seed: int = 0):
+    """``(baseline, ddim)`` port PCWNets from ``random_pcw_pair``, calibrated
+    on the images (logit std 10, residual 1 px), the DDIM model sharing the
+    baseline's weights."""
+    bm, dm = random_pcw_pair(max_disp, torch.Generator().manual_seed(seed))
+    calibrate_pcw(bm, torch.from_numpy(left), torch.from_numpy(right))
+    dm.load_state_dict(bm.state_dict(), strict=False)
+    return bm, dm
+
+
+def pcw_from_jax(variables, max_disp: int, diffusion: bool) -> PCWNet:
+    """A fresh port PCWNet loaded from the JAX package's variables through
+    ``tools/weights.py:pcw_rules``."""
+    model = PCWNet(max_disp, diffusion)
+    model.load_state_dict(pcw_state_dict_from_jax(variables, diffusion))
+    return model.eval()
 
 
 def stereo_pair(seed: int, b: int, h: int, w: int, shift: int = 3):
