@@ -1,13 +1,16 @@
 // 3-D convolution with eval BatchNorm folded into its weights and a fused
 // epilogue, on channels-last volumes:
-//   out (B, Do, Ho, Wo, Co) = act(conv(x (B, D, H, W, Ci), w) + bias (+ res))
+//   out (B, Do, Ho, Wo, Co) = act(conv(x (B, D, H, W, Ci), w) + bias (+ res)) (× post_mul)
 // with w (k, k, k, Ci, Co), k 3 (pad 1) or 1 (pad 0), stride 1 or 2, act
-// none, ReLU or Mish (conv_igemm.cuh Act).
+// none, ReLU, Mish or LeakyReLU (conv_igemm.cuh Act), post_mul a
+// (B, Ho, Wo, Co) map broadcast over D (IGEV's feature attention).
 //   Replaces diffuvolume_tpu/ops/pallas/conv3d.py:
 //     conv3d_fold_p   (3×3×3 s1, + residual; C_out 1 for the classifier heads),
 //     conv3d_fold_x2  (the same conv at C_in 64, or 40 zero-filled to 48),
 //     conv3d_fold_s2  (3×3×3 stride 2, C_out = 2·C_in),
-//     conv1x1_fold_p  (1×1×1, the hourglass redir branches).
+//     conv1x1_fold_p  (1×1×1, the hourglass redir branches),
+//     conv3d_fold     (3×3×3 s1 at C_in 8 or 16: IGEV's module path; the 8-
+//                      channel chunk zero-filled in shared memory).
 //   Plain version: ops/kernels/conv3d_fold.py conv3d_fold_plain.
 //
 // What bounds it on the H100: bf16 tensor-core operations.  At the main path
@@ -29,11 +32,13 @@
 #include "conv_igemm.cuh"
 
 DV_EXPORT int dv_conv3d_fold(const void* x, const void* w, const void* bias, const void* res,
-                             void* out, int b, int d, int h, int wd, int cin, int cout, int ks,
-                             int stride, int act, int dtype, int device, void* stream) {
+                             const void* post_mul, void* out, int b, int d, int h, int wd,
+                             int cin, int cout, int ks, int stride, int act, int dtype, int device,
+                             void* stream) {
   if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
   dv::igemm::Params p;
-  p.x = x; p.w = w; p.bias = static_cast<const float*>(bias); p.res = res; p.out = out;
+  p.x = x; p.w = w; p.bias = static_cast<const float*>(bias); p.res = res;
+  p.post_mul = post_mul; p.out = out;
   p.b = b; p.d_in = d; p.h_in = h; p.w_in = wd; p.cin = cin; p.cout = cout;
   p.ks = ks; p.stride = stride; p.pad = (ks - 1) / 2; p.act = act;
   p.d_out = (d + 2 * p.pad - ks) / stride + 1;

@@ -1,12 +1,14 @@
 // Implicit-GEMM 3-D convolution on channels-last (NDHWC) volumes, shared by
 // csrc/conv3d_fold.cu (convolution, stride 1/2, k 3/1) and csrc/conv3d_up.cu
-// (ConvTranspose3d k3 s2 p1 op1).
+// (ConvTranspose3d k3 s2 p1 op1 and k4 s2 p1 op0).
 //
 // GEMM view.  A block owns BH output rows of BM = 64 positions along W at one
 // (b, d) and BN output channels: M = BH·BM positions, N = BN channels,
 // K = taps × C_in; BH = min(8, 256 / BN), so each of its 8 warps holds 64
 // accumulators a thread.  A stage is one kd tap and one chunk of CK = 32 (or
-// 16) input channels: the block copies (cp.async) the input rows that its
+// 16) input channels; channels past C_in in the last chunk (C_in 8, 24, 40, ...)
+// are zero-filled in shared memory, input and weights alike, so a C_in that is a
+// multiple of 8 runs without a slot.  The block copies (cp.async) the input rows that its
 // output rows reach in that plane, each as a strip of W positions covering
 // every kw tap, and the chunk's weights for all (kh, kw) taps; then every
 // warp reads its operands with ldmatrix and runs bf16 m16n8k16 tensor-core
@@ -16,15 +18,19 @@
 // positions outside the input are zero.
 //
 // Transposed conv in gather form.  Output o takes input i = (o + 1 - k) / 2
-// where that is an integer in range: even o takes k = 1 (i = o/2), odd o
-// takes k = 0 (i = (o+1)/2) and k = 2 (i = (o-1)/2).  A block of the
-// transposed conv holds one output parity per axis, so every row of its tile
-// shares one tap list and reads dense input positions.
+// where that is an integer in range.  k3 (op1): even o takes k = 1 (i = o/2),
+// odd o takes k = 0 (i = (o+1)/2) and k = 2 (i = (o-1)/2).  k4 (op0): even o
+// takes k = 1 (i = o/2) and k = 3 (i = o/2 - 1), odd o takes k = 0
+// (i = (o+1)/2) and k = 2 (i = (o-1)/2): 8 taps for every output.  A block of
+// the transposed conv holds one output parity per axis, so every row of its
+// tile shares one tap list and reads dense input positions; k4's strip starts
+// one input row (and column, and plane) below the block's first output.
 //
 // Epilogue in float32: + bias, + residual (same shape as the output), the
-// activation (none, ReLU or Mish), one rounding to bfloat16.  The float32
-// form is a plain FMA kernel (no TF32) used where the agreement with the CPU
-// is checked.
+// activation (none, ReLU, Mish or LeakyReLU 0.01), × post_mul (a
+// (B, H_out, W_out, C_out) map broadcast over D: IGEV's feature attention),
+// one rounding to bfloat16.  The float32 form is a plain FMA kernel (no TF32)
+// used where the agreement with the CPU is checked.
 #pragma once
 
 #include "common.cuh"
@@ -41,6 +47,7 @@ struct Params {
   const void* w;       // (k, k, k, C_in, C_out): tap-major, then C_in, then C_out
   const float* bias;   // (C_out,) or null
   const void* res;     // output-shaped residual or null
+  const void* post_mul;  // (B, H_out, W_out, C_out) multiplier or null
   void* out;
   int b, d_in, h_in, w_in, cin;
   int d_out, h_out, w_out, cout;
@@ -48,7 +55,7 @@ struct Params {
 };
 
 // Activation codes, as in ops/kernels/conv3d_fold.py ACT_CODES.
-enum Act { kActNone = 0, kActRelu = 1, kActMish = 2 };
+enum Act { kActNone = 0, kActRelu = 1, kActMish = 2, kActLeaky = 3 };
 
 // Mish as the TPU kernels take it (diffuvolume_tpu/ops/pallas/conv3d.py
 // _apply_act): x·tanh(softplus(x)) = x·((1+eˣ)² − 1)/((1+eˣ)² + 1), one exp;
@@ -56,6 +63,7 @@ enum Act { kActNone = 0, kActRelu = 1, kActMish = 2 };
 // Always in float32, so a bf16 output never sees the intermediate.
 __device__ __forceinline__ float activate(float x, int act) {
   if (act == kActRelu) return fmaxf(x, 0.f);
+  if (act == kActLeaky) return x > 0.f ? x : 0.01f * x;
   if (act == kActMish) {
     if (x > 20.f) return x;
     const float z = expf(x);
@@ -79,18 +87,30 @@ __device__ __forceinline__ Taps conv_taps(int ks) {
   return t;
 }
 
-// ConvTranspose k3 s2 p1 op1, output o = 2i + parity.
-__device__ __forceinline__ Taps up_taps(int parity) {
+// ConvTranspose s2 p1, output o = 2m + parity: k3 (op1) offsets from input
+// m, k4 (op0) offsets from input m - 1 (up_lo).
+__device__ __forceinline__ int up_lo(int ks) { return ks == 4 ? 1 : 0; }
+
+__device__ __forceinline__ Taps up_taps(int parity, int ks) {
   Taps t;
-  if (parity == 0) {
+  t.n = 2;
+  t.k[2] = t.off[2] = 0;
+  if (ks == 4) {
+    if (parity == 0) {
+      t.k[0] = 1; t.off[0] = 1;   // i = m
+      t.k[1] = 3; t.off[1] = 0;   // i = m - 1
+    } else {
+      t.k[0] = 0; t.off[0] = 2;   // i = m + 1
+      t.k[1] = 2; t.off[1] = 1;   // i = m
+    }
+  } else if (parity == 0) {
     t.n = 1;
     t.k[0] = 1; t.off[0] = 0;
+    t.k[1] = t.off[1] = 0;
   } else {
-    t.n = 2;
     t.k[0] = 0; t.off[0] = 1;
     t.k[1] = 2; t.off[1] = 0;
   }
-  t.k[2] = t.off[2] = 0;
   return t;
 }
 
@@ -109,11 +129,13 @@ struct Cfg {
   static constexpr int lda = CK + 8;
   static constexpr int ldb = BN + 8;
   static constexpr int ldc = BN + 4;   // float32 epilogue rows
+  // The transposed conv's strip: one more row (column) than the block's
+  // outputs, two for k4.
   static __host__ __device__ int rows(bool up, int stride, int ks) {
-    return up ? BH + 1 : (BH - 1) * stride + ks;
+    return up ? BH + (ks == 4 ? 2 : 1) : (BH - 1) * stride + ks;
   }
   static __host__ __device__ int cols(bool up, int stride, int ks) {
-    return up ? BM + 1 : (BM - 1) * stride + ks;
+    return up ? BM + (ks == 4 ? 2 : 1) : (BM - 1) * stride + ks;
   }
   static __host__ __device__ int taps(bool up, int ks) { return up ? 4 : ks * ks; }
   static __host__ __device__ size_t a_elems(bool up, int stride, int ks) {
@@ -184,13 +206,14 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
   const int b = blockIdx.z / p.d_out;
   const int dz = blockIdx.z % p.d_out;
 
-  const Taps td = UP ? up_taps(dz % 2) : conv_taps(p.ks);
-  const Taps th = UP ? up_taps(ph) : conv_taps(p.ks);
-  const Taps tw = UP ? up_taps(pw) : conv_taps(p.ks);
+  const Taps td = UP ? up_taps(dz % 2, p.ks) : conv_taps(p.ks);
+  const Taps th = UP ? up_taps(ph, p.ks) : conv_taps(p.ks);
+  const Taps tw = UP ? up_taps(pw, p.ks) : conv_taps(p.ks);
+  const int lo = UP ? up_lo(p.ks) : 0;
   const int rs = UP ? 1 : p.stride;  // strip step between neighbouring outputs
-  const int dbase = UP ? dz / 2 : dz * p.stride - p.pad;
-  const int hbase = UP ? hy * BH : hy * BH * p.stride - p.pad;
-  const int wbase = UP ? wt * BM : wt * BM * p.stride - p.pad;
+  const int dbase = UP ? dz / 2 - lo : dz * p.stride - p.pad;
+  const int hbase = UP ? hy * BH - lo : hy * BH * p.stride - p.pad;
+  const int wbase = UP ? wt * BM - lo : wt * BM * p.stride - p.pad;
   const int rows = C::rows(UP, p.stride, p.ks);
   const int cols = C::cols(UP, p.stride, p.ks);
   const int ntap = th.n * tw.n;
@@ -238,7 +261,7 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
         for (int i = tid; i < cols * vpr; i += kThreads) {
           const int col = i / vpr, v = i % vpr;
           const int wi = wbase + col;
-          const bool ok = hok && wi >= 0 && wi < p.w_in;
+          const bool ok = hok && wi >= 0 && wi < p.w_in && c0 + v * 8 < p.cin;
           cp_async16(dst + col * lda + v * 8, ok ? xrow + static_cast<size_t>(wi) * p.cin + v * 8 : x,
                      ok);
         }
@@ -249,7 +272,7 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
           const int n = (i % nv) * 8, rest = i / nv;
           const int k = rest % CK, tp = rest / CK;
           const int tap = (td.k[a] * p.ks + th.k[tp / tw.n]) * p.ks + tw.k[tp % tw.n];
-          const bool ok = n0 + n < p.cout;
+          const bool ok = n0 + n < p.cout && c0 + k < p.cin;
           cp_async16(bs + (tp * CK + k) * ldb + n,
                      ok ? w + (static_cast<size_t>(tap) * p.cin + c0 + k) * p.cout + n0 + n : w,
                      ok);
@@ -259,7 +282,9 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
           const int n = i % nreal, rest = i / nreal;
           const int k = rest % CK, tp = rest / CK;
           const int tap = (td.k[a] * p.ks + th.k[tp / tw.n]) * p.ks + tw.k[tp % tw.n];
-          bs[(tp * CK + k) * ldb + n] = w[(static_cast<size_t>(tap) * p.cin + c0 + k) * p.cout + n0 + n];
+          bs[(tp * CK + k) * ldb + n] =
+              c0 + k < p.cin ? w[(static_cast<size_t>(tap) * p.cin + c0 + k) * p.cout + n0 + n]
+                             : __float2bfloat16(0.f);
         }
       }
       cp_async_wait_all();
@@ -321,6 +346,7 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
 
   // Epilogue: 8 channels (16 bytes) a thread where C_out allows, else one.
   const bf16* res = static_cast<const bf16*>(p.res);
+  const bf16* pm = static_cast<const bf16*>(p.post_mul);
   bf16* out = static_cast<bf16*>(p.out);
   const int vec = p.cout % 8 == 0 ? 8 : 1;
   const int nvec = vec == 8 ? BN / 8 : nreal;
@@ -336,6 +362,8 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
     const int wo = UP ? 2 * wj + pw : wj;
     const size_t o =
         (((static_cast<size_t>(b) * p.d_out + dz) * p.h_out + ho) * p.w_out + wo) * p.cout + co;
+    // post_mul: the same (h, w) on every plane
+    const size_t po = ((static_cast<size_t>(b) * p.h_out + ho) * p.w_out + wo) * p.cout + co;
     const float* c = cs + (r * BM + m) * ldc + n;
     if (vec == 8) {
       float v[8];
@@ -347,15 +375,25 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
 #pragma unroll
         for (int k = 0; k < 8; ++k) v[k] += __bfloat162float(rr[k]);
       }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = activate(v[k], p.act);
+      if (pm) {
+        const uint4 mv = *reinterpret_cast<const uint4*>(pm + po);
+        const bf16* mm = reinterpret_cast<const bf16*>(&mv);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] *= __bfloat162float(mm[k]);
+      }
       uint4 ov;
       bf16* oo = reinterpret_cast<bf16*>(&ov);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) oo[k] = __float2bfloat16(activate(v[k], p.act));
+      for (int k = 0; k < 8; ++k) oo[k] = __float2bfloat16(v[k]);
       *reinterpret_cast<uint4*>(out + o) = ov;
     } else {
       float v = c[0] + (p.bias ? p.bias[co] : 0.f);
       if (res) v += __bfloat162float(res[o]);
-      out[o] = __float2bfloat16(activate(v, p.act));
+      v = activate(v, p.act);
+      if (pm) v *= __bfloat162float(pm[po]);
+      out[o] = __float2bfloat16(v);
     }
   }
 }
@@ -374,12 +412,13 @@ __global__ void direct_f32(Params p) {
   const int b = static_cast<int>(pos / p.d_out);
   const float* x = static_cast<const float*>(p.x);
   const float* w = static_cast<const float*>(p.w);
-  const Taps td = UP ? up_taps(dz % 2) : conv_taps(p.ks);
-  const Taps th = UP ? up_taps(ho % 2) : conv_taps(p.ks);
-  const Taps tw = UP ? up_taps(wo % 2) : conv_taps(p.ks);
-  const int db = UP ? dz / 2 : dz * p.stride - p.pad;
-  const int hb = UP ? ho / 2 : ho * p.stride - p.pad;
-  const int wb = UP ? wo / 2 : wo * p.stride - p.pad;
+  const Taps td = UP ? up_taps(dz % 2, p.ks) : conv_taps(p.ks);
+  const Taps th = UP ? up_taps(ho % 2, p.ks) : conv_taps(p.ks);
+  const Taps tw = UP ? up_taps(wo % 2, p.ks) : conv_taps(p.ks);
+  const int lo = UP ? up_lo(p.ks) : 0;
+  const int db = UP ? dz / 2 - lo : dz * p.stride - p.pad;
+  const int hb = UP ? ho / 2 - lo : ho * p.stride - p.pad;
+  const int wb = UP ? wo / 2 - lo : wo * p.stride - p.pad;
   float acc = 0.f;
   for (int a = 0; a < td.n; ++a) {
     const int di = db + td.off[a];
@@ -401,7 +440,12 @@ __global__ void direct_f32(Params p) {
   }
   if (p.bias) acc += p.bias[co];
   if (p.res) acc += static_cast<const float*>(p.res)[e];
-  static_cast<float*>(p.out)[e] = activate(acc, p.act);
+  acc = activate(acc, p.act);
+  if (p.post_mul) {
+    acc *= static_cast<const float*>(
+        p.post_mul)[((static_cast<size_t>(b) * p.h_out + ho) * p.w_out + wo) * p.cout + co];
+  }
+  static_cast<float*>(p.out)[e] = acc;
 }
 
 template <bool UP, int BN, int CK>
@@ -423,7 +467,8 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
   return end();
 }
 
-// Input channels a stage: 32, or 16 where C_in is not a multiple of 32.
+// Input channels a stage: 32, or 16 where C_in is not a multiple of 32 (the
+// last chunk zero-filled past C_in).
 template <bool UP, int BN>
 int launch_bf16(const Params& p, cudaStream_t stream) {
   return p.cin % 32 == 0 ? launch_bf16<UP, BN, 32>(p, stream) : launch_bf16<UP, BN, 16>(p, stream);

@@ -67,9 +67,16 @@ def ddim_sample(
     reencode_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
     denoise_aux_init=None,
     noise_source: dict | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    return_masks: bool = False,
+):
     """Run the short DDIM trajectory and return ``(final (B,H,W), step_disps
-    (steps,B,H,W))``.
+    (steps,B,H,W))``, and with ``return_masks`` a third item: per step the
+    decisions the sampler took at a threshold, ``{name: (statistic (B,H,W),
+    threshold)}``, each decision ``statistic < threshold``: ``"renew_gap"``
+    ``|disp − baseline|`` against ``consistency_tau`` and ``"renew_unc"``
+    against ``uncertainty_tau`` (the renewal mask is their conjunction),
+    ``"clamp_gap"`` against ``hard_clamp_tau``.  Two runs can so tell a
+    decision that flipped at its threshold from a difference elsewhere.
 
     ``denoise_fn(latent (B,D,H4,W4), t (B,)) -> (disp, unc[, transformed])``,
     or ``(latent, t, aux) -> (disp, unc, transformed, new_aux)`` when
@@ -120,7 +127,7 @@ def ddim_sample(
     mask = torch.zeros((b, h4, w4), device=dev)
     replace_src = baseline_latent
     aux = denoise_aux_init
-    step_disps = []
+    step_disps, decisions = [], []
     for i in range(cfg.sampling_steps):
         time, time_next = (int(v) for v in coefs["pairs"][i])
         sigma = float(coefs["sigma"][i])
@@ -151,18 +158,22 @@ def ddim_sample(
             raise ValueError(cfg.invert_from)
         pred_noise = sched_lib.predict_noise_from_start(sched, x_t, t_vec, x_start)
 
+        gap = (disp - baseline_disp).abs()
+        taken = {}
         if cfg.renewal:
-            m = (disp - baseline_disp).abs().lt(cfg.consistency_tau).float()
+            taken["renew_gap"] = (gap, cfg.consistency_tau)
             if cfg.use_uncertainty:
-                m = m * unc.lt(cfg.uncertainty_tau).float()
-            m = resize_bilinear(m, (h4, w4), h_axis=1, w_axis=2)
+                taken["renew_unc"] = (unc, cfg.uncertainty_tau)
+            keep = torch.stack([stat < tau for stat, tau in taken.values()]).all(0)
+            m = resize_bilinear(keep.float(), (h4, w4), h_axis=1, w_axis=2)
             new_mask = (mask + m).clamp(0.0, 1.0)
             if not (cfg.skip_mask_update_on_last and i == cfg.sampling_steps - 1):
                 mask = new_mask
 
         if cfg.hard_clamp_tau is not None:
-            near = (disp - baseline_disp).abs() < cfg.hard_clamp_tau
-            disp = torch.where(near, disp, baseline_disp)
+            taken["clamp_gap"] = (gap, cfg.hard_clamp_tau)
+            disp = torch.where(gap < cfg.hard_clamp_tau, disp, baseline_disp)
+        decisions.append(taken)
 
         z = injected("z", i)
         if z is None:
@@ -189,12 +200,14 @@ def ddim_sample(
 
     steps = torch.stack(step_disps)
     if not cfg.use_ensemble:
-        return steps[-1], steps
-    w = torch.tensor(list(cfg.ensemble_weights), dtype=torch.float32, device=dev)
-    if w.shape[0] != cfg.sampling_steps + 1:
-        raise ValueError("ensemble weights cover [baseline, step_1..step_N]")
-    stacked = torch.cat([baseline_disp[None], steps], dim=0)
-    return torch.einsum("s...,s->...", stacked, w), steps
+        final = steps[-1]
+    else:
+        w = torch.tensor(list(cfg.ensemble_weights), dtype=torch.float32, device=dev)
+        if w.shape[0] != cfg.sampling_steps + 1:
+            raise ValueError("ensemble weights cover [baseline, step_1..step_N]")
+        stacked = torch.cat([baseline_disp[None], steps], dim=0)
+        final = torch.einsum("s...,s->...", stacked, w)
+    return (final, steps, decisions) if return_masks else (final, steps)
 
 
 # Reference presets.

@@ -1,21 +1,24 @@
-"""Two-model DDIM inference for the ACVNet and PCWNet backbones.
+"""Two-model DDIM inference for the ACVNet, PCWNet and IGEV-Stereo backbones.
 
-Counterpart of ``diffuvolume_tpu/eval/pipeline.py:acv_ddim_inference`` and
-``pcw_ddim_inference``: pass 1 runs the frozen baseline for an initial
-disparity; pass 2 feeds it to the DiffuVolume model as conditioning and runs
-the short DDIM loop.  As in the JAX package's packed pipelines, the prep
-builds the DDIM model's volume once (ACV: the concat volume without
-attention; PCW: the fused multi-scale combine volume), and each denoise step
-pays only the multiply of its noise into it.
+Counterpart of ``diffuvolume_tpu/eval/pipeline.py:acv_ddim_inference``,
+``pcw_ddim_inference`` and ``igev_ddim_inference``: pass 1 runs the frozen
+baseline for an initial disparity; pass 2 feeds it to the DiffuVolume model
+as conditioning and runs the short DDIM loop.  As in the JAX package's
+packed pipelines, the prep builds the DDIM model's volume once (ACV: the
+concat volume without attention; PCW: the fused multi-scale combine volume;
+IGEV: the encode and the lookup pyramid), and each denoise step pays only
+what its noise changes (ACV, PCW: the multiply into the volume and the
+aggregation; IGEV: the multiply into the GEV and one GRU rollout).
 
 ``packed=True`` (the default) runs both passes on the folded path
-(``models/acv_fold.py``, ``models/pcw_fold.py``: BatchNorm folded into the
-3-D conv kernels, channels-last volumes), the counterpart of the JAX
-package's ``acv_prep_fast`` / ``acv_denoise_fast`` and ``pcw_prep_fast`` /
-``pcw_denoise_fast``; ``packed=False`` runs the module path.  A shape the
-folded path cannot take raises; it does not switch path.  Folding costs a
-few hundred small device ops: a caller that runs many pairs passes
-``fold_acv(model)`` / ``fold_pcw(model)`` for each model, folded once.
+(``models/acv_fold.py``, ``models/pcw_fold.py``, ``models/igev/gev_fold.py``:
+BatchNorm folded into the 3-D conv kernels, channels-last volumes), the
+counterpart of the JAX package's ``acv_prep_fast`` / ``acv_denoise_fast``,
+``pcw_prep_fast`` / ``pcw_denoise_fast`` and ``gev_tower_packed``;
+``packed=False`` runs the module path.  A shape the folded path cannot take
+raises; it does not switch path.  Folding costs a few hundred small device
+ops: a caller that runs many pairs passes ``fold_acv(model)`` /
+``fold_pcw(model)`` / ``fold_igev(model)`` for each model, folded once.
 """
 
 from __future__ import annotations
@@ -24,16 +27,23 @@ import torch
 
 from diffuvolume_tpu_torch.diffusion import DDIMConfig, ddim_sample, make_schedule
 from diffuvolume_tpu_torch.diffusion.codec import encode_disparity_volume
-from diffuvolume_tpu_torch.diffusion.ddim import KITTI12_DDIM
+from diffuvolume_tpu_torch.diffusion.ddim import KITTI12_DDIM, KITTI15_DDIM
 from diffuvolume_tpu_torch.models.acv import ACVNet, ConcatEntry
 from diffuvolume_tpu_torch.models.acv_fold import FoldedACV, fold_acv
+from diffuvolume_tpu_torch.models.igev.gev_fold import FoldedIGEV, fold_igev
+from diffuvolume_tpu_torch.models.igev.model import (
+    IGEVEntry,
+    IGEVStereo,
+    igev_encode,
+    igev_forward,
+)
 from diffuvolume_tpu_torch.models.pcw import PCWEntry, PCWNet
 from diffuvolume_tpu_torch.models.pcw_fold import FoldedPCW, fold_pcw
 from diffuvolume_tpu_torch.ops.kernels.concat_volume import concat_volume
 from diffuvolume_tpu_torch.ops.regression import resize_bilinear
 from diffuvolume_tpu_torch.utils.device import resolve_device
 
-_FOLDS = {FoldedACV: fold_acv, FoldedPCW: fold_pcw}
+_FOLDS = {FoldedACV: fold_acv, FoldedPCW: fold_pcw, FoldedIGEV: fold_igev}
 
 
 def _check_on(model, dev: torch.device) -> None:
@@ -181,3 +191,65 @@ def pcw_ddim_inference(
         baseline_model, ddim_model, left, right, cfg, packed)
     return _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
                    noise_source, (left.shape[1], left.shape[2]))
+
+
+@torch.no_grad()
+def igev_prep(baseline_model: IGEVStereo | FoldedIGEV, ddim_model: IGEVStereo | FoldedIGEV,
+              left: torch.Tensor, right: torch.Tensor, cfg: DDIMConfig = KITTI15_DDIM,
+              packed: bool = True, iters: int = 32):
+    """Pass 1 and the sampler's inputs (``_igev_stages``): the baseline's
+    encode, ``iters`` GRU updates and upsampling; the DDIM model's encode
+    (once) and lookup pyramid (band mode).  Returns ``(baseline_disp
+    (B,H,W), baseline_latent (B,D,H4,W4), IGEVEntry)``."""
+    baseline_model, ddim_model = (_on_path(m, packed, FoldedIGEV)
+                                  for m in (baseline_model, ddim_model))
+    baseline_disp = igev_forward(baseline_model, left, right, iters)
+    enc, pyramid = igev_encode(ddim_model, left, right)
+    baseline_latent = _baseline_latent(baseline_disp, cfg, left.shape[1] // 4,
+                                       left.shape[2] // 4)
+    return baseline_disp, baseline_latent, IGEVEntry(enc, pyramid, iters)
+
+
+@torch.no_grad()
+def igev_ddim_inference(
+    baseline_model: IGEVStereo | FoldedIGEV,
+    ddim_model: IGEVStereo | FoldedIGEV,
+    left,
+    right,
+    cfg: DDIMConfig = KITTI15_DDIM,
+    *,
+    device: str | torch.device | None = None,
+    generator: torch.Generator | None = None,
+    noise_source: dict | None = None,
+    packed: bool = True,
+    iters: int = 32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-pass DiffuVolume inference for the IGEV-Stereo backbone (the
+    reference's KITTI15 contract, ``evaluate_stereo.py:88-99``: the frozen
+    IGEV-Stereo with ``iters`` GRU updates, then the DDIM-2 model with the
+    KITTI15 sampler variant, ``KITTI15_DDIM``: no uncertainty term, hard
+    clamp to the baseline, fresh q-sample replacement).
+
+    Arguments as ``acv_ddim_inference``'s, with ``IGEVStereo``s
+    (``diffusion`` off / on) or their ``fold_igev`` results, and RAW images
+    in [0, 255].  The folded path needs H, W and ``max_disp`` to be multiples
+    of 32; it raises on any other shape.
+
+    Returns ``(final_disp (B,H,W), baseline_disp (B,H,W))``, float32.
+    """
+    dev, (baseline_model, ddim_model), left, right = _inputs(
+        (baseline_model, ddim_model), FoldedIGEV, packed, left, right, device)
+    baseline_disp, baseline_latent, entry = igev_prep(
+        baseline_model, ddim_model, left, right, cfg, packed, iters)
+    return _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
+                   noise_source, (left.shape[1], left.shape[2]))
+
+
+@torch.no_grad()
+def igev_baseline_inference(model: IGEVStereo | FoldedIGEV, left, right, *, iters: int = 32,
+                            device: str | torch.device | None = None,
+                            packed: bool = True) -> torch.Tensor:
+    """The frozen IGEV-Stereo alone (``baseline_inference`` with ``iters``):
+    RAW ``(B, H, W, 3)`` images → ``(B, H, W)`` float32."""
+    dev, (model,), left, right = _inputs((model,), FoldedIGEV, packed, left, right, device)
+    return igev_forward(model, left, right, iters)

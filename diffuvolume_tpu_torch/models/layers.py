@@ -17,6 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from diffuvolume_tpu_torch.ops.regression import resize_linear
+
 
 def mish(x: torch.Tensor) -> torch.Tensor:
     """x · tanh(softplus(x))."""
@@ -243,10 +245,13 @@ class SinusoidalTimeEmbed(nn.Module):
 
 class DynamicHead(nn.Module):
     """Time-embedding head: adds a per-bin shift to the noisy ``(B, D, H, W)``
-    volume (reference ``head.py``; ``time_mlp`` / ``block_time_mlp``)."""
+    volume (reference ``head.py``; ``time_mlp`` / ``block_time_mlp``).  With
+    ``out_bins`` (KITTI15's IGEV: ``d_model`` 180, 48 bins) the shift vector
+    is resized linearly to ``out_bins`` (half-pixel centres)."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, out_bins: int | None = None):
         super().__init__()
+        self.out_bins = out_bins
         self.time_mlp = nn.Sequential(
             SinusoidalTimeEmbed(d_model),
             nn.Linear(d_model, 4 * d_model),
@@ -258,6 +263,8 @@ class DynamicHead(nn.Module):
     def forward(self, noisy, t):
         emb = self.time_mlp[0](t).to(self.time_mlp[1].weight.dtype)
         ss = self.block_time_mlp(self.time_mlp[1:](emb))
+        if self.out_bins is not None and self.out_bins != ss.shape[1]:
+            ss = resize_linear(ss, self.out_bins, 1)
         return noisy + ss[:, :, None, None]
 
 
@@ -268,8 +275,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     1, bias 0, running mean 0, running variance 1."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
-                out_ch = m.weight.shape[1 if isinstance(m, nn.ConvTranspose3d) else 0]
+            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)):
+                transposed = isinstance(m, (nn.ConvTranspose2d, nn.ConvTranspose3d))
+                out_ch = m.weight.shape[1 if transposed else 0]
                 n = math.prod(m.kernel_size) * out_ch
                 m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
                                * math.sqrt(2.0 / n))

@@ -52,14 +52,16 @@ SIGNATURES = {
     # the same two, channels-last output / volume
     "dv_concat_volume_cl": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
     "dv_dhw_mul_cl": [_P, _P, _P, _P, _I, _I, _L],
-    # x, w, bias|0, res|0, out, b, d, h, w, cin, cout, ks, stride, act
-    "dv_conv3d_fold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I],
-    # x, w, bias|0, res|0, out, b, d, h, w, cin, cout, act
-    "dv_conv3d_up": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
+    # x, w, bias|0, res|0, post_mul|0, out, b, d, h, w, cin, cout, ks, stride, act
+    "dv_conv3d_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I],
+    # x, w, bias|0, res|0, post_mul|0, out, b, d, h, w, cin, cout, ks, act
+    "dv_conv3d_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
     # x, out, b, c, s, c_slot
     "dv_pack": [_P, _P, _I, _I, _L, _I],
     # x, out, b, c, s
     "dv_unpack": [_P, _P, _I, _I, _L],
+    # x, out, b, d, s, c_slot, co
+    "dv_unpack_hwdc": [_P, _P, _I, _I, _L, _I, _I],
 }
 _TAIL = [_I, _I, _P]
 

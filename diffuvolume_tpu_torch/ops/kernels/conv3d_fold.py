@@ -1,22 +1,27 @@
 """3-D convolution with eval BatchNorm folded into its weights, channels-last.
 
 Kernel: ``csrc/conv3d_fold.cu`` (implicit GEMM on the bf16 tensor cores; a
-plain FMA kernel in float32).  One kernel serves four TPU kernels of
+plain FMA kernel in float32).  One kernel serves five TPU kernels of
 ``diffuvolume_tpu/ops/pallas/conv3d.py``; each has its own wrapper here and
 its own launch count:
 
-* ``conv3d_fold_p``  ← ``conv3d_fold_p`` (3×3×3, stride 1, + residual)
+* ``conv3d_fold_p``  ← ``conv3d_fold_p`` (3×3×3, stride 1, + residual,
+  × post_mul)
 * ``conv3d_fold_x2`` ← ``conv3d_fold_x2`` (the same conv at the wide entries:
   C_in 64, or the 40-channel patch volume in a 48-channel slot)
 * ``conv3d_fold_s2`` ← ``conv3d_fold_s2`` (3×3×3, stride 2)
-* ``conv1x1_fold_p`` ← ``conv1x1_fold_p`` (1×1×1)
+* ``conv1x1_fold_p`` ← ``conv1x1_fold_p`` (1×1×1, + residual)
+* ``conv3d_fold_small`` ← ``conv3d_fold`` (3×3×3 stride 1 at C_in 8 or 16,
+  IGEV's module path; C_in 8 runs on a zero-filled half chunk, no slot)
 
 Plain version: ``conv3d_fold_plain``.  Layouts: activations ``(B, D, H, W,
 C)``, weights ``(k, k, k, C_in, C_out)`` in the model's dtype, bias
-``(C_out,)`` float32.  The epilogue's activation ``act`` is ``None``,
-``"relu"`` (ACVNet) or ``"mish"`` (PCWNet), taken in float32 before the one
-rounding.  A CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises.
+``(C_out,)`` float32, ``post_mul`` ``(B, H_out, W_out, C_out)`` in the
+model's dtype, broadcast over D.  The epilogue is conv → + bias → +
+residual → ``act`` → × post_mul in float32, then one rounding; ``act`` is
+``None``, ``"relu"`` (ACVNet), ``"mish"`` (PCWNet) or ``"leaky"``
+(LeakyReLU 0.01, IGEV).  A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -28,55 +33,73 @@ from diffuvolume_tpu_torch.ops.kernels import _build
 
 
 # The kernels' activation codes (csrc/conv_igemm.cuh Act).
-ACT_CODES = {None: 0, "relu": 1, "mish": 2}
+ACT_CODES = {None: 0, "relu": 1, "mish": 2, "leaky": 3}
+LEAKY_SLOPE = 0.01
 
 
 def apply_act(y: torch.Tensor, act: str | None) -> torch.Tensor:
     """The epilogue's activation on a float32 tensor.  Mish is taken as the
     kernels take it: ``x·((1+eˣ)² − 1)/((1+eˣ)² + 1)``, ``x`` itself above
-    20."""
+    20; ``"leaky"`` is LeakyReLU with slope 0.01."""
     if act is None:
         return y
     if act == "relu":
         return torch.relu(y)
+    if act == "leaky":
+        return torch.where(y > 0.0, y, LEAKY_SLOPE * y)
     if act == "mish":
         t = (1.0 + torch.exp(y.clamp(max=20.0))) ** 2
         return torch.where(y > 20.0, y, y * (t - 1.0) / (t + 1.0))
     raise ValueError(f"act must be one of {list(ACT_CODES)}, got {act!r}")
 
 
+def finish_plain(y: torch.Tensor, residual, act, post_mul, dtype) -> torch.Tensor:
+    """The epilogue on a float32 ``(B, D, H, W, C)`` conv result: + residual,
+    ``act``, × post_mul broadcast over D, one rounding to ``dtype``."""
+    if residual is not None:
+        y = y + residual.float()
+    y = apply_act(y, act)
+    if post_mul is not None:
+        y = y * post_mul.float()[:, None]
+    return y.to(dtype).contiguous()
+
+
 def conv3d_fold_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
                       stride: int = 1, residual: torch.Tensor | None = None,
-                      act: str | None = None) -> torch.Tensor:
-    """``act(conv(x, w) + bias + residual)`` in float32 through ``F.conv3d``,
-    rounded once to ``x``'s dtype; zero padding ``(k - 1) / 2``."""
+                      act: str | None = None,
+                      post_mul: torch.Tensor | None = None) -> torch.Tensor:
+    """``act(conv(x, w) + bias + residual) · post_mul`` in float32 through
+    ``F.conv3d``, rounded once to ``x``'s dtype; zero padding ``(k - 1) / 2``."""
     k = w.shape[0]
     y = F.conv3d(x.float().permute(0, 4, 1, 2, 3), w.float().permute(4, 3, 0, 1, 2),
                  None if bias is None else bias.float(), stride=stride, padding=(k - 1) // 2)
-    y = y.permute(0, 2, 3, 4, 1)
-    if residual is not None:
-        y = y + residual.float()
-    return apply_act(y, act).to(x.dtype).contiguous()
+    return finish_plain(y.permute(0, 2, 3, 4, 1), residual, act, post_mul, x.dtype)
 
 
-def check_operands(x, w, bias, residual, out_shape, what: str) -> None:
+def check_operands(x, w, bias, residual, out_shape, what: str, post_mul=None,
+                   cin_step: int = 16) -> None:
     """Shapes, dtypes, devices, contiguity and alignment of a folded conv's
-    operands; raise on anything the kernels do not take."""
+    operands; raise on anything the kernels do not take.  bf16 input channels
+    must be a multiple of ``cin_step``."""
     if x.dim() != 5 or w.dim() != 5 or w.shape[3] != x.shape[4]:
         raise ValueError(f"{what}: x (B, D, H, W, C) and w (k, k, k, C, Co) must agree, "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
     if w.dtype != x.dtype:
         raise TypeError(f"{what}: w is {w.dtype}, x is {x.dtype}")
-    if x.dtype == torch.bfloat16 and x.shape[4] % 16:
-        raise ValueError(f"{what}: bf16 input channels must be a multiple of 16 (zero-fill the "
-                         f"slot), got {x.shape[4]}")
+    if x.dtype == torch.bfloat16 and x.shape[4] % cin_step:
+        raise ValueError(f"{what}: bf16 input channels must be a multiple of {cin_step} "
+                         f"(zero-fill the slot), got {x.shape[4]}")
     if bias is not None and (bias.dtype != torch.float32 or tuple(bias.shape) != (w.shape[4],)):
         raise ValueError(f"{what}: bias must be ({w.shape[4]},) float32")
     if residual is not None and (tuple(residual.shape) != tuple(out_shape)
                                  or residual.dtype != x.dtype):
         raise ValueError(f"{what}: residual must be {tuple(out_shape)} {x.dtype}, got "
                          f"{tuple(residual.shape)} {residual.dtype}")
-    tensors = [t for t in (x, w, bias, residual) if t is not None]
+    pm_shape = (out_shape[0], *out_shape[2:])
+    if post_mul is not None and (tuple(post_mul.shape) != pm_shape or post_mul.dtype != x.dtype):
+        raise ValueError(f"{what}: post_mul must be {pm_shape} {x.dtype}, got "
+                         f"{tuple(post_mul.shape)} {post_mul.dtype}")
+    tensors = [t for t in (x, w, bias, residual, post_mul) if t is not None]
     _build.check_cuda(*tensors)
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: operands must be 16-byte aligned")
@@ -92,29 +115,30 @@ def act_code(act: str | None) -> int:
     return ACT_CODES[act]
 
 
-def _fold(x, w, bias, stride, residual, act, ks, wrapper):
+def _fold(x, w, bias, stride, residual, act, ks, wrapper, post_mul=None, cin_step=16):
     if w.shape[:3] != (ks, ks, ks):
         raise ValueError(f"{wrapper.__name__} takes a {ks}×{ks}×{ks} kernel, got "
                          f"{tuple(w.shape[:3])}")
     code = act_code(act)
     if x.device.type == "cpu":
-        return conv3d_fold_plain(x, w, bias, stride, residual, act)
+        return conv3d_fold_plain(x, w, bias, stride, residual, act, post_mul)
     b, d, h, wd, cin = x.shape
     pad = (ks - 1) // 2
     osz = [(n + 2 * pad - ks) // stride + 1 for n in (d, h, wd)]
     out_shape = (b, *osz, w.shape[4])
-    check_operands(x, w, bias, residual, out_shape, wrapper.__name__)
+    check_operands(x, w, bias, residual, out_shape, wrapper.__name__, post_mul, cin_step)
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     _build.launch("dv_conv3d_fold", x, x.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual),
-                  out.data_ptr(), b, d, h, wd, cin, w.shape[4], ks, stride, code)
+                  _ptr(post_mul), out.data_ptr(), b, d, h, wd, cin, w.shape[4], ks, stride, code)
     wrapper.launches += 1
     return out
 
 
 def conv3d_fold_p(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
-                  residual: torch.Tensor | None = None, act: str | None = None) -> torch.Tensor:
+                  residual: torch.Tensor | None = None, act: str | None = None,
+                  post_mul: torch.Tensor | None = None) -> torch.Tensor:
     """3×3×3 stride-1 conv, ``(B, D, H, W, C) → (B, D, H, W, Co)``."""
-    return _fold(x, w, bias, 1, residual, act, 3, conv3d_fold_p)
+    return _fold(x, w, bias, 1, residual, act, 3, conv3d_fold_p, post_mul)
 
 
 def conv3d_fold_x2(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
@@ -131,12 +155,26 @@ def conv3d_fold_s2(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None =
 
 
 def conv1x1_fold_p(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
-                   act: str | None = None) -> torch.Tensor:
-    """1×1×1 conv, ``(B, D, H, W, C) → (B, D, H, W, Co)``."""
-    return _fold(x, w, bias, 1, None, act, 1, conv1x1_fold_p)
+                   act: str | None = None, residual: torch.Tensor | None = None) -> torch.Tensor:
+    """1×1×1 conv, ``(B, D, H, W, C) → (B, D, H, W, Co)``; IGEV's agg convs
+    over a concatenation run as two, the second with the first as its
+    residual."""
+    return _fold(x, w, bias, 1, residual, act, 1, conv1x1_fold_p)
+
+
+def conv3d_fold_small(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
+                      act: str | None = None) -> torch.Tensor:
+    """3×3×3 stride-1 conv at C_in 8 or 16 on plain NDHWC, ``(B, D, H, W, C)
+    → (B, D, H, W, Co)`` (IGEV's module path: corr_stem, the hourglass's
+    16-channel convs, the 8→1 classifier); the same kernel as
+    ``conv3d_fold_p``, counted apart."""
+    if x.shape[-1] not in (8, 16):
+        raise ValueError(f"conv3d_fold_small takes 8 or 16 input channels, got {x.shape[-1]}")
+    return _fold(x, w, bias, 1, None, act, 3, conv3d_fold_small, cin_step=8)
 
 
 conv3d_fold_p.launches = 0
 conv3d_fold_x2.launches = 0
 conv3d_fold_s2.launches = 0
 conv1x1_fold_p.launches = 0
+conv3d_fold_small.launches = 0

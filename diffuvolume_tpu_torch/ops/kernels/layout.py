@@ -3,8 +3,11 @@
 Kernels: ``csrc/layout.cu``.  ``pack`` replaces
 ``diffuvolume_tpu/ops/pallas/conv3d.py:pack_padded_k`` (NCDHW → NDHWC,
 channels zero-filled up to a slot width); ``unpack`` replaces
-``unpack_padded_k`` (NDHWC → NCDHW).  Plain versions: ``pack_plain``,
-``unpack_plain``.  A CPU tensor takes the plain version; a CUDA tensor
+``unpack_padded_k`` (NDHWC → NCDHW); ``unpack_hwdc`` replaces
+``unpack_hwdc_k`` (NDHWC slot → ``(B, H, W, D·co)``, the first ``co``
+channels: IGEV's GEV in the geometry pyramid's layout and the classifier's
+cost with D minor).  Plain versions: ``pack_plain``, ``unpack_plain``,
+``unpack_hwdc_plain``.  A CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises.
 """
 
@@ -60,5 +63,28 @@ def unpack(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def unpack_hwdc_plain(x: torch.Tensor, co: int) -> torch.Tensor:
+    """``(B, D, H, W, C_slot)`` → ``(B, H, W, D·co)``, channels ``< co``."""
+    b, d, h, w, _ = x.shape
+    return x[..., :co].permute(0, 2, 3, 1, 4).reshape(b, h, w, d * co).contiguous()
+
+
+def unpack_hwdc(x: torch.Tensor, co: int) -> torch.Tensor:
+    """Channels-last slot → ``(B, H, W, D·co)`` with its first ``co``
+    channels."""
+    if x.dim() != 5 or not 0 < co <= x.shape[4]:
+        raise ValueError(f"unpack_hwdc takes (B, D, H, W, C) and 0 < co ≤ C, got "
+                         f"{tuple(x.shape)}, {co}")
+    if x.device.type == "cpu":
+        return unpack_hwdc_plain(x, co)
+    _build.check_cuda(x)
+    b, d, h, w, c_slot = x.shape
+    out = torch.empty((b, h, w, d * co), dtype=x.dtype, device=x.device)
+    _build.launch("dv_unpack_hwdc", x, x.data_ptr(), out.data_ptr(), b, d, h * w, c_slot, co)
+    unpack_hwdc.launches += 1
+    return out
+
+
 pack.launches = 0
 unpack.launches = 0
+unpack_hwdc.launches = 0

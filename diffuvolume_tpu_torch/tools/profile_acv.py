@@ -1,11 +1,13 @@
 """Where one pair spends its device time.
 
-    python -m diffuvolume_tpu_torch.tools.profile_acv [--model acv|pcw]
+    python -m diffuvolume_tpu_torch.tools.profile_acv [--model acv|pcw|igev]
         [--pairs N] [--path folded|module]
 
 Runs the inputs of ``chip_smoke.py``'s paths: ACV two-pass DDIM-5 at
-512×960 (``--model acv``, the default) or PCW two-pass KITTI12 DDIM-3 at
-384×1248 (``--model pcw``), batch 1, bfloat16, on the folded path
+512×960 (``--model acv``, the default), PCW two-pass KITTI12 DDIM-3 at
+384×1248 (``--model pcw``) or IGEV-Stereo two-pass KITTI15 DDIM-2 at
+384×1248 with 32 GRU iterations a rollout (``--model igev``), batch 1,
+bfloat16, on the folded path
 (``packed=True``, the default) or the module path; one warm-up pair, then
 ``N`` pairs under ``torch.profiler``.  Prints the device time per pair by
 kernel group and the top kernels, the wall time per pair (profiled, and over
@@ -26,11 +28,20 @@ import time
 import torch
 
 from diffuvolume_tpu_torch.diffusion import DDIMConfig
-from diffuvolume_tpu_torch.diffusion.ddim import KITTI12_DDIM
-from diffuvolume_tpu_torch.eval.pipeline import acv_ddim_inference, pcw_ddim_inference
+from diffuvolume_tpu_torch.diffusion.ddim import KITTI12_DDIM, KITTI15_DDIM
+from diffuvolume_tpu_torch.eval.pipeline import (
+    acv_ddim_inference,
+    igev_ddim_inference,
+    pcw_ddim_inference,
+)
 from diffuvolume_tpu_torch.models.acv_fold import fold_acv
+from diffuvolume_tpu_torch.models.igev.gev_fold import fold_igev
 from diffuvolume_tpu_torch.models.pcw_fold import fold_pcw
-from diffuvolume_tpu_torch.tools.random_weights import seeded_main_path, seeded_pcw_path
+from diffuvolume_tpu_torch.tools.random_weights import (
+    seeded_igev_path,
+    seeded_main_path,
+    seeded_pcw_path,
+)
 from diffuvolume_tpu_torch.utils.device import resolve_device
 
 # Kernel name → group, first match wins.
@@ -44,7 +55,7 @@ GROUPS = [
     ("port: dhw multiply", r"dhw_mul_kernel|dhw_mul_cl"),
     ("port: 3-D conv, folded (conv3d_fold.cu)", r"igemm_bf16<false|direct_f32<false"),
     ("port: transposed conv, folded (conv3d_up.cu)", r"igemm_bf16<true|direct_f32<true"),
-    ("port: layout pack / unpack", r"to_last_kernel|to_first_kernel"),
+    ("port: layout pack / unpack", r"to_last_kernel|to_first_kernel|hwdc"),
     ("conv / deconv (cuDNN, CUTLASS)", r"conv|cudnn|xmma|implicit|wgrad|dgrad|fprop|winograd|sm90_"),
     ("matmul (attention, resizes)", r"gemm|cublas|cutlass"),
     # On the folded path every BatchNorm left is a 2-D one (the feature
@@ -52,6 +63,7 @@ GROUPS = [
     # 3-D one.
     ("batch norm", r"batch_norm|bn_"),
     ("grid sample (PCW refinement warp)", r"grid_sampler"),
+    ("instance norm (IGEV trunk)", r"instance_norm|welford"),
     ("softmax", r"softmax"),
     ("copies / layout", r"copy|transpose|permute|cat|pad|Memcpy|Memset"),
     ("elementwise / reduce", r"elementwise|reduce|vectorized|unrolled"),
@@ -67,7 +79,7 @@ def group_of(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("acv", "pcw"), default="acv")
+    ap.add_argument("--model", choices=("acv", "pcw", "igev"), default="acv")
     ap.add_argument("--pairs", type=int, default=2)
     ap.add_argument("--path", choices=("folded", "module"), default="folded")
     args = ap.parse_args(argv)
@@ -78,9 +90,12 @@ def main(argv=None) -> int:
     if args.model == "acv":
         bm, dm, left, right = seeded_main_path(dev)
         cfg, infer, fold = DDIMConfig(), acv_ddim_inference, fold_acv
-    else:
+    elif args.model == "pcw":
         bm, dm, left, right = seeded_pcw_path(dev)
         cfg, infer, fold = KITTI12_DDIM, pcw_ddim_inference, fold_pcw
+    else:
+        bm, dm, left, right = seeded_igev_path(dev)
+        cfg, infer, fold = KITTI15_DDIM, igev_ddim_inference, fold_igev
     if packed:  # folded once, as a caller running many pairs does
         bm, dm = fold(bm), fold(dm)
 

@@ -1,5 +1,5 @@
-"""Seeded random-weight ACVNets and PCWNets for runs without the released
-checkpoints.
+"""Seeded random-weight ACVNets, PCWNets and IGEV-Stereos for runs without
+the released checkpoints.
 
 At random initialisation the networks' logits reach ±1e5 (ACV's attention
 head ±1e8; PCW's 1e7–1e9): the softmaxes are one-hot and the sampler's
@@ -8,6 +8,8 @@ disagree by pixels.  ``calibrate_heads`` / ``calibrate_pcw`` rescale the
 head kernels the eval path uses so that the logits on given images have a
 chosen spread (and, for PCW, the refinement residual a chosen size), which
 makes a disparity comparison between implementations meaningful.
+``calibrate_igev`` does the same for IGEV's classifier and sets the GRU's
+step size, so that the disparity stays where the lookups are exact.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from diffuvolume_tpu_torch.models.acv import ACVNet
+from diffuvolume_tpu_torch.models.igev.model import IGEVStereo, igev_encode, igev_rollout
 from diffuvolume_tpu_torch.models.layers import BasicBlock
 from diffuvolume_tpu_torch.models.pcw import PCWNet
 
@@ -152,5 +155,64 @@ def seeded_pcw_path(device, h: int = 384, w: int = 1248, max_disp: int = 192):
     baseline = baseline.to(device, torch.bfloat16)
     ddim = ddim.to(device, torch.bfloat16)
     calibrate_pcw(baseline, left, right)
+    ddim.load_state_dict(baseline.state_dict(), strict=False)
+    return baseline, ddim, left, right
+
+
+def random_igev(max_disp: int, diffusion: bool, generator: torch.Generator) -> IGEVStereo:
+    """An eval-mode ``IGEVStereo`` on the CPU in float32, every weight and
+    BatchNorm statistic drawn from ``generator``."""
+    model = IGEVStereo(max_disp=max_disp, diffusion=diffusion).init_weights(generator)
+    _draw_batchnorm(model, generator)
+    return model.eval()
+
+
+def random_igev_pair(max_disp: int, generator: torch.Generator) -> tuple[IGEVStereo, IGEVStereo]:
+    """``(baseline, ddim)`` IGEV-Stereos; the DDIM model shares the
+    baseline's weights and draws only its time embedding."""
+    baseline = random_igev(max_disp, False, generator)
+    ddim = random_igev(max_disp, True, generator)
+    ddim.load_state_dict(baseline.state_dict(), strict=False)
+    return baseline, ddim
+
+
+@torch.no_grad()
+def calibrate_igev(model: IGEVStereo, left: torch.Tensor, right: torch.Tensor,
+                   logit_std: float = 10.0, step_std: float = 0.5) -> IGEVStereo:
+    """Scale the classifier so that its logits on ``left``/``right`` (RAW
+    ``(B, H, W, 3)``) have standard deviation ``logit_std``, then
+    ``update_block.disp_head.conv2`` so that the first GRU update moves the
+    disparity by ``step_std`` quarter-res px (std).  Uncalibrated, the
+    random GRU walks the disparity out of the band lookup's exact domain,
+    [−1, 52] quarter-res px at 384×1248."""
+    feat_l, match_l, match_r, _, _ = model.trunk(left, right)
+    _, cost = model.gev_tower(match_l, match_r, feat_l)
+    model.classifier.weight.mul_(logit_std / float(cost.float().std()))
+    enc, pyramid = igev_encode(model, left, right)
+    conv = model.update_block.disp_head.conv2
+    seen = []
+    hook = conv.register_forward_hook(lambda m, i, o: seen.append(o.float().std()))
+    try:
+        igev_rollout(model, enc, pyramid, 1)
+    finally:
+        hook.remove()
+    conv.weight.mul_(step_std / float(seen[0]))
+    conv.bias.mul_(step_std / float(seen[0]))
+    return model
+
+
+@torch.no_grad()
+def seeded_igev_path(device, h: int = 384, w: int = 1248, max_disp: int = 192):
+    """The IGEV path's inputs from seed 0: ``(baseline, ddim, left, right)``,
+    the models from ``random_igev_pair`` in bfloat16 on ``device``,
+    calibrated by ``calibrate_igev`` on the images, the images ``(1, h, w,
+    3)`` RAW in [0, 255), the right the left shifted 3 px."""
+    g = torch.Generator().manual_seed(0)
+    left = (torch.rand((1, h, w, 3), generator=g) * 255.0).to(device)
+    right = torch.roll(left, -3, dims=2)
+    baseline, ddim = random_igev_pair(max_disp, g)
+    baseline = baseline.to(device, torch.bfloat16)
+    ddim = ddim.to(device, torch.bfloat16)
+    calibrate_igev(baseline, left, right)
     ddim.load_state_dict(baseline.state_dict(), strict=False)
     return baseline, ddim, left, right

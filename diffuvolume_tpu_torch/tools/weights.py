@@ -1,16 +1,17 @@
 """JAX-package variables → the port's ``state_dict``.
 
-The inverse of the JAX package's ``convert_acv_state_dict`` and
-``convert_pcw_state_dict``, with its own copy of their rule tables
+The inverse of the JAX package's ``convert_acv_state_dict``,
+``convert_pcw_state_dict`` and ``convert_igev_state_dict``, with its own copy
+of their rule tables
 (reference state-dict key ↔ flax variable path).  Input is the JAX
 package's variables as a nested dict of numpy arrays,
 ``{"params": ..., "batch_stats": ...}``; output is a dict of CPU tensors that
-``ACVNet.load_state_dict`` / ``PCWNet.load_state_dict`` takes.  The layout
+``ACVNet`` / ``PCWNet`` / ``IGEVStereo.load_state_dict`` takes.  The layout
 changes are exact:
 
 * conv kernel ``(kd, kh, kw, I, O)`` / ``(kh, kw, I, O)`` → ``(O, I, ...)``;
 * deconv kernel, stored pre-flipped in conv orientation ``(k, k, k, I, O)``
-  → un-flipped ``(I, O, k, k, k)``;
+  / ``(k, k, I, O)`` → un-flipped ``(I, O, k, k, k)`` / ``(I, O, k, k)``;
 * Linear ``(I, O)`` → ``(O, I)``;
 * BatchNorm ``scale``/``bias``/``mean``/``var`` → ``weight``/``bias``/
   ``running_mean``/``running_var`` (plus ``num_batches_tracked`` = 0).
@@ -33,6 +34,8 @@ def _conv(k: np.ndarray) -> np.ndarray:
 
 
 def _deconv(k: np.ndarray) -> np.ndarray:
+    if k.ndim == 4:
+        return k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     return k.transpose(3, 4, 0, 1, 2)[:, :, ::-1, ::-1, ::-1]
 
 
@@ -198,6 +201,128 @@ def pcw_rules(diffusion: bool = True) -> list[Rule]:
     return rules
 
 
+def _conv_b(tp: str, fn: str, bias: bool = True) -> list[Rule]:
+    """A conv (2-D or 3-D) and, with ``bias``, its bias."""
+    rules = [(f"{tp}.weight", "params", f"{fn}/kernel", _conv)]
+    if bias:
+        rules.append((f"{tp}.bias", "params", f"{fn}/bias", None))
+    return rules
+
+
+def _basic_conv(tp: str, fn: str, deconv: bool = False, bn: bool = True) -> list[Rule]:
+    """IGEV's ``BasicConv``: ``.conv`` (no bias) and ``.bn``."""
+    rules = [(f"{tp}.conv.weight", "params", f"{fn}/conv/kernel", _deconv if deconv else _conv)]
+    return rules + (_bn(f"{tp}.bn", f"{fn}/bn") if bn else [])
+
+
+def _conv2x(tp: str, fn: str, norm: str) -> list[Rule]:
+    """``Conv2x`` (BatchNorm) / ``Conv2x_IN``: the k4 transposed ``conv1``,
+    the 3×3 ``conv2``; instance norm has no parameters."""
+    bn = norm == "batch"
+    return (_basic_conv(f"{tp}.conv1", f"{fn}/conv1", deconv=True, bn=bn)
+            + _basic_conv(f"{tp}.conv2", f"{fn}/conv2", bn=bn))
+
+
+def _feature_att(tp: str, fn: str) -> list[Rule]:
+    return (_basic_conv(f"{tp}.feat_att.0", f"{fn}/att0")
+            + _conv_b(f"{tp}.feat_att.1", f"{fn}/att1"))
+
+
+def _residual_block(tp: str, fn: str, downsample: bool) -> list[Rule]:
+    """RAFT's residual block; ``norm3`` also under its alias
+    ``downsample.1``."""
+    rules = (_conv_b(f"{tp}.conv1", f"{fn}/conv1") + _bn(f"{tp}.norm1", f"{fn}/norm1")
+             + _conv_b(f"{tp}.conv2", f"{fn}/conv2") + _bn(f"{tp}.norm2", f"{fn}/norm2"))
+    if downsample:
+        rules += _conv_b(f"{tp}.downsample.0", f"{fn}/downsample")
+        rules += _bn(f"{tp}.norm3", f"{fn}/norm3") + _bn(f"{tp}.downsample.1", f"{fn}/norm3")
+    return rules
+
+
+# The port's MobileNetV2 blocks: (torch prefix, has expansion), in the JAX
+# package's block order block0 … block15.
+_MBV2_BLOCKS = [("block0.0.0", False)] + [
+    (f"block{blk}.{seq}.{i}", True)
+    for blk, seq, n in ((1, 0, 2), (2, 0, 3), (3, 0, 4), (3, 1, 3), (4, 0, 3))
+    for i in range(n)]
+
+
+def _mbv2_block(tp: str, fn: str, expand: bool) -> list[Rule]:
+    if not expand:
+        return (_conv_b(f"{tp}.conv_dw", f"{fn}/dw", False) + _bn(f"{tp}.bn1", f"{fn}/dw_bn")
+                + _conv_b(f"{tp}.conv_pw", f"{fn}/proj", False)
+                + _bn(f"{tp}.bn2", f"{fn}/proj_bn"))
+    return (_conv_b(f"{tp}.conv_pw", f"{fn}/pw", False) + _bn(f"{tp}.bn1", f"{fn}/pw_bn")
+            + _conv_b(f"{tp}.conv_dw", f"{fn}/dw", False) + _bn(f"{tp}.bn2", f"{fn}/dw_bn")
+            + _conv_b(f"{tp}.conv_pwl", f"{fn}/proj", False)
+            + _bn(f"{tp}.bn3", f"{fn}/proj_bn"))
+
+
+def igev_rules(diffusion: bool = True, n_gru_layers: int = 3) -> list[Rule]:
+    """Every IGEVStereo(_ddim) state-dict key with its flax variable path
+    (the JAX package's ``convert_torch_igev.igev_rules``)."""
+    r = _conv_b("feature.conv_stem", "feature/conv_stem", False)
+    r += _bn("feature.bn1", "feature/bn1")
+    for idx, (tp, expand) in enumerate(_MBV2_BLOCKS):
+        r += _mbv2_block(f"feature.{tp}", f"feature/block{idx}", expand)
+    for name in ("deconv32_16", "deconv16_8", "deconv8_4"):
+        r += _conv2x(f"feature.{name}", f"feature/{name}", "instance")
+    r += _basic_conv("feature.conv4", "feature/conv4", bn=False)
+
+    r += _conv_b("cnet.conv1", "cnet/conv1") + _bn("cnet.norm1", "cnet/norm1")
+    for layer in range(1, 6):
+        for blk in (0, 1):
+            r += _residual_block(f"cnet.layer{layer}.{blk}", f"cnet/layer{layer}_{blk}",
+                                 layer > 1 and blk == 0)
+    for di in range(2):
+        for lvl in ("04", "08"):
+            r += _residual_block(f"cnet.outputs{lvl}.{di}.0", f"cnet/out{lvl}_{di}_res", False)
+            r += _conv_b(f"cnet.outputs{lvl}.{di}.1", f"cnet/out{lvl}_{di}_conv")
+        r += _conv_b(f"cnet.outputs16.{di}", f"cnet/out16_{di}")
+
+    u = "update_block"
+    for m in ("convc1", "convc2", "convd1", "convd2", "conv"):
+        r += _conv_b(f"{u}.encoder.{m}", f"{u}/encoder/{m}")
+    for gru in ("gru04", "gru08", "gru16"):
+        for g in ("convz", "convr", "convq"):
+            r += _conv_b(f"{u}.{gru}.{g}", f"{u}/{gru}/{g}")
+    r += _conv_b(f"{u}.disp_head.conv1", f"{u}/disp_head/conv1")
+    r += _conv_b(f"{u}.disp_head.conv2", f"{u}/disp_head/conv2")
+    r += _conv_b(f"{u}.mask_feat_4.0", f"{u}/mask_feat_4")
+    for i in range(n_gru_layers):
+        r += _conv_b(f"context_zqr_convs.{i}", f"context_zqr_{i}")
+    if diffusion:
+        r += _time_embedding()
+
+    for stem in ("stem_2", "stem_4", "spx_4"):
+        r += _basic_conv(f"{stem}.0", f"{stem}_0", bn=False)
+        r += _conv_b(f"{stem}.1", f"{stem}_1", False)
+    r += _conv2x("spx_2", "spx_2", "instance")
+    r += _conv2x("spx_2_gru", "spx_2_gru", "batch")
+    for spx in ("spx", "spx_gru"):
+        r += [(f"{spx}.0.weight", "params", f"{spx}/kernel", _deconv),
+              (f"{spx}.0.bias", "params", f"{spx}/bias", None)]
+
+    r += _basic_conv("conv", "conv", bn=False) + _conv_b("desc", "desc")
+    r += _basic_conv("corr_stem", "corr_stem")
+    r += _feature_att("corr_feature_att", "corr_feature_att")
+    h = "cost_agg"
+    for lvl in (1, 2, 3):
+        for i in (0, 1):
+            r += _basic_conv(f"{h}.conv{lvl}.{i}", f"{h}/conv{lvl}_{i}")
+    r += _basic_conv(f"{h}.conv3_up", f"{h}/conv3_up", deconv=True)
+    r += _basic_conv(f"{h}.conv2_up", f"{h}/conv2_up", deconv=True)
+    r += _basic_conv(f"{h}.conv1_up", f"{h}/conv1_up", deconv=True, bn=False)
+    for agg, fl in (("agg_0", "agg0"), ("agg_1", "agg1")):
+        for i in range(3):
+            r += _basic_conv(f"{h}.{agg}.{i}", f"{h}/{fl}_{i}")
+    for att in ("feature_att_8", "feature_att_16", "feature_att_32", "feature_att_up_16",
+                "feature_att_up_8"):
+        r += _feature_att(f"{h}.{att}", f"{h}/{att}")
+    r.append(("classifier.weight", "params", "classifier/kernel", _conv))
+    return r
+
+
 def _get(tree, path: str):
     node = tree
     for part in path.split("/"):
@@ -213,6 +338,12 @@ def state_dict_from_jax(variables, diffusion: bool = True) -> dict[str, torch.Te
 def pcw_state_dict_from_jax(variables, diffusion: bool = True) -> dict[str, torch.Tensor]:
     """The port's ``PCWNet`` state dict from the JAX package's variables."""
     return state_dict_from_rules(variables, pcw_rules(diffusion))
+
+
+def igev_state_dict_from_jax(variables, diffusion: bool = True) -> dict[str, torch.Tensor]:
+    """The port's ``IGEVStereo`` state dict from the JAX package's
+    variables."""
+    return state_dict_from_rules(variables, igev_rules(diffusion))
 
 
 def state_dict_from_rules(variables, rules: list[Rule]) -> dict[str, torch.Tensor]:

@@ -421,7 +421,7 @@ def test_conv_refuses_unknown_act(dev):
     with pytest.raises(ValueError, match="act must be"):
         kconv.conv3d_fold_p(x, wt, bias, act="gelu")
     with pytest.raises(ValueError, match="act must be"):
-        kup.conv3d_fold_up(x, wt, bias, act="leaky")
+        kup.conv3d_fold_up(x, wt, bias, act="swish")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -451,3 +451,123 @@ def test_new_launch_counts(dev):
                             (8, 12))
     assert [f.launches for f in counters] == [before[0] + 1, before[1] + 1, before[2] + 1,
                                               *before[3:]]
+
+
+# -- the IGEV path's kernel forms -----------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,cin,cout,shape,residual", [
+    ("p", 16, 16, (1, 8, 6, 70), False),    # corr_stem in its 16 slot; W past one tile
+    ("p", 48, 48, (1, 6, 12, 39), False),   # conv3_1 at 1/32: C_in 48 in 16-wide chunks
+    ("p", 32, 32, (1, 4, 5, 9), True),
+    ("s2", 16, 32, (1, 8, 6, 18), False),   # conv2_0
+    ("k1", 16, 16, (1, 4, 3, 70), True),    # agg1_0: the second half + the first as residual
+    ("up", 48, 32, (1, 3, 4, 9), False),    # conv3_up, k4
+    ("up", 32, 16, (1, 3, 4, 35), True),
+])
+def test_conv_leaky_post_mul(dev, dtype, kind, cin, cout, shape, residual):
+    """LeakyReLU 0.01 then × a (B, H_out, W_out, C_out) map broadcast over D,
+    on every conv form, at inputs of std 3 so the negative slope is reached:
+    the CONV_TOL bounds."""
+    k = {"k1": 1, "up": 4}.get(kind, 3)
+    x, wt, bias = _conv_inputs(dev, dtype, shape, cin, cout, k, seed=100)
+    x = (x.float() * 3).to(dtype)
+    b, d, h, w = shape
+    o = {"up": (2 * d, 2 * h, 2 * w), "s2": ((d + 1) // 2, (h + 1) // 2, (w + 1) // 2)}.get(
+        kind, (d, h, w))
+    res = _randn(dev, b, *o, cout, seed=101).to(dtype) if residual else None
+    pm = torch.sigmoid(_randn(dev, b, o[1], o[2], cout, seed=102)).to(dtype)
+    if kind == "up":
+        got = kup.conv3d_fold_up(x, wt, bias, residual=res, act="leaky", post_mul=pm)
+        want = kup.conv3d_up_plain(x, wt, bias, res, "leaky", pm)
+    elif kind == "s2":
+        got = kconv.conv3d_fold_s2(x, wt, bias, act="leaky")
+        want = kconv.conv3d_fold_plain(x, wt, bias, 2, None, "leaky")
+    else:
+        fn = kconv.conv3d_fold_p if kind == "p" else kconv.conv1x1_fold_p
+        kw = dict(post_mul=pm) if kind == "p" else {}
+        got = fn(x, wt, bias, residual=res, act="leaky", **kw)
+        want = kconv.conv3d_fold_plain(x, wt, bias, 1, res, "leaky", pm if kind == "p" else None)
+    torch.cuda.synchronize()
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,shape,bias", [
+    (48, 32, (1, 6, 12, 39), True),     # conv3_up at IGEV's 1/32 → 1/16
+    (16, 16, (2, 3, 5, 7), True),       # odd sizes: every parity meets an edge
+    (16, 16, (1, 4, 6, 70), False),     # conv1_up into its 16 slot, no bias; W past a tile
+])
+def test_conv3d_fold_up_k4(dev, dtype, cin, cout, shape, bias):
+    """ConvTranspose3d k4 s2 p1 op0 (8 taps an output) against the plain
+    version and ``F.conv_transpose3d``: the CONV_TOL bounds."""
+    x, wt, b = _conv_inputs(dev, dtype, shape, cin, cout, 4, seed=110)
+    b = b if bias else None
+    got = kup.conv3d_fold_up(x, wt, b)
+    want = kup.conv3d_up_plain(x, wt, b)
+    lib = torch.nn.functional.conv_transpose3d(
+        x.float().permute(0, 4, 1, 2, 3), wt.float().permute(3, 4, 0, 1, 2), b, stride=2,
+        padding=1).permute(0, 2, 3, 4, 1)
+    torch.cuda.synchronize()
+    assert got.shape == (shape[0], 2 * shape[1], 2 * shape[2], 2 * shape[3], cout)
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(got.float(), lib, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,shape,bias,act", [
+    (8, 8, (1, 8, 6, 70), False, None),     # corr_stem on the module path
+    (16, 16, (1, 4, 5, 9), True, "relu"),   # the hourglass's 16-channel convs
+    (8, 1, (2, 6, 4, 20), False, None),     # the 8 → 1 classifier
+])
+def test_conv3d_fold_small(dev, dtype, cin, cout, shape, bias, act):
+    """Row 14 on plain NDHWC at C_in 8 (a zero-filled half chunk, no slot)
+    and 16: the CONV_TOL bounds."""
+    x, wt, b = _conv_inputs(dev, dtype, shape, cin, cout, 3, seed=120)
+    b = b if bias else None
+    got = kconv.conv3d_fold_small(x, wt, b, act=act)
+    want = kconv.conv3d_fold_plain(x, wt, b, 1, None, act)
+    torch.cuda.synchronize()
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_conv3d_fold_small_refuses_other_widths(dev):
+    x, wt, bias = _conv_inputs(dev, torch.bfloat16, (1, 2, 3, 4), 32, 8, 3, seed=121)
+    with pytest.raises(ValueError, match="8 or 16"):
+        kconv.conv3d_fold_small(x, wt, bias)
+    x8, w8, _ = _conv_inputs(dev, torch.bfloat16, (1, 2, 3, 4), 8, 8, 3, seed=122)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kconv.conv3d_fold_p(x8, w8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_slot,co,shape", [
+    (16, 8, (1, 12, 5, 39)),     # the GEV: 8 of 16 channels (one 16-byte vector in bf16)
+    (1, 1, (1, 48, 3, 37)),      # the classifier's cost, D past one 32 tile
+    (16, 4, (2, 40, 2, 9)),      # one 16-byte float32 vector
+    (8, 8, (1, 5, 4, 6)),        # the whole slot
+])
+def test_unpack_hwdc(dev, dtype, c_slot, co, shape):
+    """Copies only: exact."""
+    b, d, h, w = shape
+    x = _randn(dev, b, d, h, w, c_slot, seed=130).to(dtype)
+    got = kl.unpack_hwdc(x, co)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, w, d * co)
+    assert torch.equal(got, kl.unpack_hwdc_plain(x, co))
+
+
+def test_igev_launch_counts(dev):
+    """The two new wrappers count their own launches only; the k4 form
+    counts as ``conv3d_fold_up``."""
+    counters = (kconv.conv3d_fold_small, kl.unpack_hwdc, kconv.conv3d_fold_p, kup.conv3d_fold_up)
+    before = [f.launches for f in counters]
+    x, wt, _ = _conv_inputs(dev, torch.bfloat16, (1, 2, 3, 4), 8, 16, 3, seed=140)
+    y = kconv.conv3d_fold_small(x, wt)
+    kl.unpack_hwdc(y, 8)
+    kup.conv3d_fold_up(y, (_randn(dev, 4, 4, 4, 16, 16, seed=141) * 0.1).to(torch.bfloat16))
+    assert [f.launches for f in counters] == [before[0] + 1, before[1] + 1, before[2],
+                                              before[3] + 1]

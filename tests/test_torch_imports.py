@@ -46,3 +46,14 @@ def test_checker_catches_an_import():
 def test_pcw_slice_modules_are_checked(module):
     """The PCW slice's modules are among the files checked above."""
     assert ROOT / "diffuvolume_tpu_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", [
+    "models/igev/__init__.py", "models/igev/extractor.py", "models/igev/update.py",
+    "models/igev/geometry.py", "models/igev/model.py", "models/igev/gev_fold.py",
+    "ops/kernels/layout.py", "ops/kernels/conv3d_fold.py", "ops/kernels/conv3d_up.py",
+    "diffusion/ddim.py", "tools/profile_acv.py",
+])
+def test_igev_slice_modules_are_checked(module):
+    """The IGEV slice's modules are among the files checked above."""
+    assert ROOT / "diffuvolume_tpu_torch" / module in FILES

@@ -34,23 +34,9 @@ from diffuvolume_tpu_torch.models.pcw_fold import fold_pcw
 from diffuvolume_tpu_torch.ops.kernels.depthwise import depthwise_hw_p
 from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume_packed
 from torch_parity import calibrated_pair, nchw, nhwc, pcw_from_jax, pcw_pair, stereo_pair
-from torch_parity import to_jax_variables
+from torch_parity import jax_normal_draws, to_jax_variables
 
 H, W, MD = 64, 64, 192
-
-
-def jax_draws(key, steps, shape):
-    """The JAX ``ddim_sample``'s draws under KITTI12 (``init_mode="noise"``,
-    ``qsample_compound``): split off the init key, then per step the z and
-    the replacement eps, in the order it makes them."""
-    rng, k_init = jax.random.split(key)
-    zs, rs = [], []
-    for k in jax.random.split(rng, steps):
-        kz, kr = jax.random.split(k)
-        zs.append(np.array(jax.random.normal(kz, shape, jnp.float32)))
-        rs.append(np.array(jax.random.normal(kr, shape, jnp.float32)))
-    return {"init": np.array(jax.random.normal(k_init, shape, jnp.float32)),
-            "z": np.stack(zs), "replace": np.stack(rs)}
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +61,7 @@ def setup():
         combine=np.array(combine), fl={k: nchw(v) for k, v in fl.items()},
         fr={k: nchw(v) for k, v in fr.items()}, latent=latent, t=t,
         jden=[np.asarray(x) for x in jden], jpred=np.asarray(jpred),
-        ns=jax_draws(key, J_KITTI12.sampling_steps, latent.shape),
+        ns=jax_normal_draws(key, J_KITTI12.sampling_steps, latent.shape),
         jfinal=np.asarray(jfinal), jbase=np.asarray(jbase))
 
 
