@@ -6,7 +6,8 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the kernels from ``diffuvolume_tpu_torch/csrc`` (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, at every
-     shape the three paths (ACV, PCW, IGEV) give it, in float32 (TF32 off)
+     shape the paths (ACV, PCW, IGEV; the flat refinement's 2-D convs, row
+     18; the routed module paths' 3-D convs, row 15) give it, in float32 (TF32 off)
      and bfloat16: max-abs error against the stated tolerance, kernel / plain
      times (CUDA events), the time of one PyTorch call computing the same
      function where there is one, and the bound (bytes or operations over
@@ -16,26 +17,36 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
   4. agreement on a small input: each whole two-pass pipeline (ACV, PCW,
      IGEV) on the card against the same pipeline on the CPU (plain
      versions), float32, same seeded weights and injected draws, on the
-     folded path and on the module path; a sampler decision that flipped at
-     its threshold is told apart from a fault (``agree``);
+     folded path and on the module path, PCW's folded path with the flat
+     refinement (``fold_pcw(..., refine_flat=True)``) and the three module
+     paths with their 3-D convs routed (``route_conv3d``); a sampler decision
+     that flipped at its threshold is told apart from a fault (``agree``);
   5. the ACV main path: two-pass DDIM-5 at 512×960, batch 1, bfloat16 model,
      folded path (``packed=True``), weights and images from a fixed seed;
      one warm-up pair, 30 timed pairs (pairs/s with median and spread),
      per-pair kernel launch counts (asserted), an op census of one pair (no
      3-D BatchNorm, no 3-D conv), output finite in [0, 191];
-  6. the ACV module path (``packed=False``) the same way, 5 timed pairs;
+  6. the ACV module path (``packed=False``) the same way, 3 timed pairs, and
+     after ``route_conv3d`` (row 15 launches asserted, the census's cuDNN
+     3-D convs fewer by exactly as many), 3 timed pairs;
   7. the PCW path: PCWNet two-pass KITTI12 DDIM-3 at 384×1248, batch 1,
      bfloat16 model, folded path; one warm-up pair, 10 timed pairs, launch
      counts (asserted), a census with no 3-D BatchNorm and no 3-D conv, a
-     finite (1, 384, 1248) output; then its module path, 3 timed pairs;
+     finite (1, 384, 1248) output; then with the flat refinement (row 18,
+     44 launches a pair asserted, the census's 2-D BatchNorms and cuDNN 2-D
+     convs fewer by the refinement's, derived from the model), 5 timed pairs;
+     its module path, 2 timed pairs, and routed, 2 timed pairs;
   8. the IGEV path: IGEV-Stereo two-pass KITTI15 DDIM-2 at 384×1248, 32 GRU
      iterations a rollout, batch 1, bfloat16 model, folded path; one warm-up
      pair, 5 timed pairs, launch counts (asserted), the same census, a finite
-     (1, 384, 1248) output; then its module path, 2 timed pairs;
+     (1, 384, 1248) output; then its module path, 2 timed pairs, and
+     routed, 2 timed pairs;
   9. one ``kernels`` JSON line, the card line, and the result line.
 Each path's launch counts are set to 0 just before it is driven and read
 just after.  Everything printed is also written to
-``chiprun_out/chip_smoke.json``.
+``chiprun_out/chip_smoke.json``.  Run from a directory without the
+``diffuvolume_tpu_torch`` package beside it, the script says so on stderr and
+exits 1 before it prints anything.
 """
 
 from __future__ import annotations
@@ -64,7 +75,7 @@ D4, H4, W4 = MAIN_DISP // 4, MAIN_H // 4, MAIN_W // 4
 FEAT_C, GROUPS, CAT_C = 320, 40, 32
 STEPS = 5
 TIMED_PAIRS = 30
-MODULE_TIMED_PAIRS = 5
+MODULE_TIMED_PAIRS = 3
 FULL, HALF, QUARTER = (D4, H4, W4), (D4 // 2, H4 // 2, W4 // 2), (D4 // 4, H4 // 4, W4 // 4)
 ATT_SLOT = 48
 
@@ -73,7 +84,8 @@ PCW_H, PCW_W = 384, 1248
 PCW_D4, PCW_H4, PCW_W4 = MAIN_DISP // 4, PCW_H // 4, PCW_W // 4
 PCW_CC, PCW_SLOT, PCW_STEPS = 12, 64, 3
 PCW_TIMED_PAIRS = 10
-PCW_MODULE_TIMED_PAIRS = 3
+PCW_FLAT_TIMED_PAIRS = 5
+PCW_MODULE_TIMED_PAIRS = 2
 P1, P2, P3, P4 = ((PCW_D4 >> k, PCW_H4 >> k, PCW_W4 >> k) for k in range(4))
 # The PCW volumes: (scale, D, H, W), each 40 groups + 12 + 12 in a 64 slot.
 PCW_VOLUMES = [(f"1/{4 << k}", *dhw) for k, dhw in enumerate((P1, P2, P3, P4))]
@@ -85,6 +97,8 @@ IGEV_C, IGEV_GROUPS, IGEV_SLOT = 96, 8, 16
 G1, G2, G3, G4 = ((D4 >> k, (IGEV_H // 4) >> k, (IGEV_W // 4) >> k) for k in range(4))
 IGEV_TIMED_PAIRS = 5
 IGEV_MODULE_TIMED_PAIRS = 2
+# The module paths after route_conv3d (row 15).
+ROUTED_TIMED_PAIRS = {"acv": 3, "pcw": 2, "igev": 2}
 
 
 def log(*args):
@@ -688,6 +702,73 @@ IGEV_SMALL_CASES = [
 ]
 
 
+# The module paths' row-15 launches of one pair after route_conv3d: every
+# 3×3×3 stride-1 conv of a 3-D ConvBN (IGEV: of a BasicConv) at C_in 32, 64
+# or 128 with D a multiple of 128 / C_in, on plain NDHWC without bias or
+# activation (BatchNorm and the activation follow as PyTorch ops).  ACV: 6
+# aggregation passes (dres0_0; dres0_1, dres1_0, dres1_1, classif2_0; conv2
+# and conv4 of 2 hourglasses) and 2 attention chains (dres1_att_1,
+# classif_att_0; conv2 and conv4 of 1 hourglass; dres1_att_0's 40 channels
+# are not eligible).  PCW: 2 volume builds (dres0_0; dres0_1, dres1_0,
+# dres1_1; HourglassUp's combine1, conv2, conv4, conv6; combine2 and combine3
+# take 192 channels) and 4 aggregation passes (conv2 and conv4 of 3
+# hourglasses; classif3_0).  IGEV: 2 encodes (conv2[1], agg_0[1], agg_0[2]
+# at 32 channels; conv3[1]'s 48 are not eligible; C_in 8 and 16 stay on
+# row 14).
+ACV_PACKED_CASES = [
+    ConvCase("conv3d_packed", "dres0_0 64→32", "p", 64, 32, FULL, 6, act=None, bias=False),
+    ConvCase("conv3d_packed", "32→32", "p", 32, 32, FULL, 28, act=None, bias=False),
+    ConvCase("conv3d_packed", "64→64 half", "p", 64, 64, HALF, 14, act=None, bias=False),
+    ConvCase("conv3d_packed", "128→128 quarter", "p", 128, 128, QUARTER, 14, act=None,
+             bias=False),
+]
+PCW_PACKED_CASES = [
+    ConvCase("conv3d_packed", "dres0_0 64→32", "p", 64, 32, P1, 2, act=None, bias=False),
+    ConvCase("conv3d_packed", "32→32", "p", 32, 32, P1, 10, act=None, bias=False),
+    ConvCase("conv3d_packed", "combine1 128→64 at 1/8", "p", 128, 64, P2, 2, act=None,
+             bias=False),
+    ConvCase("conv3d_packed", "64→64 at 1/8", "p", 64, 64, P2, 14, act=None, bias=False),
+    ConvCase("conv3d_packed", "128→128 at 1/16", "p", 128, 128, P3, 14, act=None, bias=False),
+    ConvCase("conv3d_packed", "conv6 128→128 at 1/32", "p", 128, 128, P4, 2, act=None,
+             bias=False),
+]
+IGEV_PACKED_CASES = [
+    ConvCase("conv3d_packed", "conv2[1], agg_0[1], agg_0[2] 32→32 at 1/16", "p", 32, 32, G3, 6,
+             act=None, bias=False),
+]
+PACKED_CASES = {"acv": ACV_PACKED_CASES, "pcw": PCW_PACKED_CASES, "igev": IGEV_PACKED_CASES}
+
+
+class RefineCase(NamedTuple):
+    """One 3×3 conv of PCW's folded refinement (row 18) at 384×1248: input
+    channels (the slot) and those that carry data, output channels,
+    dilation, bias; once per refinement, so 1 + PCW_STEPS a pair."""
+    label: str
+    cin: int
+    real_cin: int
+    cout: int
+    dil: int
+    bias: bool = True
+    per_pair: int = 1 + PCW_STEPS
+
+
+# RefineNetV3's 3×3 convs in order (pcw.py:208-227 of the JAX package):
+# conv1 … conv4, the two convs of the conv5 … conv7 blocks, conv8.
+REFINE_CASES = [
+    RefineCase("conv1 146 in 160 → 128", 160, 146, 128, 1),
+    RefineCase("conv2 128→128", 128, 128, 128, 1),
+    RefineCase("conv3 128→128 d2", 128, 128, 128, 2),
+    RefineCase("conv4 128→128 d4", 128, 128, 128, 4),
+    RefineCase("conv5.conv1 128→96 d8", 128, 128, 96, 8),
+    RefineCase("conv5.conv2 96→96 d8", 96, 96, 96, 8),
+    RefineCase("conv6.conv1 96→64 d16", 96, 96, 64, 16),
+    RefineCase("conv6.conv2 64→64 d16", 64, 64, 64, 16),
+    RefineCase("conv7.conv1 64→32", 64, 64, 32, 1),
+    RefineCase("conv7.conv2 32→32", 32, 32, 32, 1),
+    RefineCase("conv8 32→1, no bias", 32, 32, 1, 1, bias=False),
+]
+
+
 def case_inputs(case: ConvCase, dev, dtype, seed: int) -> dict:
     """A case's operands from ``seed`` (the same values in every dtype,
     rounded): x, w, bias (float32, or None), res and post_mul (or None), and
@@ -872,6 +953,73 @@ def layout_checks(dev) -> dict:
     return out
 
 
+def refine_checks(dev, iters: int = 10) -> dict:
+    """Phase 3, row 18: ``conv2d_flat`` at each of the folded refinement's
+    11 convs at 384×1248, float32 and bfloat16 against ``conv2d_flat_plain``
+    (``CONV_TOL``); the kernel's, the plain version's and the library's time
+    (bf16 ``F.conv2d`` with the bias, dilated, channels-last, on the same
+    slot input), and the bound (2·9·C_in·C_out·H·W operations on the real
+    channels at the bf16 tensor-core rate, against the bytes)."""
+    import torch.nn.functional as F
+
+    from diffuvolume_tpu_torch.ops.kernels import conv2d as k2
+
+    log(f"-- the flat refinement's 2-D convs at {PCW_H}×{PCW_W}")
+    g = torch.Generator(device=dev).manual_seed(9)
+    hw = PCW_H * PCW_W
+    cases, errs = [], {}
+    for c in REFINE_CASES:
+        x32 = torch.randn((1, PCW_H, PCW_W, c.cin), generator=g, device=dev)
+        w32 = torch.randn((3, 3, c.cin, c.cout), generator=g, device=dev) / (9 * c.real_cin) ** 0.5
+        x32[..., c.real_cin:] = 0.0
+        w32[:, :, c.real_cin:] = 0.0
+        bias = torch.randn((c.cout,), generator=g, device=dev) * 0.1 if c.bias else None
+        log(f"conv2d_flat {c.label}: (1,{PCW_H},{PCW_W},{c.cin}) → (1,{PCW_H},{PCW_W},{c.cout}), "
+            f"dilation {c.dil}")
+        e = {}
+        for dt in (torch.float32, torch.bfloat16):
+            tag = dtype_tag(dt)
+            x, w = x32.to(dt), w32.to(dt)
+            got, want = k2.conv2d_flat(x, w, bias, c.dil), k2.conv2d_flat_plain(x, w, bias, c.dil)
+            torch.cuda.synchronize()
+            e[tag] = check(tag, got, want, *CONV_TOL[tag])
+            errs[tag] = max(errs.get(tag, 0.0), e[tag])
+            del got, want
+        xb, wb = x32.bfloat16(), w32.bfloat16()
+        del x32, w32
+        x_cl = xb.permute(0, 3, 1, 2)
+        w_lib = wb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        bias_b = None if bias is None else bias.bfloat16()
+
+        def library():
+            return F.conv2d(x_cl, w_lib, bias_b, padding=c.dil, dilation=c.dil)
+        lib_err = float((library().permute(0, 2, 3, 1).float()
+                         - k2.conv2d_flat_plain(xb, wb, bias, c.dil).float()).abs().max())
+        macs = hw * 9 * c.real_cin * c.cout
+        nbytes = (hw * c.real_cin + 9 * c.real_cin * c.cout + hw * c.cout) * 2
+        nbytes += c.cout * 4 if c.bias else 0
+        b_ms, by = bound(nbytes, 2 * macs, BF16_TC_OPS_PER_S)
+        rec = dict(label=c.label, cin=c.cin, real_cin=c.real_cin, cout=c.cout, dil=c.dil,
+                   bias=c.bias, per_pair=c.per_pair, errs=e,
+                   ms=time_ms(lambda: k2.conv2d_flat(xb, wb, bias, c.dil), iters),
+                   plain_ms=time_ms(lambda: k2.conv2d_flat_plain(xb, wb, bias, c.dil), 2),
+                   library_ms=time_ms(library, iters), library_max_abs_vs_plain=lib_err,
+                   bound_ms=b_ms, bound_by=by, ops_ms=2 * macs / BF16_TC_OPS_PER_S * 1e3,
+                   macs=macs, bytes=nbytes)
+        log(f"  bf16 {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, library "
+            f"{rec['library_ms']:.4f} ms [max |Δ| to the plain version {lib_err:.2e}], bound "
+            f"{b_ms:.4f} ms by {by}); {c.per_pair} per PCW pair")
+        cases.append(rec)
+        del xb, wb, x_cl, w_lib
+    totals = {k: sum(c[k] for c in cases) for k in ("ms", "bound_ms", "library_ms", "plain_ms")}
+    log(f"  one refinement's 11 convs: kernels {totals['ms']:.3f} ms, bound "
+        f"{totals['bound_ms']:.3f} ms, library {totals['library_ms']:.3f} ms, plain "
+        f"{totals['plain_ms']:.2f} ms")
+    out = mixed(cases, errs)
+    out["refinement_totals_ms"] = totals
+    return out
+
+
 def igev_volume_checks(dev) -> dict:
     """Phase 3 at the IGEV path's shapes: row 16 (the folded path's 8-group
     volume in its 16 slot, cpg 12: the scalar product loop), row 2 (the
@@ -1038,8 +1186,15 @@ def small_agreement(dev) -> dict:
     paths: ACV DDIM-5 at 32×64, max_disp 64; PCW KITTI12 DDIM-3 at 64×64,
     max_disp 192; IGEV KITTI15 DDIM-2 at 64×96, max_disp 64, 2 GRU
     iterations (the sizes of tests/test_torch_pipeline.py,
-    tests/test_torch_pcw_pipeline.py and tests/test_torch_igev_pipeline.py)."""
+    tests/test_torch_pcw_pipeline.py and tests/test_torch_igev_pipeline.py).
+    Also PCW's folded path with the flat refinement and each module path
+    after ``route_conv3d``; on the card each of those must launch its
+    kernel (row 18, row 15)."""
     import dataclasses
+
+    from diffuvolume_tpu_torch.models.layers import route_conv3d
+    from diffuvolume_tpu_torch.ops.kernels.conv2d import conv2d_flat
+    from diffuvolume_tpu_torch.ops.kernels.conv3d_fold import conv3d_packed
 
     from diffuvolume_tpu_torch.diffusion import DDIMConfig
     from diffuvolume_tpu_torch.diffusion.ddim import KITTI12_DDIM, KITTI15_DDIM
@@ -1096,53 +1251,87 @@ def small_agreement(dev) -> dict:
         if cfg.init_mode == "noise":
             ns["init"] = rng.standard_normal(shape).astype(np.float32)
         bg, dg = copy.deepcopy(bm).to(dev), copy.deepcopy(dm).to(dev)
-        for packed in (True, False):
-            name = f"{model} {'folded' if packed else 'module'} path"
+        # (label, packed, fold, routed, the kernel the variant must launch)
+        variants = [("folded path", True, fold, False, None),
+                    ("module path", False, fold, False, None)]
+        if model == "pcw":
+            variants.append(("folded path, flat refinement", True,
+                             lambda m: fold_pcw(m, refine_flat=True), False, conv2d_flat))
+        variants.append(("module path, routed 3-D convs", False, fold, True, conv3d_packed))
+        for label, packed, fold_fn, routed, kernel in variants:
+            cpu_m, card_m = (bm, dm), (bg, dg)
+            if routed:
+                cpu_m, card_m = ([route_conv3d(copy.deepcopy(m)) for m in ms]
+                                 for ms in (cpu_m, card_m))
+            before = None if kernel is None else kernel.launches
+            name = f"{model} {label}"
             out[name] = agree(
                 name,
-                lambda: sampled(prep, fold, bm, dm, left, right, cfg, torch.device("cpu"), ns,
+                lambda: sampled(prep, fold_fn, *cpu_m, left, right, cfg, torch.device("cpu"), ns,
                                 packed, **kw),
-                lambda: sampled(prep, fold, bg, dg, left, right, cfg, dev, ns, packed, **kw))
+                lambda: sampled(prep, fold_fn, *card_m, left, right, cfg, dev, ns, packed, **kw))
+            if kernel is not None:
+                out[name]["launches_on_the_card"] = kernel.launches - before
+                if kernel.launches == before:
+                    raise AssertionError(f"{name}: {kernel.__name__} was not launched on the card")
     return out
 
 
-def expected_launches(packed: bool) -> dict:
+def routed_launches(model: str) -> dict:
+    """Row 15's launches per pair on a module path after ``route_conv3d``:
+    ``PACKED_CASES[model]``."""
+    return {"conv3d_packed": sum(c.per_pair for c in PACKED_CASES[model])}
+
+
+def expected_launches(packed: bool, routed: bool = False) -> dict:
     """ACV launches per pair: 6 aggregation passes (baseline + 5 DDIM steps)
     and 2 attention chains (baseline + DDIM prep).  The convs are
     ``CONV_CASES``; an aggregation pass has 2 pack + 2 unpack, an attention
     chain 2 pack + 1 unpack and, on the folded path, its GWC volume in the
-    slot and 2 patch stencils (the module path builds the NCDHW volume)."""
+    slot and 2 patch stencils (the module path builds the NCDHW volume).  A
+    routed module path adds ``routed_launches``."""
     out = {"fused_head": 6, "concat_volume": 2, "dhw_mul": STEPS,
            "gwc_volume": 0 if packed else 2}
     folded = {"pack": 14, "unpack": 14, "gwc_volume_packed": 2, "depthwise_hw_p": 4}
     for case in CONV_CASES:
         folded[case.row] = folded.get(case.row, 0) + case.per_pair
     out.update({k: (v if packed else 0) for k, v in folded.items()})
+    if routed:
+        out.update(routed_launches("acv"))
     return out
 
 
-def pcw_expected_launches(packed: bool) -> dict:
+def pcw_expected_launches(packed: bool, refine_flat: bool = False, routed: bool = False) -> dict:
     """PCW launches per pair: 2 volume builds (4 scales each, on both paths),
-    4 aggregation passes (one fused head each), 3 DDIM steps (the noise
+    4 aggregation passes (one fused head each, and with the flat refinement
+    the 11 convs of ``REFINE_CASES`` each), 3 DDIM steps (the noise
     multiply and the uncertainty at the refined disparity); the folded
-    path's convs are ``PCW_CONV_CASES``."""
+    path's convs are ``PCW_CONV_CASES``.  A routed module path adds
+    ``routed_launches``."""
     out = {"gwc_volume_packed": 8, "fused_head": 4, "fused_uncertainty_at": PCW_STEPS,
            "dhw_mul": PCW_STEPS}
     for case in PCW_CONV_CASES:
         out[case.row] = out.get(case.row, 0) + (case.per_pair if packed else 0)
+    if refine_flat:
+        out["conv2d_flat"] = sum(c.per_pair for c in REFINE_CASES)
+    if routed:
+        out.update(routed_launches("pcw"))
     return out
 
 
-def igev_expected_launches(packed: bool) -> dict:
+def igev_expected_launches(packed: bool, routed: bool = False) -> dict:
     """IGEV launches per pair: 2 encodes (baseline + DDIM prep).  Folded:
     each encode's GEV tower is one 8-group volume in its slot, the convs of
     ``IGEV_CONV_CASES`` and 2 unpacks (the GEV, the cost).  Module: the
     NCDHW volume and the small-channel convs of ``IGEV_SMALL_CASES``.  The
-    GRU rollouts (96 iterations a pair) launch none of the port's kernels."""
+    GRU rollouts (96 iterations a pair) launch none of the port's kernels.  A
+    routed module path adds ``routed_launches``."""
     if not packed:
         out = {"gwc_volume": 2}
         for case in IGEV_SMALL_CASES:
             out[case.row] = out.get(case.row, 0) + case.per_pair
+        if routed:
+            out.update(routed_launches("igev"))
         return out
     out = {"gwc_volume_packed": 2, "unpack_hwdc": 4}
     for case in IGEV_CONV_CASES:
@@ -1151,10 +1340,12 @@ def igev_expected_launches(packed: bool) -> dict:
 
 
 def op_census(fn) -> dict:
-    """The 5-D BatchNorm and 5-D convolution ATen calls ``fn`` makes."""
+    """The BatchNorm and convolution ATen calls ``fn`` makes on 5-D (3-D
+    conv) and 4-D (2-D conv) tensors, and its 5-D copies (``clone`` or
+    ``copy_``: a permuted volume made contiguous, among others)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    seen = {"batch_norm_5d": 0, "conv_5d": {}}
+    seen = {"batch_norm_5d": 0, "conv_5d": {}, "batch_norm_4d": 0, "conv_4d": 0, "copy_5d": 0}
 
     class Census(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -1168,6 +1359,13 @@ def op_census(fn) -> dict:
                     kind = ("transposed" if transposed else
                             "depthwise" if groups == x.shape[1] else "dense")
                     seen["conv_5d"][kind] = seen["conv_5d"].get(kind, 0) + 1
+                elif name.startswith(("clone", "copy_")):
+                    seen["copy_5d"] += 1
+            elif x is not None and x.dim() == 4:
+                if "batch_norm" in name:
+                    seen["batch_norm_4d"] += 1
+                elif name.startswith("convolution"):
+                    seen["conv_4d"] += 1
             return func(*args, **(kwargs or {}))
 
     with Census():
@@ -1234,16 +1432,20 @@ def drive(dev, counters, pairs: int, pair, stages, steps: int, expected: dict, p
     return res
 
 
-def main_path(dev, counters, packed: bool, pairs: int) -> dict:
-    """Phases 5 and 6: ACV two-pass DDIM-5 at 512×960, bfloat16 model."""
+def main_path(dev, counters, packed: bool, pairs: int, routed: bool = False) -> dict:
+    """Phases 5 and 6: ACV two-pass DDIM-5 at 512×960, bfloat16 model; the
+    module path after ``route_conv3d`` when ``routed``."""
     from diffuvolume_tpu_torch.diffusion import DDIMConfig, ddim_sample, make_schedule
     from diffuvolume_tpu_torch.eval.pipeline import acv_ddim_inference, acv_prep
     from diffuvolume_tpu_torch.models.acv_fold import fold_acv
+    from diffuvolume_tpu_torch.models.layers import route_conv3d
     from diffuvolume_tpu_torch.tools.random_weights import seeded_main_path
 
     bm, dm, left, right = seeded_main_path(dev, MAIN_H, MAIN_W, MAIN_DISP)
     if packed:  # folded once, as a caller running many pairs does
         bm, dm = fold_acv(bm), fold_acv(dm)
+    elif routed:
+        bm, dm = route_conv3d(bm), route_conv3d(dm)
     cfg = DDIMConfig(max_disp=MAIN_DISP, num_bins=D4)
 
     def pair(i):
@@ -1262,24 +1464,51 @@ def main_path(dev, counters, packed: bool, pairs: int) -> dict:
         torch.cuda.synchronize()
         return t0, t1, time.perf_counter()
 
-    res = drive(dev, counters, pairs, pair, stages, STEPS, expected_launches(packed), packed,
-                (1, MAIN_H, MAIN_W))
+    res = drive(dev, counters, pairs, pair, stages, STEPS, expected_launches(packed, routed),
+                packed, (1, MAIN_H, MAIN_W))
     if not (res["out_min"] >= 0.0 and res["out_max"] <= MAIN_DISP - 1):
         raise AssertionError("the ACV output is not in [0, 191]")
     return res
 
 
-def pcw_path(dev, counters, packed: bool, pairs: int) -> dict:
-    """Phase 7: PCWNet two-pass KITTI12 DDIM-3 at 384×1248, bfloat16 model."""
+def refine_ops(net) -> dict:
+    """The 2-D BatchNorms and convs one module refinement runs (every
+    ``BatchNorm2d`` and ``Conv2d`` of ``RefineNetV3``, each once), and its
+    3×3 convs: what the flat refinement takes off the census, and its row-18
+    launches."""
+    import torch.nn as nn
+
+    convs = [m for m in net.modules() if isinstance(m, nn.Conv2d)]
+    return {"batch_norm_4d": sum(isinstance(m, nn.BatchNorm2d) for m in net.modules()),
+            "conv_4d": len(convs), "conv3x3": sum(m.kernel_size == (3, 3) for m in convs)}
+
+
+def pcw_path(dev, counters, packed: bool, pairs: int, refine_flat: bool = False,
+             routed: bool = False) -> dict:
+    """Phase 7: PCWNet two-pass KITTI12 DDIM-3 at 384×1248, bfloat16 model;
+    folded with the flat refinement when ``refine_flat`` (its convs checked
+    against ``REFINE_CASES``), the module path after ``route_conv3d`` when
+    ``routed``."""
     from diffuvolume_tpu_torch.diffusion import ddim_sample, make_schedule
     from diffuvolume_tpu_torch.diffusion.ddim import KITTI12_DDIM as cfg
     from diffuvolume_tpu_torch.eval.pipeline import pcw_ddim_inference, pcw_prep
+    from diffuvolume_tpu_torch.models.layers import route_conv3d
     from diffuvolume_tpu_torch.models.pcw_fold import fold_pcw
     from diffuvolume_tpu_torch.tools.random_weights import seeded_pcw_path
 
     bm, dm, left, right = seeded_pcw_path(dev, PCW_H, PCW_W, MAIN_DISP)
+    ops = refine_ops(bm.refinenet3)
     if packed:  # folded once, as a caller running many pairs does
-        bm, dm = fold_pcw(bm), fold_pcw(dm)
+        bm, dm = fold_pcw(bm, refine_flat), fold_pcw(dm, refine_flat)
+    elif routed:
+        bm, dm = route_conv3d(bm), route_conv3d(dm)
+    if refine_flat:
+        fr = dm.refine
+        convs = [*fr.convs, *(c for b in fr.blocks for c in (b.conv1, b.conv2)), fr.conv8]
+        got = [(c.w.shape[2], c.w.shape[3], c.dil, c.b is not None) for c in convs]
+        want = [(c.cin, c.cout, c.dil, c.bias) for c in REFINE_CASES]
+        if got != want or len(convs) != ops["conv3x3"]:
+            raise AssertionError(f"the folded refinement's convs {got} are not REFINE_CASES")
 
     def pair(i):
         gen = torch.Generator(device=dev).manual_seed(i)
@@ -1297,22 +1526,28 @@ def pcw_path(dev, counters, packed: bool, pairs: int) -> dict:
         torch.cuda.synchronize()
         return t0, t1, time.perf_counter()
 
-    return drive(dev, counters, pairs, pair, stages, PCW_STEPS, pcw_expected_launches(packed),
-                 packed, (1, PCW_H, PCW_W))
+    res = drive(dev, counters, pairs, pair, stages, PCW_STEPS,
+                pcw_expected_launches(packed, refine_flat, routed), packed, (1, PCW_H, PCW_W))
+    res["refine_ops"] = ops
+    return res
 
 
-def igev_path(dev, counters, packed: bool, pairs: int) -> dict:
+def igev_path(dev, counters, packed: bool, pairs: int, routed: bool = False) -> dict:
     """Phase 8: IGEV-Stereo two-pass KITTI15 DDIM-2 at 384×1248, 32 GRU
-    iterations a rollout, bfloat16 model."""
+    iterations a rollout, bfloat16 model; the module path after
+    ``route_conv3d`` when ``routed``."""
     from diffuvolume_tpu_torch.diffusion import ddim_sample, make_schedule
     from diffuvolume_tpu_torch.diffusion.ddim import KITTI15_DDIM as cfg
     from diffuvolume_tpu_torch.eval.pipeline import igev_ddim_inference, igev_prep
     from diffuvolume_tpu_torch.models.igev.gev_fold import fold_igev
+    from diffuvolume_tpu_torch.models.layers import route_conv3d
     from diffuvolume_tpu_torch.tools.random_weights import seeded_igev_path
 
     bm, dm, left, right = seeded_igev_path(dev, IGEV_H, IGEV_W, MAIN_DISP)
     if packed:  # folded once, as a caller running many pairs does
         bm, dm = fold_igev(bm), fold_igev(dm)
+    elif routed:
+        bm, dm = route_conv3d(bm), route_conv3d(dm)
 
     def pair(i):
         gen = torch.Generator(device=dev).manual_seed(i)
@@ -1330,8 +1565,8 @@ def igev_path(dev, counters, packed: bool, pairs: int) -> dict:
         torch.cuda.synchronize()
         return t0, t1, time.perf_counter()
 
-    return drive(dev, counters, pairs, pair, stages, IGEV_STEPS, igev_expected_launches(packed),
-                 packed, (1, IGEV_H, IGEV_W))
+    return drive(dev, counters, pairs, pair, stages, IGEV_STEPS,
+                 igev_expected_launches(packed, routed), packed, (1, IGEV_H, IGEV_W))
 
 
 KERNEL_META = {  # name → (source, TPU kernel file:line, its function)
@@ -1368,16 +1603,42 @@ KERNEL_META = {  # name → (source, TPU kernel file:line, its function)
                     "diffuvolume_tpu/ops/pallas/conv3d.py:1178", "unpack_hwdc_k"),
     "conv3d_fold_small": ("diffuvolume_tpu_torch/csrc/conv3d_fold.cu",
                           "diffuvolume_tpu/ops/pallas/conv3d.py:301", "conv3d_fold"),
+    "conv3d_packed": ("diffuvolume_tpu_torch/csrc/conv3d_fold.cu",
+                      "diffuvolume_tpu/ops/pallas/conv3d.py:131", "conv3d_packed"),
+    "conv2d_flat": ("diffuvolume_tpu_torch/csrc/conv2d_flat.cu",
+                    "diffuvolume_tpu/ops/pallas/conv2d.py:54", "conv2d_flat"),
 }
+
+
+def census_fewer(runs: dict, base: str, run: str, want: dict) -> dict:
+    """Assert that ``run``'s census has exactly ``want`` fewer of each op
+    than ``base``'s (``conv_5d_dense``: cuDNN's dense 3-D convs); return the
+    differences, with the 5-D copies ``run`` adds."""
+    a, b = runs[base]["census"], runs[run]["census"]
+
+    def count(c, k):
+        return c["conv_5d"].get("dense", 0) if k == "conv_5d_dense" else c[k]
+    fewer = {k: count(a, k) - count(b, k) for k in want}
+    rec = dict(fewer=fewer, expected=want, copy_5d_added=b["copy_5d"] - a["copy_5d"])
+    log(f"  census against {base}: fewer {fewer} (expected {want}); 5-D copies added "
+        f"{rec['copy_5d_added']}")
+    if fewer != want:
+        raise AssertionError(f"{run}'s census is not {want} below {base}'s: {fewer}")
+    return rec
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if not os.path.isdir(os.path.join(HERE, "diffuvolume_tpu_torch")):
+        print(f"chip_smoke: no diffuvolume_tpu_torch package beside {__file__}; nothing was "
+              f"run", file=sys.stderr)
+        return 1
     sys.path.insert(0, HERE)
     from diffuvolume_tpu_torch.ops.kernels import _build
     from diffuvolume_tpu_torch.ops.kernels import concat_volume as kc
+    from diffuvolume_tpu_torch.ops.kernels import conv2d as k2
     from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
     from diffuvolume_tpu_torch.ops.kernels import conv3d_up as kup
     from diffuvolume_tpu_torch.ops.kernels import depthwise as kd
@@ -1416,6 +1677,15 @@ def main() -> int:
     checks["igev_volumes"] = {k: igev[k] for k in ("gwc_volume_packed", "gwc_volume")}
     checks["unpack_hwdc"], checks["conv3d_fold_small"] = igev["unpack_hwdc"], small[
         "conv3d_fold_small"]
+    checks["conv2d_flat"] = refine_checks(dev)
+    packed_checks = {m: conv_checks(dev, cases, f"{m.upper()} module, routed", iters=10)
+                     for m, cases in PACKED_CASES.items()}
+    errs = {t: max(p["conv3d_packed"]["errs"][t] for p in packed_checks.values())
+            for t in ("float32", "bfloat16")}
+    checks["conv3d_packed"] = mixed(
+        [c for p in packed_checks.values() for c in p["conv3d_packed"]["shapes"]], errs)
+    checks["conv3d_packed"]["pair_totals_ms"] = {m: p["conv_pair_totals_ms"]
+                                                 for m, p in packed_checks.items()}
     t_checks = time.perf_counter() - t_start
 
     log("== 4. small input: each pipeline on the card against the CPU (float32)")
@@ -1428,21 +1698,43 @@ def main() -> int:
                 "conv1x1_fold_p": kconv.conv1x1_fold_p, "pack": kl.pack, "unpack": kl.unpack,
                 "gwc_volume_packed": kg.gwc_volume_packed, "depthwise_hw_p": kd.depthwise_hw_p,
                 "fused_uncertainty_at": kf.fused_uncertainty_at, "unpack_hwdc": kl.unpack_hwdc,
-                "conv3d_fold_small": kconv.conv3d_fold_small}
+                "conv3d_fold_small": kconv.conv3d_fold_small,
+                "conv3d_packed": kconv.conv3d_packed, "conv2d_flat": k2.conv2d_flat}
     runs = {}
     log("== 5. ACV main path: two-pass DDIM-5, 512×960, B=1, bfloat16, folded (packed=True)")
     runs["acv_folded"] = main_path(dev, counters, packed=True, pairs=TIMED_PAIRS)
     log("== 6. ACV module path (packed=False), same inputs")
     runs["acv_module"] = main_path(dev, counters, packed=False, pairs=MODULE_TIMED_PAIRS)
+    log("   ACV module path after route_conv3d (row 15), same inputs")
+    runs["acv_module_routed"] = main_path(dev, counters, packed=False,
+                                          pairs=ROUTED_TIMED_PAIRS["acv"], routed=True)
+    census = {"acv_module_routed": census_fewer(runs, "acv_module", "acv_module_routed", {
+        "conv_5d_dense": routed_launches("acv")["conv3d_packed"]})}
     log(f"== 7. PCW path: two-pass KITTI12 DDIM-3, {PCW_H}×{PCW_W}, B=1, bfloat16, folded")
     runs["pcw_folded"] = pcw_path(dev, counters, packed=True, pairs=PCW_TIMED_PAIRS)
+    log("   PCW folded path with the flat refinement (row 18), same inputs")
+    runs["pcw_folded_flat"] = pcw_path(dev, counters, packed=True, pairs=PCW_FLAT_TIMED_PAIRS,
+                                       refine_flat=True)
+    ops = runs["pcw_folded_flat"]["refine_ops"]
+    census["pcw_folded_flat"] = census_fewer(runs, "pcw_folded", "pcw_folded_flat", {
+        k: ops[k] * (1 + PCW_STEPS) for k in ("batch_norm_4d", "conv_4d")})
     log("   PCW module path (packed=False), same inputs")
     runs["pcw_module"] = pcw_path(dev, counters, packed=False, pairs=PCW_MODULE_TIMED_PAIRS)
+    log("   PCW module path after route_conv3d (row 15), same inputs")
+    runs["pcw_module_routed"] = pcw_path(dev, counters, packed=False,
+                                         pairs=ROUTED_TIMED_PAIRS["pcw"], routed=True)
+    census["pcw_module_routed"] = census_fewer(runs, "pcw_module", "pcw_module_routed", {
+        "conv_5d_dense": routed_launches("pcw")["conv3d_packed"]})
     log(f"== 8. IGEV path: two-pass KITTI15 DDIM-2, {IGEV_H}×{IGEV_W}, {IGEV_ITERS} GRU "
         f"iterations a rollout, B=1, bfloat16, folded")
     runs["igev_folded"] = igev_path(dev, counters, packed=True, pairs=IGEV_TIMED_PAIRS)
     log("   IGEV module path (packed=False), same inputs")
     runs["igev_module"] = igev_path(dev, counters, packed=False, pairs=IGEV_MODULE_TIMED_PAIRS)
+    log("   IGEV module path after route_conv3d (row 15), same inputs")
+    runs["igev_module_routed"] = igev_path(dev, counters, packed=False,
+                                           pairs=ROUTED_TIMED_PAIRS["igev"], routed=True)
+    census["igev_module_routed"] = census_fewer(runs, "igev_module", "igev_module_routed", {
+        "conv_5d_dense": routed_launches("igev")["conv3d_packed"]})
 
     kernels = []
     for name, (source, replaces, tpu_fn) in KERNEL_META.items():
@@ -1469,7 +1761,8 @@ def main() -> int:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "build_s": build_s, "kernels": kernels, "kernel_checks": checks,
                    "ncdhw_volume_checks": {k: ncdhw[k] for k in ("concat_volume", "dhw_mul")},
-                   "agreement": agreement, "runs": runs, "elapsed_s": elapsed}, f, indent=1)
+                   "agreement": agreement, "runs": runs, "census_against": census,
+                   "elapsed_s": elapsed}, f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -19,6 +19,14 @@ counterpart of the JAX package's ``acv_prep_fast`` / ``acv_denoise_fast``,
 raises; it does not switch path.  Folding costs a few hundred small device
 ops: a caller that runs many pairs passes ``fold_acv(model)`` /
 ``fold_pcw(model)`` / ``fold_igev(model)`` for each model, folded once.
+
+Two opt-in paths, the counterparts of the JAX package's environment
+switches, are reached through the models passed in, with no argument here:
+``fold_pcw(model, refine_flat=True)`` (with ``packed=True``) runs PCW's
+refinement net on the folded 2-D conv kernel (``DIFFU_PCW_REFINE_FLAT=1``),
+and models passed through ``models/layers.py:route_conv3d`` (with
+``packed=False``) run the module path's eligible 3×3×3 convs on
+``conv3d_packed`` (``DIFFU_PALLAS_CONV3D=1``).
 """
 
 from __future__ import annotations
@@ -133,7 +141,9 @@ def acv_ddim_inference(
       generator: the DDIM draws' ``torch.Generator`` on ``device``.
       noise_source: injected draws for ``ddim_sample``.
       packed: the folded path (BatchNorm folded into the port's 3-D conv
-        kernels, channels-last volumes); ``False`` runs the module path.
+        kernels, channels-last volumes); ``False`` runs the module path (its
+        eligible 3×3×3 convs on ``conv3d_packed`` when the models went
+        through ``route_conv3d``).
 
     Returns ``(final_disp (B,H,W), baseline_disp (B,H,W))``, float32.
     """
@@ -179,7 +189,9 @@ def pcw_ddim_inference(
     KITTI12 sampler variant, ``KITTI12_DDIM``).
 
     Arguments as ``acv_ddim_inference``'s, with ``PCWNet``s (``diffusion``
-    off / on) or their ``fold_pcw`` results.  The folded path needs H, W and
+    off / on) or their ``fold_pcw`` results (``fold_pcw(model,
+    refine_flat=True)``: the refinement net on ``conv2d_flat`` too).  The
+    folded path needs H, W and
     ``max_disp`` to be multiples of 32 (three stride-2 levels below 1/4);
     it raises on any other shape.
 

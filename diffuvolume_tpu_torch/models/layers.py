@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from diffuvolume_tpu_torch.ops.kernels.conv3d_fold import conv3d_packed
 from diffuvolume_tpu_torch.ops.regression import resize_linear
 
 
@@ -294,3 +295,72 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
+
+
+# ``route_conv3d``'s input channels: the rest of ``conv3d_packed``'s range (8,
+# 16) runs on ``conv3d_fold_small`` already where the models have it (IGEV).
+ROUTED_CIN = (32, 64, 128)
+
+
+class PackedConv3d(nn.Conv3d):
+    """A 3×3×3 stride-1 pad-1 ``nn.Conv3d`` without dilation, groups or bias
+    whose eval forward runs on ``conv3d_packed`` (TPU row 15), the
+    counterpart of the JAX package's ``conv3x3x3`` under
+    ``DIFFU_PALLAS_CONV3D=1``.  Made only by ``route_conv3d``, in place: the
+    parameters and state-dict keys are the ``nn.Conv3d``'s.  A depth that is
+    not a multiple of ``128 / C_in`` (the JAX rule) and training run the
+    cuDNN conv, as the JAX dispatch keeps XLA's there.  The weight in the
+    kernel's ``(3, 3, 3, C_in, C_out)`` order is made once and kept while the
+    parameter is unchanged."""
+
+    def _kernel_weight(self) -> torch.Tensor:
+        key = (self.weight.data_ptr(), self.weight._version, self.weight.dtype)
+        cached = getattr(self, "_packed_weight", None)
+        if cached is None or cached[0] != key:
+            cached = (key, self.weight.detach().permute(2, 3, 4, 1, 0).contiguous())
+            self._packed_weight = cached
+        return cached[1]
+
+    def forward(self, x):
+        if self.training or x.shape[2] % (128 // self.in_channels):
+            return super().forward(x)
+        # (B, C, D, H, W) → NDHWC: a view of a channels_last_3d volume, a
+        # copy of an NCDHW one.
+        y = conv3d_packed(x.permute(0, 2, 3, 4, 1).contiguous(), self._kernel_weight())
+        return y.permute(0, 4, 1, 2, 3)
+
+
+def packed_eligible(conv: nn.Module) -> bool:
+    """The JAX package's rule for ``conv3d_packed`` (``ConvBN``,
+    ``layers.py:440-450``; IGEV's ``BasicConv``): a plain 3×3×3 stride-1
+    pad-1 conv, undilated, ungrouped, no bias, C_in in ``ROUTED_CIN``.  The
+    depth rule is the forward's."""
+    return (type(conv) is nn.Conv3d and conv.kernel_size == (3, 3, 3)
+            and conv.stride == (1, 1, 1) and conv.padding == (1, 1, 1)
+            and conv.dilation == (1, 1, 1) and conv.groups == 1 and conv.bias is None
+            and conv.in_channels in ROUTED_CIN)
+
+
+def route_conv3d(model: nn.Module) -> nn.Module:
+    """Run ``model``'s eligible 3-D convs on ``conv3d_packed``, in place: the
+    conv child of each 3-D ``ConvBN`` and of each IGEV ``BasicConv`` that
+    ``packed_eligible`` takes becomes a ``PackedConv3d``.  BatchNorm and
+    the activation stay after it, unfused.  The classifier heads
+    (``HeadConv3D``), the bare stride-2 convs and the transposed convs are
+    not routed, as on the TPU.  The JAX package also sends its
+    phase-decomposed transposed convs (``deconv3d_422_phases``) through this
+    kernel; the port does not carry those over (its module path runs the
+    transposed convs on cuDNN).  Pass the routed models with
+    ``packed=False``; returns ``model``."""
+    from diffuvolume_tpu_torch.models.igev.extractor import BasicConv
+
+    for m in model.modules():
+        if isinstance(m, ConvBN):
+            conv = m[0]
+        elif isinstance(m, BasicConv):
+            conv = m.conv
+        else:
+            continue
+        if packed_eligible(conv):
+            conv.__class__ = PackedConv3d
+    return model

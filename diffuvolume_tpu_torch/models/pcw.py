@@ -15,7 +15,9 @@ The volume work runs on the port's kernels: each scale's volume is built by
 ``dhw_mul`` with one map, the head by ``fused_upsample_softargmin`` and the
 renewal score against the refined disparity by ``fused_uncertainty_at``.
 The 2-D and 3-D convolutions are PyTorch convolutions; ``models/pcw_fold.py``
-runs the 3-D ones on the port's kernels.  Eval runs one 2B trunk pass for
+runs the 3-D ones on the port's kernels, and with ``refine_flat=True`` the
+refinement net's too; ``layers.route_conv3d`` runs this path's eligible
+3×3×3 convs on ``conv3d_packed``.  Eval runs one 2B trunk pass for
 both views.
 """
 
@@ -280,27 +282,38 @@ class PCWNet(nn.Module):
                           for v in self.volumes(fl, fr))
         cost0 = self.dres0(v1)
         cost0 = self.dres1(cost0) + cost0
-        return self.combine1(cost0, v2, v3, v4), cost0, fl, fr
+        # NCDHW for dhw_mul: convs routed by route_conv3d leave their
+        # outputs channels-last (a copy then; a no-op otherwise).
+        combine = self.combine1(cost0, v2, v3, v4).contiguous()
+        return combine, cost0, fl, fr
 
     # ---- heads and refinement ----
 
     def _head_cost(self, x: torch.Tensor) -> torch.Tensor:
         return self.classif3(x)[:, 0].float().contiguous()  # (B, D, H4, W4)
 
-    def refine(self, pred3: torch.Tensor, fl: dict, fr: dict, out_hw: tuple[int, int]):
-        """Full-resolution warp + signed correlation refinement
-        (pwcnet_ddim.py:486-502, 712-734).  The prefix (resize, warp,
-        correlation) runs in float32; the refinement convs in the model's
-        dtype.  Returns the refined disparity ``(B, H, W)`` float32."""
+    def refine_input(self, pred3: torch.Tensor, fl: dict, fr: dict,
+                     out_hw: tuple[int, int]) -> torch.Tensor:
+        """The refinement net's input (pwcnet_ddim.py:486-502): both views'
+        refinement features resized to ``out_hw``, the right one warped by
+        ``pred3``, their difference, the left one, ``dispupsample(pred3)``,
+        ``pred3`` and the signed correlation: ``(B, 146, H, W)`` in the
+        model's dtype.  The resize, warp and correlation run in float32."""
         dt = self.dtype
         rl = resize_bilinear(fl["refine"].float(), out_hw, 2, 3, align_corners=True)
         rr = resize_bilinear(fr["refine"].float(), out_hw, 2, 3, align_corners=True)
         rr_warp = warp_right_to_left(rr, pred3)
         corr = build_signed_correlation_volume(rl, rr_warp, REFINE_MAX_OFFSET)
         p = pred3[:, None].to(dt)
-        x = torch.cat([(rl - rr_warp).to(dt), rl.to(dt), self.dispupsample(p), p, corr.to(dt)],
-                      dim=1)  # 32 + 32 + 32 + 1 + 49 = 146 channels
-        return self.refinenet3(x, pred3.float())
+        return torch.cat([(rl - rr_warp).to(dt), rl.to(dt), self.dispupsample(p), p, corr.to(dt)],
+                         dim=1)  # 32 + 32 + 32 + 1 + 49 = 146 channels
+
+    def refine(self, pred3: torch.Tensor, fl: dict, fr: dict, out_hw: tuple[int, int]):
+        """Full-resolution warp + signed correlation refinement
+        (pwcnet_ddim.py:486-502, 712-734): ``refine_input``, then the
+        refinement convs in the model's dtype.  Returns the refined
+        disparity ``(B, H, W)`` float32."""
+        return self.refinenet3(self.refine_input(pred3, fl, fr, out_hw), pred3.float())
 
     def embed_noise(self, latent: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """The time-embedded latent clamped to ±scale and rescaled to [0, 1]."""

@@ -17,7 +17,18 @@ part first as the residual of the other's: exact by linearity, and no
 concatenated copy (the JAX packed path does the same, ``pcw.py:549-569``).
 Unlike the JAX path, the 1/32 level (conv5 s2, combine3, conv6, the conv7
 transposed conv and redir3) runs on the kernels too.  The 2-D trunk, the
-refinement net and the time embedding run as they are on the module path.
+refinement's input (resize, warp, signed correlation, ``dispupsample``) and
+the time embedding run as they are on the module path.
+
+``fold_pcw(model, refine_flat=True)`` also folds the refinement net
+(``RefineNetV3``), the counterpart of the JAX package's ``_refine_flat``
+(``DIFFU_PCW_REFINE_FLAT=1``): each 3×3 conv's BatchNorm folded into its
+weight and bias in float32, every 3×3 conv (``conv8``, 32 → 1 without
+BatchNorm, too) on ``conv2d_flat`` (TPU row 18) channels-last, the three
+1×1 ``downsample`` projections as a matmul over channels, Mish and the
+residual adds as PyTorch elementwise ops.  The 146-channel input goes in a
+zero-filled 160-channel slot, ``conv1``'s weight zero-padded to match.  The
+default stays the module refinement, as in the JAX package.
 
 The path needs D, H/4 and W/4 to be multiples of 8 (three stride-2 levels
 that the transposed convs undo); on any other shape it raises.
@@ -28,17 +39,21 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from diffuvolume_tpu_torch.models.acv_fold import (
     FoldedConv,
+    _bn_scale_shift,
     fold_convbn,
     fold_deconvbn,
     fold_head,
     fold_hourglass,
     hourglass_folded,
 )
-from diffuvolume_tpu_torch.models.pcw import HourglassUp, PCWEntry, PCWNet
+from diffuvolume_tpu_torch.models.layers import ConvBN
+from diffuvolume_tpu_torch.models.pcw import HourglassUp, PCWEntry, PCWNet, RefineNetV3
 from diffuvolume_tpu_torch.ops.kernels.concat_volume import dhw_mul
+from diffuvolume_tpu_torch.ops.kernels.conv2d import conv2d_flat
 from diffuvolume_tpu_torch.ops.kernels.conv3d_fold import (
     conv1x1_fold_p,
     conv3d_fold_p,
@@ -114,6 +129,82 @@ def hourglass_up_folded(hg: FoldedHourglassUp, x: torch.Tensor, v2: torch.Tensor
     return conv3d_fold_up(c8, *hg.conv9, residual=conv1x1_fold_p(x, *hg.redir1), act=act)
 
 
+# The refinement input's 146 channels in a slot whose rows are whole 16-byte
+# vectors for the kernel's copies.
+REFINE_SLOT = 160
+
+_ACT_FNS = {"mish": F.mish, "relu": torch.relu}
+
+
+class FoldedConv2d(NamedTuple):
+    w: torch.Tensor               # (3, 3, C_in, C_out), model dtype
+    b: torch.Tensor | None        # (C_out,) float32
+    dil: int
+
+
+def fold_convbn2d(m: ConvBN, c_slot: int | None = None) -> FoldedConv2d:
+    """``Conv2d → BatchNorm2d`` (eval) as one 3×3 conv (``fold_convbn``'s 2-D
+    form); the weight's input channels zero-padded to ``c_slot`` when it is
+    given."""
+    conv, bn = m[0], m[1]
+    scale, shift = _bn_scale_shift(bn)
+    w = (conv.weight.float() * scale[:, None, None, None]).permute(2, 3, 1, 0)
+    if c_slot is not None and c_slot > w.shape[2]:
+        w = F.pad(w, (0, 0, 0, c_slot - w.shape[2]))
+    return FoldedConv2d(w.to(conv.weight.dtype).contiguous(), shift.contiguous(),
+                        conv.dilation[0])
+
+
+class FoldedBlock(NamedTuple):
+    conv1: FoldedConv2d
+    conv2: FoldedConv2d
+    down_w: torch.Tensor          # (C_in, C_out), model dtype
+    down_b: torch.Tensor          # (C_out,) float32
+
+
+class FoldedRefine(NamedTuple):
+    convs: tuple                  # conv1 … conv4, each followed by the activation
+    blocks: tuple                 # conv5 … conv7
+    conv8: FoldedConv2d           # 32 → 1, no BatchNorm, no bias
+
+
+def fold_refine(net: RefineNetV3) -> FoldedRefine:
+    """``RefineNetV3`` (eval) folded for ``refine_flat``."""
+    blocks = []
+    for i in (5, 6, 7):
+        blk = getattr(net, f"conv{i}")[0]
+        scale, shift = _bn_scale_shift(blk.downsample[1])
+        down = blk.downsample[0].weight
+        blocks.append(FoldedBlock(
+            fold_convbn2d(blk.conv1[0]), fold_convbn2d(blk.conv2),
+            (down.float()[:, :, 0, 0] * scale[:, None]).t().to(down.dtype).contiguous(),
+            shift.contiguous()))
+    return FoldedRefine(
+        (fold_convbn2d(net.conv1[0], REFINE_SLOT),
+         *(fold_convbn2d(getattr(net, f"conv{i}")[0]) for i in (2, 3, 4))),
+        tuple(blocks),
+        FoldedConv2d(net.conv8.weight.permute(2, 3, 1, 0).contiguous(), None, 1))
+
+
+def refine_flat(fr: FoldedRefine, x: torch.Tensor, disp: torch.Tensor, act: str) -> torch.Tensor:
+    """The folded refinement net on the ``(B, 146, H, W)`` input ``x``
+    (``_refine_flat``, ``pcw.py:684-743`` of the JAX package): conv1 … conv4
+    with the activation, three residual blocks (act(conv1) → conv2, + the
+    1×1 downsample), conv8; returns ``disp + residual`` ``(B, H, W)``
+    float32."""
+    a = _ACT_FNS[act]
+    b, c, h, w = x.shape
+    y = x.new_zeros((b, h, w, REFINE_SLOT))
+    y[..., :c] = x.permute(0, 2, 3, 1)
+    for fc in fr.convs:
+        y = a(conv2d_flat(y, *fc))
+    for blk in fr.blocks:
+        o = conv2d_flat(a(conv2d_flat(y, *blk.conv1)), *blk.conv2)
+        ds = (torch.matmul(y, blk.down_w).float() + blk.down_b).to(y.dtype)
+        y = o + ds
+    return disp.float() + conv2d_flat(y, *fr.conv8)[..., 0].float()
+
+
 def _check_geometry(d: int, h4: int, w4: int) -> None:
     if d % 8 or h4 % 8 or w4 % 8:
         raise ValueError(
@@ -124,11 +215,12 @@ class FoldedPCW:
     """An eval ``PCWNet`` with its 3-D conv chains folded (see the module
     docstring).  Holds the model for the modules it runs unfolded."""
 
-    def __init__(self, model: PCWNet):
+    def __init__(self, model: PCWNet, refine_flat: bool = False):
         if model.training:
             raise ValueError("BatchNorm folding needs an eval-mode model")
         self.model = model
         self.act = model.act
+        self.refine = fold_refine(model.refinenet3) if refine_flat else None
         self.dres0_0 = fold_convbn(model.dres0[0])
         self.dres0_1 = fold_convbn(model.dres0[2])
         self.dres1_0 = fold_convbn(model.dres1[0])
@@ -156,7 +248,8 @@ class FoldedPCW:
                   want_unc: bool = True):
         """``(B, D, H4, W4, 32)`` volume → ``(disp_finetune, unc)`` at
         ``out_hw`` (``_pcw_aggregate_packed``): three Mish hourglasses, the
-        classif3 head, the fused head, the refinement net, and the
+        classif3 head, the fused head, the refinement net (folded on
+        ``conv2d_flat`` when folded with ``refine_flat``), and the
         uncertainty against the refined disparity (None unless
         ``want_unc``)."""
         m, act = self.model, self.act
@@ -167,7 +260,10 @@ class FoldedPCW:
         h = conv3d_fold_p(x, *self.classif3_0, act=act)
         cost3 = conv3d_fold_p(h, *self.classif3_1)[..., 0].float().contiguous()
         pred3, _ = fused_upsample_softargmin(cost3, m.max_disp, out_hw, align_corners=True)
-        disp = m.refine(pred3, fl, fr, out_hw)
+        if self.refine is None:
+            disp = m.refine(pred3, fl, fr, out_hw)
+        else:
+            disp = refine_flat(self.refine, m.refine_input(pred3, fl, fr, out_hw), pred3, act)
         unc = (fused_uncertainty_at(cost3, disp, m.max_disp, out_hw, align_corners=True)
                if want_unc else None)
         return disp, unc
@@ -192,7 +288,8 @@ class FoldedPCW:
     __call__ = forward
 
 
-def fold_pcw(model: PCWNet) -> FoldedPCW:
-    """Fold ``model`` (eval) into a ``FoldedPCW``."""
+def fold_pcw(model: PCWNet, refine_flat: bool = False) -> FoldedPCW:
+    """Fold ``model`` (eval) into a ``FoldedPCW``; with ``refine_flat`` its
+    refinement net too (every 3×3 conv on ``conv2d_flat``)."""
     with torch.no_grad():
-        return FoldedPCW(model)
+        return FoldedPCW(model, refine_flat)

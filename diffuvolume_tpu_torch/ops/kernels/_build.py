@@ -62,6 +62,8 @@ SIGNATURES = {
     "dv_unpack": [_P, _P, _I, _I, _L],
     # x, out, b, d, s, c_slot, co
     "dv_unpack_hwdc": [_P, _P, _I, _I, _L, _I, _I],
+    # x, w, bias|0, out, b, h, w, cin, cout, dilation
+    "dv_conv2d_flat": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
 }
 _TAIL = [_I, _I, _P]
 

@@ -1,0 +1,75 @@
+"""3×3 dilated 2-D convolution + bias, channels-last.
+
+Kernel: ``csrc/conv2d_flat.cu`` (implicit GEMM on the bf16 tensor cores, one
+kh tap staged at a time; a plain FMA kernel in float32), replacing
+``diffuvolume_tpu/ops/pallas/conv2d.py:conv2d_flat``.  It runs every 3×3
+conv of PCWNet's refinement net on the folded path when the model is folded
+with ``fold_pcw(model, refine_flat=True)`` (``models/pcw_fold.py``).
+
+Layouts: ``x (B, H, W, C_in)``, ``w (3, 3, C_in, C_out)`` in ``x``'s dtype,
+``bias (C_out,)`` float32 or None; stride 1, padding = dilation.  The result
+``(B, H, W, C_out)`` is in ``x``'s dtype: a float32 accumulator, + bias, one
+rounding.  A CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises.  bf16 input channels must be a multiple of 8 (16-byte
+rows): a 146-channel input goes in a zero-filled 160-channel slot, with zero
+weights on the fill.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from diffuvolume_tpu_torch.ops.kernels import _build
+
+# The largest dilation whose staged strip (BM + 2d positions a row) fits a
+# block's shared memory at every N tile.
+MAX_DILATION = 64
+
+
+def conv2d_flat_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
+                      dilation: int = 1) -> torch.Tensor:
+    """``conv(x, w) + bias`` in float32 through ``F.conv2d``, rounded once to
+    ``x``'s dtype; padding and dilation ``dilation``."""
+    y = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
+                 None if bias is None else bias.float(), padding=dilation, dilation=dilation)
+    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+def _check(x, w, bias, dilation) -> None:
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, x.shape[3]):
+        raise ValueError(f"conv2d_flat: x (B, H, W, C) and w (3, 3, C, Co) must agree, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if not (isinstance(dilation, int) and 1 <= dilation <= MAX_DILATION):
+        raise ValueError(f"conv2d_flat: dilation must be an int in [1, {MAX_DILATION}], "
+                         f"got {dilation!r}")
+    if bias is not None and (bias.dtype != torch.float32 or tuple(bias.shape) != (w.shape[3],)):
+        raise ValueError(f"conv2d_flat: bias must be ({w.shape[3]},) float32")
+
+
+def conv2d_flat(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
+                dilation: int = 1) -> torch.Tensor:
+    """3×3 stride-1 conv with padding and dilation ``dilation``,
+    ``(B, H, W, C) → (B, H, W, Co)``."""
+    _check(x, w, bias, dilation)
+    if x.device.type == "cpu":
+        return conv2d_flat_plain(x, w, bias, dilation)
+    if w.dtype != x.dtype:
+        raise TypeError(f"conv2d_flat: w is {w.dtype}, x is {x.dtype}")
+    if x.dtype == torch.bfloat16 and x.shape[3] % 8:
+        raise ValueError(f"conv2d_flat: bf16 input channels must be a multiple of 8 "
+                         f"(zero-fill a slot), got {x.shape[3]}")
+    tensors = [t for t in (x, w, bias) if t is not None]
+    _build.check_cuda(*tensors)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("conv2d_flat: operands must be 16-byte aligned")
+    b, h, wd, cin = x.shape
+    out = torch.empty((b, h, wd, w.shape[3]), dtype=x.dtype, device=x.device)
+    _build.launch("dv_conv2d_flat", x, x.data_ptr(), w.data_ptr(),
+                  None if bias is None else bias.data_ptr(), out.data_ptr(), b, h, wd, cin,
+                  w.shape[3], dilation)
+    conv2d_flat.launches += 1
+    return out
+
+
+conv2d_flat.launches = 0

@@ -13,6 +13,10 @@ its own launch count:
 * ``conv1x1_fold_p`` ← ``conv1x1_fold_p`` (1×1×1, + residual)
 * ``conv3d_fold_small`` ← ``conv3d_fold`` (3×3×3 stride 1 at C_in 8 or 16,
   IGEV's module path; C_in 8 runs on a zero-filled half chunk, no slot)
+* ``conv3d_packed`` ← ``conv3d_packed`` (3×3×3 stride 1 + bias, ReLU or
+  none, at C_in 8 … 128: the module paths' eligible convs after
+  ``models/layers.py:route_conv3d``; the TPU kernel's lane packing is not
+  carried over, the conv runs on plain NDHWC)
 
 Plain version: ``conv3d_fold_plain``.  Layouts: activations ``(B, D, H, W,
 C)``, weights ``(k, k, k, C_in, C_out)`` in the model's dtype, bias
@@ -173,8 +177,26 @@ def conv3d_fold_small(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | Non
     return _fold(x, w, bias, 1, None, act, 3, conv3d_fold_small, cin_step=8)
 
 
+# The input channels ``conv3d_packed`` takes, as the TPU kernel's contract
+# (``conv3d.py:139-145`` of the JAX package).
+PACKED_CIN = (8, 16, 32, 64, 128)
+
+
+def conv3d_packed(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
+                  act: str | None = None) -> torch.Tensor:
+    """3×3×3 stride-1 pad-1 conv + bias, then ReLU (``act="relu"``) or
+    nothing, ``(B, D, H, W, C) → (B, D, H, W, Co)`` at C ∈ ``PACKED_CIN``;
+    the same kernel as ``conv3d_fold_p``, counted apart."""
+    if x.shape[-1] not in PACKED_CIN:
+        raise ValueError(f"conv3d_packed takes {PACKED_CIN} input channels, got {x.shape[-1]}")
+    if act not in (None, "relu"):
+        raise ValueError(f"conv3d_packed: act must be None or 'relu', got {act!r}")
+    return _fold(x, w, bias, 1, None, act, 3, conv3d_packed, cin_step=8)
+
+
 conv3d_fold_p.launches = 0
 conv3d_fold_x2.launches = 0
 conv3d_fold_s2.launches = 0
 conv1x1_fold_p.launches = 0
 conv3d_fold_small.launches = 0
+conv3d_packed.launches = 0

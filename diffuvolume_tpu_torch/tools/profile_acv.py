@@ -1,19 +1,22 @@
 """Where one pair spends its device time.
 
     python -m diffuvolume_tpu_torch.tools.profile_acv [--model acv|pcw|igev]
-        [--pairs N] [--path folded|module]
+        [--pairs N] [--path folded|module] [--refine-flat] [--routed]
 
 Runs the inputs of ``chip_smoke.py``'s paths: ACV two-pass DDIM-5 at
 512×960 (``--model acv``, the default), PCW two-pass KITTI12 DDIM-3 at
 384×1248 (``--model pcw``) or IGEV-Stereo two-pass KITTI15 DDIM-2 at
 384×1248 with 32 GRU iterations a rollout (``--model igev``), batch 1,
 bfloat16, on the folded path
-(``packed=True``, the default) or the module path; one warm-up pair, then
-``N`` pairs under ``torch.profiler``.  Prints the device time per pair by
-kernel group and the top kernels, the wall time per pair (profiled, and over
-``N`` pairs run without the profiler, which adds host time of its own) and
-the device's idle share (1 − device busy / unprofiled wall), and writes them
-to ``chiprun_out/profile_<model>_<path>.json``.  Needs a CUDA device.
+(``packed=True``, the default) or the module path; ``--refine-flat`` folds
+PCW with ``refine_flat=True`` (the refinement's convs on row 18),
+``--routed`` runs the module path after ``route_conv3d`` (its 3×3×3 convs on
+row 15).  One warm-up pair, then ``N`` pairs under ``torch.profiler``.
+Prints the device time per pair by kernel group and the top kernels, the
+wall time per pair (profiled, and over ``N`` pairs run without the
+profiler, which adds host time of its own) and the device's idle share (1 − device busy / unprofiled wall), and writes them
+to ``chiprun_out/profile_<model>_<path>[_flat|_routed].json``.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from diffuvolume_tpu_torch.eval.pipeline import (
 )
 from diffuvolume_tpu_torch.models.acv_fold import fold_acv
 from diffuvolume_tpu_torch.models.igev.gev_fold import fold_igev
+from diffuvolume_tpu_torch.models.layers import route_conv3d
 from diffuvolume_tpu_torch.models.pcw_fold import fold_pcw
 from diffuvolume_tpu_torch.tools.random_weights import (
     seeded_igev_path,
@@ -44,7 +48,8 @@ from diffuvolume_tpu_torch.tools.random_weights import (
 )
 from diffuvolume_tpu_torch.utils.device import resolve_device
 
-# Kernel name → group, first match wins.
+# Kernel name → group, first match wins.  BatchNorm comes before the cuDNN
+# group: cuDNN's own BatchNorm kernels (``cudnn::bn_fw_inf_…``) carry its name.
 GROUPS = [
     ("port: fused head", r"fused_head_kernel"),
     ("port: uncertainty at query", r"fused_unc_at_kernel"),
@@ -55,13 +60,14 @@ GROUPS = [
     ("port: dhw multiply", r"dhw_mul_kernel|dhw_mul_cl"),
     ("port: 3-D conv, folded (conv3d_fold.cu)", r"igemm_bf16<false|direct_f32<false"),
     ("port: transposed conv, folded (conv3d_up.cu)", r"igemm_bf16<true|direct_f32<true"),
+    ("port: dilated 2-D conv (conv2d_flat.cu)", r"conv2d_bf16|conv2d_f32"),
     ("port: layout pack / unpack", r"to_last_kernel|to_first_kernel|hwdc"),
+    # On the folded path every BatchNorm left is a 2-D one (the feature
+    # trunk's; PCW's refinement net's unless it is flat): chip_smoke.py's op
+    # census shows no 3-D one.
+    ("batch norm", r"batch_norm|bn_fw|bn_bw"),
     ("conv / deconv (cuDNN, CUTLASS)", r"conv|cudnn|xmma|implicit|wgrad|dgrad|fprop|winograd|sm90_"),
     ("matmul (attention, resizes)", r"gemm|cublas|cutlass"),
-    # On the folded path every BatchNorm left is a 2-D one (the feature
-    # trunk's; PCW's refinement net's): chip_smoke.py's op census shows no
-    # 3-D one.
-    ("batch norm", r"batch_norm|bn_"),
     ("grid sample (PCW refinement warp)", r"grid_sampler"),
     ("instance norm (IGEV trunk)", r"instance_norm|welford"),
     ("softmax", r"softmax"),
@@ -82,8 +88,16 @@ def main(argv=None) -> int:
     ap.add_argument("--model", choices=("acv", "pcw", "igev"), default="acv")
     ap.add_argument("--pairs", type=int, default=2)
     ap.add_argument("--path", choices=("folded", "module"), default="folded")
+    ap.add_argument("--refine-flat", action="store_true",
+                    help="PCW folded: the refinement net on conv2d_flat")
+    ap.add_argument("--routed", action="store_true",
+                    help="module path: the 3x3x3 convs on conv3d_packed (route_conv3d)")
     args = ap.parse_args(argv)
     packed = args.path == "folded"
+    if args.refine_flat and not (packed and args.model == "pcw"):
+        ap.error("--refine-flat is PCW's folded path's")
+    if args.routed and packed:
+        ap.error("--routed is the module path's")
     dev = resolve_device(None)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -92,12 +106,16 @@ def main(argv=None) -> int:
         cfg, infer, fold = DDIMConfig(), acv_ddim_inference, fold_acv
     elif args.model == "pcw":
         bm, dm, left, right = seeded_pcw_path(dev)
-        cfg, infer, fold = KITTI12_DDIM, pcw_ddim_inference, fold_pcw
+        cfg, infer = KITTI12_DDIM, pcw_ddim_inference
+        fold = lambda m: fold_pcw(m, refine_flat=args.refine_flat)  # noqa: E731
     else:
         bm, dm, left, right = seeded_igev_path(dev)
         cfg, infer, fold = KITTI15_DDIM, igev_ddim_inference, fold_igev
     if packed:  # folded once, as a caller running many pairs does
         bm, dm = fold(bm), fold(dm)
+    elif args.routed:
+        bm, dm = route_conv3d(bm), route_conv3d(dm)
+    variant = "_flat" if args.refine_flat else "_routed" if args.routed else ""
 
     def pair(i):
         gen = torch.Generator(device=dev).manual_seed(i)
@@ -131,7 +149,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     idle = 1 - device_ms / plain_wall_ms
-    print(f"{card}, {args.model} {args.path} path: wall {plain_wall_ms:.2f} ms/pair "
+    print(f"{card}, {args.model} {args.path}{variant} path: wall {plain_wall_ms:.2f} ms/pair "
           f"({wall_ms:.2f} under the profiler), device busy {device_ms:.2f} ms/pair, "
           f"idle share {idle:.3f}")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -141,8 +159,9 @@ def main(argv=None) -> int:
     for name, ms in top:
         print(f"  {ms:10.3f} ms  {name[:110]}")
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", f"profile_{args.model}_{args.path}.json"), "w") as f:
-        json.dump({"card": card, "model": args.model, "path": args.path,
+    name = f"profile_{args.model}_{args.path}{variant}.json"
+    with open(os.path.join("chiprun_out", name), "w") as f:
+        json.dump({"card": card, "model": args.model, "path": args.path + variant,
                    "wall_ms_per_pair": plain_wall_ms,
                    "profiled_wall_ms_per_pair": wall_ms, "device_ms_per_pair": device_ms,
                    "idle_share": idle, "groups_ms": groups,

@@ -571,3 +571,122 @@ def test_igev_launch_counts(dev):
     kup.conv3d_fold_up(y, (_randn(dev, 4, 4, 4, 16, 16, seed=141) * 0.1).to(torch.bfloat16))
     assert [f.launches for f in counters] == [before[0] + 1, before[1] + 1, before[2],
                                               before[3] + 1]
+
+
+# -- rows 18 and 15: the refinement's dilated 2-D conv, the module paths' packed conv ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,real_cin,cout,shape,d,bias", [
+    (128, 128, 128, (1, 12, 70), 1, True),     # W past one 64 tile, ragged
+    (128, 128, 96, (1, 9, 33), 2, True),       # C_out 96: three 32 tiles
+    (64, 64, 64, (2, 40, 37), 16, True),       # d 16: the strip 96 wide, rows all in padding
+    (160, 146, 128, (1, 10, 20), 1, True),     # the 146-channel input in its 160 slot
+    (32, 32, 1, (1, 7, 130), 1, False),        # conv8: C_out 1, no bias
+    (96, 96, 96, (1, 5, 9), 8, True),          # d past H and W
+    (24, 24, 16, (1, 6, 11), 4, False),        # C_in 24: a zero-filled half chunk
+])
+def test_conv2d_flat(dev, dtype, cin, real_cin, cout, shape, d, bias):
+    """Row 18 against its plain version: the CONV_TOL bounds; the slot's
+    fill channels have zero input and weights."""
+    from diffuvolume_tpu_torch.ops.kernels import conv2d as k2
+
+    b, h, w = shape
+    x = _randn(dev, b, h, w, cin, seed=150)
+    wt = _randn(dev, 3, 3, cin, cout, seed=151) / (9 * real_cin) ** 0.5
+    x[..., real_cin:] = 0.0
+    wt[:, :, real_cin:] = 0.0
+    bv = _randn(dev, cout, seed=152) if bias else None
+    x, wt = x.to(dtype), wt.to(dtype)
+    got = k2.conv2d_flat(x, wt, bv, d)
+    want = k2.conv2d_flat_plain(x, wt, bv, d)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, w, cout) and got.dtype == dtype
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_conv2d_flat_refuses_bad_operands(dev):
+    from diffuvolume_tpu_torch.ops.kernels import conv2d as k2
+
+    x = _randn(dev, 1, 4, 6, 146).bfloat16()
+    wt = _randn(dev, 3, 3, 146, 32).bfloat16()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k2.conv2d_flat(x, wt)
+    x16, w16 = _randn(dev, 1, 4, 6, 16).bfloat16(), _randn(dev, 3, 3, 16, 32).bfloat16()
+    with pytest.raises(TypeError):
+        k2.conv2d_flat(x16, w16.float())
+    with pytest.raises(ValueError):
+        k2.conv2d_flat(x16.transpose(1, 2), w16)
+    with pytest.raises(ValueError):
+        k2.conv2d_flat(x16, w16, torch.zeros(32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,shape,bias,act", [
+    (8, 8, (1, 16, 6, 70), True, "relu"),
+    (16, 16, (1, 8, 5, 9), False, None),
+    (32, 32, (1, 8, 6, 70), False, None),      # the module paths' 32→32
+    (64, 32, (1, 8, 5, 11), True, "relu"),     # dres0_0's 64 → 32
+    (128, 128, (2, 2, 4, 13), True, None),
+    (128, 64, (1, 6, 3, 39), False, None),     # PCW's combine1 at the 1/8 level's width
+])
+def test_conv3d_packed(dev, dtype, cin, cout, shape, bias, act):
+    """Row 15 at each C_in of its contract, with and without bias and ReLU:
+    the CONV_TOL bounds."""
+    x, wt, b = _conv_inputs(dev, dtype, shape, cin, cout, 3, seed=160)
+    b = b if bias else None
+    got = kconv.conv3d_packed(x, wt, b, act=act)
+    want = kconv.conv3d_fold_plain(x, wt, b, 1, None, act)
+    torch.cuda.synchronize()
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_routed_conv_runs_the_packed_kernel(dev):
+    """A routed ``ConvBN`` conv on the card: NCDHW and channels-last inputs
+    both launch row 15 once and agree with cuDNN's float32 conv."""
+    from diffuvolume_tpu_torch.models import layers
+
+    cb = layers.route_conv3d(layers.convbn_3d(32, 32, 3, 1, 1)).to(dev).eval()
+    x = _randn(dev, 1, 32, 8, 6, 20, seed=170)
+    want = torch.nn.functional.conv3d(x, cb[0].weight, padding=1)
+    for xin in (x, x.contiguous(memory_format=torch.channels_last_3d)):
+        before = kconv.conv3d_packed.launches
+        got = cb[0](xin)
+        torch.cuda.synchronize()
+        assert kconv.conv3d_packed.launches == before + 1
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_row_15_and_18_launch_counts(dev):
+    """The two new wrappers count their own launches only; row 15 is not
+    counted as ``conv3d_fold_p`` though it runs the same kernel."""
+    from diffuvolume_tpu_torch.ops.kernels import conv2d as k2
+
+    counters = (kconv.conv3d_packed, k2.conv2d_flat, kconv.conv3d_fold_p, kconv.conv3d_fold_small)
+    before = [f.launches for f in counters]
+    x, wt, _ = _conv_inputs(dev, torch.bfloat16, (1, 4, 3, 5), 32, 32, 3, seed=180)
+    kconv.conv3d_packed(x, wt)
+    k2.conv2d_flat(x[:, 0], wt[0])
+    assert [f.launches for f in counters] == [before[0] + 1, before[1] + 1, before[2], before[3]]
+
+
+@torch.no_grad()
+def test_routed_pcw_module_path_on_the_card(dev):
+    """PCW's module path after ``route_conv3d`` at 64×64: 44 row-15 launches
+    a pair (2 volume builds × 8, 4 aggregation passes × 7), and a finite
+    output; the routed convs leave channels-last volumes, and the combine
+    volume goes back to NCDHW for ``dhw_mul``."""
+    from diffuvolume_tpu_torch.eval.pipeline import pcw_ddim_inference
+    from diffuvolume_tpu_torch.models.layers import route_conv3d
+    from diffuvolume_tpu_torch.tools.random_weights import random_pcw_pair
+
+    models = random_pcw_pair(192, torch.Generator().manual_seed(0))
+    bm, dm = (route_conv3d(m).to(dev) for m in models)
+    left = _randn(dev, 1, 64, 64, 3, seed=190) * 0.3
+    before = kconv.conv3d_packed.launches
+    final, _ = pcw_ddim_inference(bm, dm, left, torch.roll(left, -3, 2), device=dev, packed=False,
+                                  generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert kconv.conv3d_packed.launches - before == 44
+    assert final.shape == (1, 64, 64) and torch.isfinite(final).all()

@@ -57,3 +57,13 @@ def test_pcw_slice_modules_are_checked(module):
 def test_igev_slice_modules_are_checked(module):
     """The IGEV slice's modules are among the files checked above."""
     assert ROOT / "diffuvolume_tpu_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", [
+    "ops/kernels/conv2d.py", "models/pcw_fold.py", "models/pcw.py", "models/layers.py",
+    "ops/kernels/conv3d_fold.py", "eval/pipeline.py", "tools/profile_acv.py",
+])
+def test_row_15_and_18_modules_are_checked(module):
+    """The modules of the refinement's and the packed conv's slice are among
+    the files checked above."""
+    assert ROOT / "diffuvolume_tpu_torch" / module in FILES

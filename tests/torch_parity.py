@@ -124,3 +124,16 @@ def jax_normal_draws(key, steps: int, shape) -> dict:
         rs.append(np.array(jax.random.normal(kr, shape, jnp.float32)))
     return {"init": np.array(jax.random.normal(k_init, shape, jnp.float32)),
             "z": np.stack(zs), "replace": np.stack(rs)}
+
+
+def jax_uniform_draws(key, steps: int, shape) -> dict:
+    """The JAX ``ddim_sample``'s draws for a uniform replacement (the ACV
+    SceneFlow sampler): split off the init key, then per step the z and the
+    replacement, in the order it makes them."""
+    rng, _ = jax.random.split(key)
+    zs, rs = [], []
+    for k in jax.random.split(rng, steps):
+        kz, kr = jax.random.split(k)
+        zs.append(np.asarray(jax.random.normal(kz, shape, jnp.float32)))
+        rs.append(np.asarray(jax.random.uniform(kr, shape, jnp.float32)))
+    return {"z": np.stack(zs), "replace": np.stack(rs)}
