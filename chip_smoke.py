@@ -12,15 +12,24 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      times (CUDA events), the time of one PyTorch call computing the same
      function where there is one, and the bound (bytes or operations over
      the H100's peak rates); the convs with the epilogue (none, ReLU, Mish,
-     LeakyReLU, × post_mul) each path gives each shape, and their total over
-     one pair's launches;
+     LeakyReLU, × post_mul) each path gives each shape, timed on the card
+     (torch.profiler's device time; CUDA events and the host's time to issue
+     a call beside it), and their total over one pair's launches, by row
+     beside the previous slice's run 3; for rows 7 and 8 also the tile plan
+     (tile, blocks, K splits, blocks an SM, shared memory, tensor-core form)
+     and, at 64 output channels a tile, the wgmma and the mma.sync form
+     each checked and timed;
   4. agreement on a small input: each whole two-pass pipeline (ACV, PCW,
      IGEV) on the card against the same pipeline on the CPU (plain
      versions), float32, same seeded weights and injected draws, on the
      folded path and on the module path, PCW's folded path with the flat
      refinement (``fold_pcw(..., refine_flat=True)``) and the three module
-     paths with their 3-D convs routed (``route_conv3d``); a sampler decision
-     that flipped at its threshold is told apart from a fault (``agree``);
+     paths with their 3-D convs routed (``route_conv3d``); then IGEV's folded
+     path at 64×192 with 32 GRU iterations a rollout, every disparity of
+     both runs inside the band lookup's exact domain (asserted); a sampler
+     decision that flipped at its threshold is told apart from a fault
+     (``agree``).  The pipelines set their own float32 precision (no TF32);
+     the global TF32 switch is off in phase 3 only;
   5. the ACV main path: two-pass DDIM-5 at 512×960, batch 1, bfloat16 model,
      folded path (``packed=True``), weights and images from a fixed seed;
      one warm-up pair, 30 timed pairs (pairs/s with median and spread),
@@ -52,7 +61,9 @@ exits 1 before it prints anything.
 from __future__ import annotations
 
 import copy
+import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -105,6 +116,13 @@ def log(*args):
     print(*args, flush=True)
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
     for _ in range(warmup):
@@ -117,6 +135,35 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_times(fn, iters: int, warmup: int = 2) -> dict:
+    """``fn``'s cost a call over ``iters`` back-to-back calls: ``ms``, the
+    card's time in the kernels it launches (torch.profiler, every kernel of
+    the call summed, no gaps between calls); ``events_ms``, CUDA events
+    around the calls, which reads the host where a call costs the host more
+    than the card; ``host_us``, the host's time to issue a call (the calls'
+    wall clock before the synchronisation that ends them; the least of three
+    runs, as other processes share the host's cores)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    events_ms = time_ms(fn, iters, warmup)
+    host_us = math.inf
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_us = min(host_us, (time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session now and then records no kernel at all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        device_us = sum(e.device_time_total for e in prof.key_averages()) / iters
+        if device_us > 0.0:
+            return dict(ms=device_us / 1e3, events_ms=events_ms, host_us=host_us)
+    raise AssertionError("torch.profiler saw no device time in 3 sessions")
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
@@ -799,17 +846,21 @@ def case_inputs(case: ConvCase, dev, dtype, seed: int) -> dict:
                 out_dhw=o)
 
 
-def case_calls(case: ConvCase, op: dict):
+def case_calls(case: ConvCase, op: dict, tc: int | None = None):
     """``(kernel call, plain call)`` of a case on the operands ``op``, with
-    the case's epilogue."""
+    the case's epilogue; rows 7 and 8 on tensor-core form ``tc``
+    (``conv3d_fold.TC_MMA`` / ``TC_WGMMA``) where given."""
     from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
     from diffuvolume_tpu_torch.ops.kernels import conv3d_up as kup
 
     x, w, bias, res, act, pm = op["x"], op["w"], op["bias"], op["res"], case.act, op["post_mul"]
     if case.kind in ("up", "up4"):
-        return (lambda: kup.conv3d_fold_up(x, w, bias, residual=res, act=act, post_mul=pm),
+        up = kup.conv3d_fold_up if tc is None else functools.partial(kup.conv3d_fold_up_on, tc)
+        return (lambda: up(x, w, bias, residual=res, act=act, post_mul=pm),
                 lambda: kup.conv3d_up_plain(x, w, bias, res, act, pm))
     fn = getattr(kconv, case.row)
+    if tc is not None:
+        fn = functools.partial(kconv.conv3d_fold_s2_on, tc)
     if case.row == "conv3d_fold_p":
         kernel = lambda: fn(x, w, bias, residual=res, act=act, post_mul=pm)  # noqa: E731
     elif case.row == "conv1x1_fold_p":
@@ -817,6 +868,80 @@ def case_calls(case: ConvCase, op: dict):
     else:
         kernel = lambda: fn(x, w, bias, act=act)  # noqa: E731
     return kernel, lambda: kconv.conv3d_fold_plain(x, w, bias, op["stride"], res, act, pm)
+
+
+# The conv rows as this script measured them at commit 9b6918f (run 3 of its
+# change), before rows 7 and 8 moved to conv_hopper.cuh, under CUDA events
+# (NVIDIA H100 80GB HBM3, 700.00 W): rows 7 and 8 in ms a launch by (path,
+# case label), and each conv row's total over one pair's launches.  Printed
+# beside this run's numbers as a fixed reference.
+RUN3 = "the previous kernels under CUDA events (commit 9b6918f, its run 3)"
+RUN3_MS = {
+    ("ACV", "32→64 full→half"): 0.1802, ("ACV", "64→128 half→quarter"): 0.1184,
+    ("ACV", "128→64 quarter→half + residual"): 0.1074,
+    ("ACV", "64→32 half→full + residual"): 0.2790,
+    ("PCW", "32→64 full→half, no bias or act"): 0.2136,
+    ("PCW", "64→128 half→quarter, no bias or act"): 0.1664,
+    ("PCW", "128→128 quarter→1/32, no bias or act"): 0.1132,
+    ("PCW", "32→64 full→half, Mish"): 0.2353, ("PCW", "64→128 half→quarter, Mish"): 0.1814,
+    ("PCW", "128→128 1/32→quarter + residual, Mish"): 0.0582,
+    ("PCW", "128→64 quarter→half + residual, Mish"): 0.1604,
+    ("PCW", "64→32 half→full + residual, Mish"): 0.3780,
+    ("IGEV folded", "conv1_0 8 in 16 → 16, 1/4→1/8, leaky"): 0.0738,
+    ("IGEV folded", "conv2_0 16→32, 1/8→1/16, leaky"): 0.0307,
+    ("IGEV folded", "conv3_0 32→48, 1/16→1/32, leaky"): 0.0332,
+    ("IGEV folded", "conv3_up k4 48→32, 1/32→1/16, leaky"): 0.0272,
+    ("IGEV folded", "conv2_up k4 32→16, 1/16→1/8, leaky"): 0.0368,
+    ("IGEV folded", "conv1_up k4 16 → 8 in 16, 1/8→1/4, no bias or act"): 0.1448,
+}
+RUN3_PAIR_MS = {
+    "ACV": {"conv3d_fold_p": 18.0052, "conv3d_fold_x2": 5.39, "conv3d_fold_s2": 4.1812,
+            "conv3d_fold_up": 5.41, "conv1x1_fold_p": 2.675},
+    "PCW": {"conv3d_fold_p": 13.2825, "conv3d_fold_x2": 1.4123, "conv3d_fold_s2": 5.987,
+            "conv3d_fold_up": 7.6543, "conv1x1_fold_p": 2.7718},
+    "IGEV folded": {"conv3d_fold_p": 1.2829, "conv3d_fold_s2": 0.2756, "conv3d_fold_up": 0.4176,
+                    "conv1x1_fold_p": 0.2272},
+    "IGEV module": {"conv3d_fold_small": 0.9828},
+    "ACV module, routed": {"conv3d_packed": 20.2601}, "PCW module, routed": {"conv3d_packed": 11.8611},
+    "IGEV module, routed": {"conv3d_packed": 0.1786},
+}
+
+
+def tile_plan(case: ConvCase, dev, tc: int = -1) -> dict | None:
+    """Rows 7 and 8: the tile plan the bf16 kernel takes at the case's
+    shape on tensor-core form ``tc`` (-1: its own choice; conv_hopper.cuh;
+    ``_build.PLAN_KEYS``), else None (and for a package without plans)."""
+    from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
+    from diffuvolume_tpu_torch.ops.kernels import conv3d_up as kup
+
+    shape = (1, *case.dhw, case.cin)
+    if case.kind == "s2" and hasattr(kconv, "conv3d_fold_s2_on"):
+        return dict(kconv.s2_plan(shape, case.cout, dev, tc))
+    if case.kind in ("up", "up4") and hasattr(kup, "conv3d_fold_up_on"):
+        return dict(kup.up_plan(shape, case.cout, 4 if case.kind == "up4" else 3, dev, tc))
+    return None
+
+
+def tc_forms(case: ConvCase, dev, op: dict, iters: int) -> dict | None:
+    """Rows 7 and 8 where the plan has a wgmma form (64 output channels a
+    tile, a full wave of blocks): each form against the plain version
+    (bf16 CONV_TOL) and its times (``device_times``); else None."""
+    plans = {f: tile_plan(case, dev, tc) for f, tc in (("mma", 0), ("wgmma", 1))}
+    if plans["wgmma"] is None or not plans["wgmma"]["wgmma"]:
+        return None
+    _, plain = case_calls(case, op)
+    want = plain()
+    out = {}
+    for f, tc in (("mma", 0), ("wgmma", 1)):
+        kernel, _ = case_calls(case, op, tc)
+        got = kernel()
+        torch.cuda.synchronize()
+        err = check(f"bfloat16 on {f}", got, want, *CONV_TOL["bfloat16"])
+        out[f] = dict(max_abs_err=err, smem_bytes=plans[f]["smem_bytes"],
+                      blocks_per_sm=plans[f]["blocks_per_sm"], **device_times(kernel, iters))
+    log(f"  tensor-core forms: mma.sync {out['mma']['ms']:.4f} ms, wgmma "
+        f"{out['wgmma']['ms']:.4f} ms on the card")
+    return out
 
 
 # float32: the FMA kernel against cuDNN's float32 conv (TF32 off), summation
@@ -850,7 +975,8 @@ def conv_checks(dev, cases: list[ConvCase], path: str, iters: int = 20) -> dict:
             e[tag] = check(f"{tag}", got, want, *CONV_TOL[tag])
             errs[tag] = max(errs.get(tag, 0.0), e[tag])
             del got, want
-        ms = time_ms(kernel, iters)
+        t = device_times(kernel, iters)
+        forms = tc_forms(case, dev, op, iters) if case.kind in ("s2", "up", "up4") else None
         plain_ms = time_ms(plain, 2)
         # The library: cuDNN on channels-last bf16 operands, with the case's
         # bias (no residual, no ReLU); never called by the port.
@@ -874,7 +1000,7 @@ def conv_checks(dev, cases: list[ConvCase], path: str, iters: int = 20) -> dict:
             lib_ref = F.conv3d(x_cl.float(), w_lib.float(), bias, stride=stride,
                                padding=(ks - 1) // 2)
         lib_err = float((library().float() - lib_ref).abs().max())
-        library_ms = time_ms(library, iters)
+        lib_t = device_times(library, iters)
         # The bound counts the function the path needs: the real channels,
         # not the slot's zero fill.  A transposed conv's output takes 27/8
         # taps on average (k3) or 8 (k4).
@@ -888,25 +1014,49 @@ def conv_checks(dev, cases: list[ConvCase], path: str, iters: int = 20) -> dict:
         nbytes += cout_f * 4 if case.bias else 0
         nbytes += o[1] * o[2] * cout_f * 2 if case.post_mul else 0
         b_ms, by = bound(nbytes, 2 * macs, BF16_TC_OPS_PER_S)
-        log(f"  bf16 {ms:.4f} ms (plain {plain_ms:.4f}, library {library_ms:.4f} ms [max |Δ| "
-            f"to its float32 {lib_err:.2e}], bound {b_ms:.4f} ms by {by}); "
-            f"{case.per_pair} per pair")
+        log(f"  bf16 {t['ms']:.4f} ms on the card ({t['events_ms']:.4f} under CUDA events, "
+            f"{t['host_us']:.1f} µs of host to issue a call; plain {plain_ms:.4f}, library "
+            f"{lib_t['ms']:.4f} ms [max |Δ| to its float32 {lib_err:.2e}], bound {b_ms:.4f} ms "
+            f"by {by}); {case.per_pair} per pair")
+        plan, run3 = tile_plan(case, dev), RUN3_MS.get((path, case.label))
+        if plan is not None:
+            o_hw = o[1] * o[2] if case.kind == "s2" else h * w
+            plan["fill"] = o_hw / (plan["nth"] * plan["ntw"] * plan["positions"])
+            log(f"  tile {plan['bh']}×{plan['bmw']} of {plan['positions']} positions "
+                f"({plan['fill']:.3f} of the plane's tiles used), {plan['blocks']} blocks × "
+                f"{plan['splits']} K splits, {plan['blocks_per_sm']} blocks an SM at "
+                f"{plan['smem_bytes']} B of shared memory, {'wgmma' if plan['wgmma'] else 'mma.sync'}; "
+                f"{RUN3}: {run3} ms")
         rows[case.row][1].append(dict(
+            plan=plan, run3_ms=run3, tc_forms=forms, events_ms=t["events_ms"],
+            host_us=t["host_us"], library_events_ms=lib_t["events_ms"],
             label=case.label, cin=cin, real_cin=cin_f, cout=cout, real_cout=cout_f,
             in_dhw=[d, h, w], kind=case.kind, out_dhw=list(o), residual=case.residual,
             act=case.act, post_mul=case.post_mul, bias=case.bias,
-            per_pair=case.per_pair, errs=e, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            per_pair=case.per_pair, errs=e, ms=t["ms"], plain_ms=plain_ms,
+            library_ms=lib_t["ms"],
             library_max_abs_vs_f32=lib_err, bound_ms=b_ms, bound_by=by,
             ops_ms=2 * macs / BF16_TC_OPS_PER_S * 1e3, macs=macs, bytes=nbytes))
         del op, x_cl, w_lib, lib_ref
     cases = [c for _, rec in rows.values() for c in rec]
     totals = {k: sum(c[k] * c["per_pair"] for c in cases)
-              for k in ("ms", "bound_ms", "library_ms", "plain_ms")}
-    log(f"  one {path} pair's conv launches: kernels {totals['ms']:.2f} ms, bound "
+              for k in ("ms", "events_ms", "bound_ms", "library_ms", "plain_ms")}
+    log(f"  one {path} pair's conv launches: kernels {totals['ms']:.2f} ms on the card "
+        f"({totals['events_ms']:.2f} under CUDA events), bound "
         f"{totals['bound_ms']:.2f} ms, library {totals['library_ms']:.2f} ms, plain "
         f"{totals['plain_ms']:.2f} ms")
+    by_row = {}
+    for row, (_, rec) in rows.items():
+        by_row[row] = {k: sum(c[k] * c["per_pair"] for c in rec)
+                       for k in ("ms", "events_ms", "bound_ms", "library_ms")}
+        by_row[row]["run3_ms"] = RUN3_PAIR_MS.get(path, {}).get(row)
+        log(f"    {row}: {by_row[row]['ms']:.4f} ms a pair on the card "
+            f"({by_row[row]['events_ms']:.4f} under CUDA events; library "
+            f"{by_row[row]['library_ms']:.4f}, bound {by_row[row]['bound_ms']:.4f}; {RUN3}: "
+            f"{by_row[row]['run3_ms']})")
     out = {row: mixed(rec, errs) for row, (errs, rec) in rows.items()}
     out["conv_pair_totals_ms"] = totals
+    out["pair_ms_by_row"] = by_row
     return out
 
 
@@ -1094,12 +1244,16 @@ def igev_volume_checks(dev) -> dict:
 # A sampler decision may flip between the card and the CPU where its
 # statistic lies at its threshold: at most FLIP_SHARE of the pixels, each
 # flipped pixel's statistic (a disparity gap or an uncertainty, in px) within
-# FLIP_PX of the threshold on both runs.  FLIP_PX is the output's own bound:
-# float32 disparities before the ensemble differ by a few 1e-2 px between
-# card and CPU (ACV at 32×64 on an H100: 0.977 against 1.019 px at a
-# threshold of 1), and one quarter-resolution decision spans up to 16
-# full-resolution pixels.
-FLIP_SHARE, FLIP_PX = 1e-2, 0.1
+# FLIP_PX of the threshold on both runs.  Set from the flips measured on an
+# H100 (the same in every run): ACV's step-0 renewal gap reads 0.9773 on the
+# CPU and 1.0191–1.0209 on the card at a threshold of 1 (at most 0.023 px
+# from it), on 7 (folded), 3 (module) and 4 (routed) of 2048 px, at most
+# 0.34%; IGEV's 32-iteration run flips one clamp decision at 2.99948 / 3.00007
+# px (1 of 12288 px); PCW none.  FLIP_PX is twice the largest distance,
+# FLIP_SHARE 1.5 times the largest share.  ACV's gap is the floor of float32
+# summation order in its attention chain, amplified by the random network
+# (tools/stage_dump.py; PERF.md §6).
+FLIP_SHARE, FLIP_PX = 5e-3, 0.05
 
 
 def decision_flips(cpu_dec: list, card_dec: list):
@@ -1167,12 +1321,15 @@ def sampled(prep, fold, bm, dm, left, right, cfg, dev, ns, packed: bool, **prep_
     DDIM loop on the DDIM model's ``denoise``), with the sampler's decisions:
     ``(final, baseline, decisions)``."""
     from diffuvolume_tpu_torch.diffusion import ddim_sample, make_schedule
+    from diffuvolume_tpu_torch.eval.pipeline import float32_exact
 
     if packed:
         bm, dm = fold(bm), fold(dm)
     lt = torch.as_tensor(left, device=dev, dtype=torch.float32)
     rt = torch.as_tensor(right, device=dev, dtype=torch.float32)
-    with torch.no_grad():
+    # The pipelines' own precision for float32 models (no TF32), as the
+    # entry points set it.
+    with torch.no_grad(), float32_exact(bm, dm):
         base, latent, entry = prep(bm, dm, lt, rt, cfg, packed, **prep_kw)
         final, _, dec = ddim_sample(
             make_schedule(1000, device=dev), cfg,
@@ -1274,7 +1431,78 @@ def small_agreement(dev) -> dict:
                 out[name]["launches_on_the_card"] = kernel.launches - before
                 if kernel.launches == before:
                     raise AssertionError(f"{name}: {kernel.__name__} was not launched on the card")
+    out["igev folded path, 32 GRU iterations"] = igev_iters_agreement(dev)
     return out
+
+
+# IGEV at its production iteration count (phase 4): W 192, not the other
+# IGEV check's 96, because at W 96 the band lookup's exact domain is
+# [−1, 2] quarter-res px (models/igev/geometry.py band_exact_domain), below
+# the initial disparity's [0, D/4 − 1] = [0, 15]; at W 192 it is [−1, 26].
+IGEV_ITERS_HW, IGEV_ITERS_DISP = (64, 192), 64
+
+
+def igev_iters_agreement(dev) -> dict:
+    """Phase 4: IGEV's folded path at 64×192, max_disp 64, 32 GRU iterations
+    a rollout, the port on the card against the port on the CPU, float32,
+    with ``agree``'s bounds and flip rule.  Both models come from
+    ``calibrate_igev_drift`` (no rollout moves a disparity more than 0.5
+    quarter-res px); every disparity that enters or leaves a GRU update, on
+    both runs, must lie in the band lookup's exact domain."""
+    import dataclasses
+
+    from diffuvolume_tpu_torch.diffusion.ddim import KITTI15_DDIM
+    from diffuvolume_tpu_torch.eval.pipeline import igev_prep
+    from diffuvolume_tpu_torch.models.igev.geometry import band_exact_domain
+    from diffuvolume_tpu_torch.models.igev.gev_fold import fold_igev
+    from diffuvolume_tpu_torch.models.igev.model import track_disparity
+    from diffuvolume_tpu_torch.tools.random_weights import calibrate_igev_drift, random_igev_pair
+
+    (h, w), md = IGEV_ITERS_HW, IGEV_ITERS_DISP
+    rng = np.random.default_rng(3)
+    left = rng.uniform(0, 255, (1, h, w, 3)).astype(np.float32)
+    right = np.roll(left, -3, axis=2)
+    lt, rt = torch.from_numpy(left), torch.from_numpy(right)
+    gen = torch.Generator().manual_seed(0)
+    bm, _ = random_igev_pair(md, gen)
+    _, dm = random_igev_pair(md, gen)
+    for m in (bm, dm):
+        calibrate_igev_drift(m, lt, rt, iters=IGEV_ITERS)
+    cfg = dataclasses.replace(KITTI15_DDIM, max_disp=md, num_bins=md // 4)
+    shape = (1, md // 4, h // 4, w // 4)
+    steps = (cfg.sampling_steps, *shape)
+    ns = {"z": rng.standard_normal(steps).astype(np.float32),
+          "replace": (rng.uniform(size=steps) if cfg.replace_mode == "uniform"
+                      else rng.standard_normal(steps)).astype(np.float32)}
+    if cfg.init_mode == "noise":
+        ns["init"] = rng.standard_normal(shape).astype(np.float32)
+    lo, hi = band_exact_domain(w // 4, bm.corr_levels)
+    bg, dg = copy.deepcopy(bm).to(dev), copy.deepcopy(dm).to(dev)
+    tracks, outputs = {}, {}
+
+    def run(where, ms, on):
+        def go():
+            with track_disparity(*ms) as track:
+                final, base, dec = sampled(igev_prep, fold_igev, *ms, left, right, cfg, on, ns,
+                                           True, iters=IGEV_ITERS)
+            tracks[where], outputs[where] = track, final
+            return final, base, dec
+        return go
+
+    name = "igev folded path, 32 GRU iterations"
+    res = agree(name, run("cpu", (bm, dm), torch.device("cpu")), run("card", (bg, dg), dev))
+    for where, t in tracks.items():
+        out = outputs[where]
+        res[f"{where}_disparity_range_quarter_px"] = [t.lo, t.hi]
+        res[f"{where}_output_range_px"] = [float(out.min()), float(out.max())]
+        log(f"    {where}: {t.updates} GRU updates, quarter-res disparity in [{t.lo:.4f}, "
+            f"{t.hi:.4f}] (the band's exact domain [{lo:g}, {hi:g}]); output in "
+            f"[{float(out.min()):.4f}, {float(out.max()):.4f}] px")
+        if not (lo <= t.lo and t.hi <= hi) or t.updates != (1 + cfg.sampling_steps) * IGEV_ITERS:
+            raise AssertionError(f"{name}: the {where} run left the band's exact domain "
+                                 f"[{lo}, {hi}]: [{t.lo}, {t.hi}] over {t.updates} updates")
+    res["exact_domain_quarter_px"] = [lo, hi]
+    return res
 
 
 def routed_launches(model: str) -> dict:
@@ -1648,13 +1876,16 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
+    # Phase 3's plain versions and library yardsticks compute float32 convs
+    # and matmuls outside the pipelines: TF32 off for them, PyTorch's
+    # defaults back before phase 4, where the pipelines set their own
+    # precision (eval/pipeline.py float32_exact).
+    tf32_defaults = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     log("== 1. card")
-    card = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    card = card_line()
     log(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
 
@@ -1687,6 +1918,7 @@ def main() -> int:
     checks["conv3d_packed"]["pair_totals_ms"] = {m: p["conv_pair_totals_ms"]
                                                  for m, p in packed_checks.items()}
     t_checks = time.perf_counter() - t_start
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
 
     log("== 4. small input: each pipeline on the card against the CPU (float32)")
     agreement = small_agreement(dev)

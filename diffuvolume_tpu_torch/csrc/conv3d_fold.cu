@@ -7,35 +7,51 @@
 //   Replaces diffuvolume_tpu/ops/pallas/conv3d.py:
 //     conv3d_fold_p   (3×3×3 s1, + residual; C_out 1 for the classifier heads),
 //     conv3d_fold_x2  (the same conv at C_in 64, or 40 zero-filled to 48),
-//     conv3d_fold_s2  (3×3×3 stride 2, C_out = 2·C_in),
 //     conv1x1_fold_p  (1×1×1, the hourglass redir branches),
 //     conv3d_fold     (3×3×3 s1 at C_in 8 or 16: IGEV's module path; the 8-
-//                      channel chunk zero-filled in shared memory).
+//                      channel chunk zero-filled in shared memory),
+//     conv3d_packed   (3×3×3 s1 + bias at C_in 8 … 128: the routed module paths),
+//   all through dv_conv3d_fold, and
+//     conv3d_fold_s2  (conv3d.py:1439; 3×3×3 stride 2, C_out = 2·C_in; IGEV
+//                      16→16, 16→32, 32→48) through dv_conv3d_s2.
 //   Plain version: ops/kernels/conv3d_fold.py conv3d_fold_plain.
 //
-// What bounds it on the H100: bf16 tensor-core operations.  At the main path
-// the 32→32 conv at (48, 128, 240) does 40.8 G multiply-adds (82 µs at 989
-// TFLOP/s) and moves 189 MB (56 µs at 3.35 TB/s); the 128→128 conv at
-// (12, 32, 60) does 10.2 G multiply-adds on 12 MB.
+// Stride 1.  What bounds it on the H100: bf16 tensor-core operations.  At
+// the main path the 32→32 conv at (48, 128, 240) does 40.8 G multiply-adds
+// (82 µs at 989 TFLOP/s) and moves 189 MB (56 µs at 3.35 TB/s); the 128→128
+// conv at (12, 32, 60) does 10.2 G multiply-adds on 12 MB.  Design: see
+// conv_igemm.cuh.  The TPU kernels pack D-phases into 128 lanes, carry halo
+// rows and fold the taps into banded weights; none of that is needed here:
+// activations are plain NDHWC bf16, the conv is an implicit GEMM on the
+// tensor cores with W-strips staged per kd plane, and the folded BN bias, the
+// residual and the activation ride the epilogue.  Weights stream by kd plane
+// and input-channel chunk (884 KB at 128→128 do not fit a block's shared
+// memory).  The PCW path's 1/32 level (6, 12, 39) has an odd W and fewer
+// rows than a block: the edges are masked, as at any other W.  C_out below
+// 16 (the heads) pads N with zero weights in shared memory and stores only
+// the real channels.  Inside a block the copies do not overlap the products
+// (two blocks an SM overlap each other); TMA and wgmma are not used.
 //
-// Design: see conv_igemm.cuh.  The TPU kernels pack D-phases into 128 lanes,
-// carry halo rows and fold the taps into banded weights; none of that is
-// needed here: activations are plain NDHWC bf16, the conv is an implicit GEMM
-// on the tensor cores with W-strips staged per kd plane, and the folded BN
-// bias, the residual and the activation ride the epilogue.  Weights stream by
-// kd plane and input-channel chunk (884 KB at 128→128 do not fit a block's
-// shared memory).  The PCW path's 1/32 level (6, 12, 39) has an odd W and
-// fewer rows than a block: the edges are masked, as at any other W.  C_out below 16 (the heads) pads N with zero weights in
-// shared memory and stores only the real channels.  Inside a block the
-// copies do not overlap the products (two blocks an SM overlap each other);
-// TMA and wgmma are not used yet.
-#include "conv_igemm.cuh"
+// Stride 2 (row 7).  What bounds it on the H100, at the ACV shapes: bytes
+// for 32→64 (48, 128, 240) → (24, 64, 120), 94 MB in and 24 MB out, 35.2 µs
+// at 3.35 TB/s (10.2 G multiply-adds, 20.6 µs); operations for 64→128 →
+// (12, 32, 60), 5.1 G multiply-adds, 10.3 µs at 989 TFLOP/s.  Design: see
+// conv_hopper.cuh — a ring of 3 cp.async stages of (kd, kh, 32 input
+// channels) so a block overlaps its own copies, parity-major strips that
+// ldmatrix reads without bank conflicts, tiles chosen per shape so narrow W
+// fills them (W 39, 78, 156), a half-size tile and split-K over the stages
+// where the output is too small for two waves on 132 SMs; wgmma at 64
+// output channels a tile, mma.sync below.  The plan is made once a shape
+// (dv_conv3d_s2_plan) and handed to every launch.
+#include <cstring>
 
-DV_EXPORT int dv_conv3d_fold(const void* x, const void* w, const void* bias, const void* res,
-                             const void* post_mul, void* out, int b, int d, int h, int wd,
-                             int cin, int cout, int ks, int stride, int act, int dtype, int device,
-                             void* stream) {
-  if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
+#include "conv_hopper.cuh"
+
+namespace {
+
+dv::igemm::Params fold_params(const void* x, const void* w, const void* bias, const void* res,
+                              const void* post_mul, void* out, int b, int d, int h, int wd,
+                              int cin, int cout, int ks, int stride, int act) {
   dv::igemm::Params p;
   p.x = x; p.w = w; p.bias = static_cast<const float*>(bias); p.res = res;
   p.post_mul = post_mul; p.out = out;
@@ -44,5 +60,49 @@ DV_EXPORT int dv_conv3d_fold(const void* x, const void* w, const void* bias, con
   p.d_out = (d + 2 * p.pad - ks) / stride + 1;
   p.h_out = (h + 2 * p.pad - ks) / stride + 1;
   p.w_out = (wd + 2 * p.pad - ks) / stride + 1;
-  return dv::igemm::launch<false>(p, dtype, static_cast<cudaStream_t>(stream));
+  return p;
+}
+
+}  // namespace
+
+// Stride 1, k 3 or 1.
+DV_EXPORT int dv_conv3d_fold(const void* x, const void* w, const void* bias, const void* res,
+                             const void* post_mul, void* out, int b, int d, int h, int wd,
+                             int cin, int cout, int ks, int act, int dtype, int device,
+                             void* stream) {
+  if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
+  const dv::igemm::Params p =
+      fold_params(x, w, bias, res, post_mul, out, b, d, h, wd, cin, cout, ks, 1, act);
+  return dv::igemm::launch(p, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// 3×3×3 stride 2.  bf16 launches on `plan` (int[kPlanInts] from
+// dv_conv3d_s2_plan for this shape and device; null for float32); `ws` is
+// float32 scratch of splits × outputs, or null where the plan has one split.
+DV_EXPORT int dv_conv3d_s2(const void* x, const void* w, const void* bias, void* out, void* ws,
+                           const int* plan, int b, int d, int h, int wd, int cin, int cout,
+                           int act, int dtype, int device, void* stream) {
+  if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
+  const dv::igemm::Params p =
+      fold_params(x, w, bias, nullptr, nullptr, out, b, d, h, wd, cin, cout, 3, 2, act);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != dv::kBF16) return dv::igemm::launch_f32<false>(p, s);
+  if (plan == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  dv::hopper::Plan pl;
+  std::memcpy(&pl, plan, sizeof pl);
+  return static_cast<int>(dv::hopper::run<false, 3>(p, pl, static_cast<float*>(ws), s));
+}
+
+// The bf16 stride-2 conv's plan for a shape, into plan[kPlanInts]
+// (hopper::Plan's fields in order); tc: hopper::TensorCores.
+DV_EXPORT int dv_conv3d_s2_plan(int b, int d, int h, int wd, int cin, int cout, int tc,
+                                int device, int* plan) {
+  if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
+  const dv::igemm::Params p =
+      fold_params(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, b, d, h, wd, cin, cout,
+                  3, 2, 0);
+  dv::hopper::Plan pl;
+  if (cudaError_t e = dv::hopper::plan<false, 3>(p, device, tc, pl)) return static_cast<int>(e);
+  std::memcpy(plan, &pl, sizeof pl);
+  return 0;
 }

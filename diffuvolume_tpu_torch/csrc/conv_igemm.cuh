@@ -1,6 +1,7 @@
-// Implicit-GEMM 3-D convolution on channels-last (NDHWC) volumes, shared by
-// csrc/conv3d_fold.cu (convolution, stride 1/2, k 3/1) and csrc/conv3d_up.cu
-// (ConvTranspose3d k3 s2 p1 op1 and k4 s2 p1 op0).
+// Implicit-GEMM 3-D convolution on channels-last (NDHWC) volumes: the bf16
+// stride-1 conv (k 3 or 1) of csrc/conv3d_fold.cu, and the float32 FMA form
+// of every conv, the stride-2 and transposed ones included (csrc/conv3d_up.cu).
+// The bf16 stride-2 and transposed convs are csrc/conv_hopper.cuh's.
 //
 // GEMM view.  A block owns BH output rows of BM = 64 positions along W at one
 // (b, d) and BN output channels: M = BH·BM positions, N = BN channels,
@@ -13,18 +14,15 @@
 // every kw tap, and the chunk's weights for all (kh, kw) taps; then every
 // warp reads its operands with ldmatrix and runs bf16 m16n8k16 tensor-core
 // products (mma.sync) for its tiles and all taps into float32 accumulators.
-// Tap (kh, kw) of output (r, m) reads strip row r·rs + off_h, position
-// m·rs + off_w (rs: the stride).  A plane in the padding is skipped; strip
-// positions outside the input are zero.
+// Tap (kh, kw) of output (r, m) reads strip row r + kh, position m + kw.  A
+// plane in the padding is skipped; strip positions outside the input are
+// zero.
 //
-// Transposed conv in gather form.  Output o takes input i = (o + 1 - k) / 2
-// where that is an integer in range.  k3 (op1): even o takes k = 1 (i = o/2),
-// odd o takes k = 0 (i = (o+1)/2) and k = 2 (i = (o-1)/2).  k4 (op0): even o
-// takes k = 1 (i = o/2) and k = 3 (i = o/2 - 1), odd o takes k = 0
-// (i = (o+1)/2) and k = 2 (i = (o-1)/2): 8 taps for every output.  A block of
-// the transposed conv holds one output parity per axis, so every row of its
-// tile shares one tap list and reads dense input positions; k4's strip starts
-// one input row (and column, and plane) below the block's first output.
+// Transposed conv in gather form (the float32 form).  Output o takes input
+// i = (o + 1 - k) / 2 where that is an integer in range.  k3 (op1): even o
+// takes k = 1 (i = o/2), odd o takes k = 0 (i = (o+1)/2) and k = 2
+// (i = (o-1)/2).  k4 (op0): even o takes k = 1 (i = o/2) and k = 3
+// (i = o/2 - 1), odd o takes k = 0 (i = (o+1)/2) and k = 2 (i = (o-1)/2).
 //
 // Epilogue in float32: + bias, + residual (same shape as the output), the
 // activation (none, ReLU, Mish or LeakyReLU 0.01), × post_mul (a
@@ -129,20 +127,13 @@ struct Cfg {
   static constexpr int lda = CK + 8;
   static constexpr int ldb = BN + 8;
   static constexpr int ldc = BN + 4;   // float32 epilogue rows
-  // The transposed conv's strip: one more row (column) than the block's
-  // outputs, two for k4.
-  static __host__ __device__ int rows(bool up, int stride, int ks) {
-    return up ? BH + (ks == 4 ? 2 : 1) : (BH - 1) * stride + ks;
+  static __host__ __device__ int rows(int ks) { return BH - 1 + ks; }
+  static __host__ __device__ int cols(int ks) { return BM - 1 + ks; }
+  static __host__ __device__ size_t a_elems(int ks) {
+    return static_cast<size_t>(rows(ks)) * cols(ks) * lda;
   }
-  static __host__ __device__ int cols(bool up, int stride, int ks) {
-    return up ? BM + (ks == 4 ? 2 : 1) : (BM - 1) * stride + ks;
-  }
-  static __host__ __device__ int taps(bool up, int ks) { return up ? 4 : ks * ks; }
-  static __host__ __device__ size_t a_elems(bool up, int stride, int ks) {
-    return static_cast<size_t>(rows(up, stride, ks)) * cols(up, stride, ks) * lda;
-  }
-  static __host__ __device__ size_t bytes(bool up, int stride, int ks) {
-    const size_t ab = a_elems(up, stride, ks) * 2 + static_cast<size_t>(taps(up, ks)) * CK * ldb * 2;
+  static __host__ __device__ size_t bytes(int ks) {
+    const size_t ab = a_elems(ks) * 2 + static_cast<size_t>(ks) * ks * CK * ldb * 2;
     const size_t c = static_cast<size_t>(BH) * BM * ldc * 4;
     return ab > c ? ab : c;
   }
@@ -181,7 +172,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
 
 // Two blocks an SM (at most 128 registers a thread), so that one block's
 // copies overlap the other's products.
-template <bool UP, int BN, int CK>
+template <int BN, int CK>
 __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
   using bf16 = __nv_bfloat16;
   using C = Cfg<BN, CK>;
@@ -192,33 +183,23 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
 
-  // Block → (W tile, [W parity,] N tile) × ([H parity,] row tile) × (b, d).
-  const int ntw = ((UP ? p.w_in : p.w_out) + BM - 1) / BM;
-  int bx = blockIdx.x;
-  const int wt = bx % ntw;
-  bx /= ntw;
-  int pw = 0;
-  if (UP) { pw = bx % 2; bx /= 2; }
-  const int n0 = bx * BN;
-  int hy = blockIdx.y;
-  int ph = 0;
-  if (UP) { ph = hy % 2; hy /= 2; }
+  // Block → (W tile, N tile) × row tile × (b, d).
+  const int ntw = (p.w_out + BM - 1) / BM;
+  const int wt = blockIdx.x % ntw;
+  const int n0 = blockIdx.x / ntw * BN;
+  const int hy = blockIdx.y;
   const int b = blockIdx.z / p.d_out;
   const int dz = blockIdx.z % p.d_out;
 
-  const Taps td = UP ? up_taps(dz % 2, p.ks) : conv_taps(p.ks);
-  const Taps th = UP ? up_taps(ph, p.ks) : conv_taps(p.ks);
-  const Taps tw = UP ? up_taps(pw, p.ks) : conv_taps(p.ks);
-  const int lo = UP ? up_lo(p.ks) : 0;
-  const int rs = UP ? 1 : p.stride;  // strip step between neighbouring outputs
-  const int dbase = UP ? dz / 2 - lo : dz * p.stride - p.pad;
-  const int hbase = UP ? hy * BH - lo : hy * BH * p.stride - p.pad;
-  const int wbase = UP ? wt * BM - lo : wt * BM * p.stride - p.pad;
-  const int rows = C::rows(UP, p.stride, p.ks);
-  const int cols = C::cols(UP, p.stride, p.ks);
+  const Taps td = conv_taps(p.ks), th = td, tw = td;
+  const int dbase = dz - p.pad;
+  const int hbase = hy * BH - p.pad;
+  const int wbase = wt * BM - p.pad;
+  const int rows = C::rows(p.ks);
+  const int cols = C::cols(p.ks);
   const int ntap = th.n * tw.n;
   bf16* as = reinterpret_cast<bf16*>(smem);
-  bf16* bs = as + C::a_elems(UP, p.stride, p.ks);
+  bf16* bs = as + C::a_elems(p.ks);
   const unsigned as_s = static_cast<unsigned>(__cvta_generic_to_shared(as));
   const unsigned bs_s = static_cast<unsigned>(__cvta_generic_to_shared(bs));
   const bf16* x = static_cast<const bf16*>(p.x);
@@ -236,7 +217,7 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
   // are zeroed once here and never written by a stage.
   const int nreal = p.cout - n0 < BN ? p.cout - n0 : BN;
   if (p.cout % 8 != 0) {
-    for (int i = tid; i < C::taps(UP, p.ks) * CK * ldb; i += kThreads) bs[i] = __float2bfloat16(0.f);
+    for (int i = tid; i < p.ks * p.ks * CK * ldb; i += kThreads) bs[i] = __float2bfloat16(0.f);
   }
 
   // This lane's row / column within the 16×16 blocks that ldmatrix reads.
@@ -302,8 +283,7 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
           for (int t = 0; t < MT; ++t) {
             const int tile = warp * MT + t;
             const int r = tile / (BM / 16), m0 = (tile % (BM / 16)) * 16;
-            ab[t] = as_s + 2 * (((r * rs + th.off[hi]) * cols + (m0 + a_row) * rs +
-                                 tw.off[wi]) * lda + a_col);
+            ab[t] = as_s + 2 * (((r + th.off[hi]) * cols + m0 + a_row + tw.off[wi]) * lda + a_col);
           }
 #pragma unroll
           for (int kk = 0; kk < CK; kk += 16) {
@@ -355,11 +335,8 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
     const int m = (e / nvec) % BM;
     const int r = e / (nvec * BM);
     const int co = n0 + n;
-    const int i = hy * BH + r;  // output row (conv) or half-res row (transposed)
-    const int wj = wt * BM + m;
-    if (co >= p.cout || i >= (UP ? p.h_in : p.h_out) || wj >= (UP ? p.w_in : p.w_out)) continue;
-    const int ho = UP ? 2 * i + ph : i;
-    const int wo = UP ? 2 * wj + pw : wj;
+    const int ho = hy * BH + r, wo = wt * BM + m;
+    if (co >= p.cout || ho >= p.h_out || wo >= p.w_out) continue;
     const size_t o =
         (((static_cast<size_t>(b) * p.d_out + dz) * p.h_out + ho) * p.w_out + wo) * p.cout + co;
     // post_mul: the same (h, w) on every plane
@@ -448,44 +425,54 @@ __global__ void direct_f32(Params p) {
   static_cast<float*>(p.out)[e] = acc;
 }
 
-template <bool UP, int BN, int CK>
+// The dynamic shared-memory attribute, set once an instantiation (to the
+// largest stage any kernel size needs, k 3).
+template <int BN, int CK>
+cudaError_t prepare_bf16() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(igemm_bf16<BN, CK>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(Cfg<BN, CK>::bytes(3)));
+  done = e == cudaSuccess;
+  return e;
+}
+
+template <int BN, int CK>
 int launch_bf16(const Params& p, cudaStream_t stream) {
   constexpr int BH = Cfg<BN, CK>::BH;
-  const size_t smem = Cfg<BN, CK>::bytes(UP, p.stride, p.ks);
-  cudaError_t e = cudaFuncSetAttribute(igemm_bf16<UP, BN, CK>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (cudaError_t e = prepare_bf16<BN, CK>()) return static_cast<int>(e);
   const int ntn = ceil_div(p.cout, BN);
-  dim3 grid;
-  if (UP) {
-    grid = dim3(ceil_div(p.w_in, BM) * 2 * ntn, ceil_div(p.h_in, BH) * 2, p.b * p.d_out);
-  } else {
-    grid = dim3(ceil_div(p.w_out, BM) * ntn, ceil_div(p.h_out, BH), p.b * p.d_out);
-  }
-  igemm_bf16<UP, BN, CK><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid(ceil_div(p.w_out, BM) * ntn, ceil_div(p.h_out, BH), p.b * p.d_out);
+  igemm_bf16<BN, CK><<<grid, kThreads, Cfg<BN, CK>::bytes(p.ks), stream>>>(p);
   return end();
 }
 
 // Input channels a stage: 32, or 16 where C_in is not a multiple of 32 (the
 // last chunk zero-filled past C_in).
-template <bool UP, int BN>
+template <int BN>
 int launch_bf16(const Params& p, cudaStream_t stream) {
-  return p.cin % 32 == 0 ? launch_bf16<UP, BN, 32>(p, stream) : launch_bf16<UP, BN, 16>(p, stream);
+  return p.cin % 32 == 0 ? launch_bf16<BN, 32>(p, stream) : launch_bf16<BN, 16>(p, stream);
 }
 
+// The float32 FMA form of the conv (UP false, any stride) or the transposed conv.
 template <bool UP>
-int launch(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == kBF16) {
-    if (p.cout <= 16) return launch_bf16<UP, 16>(p, stream);
-    if (p.cout <= 32) return launch_bf16<UP, 32>(p, stream);
-    if (p.cout <= 64) return launch_bf16<UP, 64>(p, stream);
-    return launch_bf16<UP, 128>(p, stream);
-  }
+int launch_f32(const Params& p, cudaStream_t stream) {
   const long long total = static_cast<long long>(p.b) * p.d_out * p.h_out * p.w_out * p.cout;
   constexpr int threads = 256;
   direct_f32<UP><<<ceil_div(total, threads), threads, 0, stream>>>(p);
   return end();
+}
+
+// A conv: bf16 at stride 1 on the tensor cores (stride 2 is conv_hopper.cuh's),
+// float32 on FMAs at any stride.
+inline int launch(const Params& p, int dtype, cudaStream_t stream) {
+  if (dtype != kBF16) return launch_f32<false>(p, stream);
+  if (p.stride != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.cout <= 16) return launch_bf16<16>(p, stream);
+  if (p.cout <= 32) return launch_bf16<32>(p, stream);
+  if (p.cout <= 64) return launch_bf16<64>(p, stream);
+  return launch_bf16<128>(p, stream);
 }
 
 }  // namespace igemm

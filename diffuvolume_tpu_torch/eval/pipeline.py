@@ -27,9 +27,18 @@ refinement net on the folded 2-D conv kernel (``DIFFU_PCW_REFINE_FLAT=1``),
 and models passed through ``models/layers.py:route_conv3d`` (with
 ``packed=False``) run the module path's eligible 3×3×3 convs on
 ``conv3d_packed`` (``DIFFU_PALLAS_CONV3D=1``).
+
+Precision.  A call with float32 models computes in float32 on the card as
+the JAX reference does: each entry point turns TF32 off for cuDNN's convs
+(the 2-D trunks, the module paths' 3-D convs) and for matmuls for the
+call, and gives the caller's settings back on return (``float32_exact``);
+a bfloat16 call leaves them as the caller set them.  The port's own kernels
+never use TF32.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -68,6 +77,27 @@ def _on_path(model, packed: bool, folded: type):
             raise TypeError(f"a {folded.__name__} runs only the folded path (packed=True)")
         return model
     return _FOLDS[folded](model) if packed else model
+
+
+def _param_dtype(model) -> torch.dtype:
+    return next(getattr(model, "model", model).parameters()).dtype
+
+
+@contextlib.contextmanager
+def float32_exact(*models):
+    """Within: cuDNN convs and matmuls without TF32 if any of ``models``
+    (modules or their folds) holds float32 weights; the caller's two
+    settings are restored on exit.  Other cuDNN settings are not touched."""
+    if not any(_param_dtype(m) == torch.float32 for m in models):
+        yield
+        return
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _baseline_latent(baseline_disp: torch.Tensor, cfg: DDIMConfig, h4: int, w4: int):
@@ -149,10 +179,11 @@ def acv_ddim_inference(
     """
     dev, (baseline_model, ddim_model), left, right = _inputs(
         (baseline_model, ddim_model), FoldedACV, packed, left, right, device)
-    baseline_disp, baseline_latent, entry = acv_prep(
-        baseline_model, ddim_model, left, right, cfg, packed)
-    return _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
-                   noise_source, (left.shape[1], left.shape[2]))
+    with float32_exact(baseline_model, ddim_model):
+        baseline_disp, baseline_latent, entry = acv_prep(
+            baseline_model, ddim_model, left, right, cfg, packed)
+        return _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
+                       noise_source, (left.shape[1], left.shape[2]))
 
 
 @torch.no_grad()
@@ -199,10 +230,11 @@ def pcw_ddim_inference(
     """
     dev, (baseline_model, ddim_model), left, right = _inputs(
         (baseline_model, ddim_model), FoldedPCW, packed, left, right, device)
-    baseline_disp, baseline_latent, entry = pcw_prep(
-        baseline_model, ddim_model, left, right, cfg, packed)
-    return _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
-                   noise_source, (left.shape[1], left.shape[2]))
+    with float32_exact(baseline_model, ddim_model):
+        baseline_disp, baseline_latent, entry = pcw_prep(
+            baseline_model, ddim_model, left, right, cfg, packed)
+        return _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
+                       noise_source, (left.shape[1], left.shape[2]))
 
 
 @torch.no_grad()
@@ -251,10 +283,11 @@ def igev_ddim_inference(
     """
     dev, (baseline_model, ddim_model), left, right = _inputs(
         (baseline_model, ddim_model), FoldedIGEV, packed, left, right, device)
-    baseline_disp, baseline_latent, entry = igev_prep(
-        baseline_model, ddim_model, left, right, cfg, packed, iters)
-    return _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
-                   noise_source, (left.shape[1], left.shape[2]))
+    with float32_exact(baseline_model, ddim_model):
+        baseline_disp, baseline_latent, entry = igev_prep(
+            baseline_model, ddim_model, left, right, cfg, packed, iters)
+        return _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
+                       noise_source, (left.shape[1], left.shape[2]))
 
 
 @torch.no_grad()
@@ -264,4 +297,5 @@ def igev_baseline_inference(model: IGEVStereo | FoldedIGEV, left, right, *, iter
     """The frozen IGEV-Stereo alone (``baseline_inference`` with ``iters``):
     RAW ``(B, H, W, 3)`` images → ``(B, H, W)`` float32."""
     dev, (model,), left, right = _inputs((model,), FoldedIGEV, packed, left, right, device)
-    return igev_forward(model, left, right, iters)
+    with float32_exact(model):
+        return igev_forward(model, left, right, iters)

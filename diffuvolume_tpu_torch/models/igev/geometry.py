@@ -91,6 +91,17 @@ def build_geo_pyramid(match_left: torch.Tensor, match_right: torch.Tensor, geo: 
         band_offs=tuple(offs))
 
 
+def band_exact_domain(w4: int, num_levels: int = 2, band: int = 64) -> tuple[float, float]:
+    """The quarter-res disparities ``[lo, hi]`` for which ``"band"`` mode's
+    lookup at radius 4 equals ``"volume"`` mode's at every pixel of a ``w4``
+    wide row: level ``i``'s band of ``b_i = min(band, (w4 >> i) + 1)``
+    columns reaches ``disp·2⁻ⁱ`` in ``[−1, b_i − 12]``, so ``lo = −1`` and
+    ``hi = minᵢ (b_i − 12)·2ⁱ`` ([−1, 52] at W 1248, [−1, 26] at W 192,
+    [−1, 2] at W 96)."""
+    hi = min((min(band, (w4 >> i) + 1) - 12) * 2 ** i for i in range(num_levels))
+    return -1.0, float(hi)
+
+
 def premultiply(pyramid: GeoPyramid, noise: torch.Tensor) -> GeoPyramid:
     """The DiffuVolume latent's transform ``noise (B, D, H, W)`` multiplied
     into the GEV once per DDIM step (the per-lookup multiply of

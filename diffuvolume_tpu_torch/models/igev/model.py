@@ -23,6 +23,8 @@ upsampling are plain PyTorch on both paths.
 
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import NamedTuple
 
 import torch
@@ -316,3 +318,43 @@ def igev_forward(model, left: torch.Tensor, right: torch.Tensor, iters: int = 32
     ``iters`` GRU updates, then one upsampling → ``(B, H, W)``."""
     enc, pyramid = igev_encode(model, left, right)
     return igev_rollout(model, enc, pyramid, iters)
+
+
+class DisparityTrack:
+    """What ``track_disparity`` saw: the lowest and highest quarter-res
+    disparity that entered or left a GRU update, the largest move from the
+    first disparity seen, and the updates counted."""
+
+    def __init__(self):
+        self.lo, self.hi, self.max_drift, self.updates = math.inf, -math.inf, 0.0, 0
+        self.first = None
+
+    def see(self, disp: torch.Tensor) -> None:
+        if self.first is None:
+            self.first = disp
+        self.lo = min(self.lo, float(disp.min()))
+        self.hi = max(self.hi, float(disp.max()))
+        self.max_drift = max(self.max_drift, float((disp - self.first).abs().max()))
+
+
+@contextlib.contextmanager
+def track_disparity(*models):
+    """Record, on every GRU update of ``models`` (``IGEVStereo``s or their
+    folds), the disparity before the update and after it: yields a
+    ``DisparityTrack``.  ``max_drift`` is measured from the first rollout's
+    initial disparity, so it means a move only over one rollout."""
+    track = DisparityTrack()
+
+    def hook(_, inputs, outputs):
+        disp = inputs[3].float()[:, 0]
+        track.see(disp)
+        track.see(disp + outputs[2].float()[:, 0])
+        track.updates += 1
+
+    handles = [module_of(m).update_block.register_forward_hook(hook) for m in models]
+    try:
+        yield track
+    finally:
+        for h in handles:
+            h.remove()
+

@@ -52,10 +52,12 @@ SIGNATURES = {
     # the same two, channels-last output / volume
     "dv_concat_volume_cl": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
     "dv_dhw_mul_cl": [_P, _P, _P, _P, _I, _I, _L],
-    # x, w, bias|0, res|0, post_mul|0, out, b, d, h, w, cin, cout, ks, stride, act
-    "dv_conv3d_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I],
-    # x, w, bias|0, res|0, post_mul|0, out, b, d, h, w, cin, cout, ks, act
-    "dv_conv3d_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
+    # x, w, bias|0, res|0, post_mul|0, out, b, d, h, w, cin, cout, ks, act (stride 1)
+    "dv_conv3d_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
+    # x, w, bias|0, out, ws|0, plan|0, b, d, h, w, cin, cout, act (3×3×3 stride 2)
+    "dv_conv3d_s2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
+    # x, w, bias|0, res|0, post_mul|0, out, plan|0, b, d, h, w, cin, cout, ks, act
+    "dv_conv3d_up": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
     # x, out, b, c, s, c_slot
     "dv_pack": [_P, _P, _I, _I, _L, _I],
     # x, out, b, c, s
@@ -66,6 +68,19 @@ SIGNATURES = {
     "dv_conv2d_flat": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
 }
 _TAIL = [_I, _I, _P]
+
+# The bf16 stride-2 and transposed convs' tile plans: shape, tensor-core
+# form (csrc/conv_hopper.cuh TensorCores), device index, an int[PLAN_KEYS]
+# out (hopper::Plan's fields in order); return the CUDA error code.  The
+# launch entry points take the same ints back.
+PLAN_SIGNATURES = {
+    # b, d, h, w, cin, cout, tc, device, plan
+    "dv_conv3d_s2_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # b, d, h, w, cin, cout, ks, tc, device, plan
+    "dv_conv3d_up_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+PLAN_KEYS = ("bh", "bmw", "nth", "ntw", "ntn", "splits", "bn", "ck", "mt", "blocks",
+             "smem_bytes", "blocks_per_sm", "positions", "wgmma")
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
@@ -153,6 +168,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes + _TAIL
         fn.restype = ctypes.c_int
+    for name, argtypes in PLAN_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.dv_error_string.argtypes = [ctypes.c_int]
     lib.dv_error_string.restype = ctypes.c_char_p
     return lib
@@ -172,6 +191,25 @@ def launch(name: str, like, *args) -> None:
     if err != 0:
         msg = lib.dv_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+class Plan(dict):
+    """A tile plan: ``PLAN_KEYS`` → int, and ``ptr``, the address of the
+    same ints as the launch entry points take them (kept alive with the
+    plan)."""
+
+
+def plan(name: str, device, *args) -> Plan:
+    """The tile plan C entry point ``name`` picks for ``args`` (the shape
+    and the tensor-core form) on ``device`` (a CUDA ``torch.device``)."""
+    ints = (ctypes.c_int * len(PLAN_KEYS))()
+    lib = library()
+    err = getattr(lib, name)(*args, device.index or 0, ints)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} ({lib.dv_error_string(err).decode()})")
+    pl = Plan(zip(PLAN_KEYS, ints))
+    pl.ints, pl.ptr = ints, ctypes.addressof(ints)
+    return pl
 
 
 def check_cuda(*tensors) -> None:

@@ -1,7 +1,8 @@
 """3-D convolution with eval BatchNorm folded into its weights, channels-last.
 
 Kernel: ``csrc/conv3d_fold.cu`` (implicit GEMM on the bf16 tensor cores; a
-plain FMA kernel in float32).  One kernel serves five TPU kernels of
+plain FMA kernel in float32; the stride-2 conv on ``csrc/conv_hopper.cuh``).
+One kernel serves five TPU kernels of
 ``diffuvolume_tpu/ops/pallas/conv3d.py``; each has its own wrapper here and
 its own launch count:
 
@@ -30,6 +31,8 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -39,6 +42,9 @@ from diffuvolume_tpu_torch.ops.kernels import _build
 # The kernels' activation codes (csrc/conv_igemm.cuh Act).
 ACT_CODES = {None: 0, "relu": 1, "mish": 2, "leaky": 3}
 LEAKY_SLOPE = 0.01
+# Rows 7 and 8's tensor-core forms (csrc/conv_hopper.cuh TensorCores): the
+# plan's own choice (wgmma at 64 output channels a tile), or one forced.
+TC_AUTO, TC_MMA, TC_WGMMA = -1, 0, 1
 
 
 def apply_act(y: torch.Tensor, act: str | None) -> torch.Tensor:
@@ -119,7 +125,8 @@ def act_code(act: str | None) -> int:
     return ACT_CODES[act]
 
 
-def _fold(x, w, bias, stride, residual, act, ks, wrapper, post_mul=None, cin_step=16):
+def _fold(x, w, bias, stride, residual, act, ks, wrapper, post_mul=None, cin_step=16,
+          tc=TC_AUTO):
     if w.shape[:3] != (ks, ks, ks):
         raise ValueError(f"{wrapper.__name__} takes a {ks}×{ks}×{ks} kernel, got "
                          f"{tuple(w.shape[:3])}")
@@ -132,10 +139,35 @@ def _fold(x, w, bias, stride, residual, act, ks, wrapper, post_mul=None, cin_ste
     out_shape = (b, *osz, w.shape[4])
     check_operands(x, w, bias, residual, out_shape, wrapper.__name__, post_mul, cin_step)
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    _build.launch("dv_conv3d_fold", x, x.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual),
-                  _ptr(post_mul), out.data_ptr(), b, d, h, wd, cin, w.shape[4], ks, stride, code)
+    if stride == 2:
+        plan, ws = None, None
+        if x.dtype == torch.bfloat16:
+            if w.shape[4] % 8:
+                raise ValueError(f"conv3d_fold_s2: bf16 C_out must be a multiple of 8, got "
+                                 f"{w.shape[4]}")
+            plan = s2_plan(x.shape, w.shape[4], x.device, tc)
+            if plan["splits"] > 1:
+                ws = torch.empty((plan["splits"], *out_shape), dtype=torch.float32,
+                                 device=x.device)
+        _build.launch("dv_conv3d_s2", x, x.data_ptr(), w.data_ptr(), _ptr(bias), out.data_ptr(),
+                      _ptr(ws), None if plan is None else plan.ptr, b, d, h, wd, cin, w.shape[4],
+                      code)
+    else:
+        _build.launch("dv_conv3d_fold", x, x.data_ptr(), w.data_ptr(), _ptr(bias),
+                      _ptr(residual), _ptr(post_mul), out.data_ptr(), b, d, h, wd, cin,
+                      w.shape[4], ks, code)
     wrapper.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def s2_plan(x_shape: tuple, cout: int, device: torch.device, tc: int = TC_AUTO) -> _build.Plan:
+    """The tile plan the bf16 stride-2 kernel takes for ``x (B, D, H, W, C)
+    → C_out`` on ``device`` (``_build.PLAN_KEYS``: the tile, the grid's
+    blocks, the K splits, shared memory, blocks per SM, the tensor-core
+    form), made once a shape and handed to every launch."""
+    b, d, h, w, cin = x_shape
+    return _build.plan("dv_conv3d_s2_plan", device, b, d, h, w, cin, cout, tc)
 
 
 def conv3d_fold_p(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
@@ -156,6 +188,14 @@ def conv3d_fold_s2(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None =
                    act: str | None = None) -> torch.Tensor:
     """3×3×3 stride-2 conv, ``(B, D, H, W, C) → (B, ⌈D/2⌉, ⌈H/2⌉, ⌈W/2⌉, Co)``."""
     return _fold(x, w, bias, 2, None, act, 3, conv3d_fold_s2)
+
+
+def conv3d_fold_s2_on(tc: int, x: torch.Tensor, w: torch.Tensor,
+                      bias: torch.Tensor | None = None, act: str | None = None) -> torch.Tensor:
+    """``conv3d_fold_s2`` on tensor-core form ``tc`` (``TC_MMA``,
+    ``TC_WGMMA``; a bf16 plan without a wgmma form takes mma.sync), for
+    timing the forms against each other; counted as ``conv3d_fold_s2``."""
+    return _fold(x, w, bias, 2, None, act, 3, conv3d_fold_s2, tc=tc)
 
 
 def conv1x1_fold_p(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,

@@ -1,7 +1,7 @@
 """Where one pair spends its device time.
 
     python -m diffuvolume_tpu_torch.tools.profile_acv [--model acv|pcw|igev]
-        [--pairs N] [--path folded|module] [--refine-flat] [--routed]
+        [--pairs N] [--path folded|module] [--refine-flat] [--routed] [--tf32-off]
 
 Runs the inputs of ``chip_smoke.py``'s paths: ACV two-pass DDIM-5 at
 512×960 (``--model acv``, the default), PCW two-pass KITTI12 DDIM-3 at
@@ -11,7 +11,10 @@ bfloat16, on the folded path
 (``packed=True``, the default) or the module path; ``--refine-flat`` folds
 PCW with ``refine_flat=True`` (the refinement's convs on row 18),
 ``--routed`` runs the module path after ``route_conv3d`` (its 3×3×3 convs on
-row 15).  One warm-up pair, then ``N`` pairs under ``torch.profiler``.
+row 15).  ``--tf32-off`` turns TF32 off globally for cuDNN and matmuls
+first (to compare with a profile taken that way; the pipelines set their own
+precision for float32 models and leave bf16 ones as they are).  One
+warm-up pair, then ``N`` pairs under ``torch.profiler``.
 Prints the device time per pair by kernel group and the top kernels, the
 wall time per pair (profiled, and over ``N`` pairs run without the
 profiler, which adds host time of its own) and the device's idle share (1 − device busy / unprofiled wall), and writes them
@@ -58,8 +61,9 @@ GROUPS = [
     ("port: patch stencils", r"depthwise_hw_kernel"),
     ("port: concat volume", r"concat_kernel|concat_cl_kernel"),
     ("port: dhw multiply", r"dhw_mul_kernel|dhw_mul_cl"),
-    ("port: 3-D conv, folded (conv3d_fold.cu)", r"igemm_bf16<false|direct_f32<false"),
-    ("port: transposed conv, folded (conv3d_up.cu)", r"igemm_bf16<true|direct_f32<true"),
+    ("port: 3-D conv, folded (conv3d_fold.cu)",
+     r"igemm_bf16|direct_f32<false|conv_bf16<false|splitk_finish"),
+    ("port: transposed conv, folded (conv3d_up.cu)", r"direct_f32<true|conv_bf16<true"),
     ("port: dilated 2-D conv (conv2d_flat.cu)", r"conv2d_bf16|conv2d_f32"),
     ("port: layout pack / unpack", r"to_last_kernel|to_first_kernel|hwdc"),
     # On the folded path every BatchNorm left is a 2-D one (the feature
@@ -92,6 +96,8 @@ def main(argv=None) -> int:
                     help="PCW folded: the refinement net on conv2d_flat")
     ap.add_argument("--routed", action="store_true",
                     help="module path: the 3x3x3 convs on conv3d_packed (route_conv3d)")
+    ap.add_argument("--tf32-off", action="store_true",
+                    help="TF32 off globally for cuDNN and matmuls")
     args = ap.parse_args(argv)
     packed = args.path == "folded"
     if args.refine_flat and not (packed and args.model == "pcw"):
@@ -99,8 +105,9 @@ def main(argv=None) -> int:
     if args.routed and packed:
         ap.error("--routed is the module path's")
     dev = resolve_device(None)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.tf32_off:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     if args.model == "acv":
         bm, dm, left, right = seeded_main_path(dev)
         cfg, infer, fold = DDIMConfig(), acv_ddim_inference, fold_acv

@@ -9,7 +9,9 @@ head kernels the eval path uses so that the logits on given images have a
 chosen spread (and, for PCW, the refinement residual a chosen size), which
 makes a disparity comparison between implementations meaningful.
 ``calibrate_igev`` does the same for IGEV's classifier and sets the GRU's
-step size, so that the disparity stays where the lookups are exact.
+step size, so that the disparity stays where the lookups are exact;
+``calibrate_igev_drift`` bounds the whole rollout's move, for runs at 32
+iterations.
 """
 
 from __future__ import annotations
@@ -18,7 +20,12 @@ import torch
 import torch.nn as nn
 
 from diffuvolume_tpu_torch.models.acv import ACVNet
-from diffuvolume_tpu_torch.models.igev.model import IGEVStereo, igev_encode, igev_rollout
+from diffuvolume_tpu_torch.models.igev.model import (
+    IGEVStereo,
+    igev_encode,
+    igev_rollout,
+    track_disparity,
+)
 from diffuvolume_tpu_torch.models.layers import BasicBlock
 from diffuvolume_tpu_torch.models.pcw import PCWNet
 
@@ -198,6 +205,31 @@ def calibrate_igev(model: IGEVStereo, left: torch.Tensor, right: torch.Tensor,
         hook.remove()
     conv.weight.mul_(step_std / float(seen[0]))
     conv.bias.mul_(step_std / float(seen[0]))
+    return model
+
+
+@torch.no_grad()
+def calibrate_igev_drift(model: IGEVStereo, left: torch.Tensor, right: torch.Tensor,
+                         iters: int = 32, max_drift: float = 0.5,
+                         logit_std: float = 10.0) -> IGEVStereo:
+    """``calibrate_igev``, then scale ``update_block.disp_head.conv2`` until
+    an ``iters``-update rollout on ``left``/``right`` moves no pixel's
+    quarter-res disparity more than ``max_drift`` from its start.  The
+    initial disparity lies in ``[0, D/4 − 1]``, so at W ≥ 160 and
+    ``max_drift`` ≤ 1 every update reads the band lookup inside its exact
+    domain (``geometry.band_exact_domain``); ``calibrate_igev``'s first-step
+    rule alone lets the random GRU walk several px in 32 updates."""
+    calibrate_igev(model, left, right, logit_std=logit_std)
+    conv = model.update_block.disp_head.conv2
+    enc, pyramid = igev_encode(model, left, right)
+    for _ in range(8):
+        with track_disparity(model) as track:
+            igev_rollout(model, enc, pyramid, iters)
+        if track.max_drift <= max_drift:
+            break
+        scale = 0.5 * max_drift / track.max_drift
+        conv.weight.mul_(scale)
+        conv.bias.mul_(scale)
     return model
 
 

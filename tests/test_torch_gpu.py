@@ -690,3 +690,211 @@ def test_routed_pcw_module_path_on_the_card(dev):
     torch.cuda.synchronize()
     assert kconv.conv3d_packed.launches - before == 44
     assert final.shape == (1, 64, 64) and torch.isfinite(final).all()
+
+
+# -- rows 7 and 8 on conv_hopper.cuh: the tile rules' edges -------------------------
+
+def _epilogue_ref(y, bias, res, act, pm, dtype):
+    """``F.conv3d`` / ``F.conv_transpose3d``'s float32 NCDHW result → the
+    kernels' epilogue, by hand: + bias, + residual, act, × post_mul, one
+    rounding."""
+    y = y.permute(0, 2, 3, 4, 1)
+    if bias is not None:
+        y = y + bias
+    if res is not None:
+        y = y + res.float()
+    y = kconv.apply_act(y, act)
+    if pm is not None:
+        y = y * pm.float()[:, None]
+    return y.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,real_cin,cout,shape,act", [
+    (32, 32, 64, (1, 6, 9, 78), "mish"),      # W_out 39, odd H_out: rows of a tile
+    (64, 64, 128, (1, 5, 8, 156), None),      # W_out 78, odd D: a padding plane
+    (32, 32, 64, (1, 4, 6, 312), "relu"),     # W_out 156 over several W tiles
+    (128, 128, 128, (1, 12, 24, 78), None),   # PCW 128→128 to (6, 12, 39): split K
+    (16, 8, 16, (1, 4, 3, 10), "leaky"),      # IGEV conv1_0: 8 real in 16; fewer rows than a tile
+    (32, 32, 48, (1, 4, 6, 18), "leaky"),     # IGEV conv3_0: C_out 48 in a 64-wide tile
+])
+def test_conv3d_fold_s2_tiles(dev, dtype, cin, real_cin, cout, shape, act):
+    """Row 7 at the shapes its tile rules treat apart, against the plain
+    version and ``F.conv3d``: the CONV_TOL bounds."""
+    x, wt, bias = _conv_inputs(dev, dtype, shape, cin, cout, 3, seed=200)
+    x[..., real_cin:] = 0
+    wt[..., real_cin:, :] = 0
+    got = kconv.conv3d_fold_s2(x, wt, bias, act=act)
+    want = kconv.conv3d_fold_plain(x, wt, bias, 2, None, act)
+    lib = _epilogue_ref(torch.nn.functional.conv3d(
+        x.float().permute(0, 4, 1, 2, 3), wt.float().permute(4, 3, 0, 1, 2), stride=2,
+        padding=1), bias, None, act, None, dtype)
+    torch.cuda.synchronize()
+    b, d, h, w = shape
+    assert got.shape == (b, (d + 1) // 2, (h + 1) // 2, (w + 1) // 2, cout)
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(got.float(), lib.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ks,cin,cout,shape,bias,residual,act,post_mul", [
+    (3, 128, 128, (1, 6, 12, 39), True, True, "mish", False),   # PCW conv7 at 1/32 → 1/16
+    (3, 64, 32, (1, 3, 5, 39), True, True, "relu", False),      # W 39, odd H and D
+    (3, 128, 64, (1, 3, 4, 78), True, True, None, True),        # post_mul with a residual
+    (3, 64, 32, (2, 3, 3, 7), False, True, "leaky", True),      # two batches, no bias
+    (4, 48, 32, (1, 3, 5, 39), True, False, "leaky", True),     # IGEV conv3_up, k4
+    (4, 16, 16, (1, 3, 4, 9), False, False, None, False),       # k4 without bias
+    (4, 32, 16, (1, 2, 3, 156), True, True, "mish", False),     # k4 over several W tiles
+])
+def test_conv3d_fold_up_tiles(dev, dtype, ks, cin, cout, shape, bias, residual, act, post_mul):
+    """Row 8, every output parity from one block, at the shapes its tile
+    rules treat apart and with every epilogue part, against the plain
+    version and ``F.conv_transpose3d``: the CONV_TOL bounds."""
+    x, wt, b = _conv_inputs(dev, dtype, shape, cin, cout, ks, seed=210)
+    b = b if bias else None
+    n, d, h, w = shape
+    o = (n, 2 * d, 2 * h, 2 * w, cout)
+    res = _randn(dev, *o, seed=211).to(dtype) if residual else None
+    pm = torch.sigmoid(_randn(dev, n, 2 * h, 2 * w, cout, seed=212)).to(dtype) if post_mul else None
+    got = kup.conv3d_fold_up(x, wt, b, residual=res, act=act, post_mul=pm)
+    want = kup.conv3d_up_plain(x, wt, b, res, act, pm)
+    lib = _epilogue_ref(torch.nn.functional.conv_transpose3d(
+        x.float().permute(0, 4, 1, 2, 3), wt.float().permute(3, 4, 0, 1, 2), stride=2, padding=1,
+        output_padding=1 if ks == 3 else 0), b, res, act, pm, dtype)
+    torch.cuda.synchronize()
+    assert got.shape == o
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(got.float(), lib.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("tc", [kconv.TC_MMA, kconv.TC_WGMMA])
+@pytest.mark.parametrize("cin,cout,shape,act", [
+    (32, 64, (1, 24, 64, 240), "relu"),    # ACV 32→64, one 120-wide row a tile
+    (64, 128, (1, 48, 48, 78), "mish"),    # W_out 39: three rows a tile, two C_out tiles
+])
+def test_conv3d_fold_s2_tensor_core_forms(dev, tc, cin, cout, shape, act):
+    """Row 7 at 64 output channels a tile on each tensor-core form (the
+    plan takes the one asked for at a grid of a full wave), against the
+    plain version: the bf16 CONV_TOL bounds."""
+    x, wt, bias = _conv_inputs(dev, torch.bfloat16, shape, cin, cout, 3, seed=230)
+    assert kconv.s2_plan(x.shape, cout, dev, tc)["wgmma"] == (tc == kconv.TC_WGMMA)
+    got = kconv.conv3d_fold_s2_on(tc, x, wt, bias, act=act)
+    want = kconv.conv3d_fold_plain(x, wt, bias, 2, None, act)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("tc", [kconv.TC_MMA, kconv.TC_WGMMA])
+@pytest.mark.parametrize("ks,cin,cout,shape,act,post_mul", [
+    (3, 128, 64, (1, 12, 32, 60), "relu", False),   # ACV 128→64 + residual
+    (3, 128, 128, (1, 12, 12, 39), "mish", True),   # odd W, two C_out tiles, post_mul
+    (4, 64, 64, (1, 16, 24, 39), "leaky", False),   # k4
+])
+def test_conv3d_fold_up_tensor_core_forms(dev, tc, ks, cin, cout, shape, act, post_mul):
+    """Row 8 at 64 output channels a tile on each tensor-core form, with a
+    residual, against the plain version: the bf16 CONV_TOL bounds."""
+    x, wt, b = _conv_inputs(dev, torch.bfloat16, shape, cin, cout, ks, seed=240)
+    n, d, h, w = shape
+    res = _randn(dev, n, 2 * d, 2 * h, 2 * w, cout, seed=241).to(torch.bfloat16)
+    pm = (torch.sigmoid(_randn(dev, n, 2 * h, 2 * w, cout, seed=242)).to(torch.bfloat16)
+          if post_mul else None)
+    assert kup.up_plan(x.shape, cout, ks, dev, tc)["wgmma"] == (tc == kconv.TC_WGMMA)
+    got = kup.conv3d_fold_up_on(tc, x, wt, b, residual=res, act=act, post_mul=pm)
+    want = kup.conv3d_up_plain(x, wt, b, res, act, pm)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2.0 ** -7)
+
+
+def test_rows_7_and_8_plans(dev):
+    """The host's tile plans at the ACV and PCW shapes: at least two blocks
+    an SM, a full wave of blocks (split K counted), and the tiles' positions
+    at least 90% used over the plane."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for x_shape, cout in [((1, 48, 128, 240, 32), 64), ((1, 24, 64, 120, 64), 128),
+                          ((1, 48, 96, 312, 32), 64), ((1, 24, 48, 156, 64), 128),
+                          ((1, 12, 24, 78, 128), 128)]:
+        pl = kconv.s2_plan(x_shape, cout, dev)
+        _, d, h, w, _ = x_shape
+        ho, wo = (h + 1) // 2, (w + 1) // 2
+        tiles = pl["nth"] * pl["ntw"]
+        assert pl["blocks_per_sm"] >= 2, (x_shape, pl)
+        assert pl["blocks"] * pl["splits"] >= sms * pl["blocks_per_sm"], (x_shape, pl)
+        assert ho * wo / (tiles * pl["positions"]) >= 0.9, (x_shape, pl)
+    for x_shape, cout in [((1, 12, 32, 60, 128), 64), ((1, 24, 64, 120, 64), 32),
+                          ((1, 12, 24, 78, 128), 64), ((1, 24, 48, 156, 64), 32),
+                          ((1, 6, 12, 39, 128), 128)]:
+        pl = kup.up_plan(x_shape, cout, 3, dev)
+        _, d, h, w, _ = x_shape
+        assert pl["blocks_per_sm"] >= 2, (x_shape, pl)
+        assert h * w / (pl["nth"] * pl["ntw"] * pl["positions"]) >= 0.9, (x_shape, pl)
+
+
+def test_rows_7_and_8_refuse_partial_vectors(dev):
+    """bf16 C_out must fill whole 16-byte vectors on rows 7 and 8."""
+    x, wt, bias = _conv_inputs(dev, torch.bfloat16, (1, 4, 4, 8), 16, 12, 3, seed=220)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kconv.conv3d_fold_s2(x, wt, bias)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kup.conv3d_fold_up(x, wt, bias)
+
+
+# -- float32 pipelines set their own precision -------------------------------------
+
+@pytest.fixture
+def card_default_tf32():
+    """The card with PyTorch's default switches (cuDNN TF32 on, matmul TF32
+    off), whatever an earlier test set; restored afterwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    yield torch.device("cuda:0")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@torch.no_grad()
+def test_float32_acv_pipeline_matches_the_cpu_without_the_global_switch(card_default_tf32):
+    """The f32 ACV pipeline at phase 4's size (32×64, max_disp 64, the same
+    seeded weights, images and draws) on the card with cuDNN's TF32 left on
+    globally: held to the CPU by ``chip_smoke.agree``'s bounds and flip rule,
+    and ``acv_ddim_inference`` gives the staged run's output exactly; the
+    caller's switch is still on afterwards.  Run from the repository root
+    (``python -m pytest``), which puts ``chip_smoke`` on the path."""
+    import copy
+
+    import numpy as np
+
+    import chip_smoke
+    from diffuvolume_tpu_torch.diffusion import DDIMConfig
+    from diffuvolume_tpu_torch.eval.pipeline import acv_ddim_inference, acv_prep
+    from diffuvolume_tpu_torch.models.acv_fold import fold_acv
+    from diffuvolume_tpu_torch.tools.random_weights import calibrate_heads, random_pair
+
+    dev, (h, w, md) = card_default_tf32, (32, 64, 64)
+    rng = np.random.default_rng(0)
+    left = rng.standard_normal((1, h, w, 3)).astype(np.float32) * 0.3
+    right = np.roll(left, -3, axis=2)
+    bm, dm = random_pair(md, torch.Generator().manual_seed(0))
+    calibrate_heads(bm, torch.from_numpy(left), torch.from_numpy(right), target_std=10.0)
+    dm.load_state_dict(bm.state_dict(), strict=False)
+    cfg = DDIMConfig(max_disp=md, num_bins=md // 4)
+    shape = (1, md // 4, h // 4, w // 4)
+    steps = (cfg.sampling_steps, *shape)
+    ns = {"z": rng.standard_normal(steps).astype(np.float32),
+          "replace": rng.uniform(size=steps).astype(np.float32)}
+    bg, dg = copy.deepcopy(bm).to(dev), copy.deepcopy(dm).to(dev)
+    runs = {}
+
+    def card():
+        runs["staged"] = chip_smoke.sampled(acv_prep, fold_acv, bg, dg, left, right, cfg, dev, ns,
+                                            True)
+        return runs["staged"]
+
+    chip_smoke.agree("acv folded path, TF32 on globally", lambda: chip_smoke.sampled(
+        acv_prep, fold_acv, bm, dm, left, right, cfg, torch.device("cpu"), ns, True), card)
+    final, base = acv_ddim_inference(bg, dg, left, right, cfg, device=dev, noise_source=ns)
+    torch.cuda.synchronize()
+    assert torch.equal(final, runs["staged"][0]) and torch.equal(base, runs["staged"][1])
+    assert torch.backends.cudnn.allow_tf32
