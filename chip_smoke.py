@@ -11,14 +11,17 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      and bfloat16: max-abs error against the stated tolerance, kernel / plain
      times (CUDA events), the time of one PyTorch call computing the same
      function where there is one, and the bound (bytes or operations over
-     the H100's peak rates); the convs with the epilogue (none, ReLU, Mish,
-     LeakyReLU, × post_mul) each path gives each shape, timed on the card
-     (torch.profiler's device time; CUDA events and the host's time to issue
-     a call beside it), and their total over one pair's launches, by row
-     beside the previous slice's run 3; for rows 7 and 8 also the tile plan
-     (tile, blocks, K splits, blocks an SM, shared memory, tensor-core form)
-     and, at 64 output channels a tile, the wgmma and the mma.sync form
-     each checked and timed;
+     the H100's peak rates); the convs (rows 5-9, 14, 15 with the epilogue
+     — none, ReLU, Mish, LeakyReLU, × post_mul — each path gives each shape;
+     row 18 at the refinement's 11 convs) timed on the card (torch.profiler's
+     device time; CUDA events and the host's time to issue a call beside
+     it), and their total over one pair's launches, by row; for every
+     3×3×3 and 2-D conv shape also the tile plan (tile, blocks, K splits,
+     blocks an SM, shared memory, tensor-core form, kh taps a stage) and,
+     where the plan has a wgmma form (32 to 128 output channels a tile),
+     the wgmma and the mma.sync form each checked and timed (the previous
+     commit's times come from ``tools/conv_device_times.py --root`` in the
+     same call);
   4. agreement on a small input: each whole two-pass pipeline (ACV, PCW,
      IGEV) on the card against the same pipeline on the CPU (plain
      versions), float32, same seeded weights and injected draws, on the
@@ -140,11 +143,14 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 def device_times(fn, iters: int, warmup: int = 2) -> dict:
     """``fn``'s cost a call over ``iters`` back-to-back calls: ``ms``, the
     card's time in the kernels it launches (torch.profiler, every kernel of
-    the call summed, no gaps between calls); ``events_ms``, CUDA events
-    around the calls, which reads the host where a call costs the host more
-    than the card; ``host_us``, the host's time to issue a call (the calls'
-    wall clock before the synchronisation that ends them; the least of three
-    runs, as other processes share the host's cores)."""
+    the call summed, no gaps between calls; a session that recorded no
+    kernel, or whose kernel counts are not a multiple of ``iters`` (it
+    dropped some), is taken again, up to eight sessions, then the largest
+    reading stands); ``events_ms``, CUDA
+    events around the calls, which reads the host where a call costs the
+    host more than the card; ``host_us``, the host's time to issue a call
+    (the calls' wall clock before the synchronisation that ends them; the
+    least of three runs, as other processes share the host's cores)."""
     from torch.profiler import ProfilerActivity, profile
 
     events_ms = time_ms(fn, iters, warmup)
@@ -155,15 +161,20 @@ def device_times(fn, iters: int, warmup: int = 2) -> dict:
             fn()
         host_us = min(host_us, (time.perf_counter() - t0) / iters * 1e6)
         torch.cuda.synchronize()
-    for _ in range(3):  # a profiler session now and then records no kernel at all
+    readings = []
+    for _ in range(8):  # a profiler session now and then drops kernels, or all of them
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        device_us = sum(e.device_time_total for e in prof.key_averages()) / iters
-        if device_us > 0.0:
+        kernels = [e for e in prof.key_averages() if e.device_time_total > 0]
+        device_us = sum(e.device_time_total for e in kernels) / iters
+        if kernels and all(e.count % iters == 0 for e in kernels):
             return dict(ms=device_us / 1e3, events_ms=events_ms, host_us=host_us)
-    raise AssertionError("torch.profiler saw no device time in 3 sessions")
+        readings.append(device_us)
+    if max(readings) > 0.0:
+        return dict(ms=max(readings) / 1e3, events_ms=events_ms, host_us=host_us)
+    raise AssertionError("torch.profiler saw no device time in 8 sessions")
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
@@ -848,8 +859,8 @@ def case_inputs(case: ConvCase, dev, dtype, seed: int) -> dict:
 
 def case_calls(case: ConvCase, op: dict, tc: int | None = None):
     """``(kernel call, plain call)`` of a case on the operands ``op``, with
-    the case's epilogue; rows 7 and 8 on tensor-core form ``tc``
-    (``conv3d_fold.TC_MMA`` / ``TC_WGMMA``) where given."""
+    the case's epilogue; on tensor-core form ``tc`` (``conv3d_fold.TC_MMA``
+    / ``TC_WGMMA``) where given."""
     from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
     from diffuvolume_tpu_torch.ops.kernels import conv3d_up as kup
 
@@ -860,8 +871,10 @@ def case_calls(case: ConvCase, op: dict, tc: int | None = None):
                 lambda: kup.conv3d_up_plain(x, w, bias, res, act, pm))
     fn = getattr(kconv, case.row)
     if tc is not None:
-        fn = functools.partial(kconv.conv3d_fold_s2_on, tc)
-    if case.row == "conv3d_fold_p":
+        # rows 5, 6, 14 and 15 share one kernel: its forms through row 5's entry
+        fn = functools.partial(kconv.conv3d_fold_s2_on if case.kind == "s2"
+                               else kconv.conv3d_fold_p_on, tc)
+    if case.row == "conv3d_fold_p" or (tc is not None and case.kind == "p"):
         kernel = lambda: fn(x, w, bias, residual=res, act=act, post_mul=pm)  # noqa: E731
     elif case.row == "conv1x1_fold_p":
         kernel = lambda: fn(x, w, bias, act=act, residual=res)  # noqa: E731
@@ -870,51 +883,17 @@ def case_calls(case: ConvCase, op: dict, tc: int | None = None):
     return kernel, lambda: kconv.conv3d_fold_plain(x, w, bias, op["stride"], res, act, pm)
 
 
-# The conv rows as this script measured them at commit 9b6918f (run 3 of its
-# change), before rows 7 and 8 moved to conv_hopper.cuh, under CUDA events
-# (NVIDIA H100 80GB HBM3, 700.00 W): rows 7 and 8 in ms a launch by (path,
-# case label), and each conv row's total over one pair's launches.  Printed
-# beside this run's numbers as a fixed reference.
-RUN3 = "the previous kernels under CUDA events (commit 9b6918f, its run 3)"
-RUN3_MS = {
-    ("ACV", "32→64 full→half"): 0.1802, ("ACV", "64→128 half→quarter"): 0.1184,
-    ("ACV", "128→64 quarter→half + residual"): 0.1074,
-    ("ACV", "64→32 half→full + residual"): 0.2790,
-    ("PCW", "32→64 full→half, no bias or act"): 0.2136,
-    ("PCW", "64→128 half→quarter, no bias or act"): 0.1664,
-    ("PCW", "128→128 quarter→1/32, no bias or act"): 0.1132,
-    ("PCW", "32→64 full→half, Mish"): 0.2353, ("PCW", "64→128 half→quarter, Mish"): 0.1814,
-    ("PCW", "128→128 1/32→quarter + residual, Mish"): 0.0582,
-    ("PCW", "128→64 quarter→half + residual, Mish"): 0.1604,
-    ("PCW", "64→32 half→full + residual, Mish"): 0.3780,
-    ("IGEV folded", "conv1_0 8 in 16 → 16, 1/4→1/8, leaky"): 0.0738,
-    ("IGEV folded", "conv2_0 16→32, 1/8→1/16, leaky"): 0.0307,
-    ("IGEV folded", "conv3_0 32→48, 1/16→1/32, leaky"): 0.0332,
-    ("IGEV folded", "conv3_up k4 48→32, 1/32→1/16, leaky"): 0.0272,
-    ("IGEV folded", "conv2_up k4 32→16, 1/16→1/8, leaky"): 0.0368,
-    ("IGEV folded", "conv1_up k4 16 → 8 in 16, 1/8→1/4, no bias or act"): 0.1448,
-}
-RUN3_PAIR_MS = {
-    "ACV": {"conv3d_fold_p": 18.0052, "conv3d_fold_x2": 5.39, "conv3d_fold_s2": 4.1812,
-            "conv3d_fold_up": 5.41, "conv1x1_fold_p": 2.675},
-    "PCW": {"conv3d_fold_p": 13.2825, "conv3d_fold_x2": 1.4123, "conv3d_fold_s2": 5.987,
-            "conv3d_fold_up": 7.6543, "conv1x1_fold_p": 2.7718},
-    "IGEV folded": {"conv3d_fold_p": 1.2829, "conv3d_fold_s2": 0.2756, "conv3d_fold_up": 0.4176,
-                    "conv1x1_fold_p": 0.2272},
-    "IGEV module": {"conv3d_fold_small": 0.9828},
-    "ACV module, routed": {"conv3d_packed": 20.2601}, "PCW module, routed": {"conv3d_packed": 11.8611},
-    "IGEV module, routed": {"conv3d_packed": 0.1786},
-}
-
-
 def tile_plan(case: ConvCase, dev, tc: int = -1) -> dict | None:
-    """Rows 7 and 8: the tile plan the bf16 kernel takes at the case's
-    shape on tensor-core form ``tc`` (-1: its own choice; conv_hopper.cuh;
-    ``_build.PLAN_KEYS``), else None (and for a package without plans)."""
+    """The tile plan the bf16 kernel takes at the case's shape on
+    tensor-core form ``tc`` (-1: its own choice; conv_hopper.cuh;
+    ``_build.PLAN_KEYS``): rows 5, 6, 14, 15 (3×3×3 stride 1), 7 and 8;
+    else None (row 9, and a package without plans)."""
     from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
     from diffuvolume_tpu_torch.ops.kernels import conv3d_up as kup
 
     shape = (1, *case.dhw, case.cin)
+    if case.kind == "p" and hasattr(kconv, "s1_plan"):
+        return dict(kconv.s1_plan(shape, case.cout, dev, tc))
     if case.kind == "s2" and hasattr(kconv, "conv3d_fold_s2_on"):
         return dict(kconv.s2_plan(shape, case.cout, dev, tc))
     if case.kind in ("up", "up4") and hasattr(kup, "conv3d_fold_up_on"):
@@ -922,26 +901,43 @@ def tile_plan(case: ConvCase, dev, tc: int = -1) -> dict | None:
     return None
 
 
-def tc_forms(case: ConvCase, dev, op: dict, iters: int) -> dict | None:
-    """Rows 7 and 8 where the plan has a wgmma form (64 output channels a
-    tile, a full wave of blocks): each form against the plain version
-    (bf16 CONV_TOL) and its times (``device_times``); else None."""
-    plans = {f: tile_plan(case, dev, tc) for f, tc in (("mma", 0), ("wgmma", 1))}
+def plan_line(plan: dict, fill: float) -> str:
+    return (f"tile {plan['bh']}×{plan['bmw']} of {plan['positions']} positions ({fill:.3f} of "
+            f"the plane's tiles used), {plan['blocks']} blocks × {plan['splits']} K splits, "
+            f"{plan['blocks_per_sm']} blocks an SM at {plan['smem_bytes']} B of shared memory, "
+            f"{'wgmma' if plan['wgmma'] else 'mma.sync'} at {plan['bn']} channels a tile, "
+            f"{plan.get('kh_a_stage', 1)} kh taps a stage")
+
+
+def forms_of(plans: dict, calls, plain, iters: int) -> dict | None:
+    """Both tensor-core forms of one shape (``plans``: "mma" / "wgmma" →
+    the plan on that form; ``calls``: form → the kernel call forced to it)
+    where the plan has a wgmma form: each against ``plain()`` (bf16
+    CONV_TOL) and timed (``device_times``); else None."""
     if plans["wgmma"] is None or not plans["wgmma"]["wgmma"]:
         return None
-    _, plain = case_calls(case, op)
-    want = plain()
-    out = {}
-    for f, tc in (("mma", 0), ("wgmma", 1)):
-        kernel, _ = case_calls(case, op, tc)
-        got = kernel()
+    want, out = plain(), {}
+    for f in ("mma", "wgmma"):
+        got = calls[f]()
         torch.cuda.synchronize()
         err = check(f"bfloat16 on {f}", got, want, *CONV_TOL["bfloat16"])
-        out[f] = dict(max_abs_err=err, smem_bytes=plans[f]["smem_bytes"],
-                      blocks_per_sm=plans[f]["blocks_per_sm"], **device_times(kernel, iters))
+        del got
+        out[f] = dict(max_abs_err=err, bn=plans[f]["bn"], smem_bytes=plans[f]["smem_bytes"],
+                      blocks_per_sm=plans[f]["blocks_per_sm"], splits=plans[f]["splits"],
+                      **device_times(calls[f], iters))
     log(f"  tensor-core forms: mma.sync {out['mma']['ms']:.4f} ms, wgmma "
         f"{out['wgmma']['ms']:.4f} ms on the card")
     return out
+
+
+def tc_forms(case: ConvCase, dev, op: dict, iters: int) -> dict | None:
+    """Rows 5-8, 14, 15 where the plan has a wgmma form: each form checked
+    and timed (``forms_of``); else None."""
+    plans = {f: tile_plan(case, dev, tc) for f, tc in (("mma", 0), ("wgmma", 1))}
+    if plans["wgmma"] is None:  # a package without the plan (an older checkout)
+        return None
+    return forms_of(plans, {f: case_calls(case, op, tc)[0] for f, tc in (("mma", 0), ("wgmma", 1))},
+                    case_calls(case, op)[1], iters)
 
 
 # float32: the FMA kernel against cuDNN's float32 conv (TF32 off), summation
@@ -976,7 +972,7 @@ def conv_checks(dev, cases: list[ConvCase], path: str, iters: int = 20) -> dict:
             errs[tag] = max(errs.get(tag, 0.0), e[tag])
             del got, want
         t = device_times(kernel, iters)
-        forms = tc_forms(case, dev, op, iters) if case.kind in ("s2", "up", "up4") else None
+        forms = tc_forms(case, dev, op, iters) if case.kind != "k1" else None
         plain_ms = time_ms(plain, 2)
         # The library: cuDNN on channels-last bf16 operands, with the case's
         # bias (no residual, no ReLU); never called by the port.
@@ -1018,17 +1014,13 @@ def conv_checks(dev, cases: list[ConvCase], path: str, iters: int = 20) -> dict:
             f"{t['host_us']:.1f} µs of host to issue a call; plain {plain_ms:.4f}, library "
             f"{lib_t['ms']:.4f} ms [max |Δ| to its float32 {lib_err:.2e}], bound {b_ms:.4f} ms "
             f"by {by}); {case.per_pair} per pair")
-        plan, run3 = tile_plan(case, dev), RUN3_MS.get((path, case.label))
+        plan = tile_plan(case, dev)
         if plan is not None:
-            o_hw = o[1] * o[2] if case.kind == "s2" else h * w
+            o_hw = o[1] * o[2] if case.kind in ("s2", "p") else h * w
             plan["fill"] = o_hw / (plan["nth"] * plan["ntw"] * plan["positions"])
-            log(f"  tile {plan['bh']}×{plan['bmw']} of {plan['positions']} positions "
-                f"({plan['fill']:.3f} of the plane's tiles used), {plan['blocks']} blocks × "
-                f"{plan['splits']} K splits, {plan['blocks_per_sm']} blocks an SM at "
-                f"{plan['smem_bytes']} B of shared memory, {'wgmma' if plan['wgmma'] else 'mma.sync'}; "
-                f"{RUN3}: {run3} ms")
+            log("  " + plan_line(plan, plan["fill"]))
         rows[case.row][1].append(dict(
-            plan=plan, run3_ms=run3, tc_forms=forms, events_ms=t["events_ms"],
+            plan=plan, tc_forms=forms, events_ms=t["events_ms"],
             host_us=t["host_us"], library_events_ms=lib_t["events_ms"],
             label=case.label, cin=cin, real_cin=cin_f, cout=cout, real_cout=cout_f,
             in_dhw=[d, h, w], kind=case.kind, out_dhw=list(o), residual=case.residual,
@@ -1049,11 +1041,11 @@ def conv_checks(dev, cases: list[ConvCase], path: str, iters: int = 20) -> dict:
     for row, (_, rec) in rows.items():
         by_row[row] = {k: sum(c[k] * c["per_pair"] for c in rec)
                        for k in ("ms", "events_ms", "bound_ms", "library_ms")}
-        by_row[row]["run3_ms"] = RUN3_PAIR_MS.get(path, {}).get(row)
+        by_row[row]["host_us"] = sum(c["host_us"] * c["per_pair"] for c in rec)
         log(f"    {row}: {by_row[row]['ms']:.4f} ms a pair on the card "
             f"({by_row[row]['events_ms']:.4f} under CUDA events; library "
-            f"{by_row[row]['library_ms']:.4f}, bound {by_row[row]['bound_ms']:.4f}; {RUN3}: "
-            f"{by_row[row]['run3_ms']})")
+            f"{by_row[row]['library_ms']:.4f}, bound {by_row[row]['bound_ms']:.4f}; host "
+            f"{by_row[row]['host_us']:.0f} µs to issue them)")
     out = {row: mixed(rec, errs) for row, (errs, rec) in rows.items()}
     out["conv_pair_totals_ms"] = totals
     out["pair_ms_by_row"] = by_row
@@ -1103,13 +1095,26 @@ def layout_checks(dev) -> dict:
     return out
 
 
+def flat_plan(c: RefineCase, dev, tc: int = -1) -> dict | None:
+    """Row 18's tile plan at a refinement conv on tensor-core form ``tc``,
+    or None for a package without plans."""
+    from diffuvolume_tpu_torch.ops.kernels import conv2d as k2
+
+    if not hasattr(k2, "flat_plan"):
+        return None
+    return dict(k2.flat_plan((1, PCW_H, PCW_W, c.cin), c.cout, c.dil, dev, tc))
+
+
 def refine_checks(dev, iters: int = 10) -> dict:
     """Phase 3, row 18: ``conv2d_flat`` at each of the folded refinement's
     11 convs at 384×1248, float32 and bfloat16 against ``conv2d_flat_plain``
-    (``CONV_TOL``); the kernel's, the plain version's and the library's time
-    (bf16 ``F.conv2d`` with the bias, dilated, channels-last, on the same
-    slot input), and the bound (2·9·C_in·C_out·H·W operations on the real
-    channels at the bf16 tensor-core rate, against the bytes)."""
+    (``CONV_TOL``); the kernel's and the library's time on the card
+    (``device_times``: torch.profiler, with CUDA events and the host's time
+    to issue a call beside; the library is bf16 ``F.conv2d`` with the bias,
+    dilated, channels-last, on the same slot input), the plain version's
+    (events), the tile plan and, where it has a wgmma form, both forms; the
+    bound (2·9·C_in·C_out·H·W operations on the real channels at the bf16
+    tensor-core rate, against the bytes)."""
     import torch.nn.functional as F
 
     from diffuvolume_tpu_torch.ops.kernels import conv2d as k2
@@ -1149,21 +1154,37 @@ def refine_checks(dev, iters: int = 10) -> dict:
         nbytes = (hw * c.real_cin + 9 * c.real_cin * c.cout + hw * c.cout) * 2
         nbytes += c.cout * 4 if c.bias else 0
         b_ms, by = bound(nbytes, 2 * macs, BF16_TC_OPS_PER_S)
+        t = device_times(lambda: k2.conv2d_flat(xb, wb, bias, c.dil), iters)
+        lib_t = device_times(library, iters)
+        plan = flat_plan(c, dev)
+        forms = None
+        if plan is not None:
+            plan["fill"] = hw / (plan["nth"] * plan["ntw"] * plan["positions"])
+            log("  " + plan_line(plan, plan["fill"]))
+            forms = forms_of(
+                {f: flat_plan(c, dev, tc) for f, tc in (("mma", 0), ("wgmma", 1))},
+                {f: functools.partial(k2.conv2d_flat_on, tc, xb, wb, bias, c.dil)
+                 for f, tc in (("mma", 0), ("wgmma", 1))},
+                lambda: k2.conv2d_flat_plain(xb, wb, bias, c.dil), iters)
         rec = dict(label=c.label, cin=c.cin, real_cin=c.real_cin, cout=c.cout, dil=c.dil,
-                   bias=c.bias, per_pair=c.per_pair, errs=e,
-                   ms=time_ms(lambda: k2.conv2d_flat(xb, wb, bias, c.dil), iters),
+                   bias=c.bias, per_pair=c.per_pair, errs=e, plan=plan, tc_forms=forms,
+                   ms=t["ms"], events_ms=t["events_ms"], host_us=t["host_us"],
                    plain_ms=time_ms(lambda: k2.conv2d_flat_plain(xb, wb, bias, c.dil), 2),
-                   library_ms=time_ms(library, iters), library_max_abs_vs_plain=lib_err,
+                   library_ms=lib_t["ms"], library_events_ms=lib_t["events_ms"],
+                   library_max_abs_vs_plain=lib_err,
                    bound_ms=b_ms, bound_by=by, ops_ms=2 * macs / BF16_TC_OPS_PER_S * 1e3,
                    macs=macs, bytes=nbytes)
-        log(f"  bf16 {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, library "
+        log(f"  bf16 {rec['ms']:.4f} ms on the card ({t['events_ms']:.4f} under CUDA events, "
+            f"{t['host_us']:.1f} µs of host to issue a call; plain {rec['plain_ms']:.4f}, library "
             f"{rec['library_ms']:.4f} ms [max |Δ| to the plain version {lib_err:.2e}], bound "
             f"{b_ms:.4f} ms by {by}); {c.per_pair} per PCW pair")
         cases.append(rec)
         del xb, wb, x_cl, w_lib
-    totals = {k: sum(c[k] for c in cases) for k in ("ms", "bound_ms", "library_ms", "plain_ms")}
-    log(f"  one refinement's 11 convs: kernels {totals['ms']:.3f} ms, bound "
-        f"{totals['bound_ms']:.3f} ms, library {totals['library_ms']:.3f} ms, plain "
+    totals = {k: sum(c[k] for c in cases)
+              for k in ("ms", "events_ms", "host_us", "bound_ms", "library_ms", "plain_ms")}
+    log(f"  one refinement's 11 convs: kernels {totals['ms']:.3f} ms on the card "
+        f"({totals['events_ms']:.3f} under CUDA events, {totals['host_us']:.0f} µs of host), "
+        f"bound {totals['bound_ms']:.3f} ms, library {totals['library_ms']:.3f} ms, plain "
         f"{totals['plain_ms']:.2f} ms")
     out = mixed(cases, errs)
     out["refinement_totals_ms"] = totals

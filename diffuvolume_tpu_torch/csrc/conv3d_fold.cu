@@ -5,32 +5,43 @@
 // none, ReLU, Mish or LeakyReLU (conv_igemm.cuh Act), post_mul a
 // (B, Ho, Wo, Co) map broadcast over D (IGEV's feature attention).
 //   Replaces diffuvolume_tpu/ops/pallas/conv3d.py:
-//     conv3d_fold_p   (3×3×3 s1, + residual; C_out 1 for the classifier heads),
-//     conv3d_fold_x2  (the same conv at C_in 64, or 40 zero-filled to 48),
-//     conv1x1_fold_p  (1×1×1, the hourglass redir branches),
-//     conv3d_fold     (3×3×3 s1 at C_in 8 or 16: IGEV's module path; the 8-
-//                      channel chunk zero-filled in shared memory),
-//     conv3d_packed   (3×3×3 s1 + bias at C_in 8 … 128: the routed module paths),
+//     conv3d_fold_p   (conv3d.py:508; 3×3×3 s1, + residual, × post_mul;
+//                      C_out 1 for the classifier heads),
+//     conv3d_fold_x2  (conv3d.py:1307; the same conv at C_in 64, or 40
+//                      zero-filled to 48),
+//     conv1x1_fold_p  (conv3d.py:1879; 1×1×1, the hourglass redir branches),
+//     conv3d_fold     (conv3d.py:301; 3×3×3 s1 at C_in 8 or 16: IGEV's module
+//                      path; the 8-channel chunk zero-filled in shared memory),
+//     conv3d_packed   (conv3d.py:131; 3×3×3 s1 + bias at C_in 8 … 128: the
+//                      routed module paths),
 //   all through dv_conv3d_fold, and
 //     conv3d_fold_s2  (conv3d.py:1439; 3×3×3 stride 2, C_out = 2·C_in; IGEV
 //                      16→16, 16→32, 32→48) through dv_conv3d_s2.
 //   Plain version: ops/kernels/conv3d_fold.py conv3d_fold_plain.
 //
-// Stride 1.  What bounds it on the H100: bf16 tensor-core operations.  At
-// the main path the 32→32 conv at (48, 128, 240) does 40.8 G multiply-adds
-// (82 µs at 989 TFLOP/s) and moves 189 MB (56 µs at 3.35 TB/s); the 128→128
-// conv at (12, 32, 60) does 10.2 G multiply-adds on 12 MB.  Design: see
-// conv_igemm.cuh.  The TPU kernels pack D-phases into 128 lanes, carry halo
-// rows and fold the taps into banded weights; none of that is needed here:
-// activations are plain NDHWC bf16, the conv is an implicit GEMM on the
-// tensor cores with W-strips staged per kd plane, and the folded BN bias, the
-// residual and the activation ride the epilogue.  Weights stream by kd plane
-// and input-channel chunk (884 KB at 128→128 do not fit a block's shared
-// memory).  The PCW path's 1/32 level (6, 12, 39) has an odd W and fewer
-// rows than a block: the edges are masked, as at any other W.  C_out below
-// 16 (the heads) pads N with zero weights in shared memory and stores only
-// the real channels.  Inside a block the copies do not overlap the products
-// (two blocks an SM overlap each other); TMA and wgmma are not used.
+// Stride 1, 3×3×3 (rows 5, 6, 14, 15).  What bounds it on the H100: bf16
+// tensor-core operations.  At the main path the 32→32 conv at (48, 128,
+// 240) does 40.8 G multiply-adds (82 µs at 989 TFLOP/s) and moves 189 MB
+// (56 µs at 3.35 TB/s); the 64→32 wide entry 165 µs, the 128→128 conv at
+// (12, 32, 60) 10.2 G multiply-adds on 12 MB (21 µs); PCW's 128→128 at
+// (6, 12, 39) 2.5 µs.  Design: conv_hopper.cuh's conv_s1 — a ring of 3
+// cp.async stages of (kd plane, 16 input channels), each the plane's bh + 2
+// input rows × bmw + 2 columns that all nine (kh, kw) taps read, copied once
+// a plane, with the nine taps' weights, so a block overlaps its own copies
+// with its products; a tile of bh × bmw outputs planned per shape so a
+// narrow W (39, 60, 78) fills it with whole rows; where the grid is small
+// (PCW 1/16 and 1/32, ACV's quarter) a model of the card picks the half-size
+// tile or K split over (kd, chunk) stages, with a float32 reduction that
+// runs the epilogue (residual, post_mul) and rounds once; wgmma at 64 and
+// 128 output channels a tile, mma.sync at 16 and 32.  The plan is made once
+// a shape (dv_conv3d_s1_plan) and handed to every launch.  The TPU kernels
+// pack D-phases into 128 lanes, carry halo rows and fold the taps into
+// banded weights; none of that is needed here: activations are plain NDHWC
+// bf16 and the folded BN bias, the residual, the activation and post_mul
+// ride the epilogue.  C_in 8 runs on a zero-filled half chunk, C_out below
+// 8 (the heads) on zero weight columns with element stores.
+//
+// 1×1×1 (row 9): conv_igemm.cuh's igemm_bf16.
 //
 // Stride 2 (row 7).  What bounds it on the H100, at the ACV shapes: bytes
 // for 32→64 (48, 128, 240) → (24, 64, 120), 94 MB in and 24 MB out, 35.2 µs
@@ -65,15 +76,38 @@ dv::igemm::Params fold_params(const void* x, const void* w, const void* bias, co
 
 }  // namespace
 
-// Stride 1, k 3 or 1.
+// Stride 1, k 3 or 1.  bf16 k 3 launches on `plan` (int[kPlanInts] from
+// dv_conv3d_s1_plan for this shape and device); `ws` is float32 scratch of
+// splits × outputs, or null where the plan has one split.  k 1 and float32
+// take no plan (null).
 DV_EXPORT int dv_conv3d_fold(const void* x, const void* w, const void* bias, const void* res,
-                             const void* post_mul, void* out, int b, int d, int h, int wd,
-                             int cin, int cout, int ks, int act, int dtype, int device,
-                             void* stream) {
+                             const void* post_mul, void* out, void* ws, const int* plan, int b,
+                             int d, int h, int wd, int cin, int cout, int ks, int act, int dtype,
+                             int device, void* stream) {
   if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
   const dv::igemm::Params p =
       fold_params(x, w, bias, res, post_mul, out, b, d, h, wd, cin, cout, ks, 1, act);
-  return dv::igemm::launch(p, dtype, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != dv::kBF16) return dv::igemm::launch_f32<false>(p, s);
+  if (ks == 1) return dv::igemm::launch_k1(p, s);
+  if (ks != 3 || plan == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  dv::hopper::Plan pl;
+  std::memcpy(&pl, plan, sizeof pl);
+  return static_cast<int>(dv::hopper::s1_run<false>(p, pl, 1, static_cast<float*>(ws), s));
+}
+
+// The bf16 stride-1 3×3×3 conv's plan for a shape, into plan[kPlanInts]
+// (hopper::Plan's fields in order); tc: hopper::TensorCores.
+DV_EXPORT int dv_conv3d_s1_plan(int b, int d, int h, int wd, int cin, int cout, int tc,
+                                int device, int* plan) {
+  if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
+  const dv::igemm::Params p =
+      fold_params(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, b, d, h, wd, cin, cout,
+                  3, 1, 0);
+  dv::hopper::Plan pl;
+  if (cudaError_t e = dv::hopper::s1_plan<false>(p, 1, device, tc, pl)) return static_cast<int>(e);
+  std::memcpy(plan, &pl, sizeof pl);
+  return 0;
 }
 
 // 3×3×3 stride 2.  bf16 launches on `plan` (int[kPlanInts] from

@@ -1,22 +1,19 @@
 // Implicit-GEMM 3-D convolution on channels-last (NDHWC) volumes: the bf16
-// stride-1 conv (k 3 or 1) of csrc/conv3d_fold.cu, and the float32 FMA form
-// of every conv, the stride-2 and transposed ones included (csrc/conv3d_up.cu).
-// The bf16 stride-2 and transposed convs are csrc/conv_hopper.cuh's.
+// 1×1×1 conv of csrc/conv3d_fold.cu (row 9, conv1x1_fold_p), and the float32
+// FMA form of every conv, the stride-2 and transposed ones included
+// (csrc/conv3d_up.cu).  The bf16 3×3×3 convs (stride 1, stride 2,
+// transposed) are csrc/conv_hopper.cuh's; its kernels share this header's
+// Params, epilogue activation and copy / ldmatrix / mma.sync helpers.
 //
-// GEMM view.  A block owns BH output rows of BM = 64 positions along W at one
-// (b, d) and BN output channels: M = BH·BM positions, N = BN channels,
-// K = taps × C_in; BH = min(8, 256 / BN), so each of its 8 warps holds 64
-// accumulators a thread.  A stage is one kd tap and one chunk of CK = 32 (or
-// 16) input channels; channels past C_in in the last chunk (C_in 8, 24, 40, ...)
-// are zero-filled in shared memory, input and weights alike, so a C_in that is a
-// multiple of 8 runs without a slot.  The block copies (cp.async) the input rows that its
-// output rows reach in that plane, each as a strip of W positions covering
-// every kw tap, and the chunk's weights for all (kh, kw) taps; then every
-// warp reads its operands with ldmatrix and runs bf16 m16n8k16 tensor-core
-// products (mma.sync) for its tiles and all taps into float32 accumulators.
-// Tap (kh, kw) of output (r, m) reads strip row r + kh, position m + kw.  A
-// plane in the padding is skipped; strip positions outside the input are
-// zero.
+// GEMM view (1×1×1).  A block owns BH output rows of BM = 64 positions along
+// W at one (b, d) and BN output channels: M = BH·BM positions, N = BN
+// channels, K = C_in; BH = min(8, 256 / BN), so each of its 8 warps holds 64
+// accumulators a thread.  A stage is one chunk of CK = 32 (or 16) input
+// channels; channels past C_in in the last chunk are zero-filled in shared
+// memory, input and weights alike.  The block copies (cp.async) its rows'
+// positions and the chunk's weights, then every warp reads its operands
+// with ldmatrix and runs bf16 m16n8k16 tensor-core products (mma.sync) into
+// float32 accumulators.  Positions outside the input are zero.
 //
 // Transposed conv in gather form (the float32 form).  Output o takes input
 // i = (o + 1 - k) / 2 where that is an integer in range.  k3 (op1): even o
@@ -112,10 +109,10 @@ __device__ __forceinline__ Taps up_taps(int parity, int ks) {
   return t;
 }
 
-// Tile configuration for BN output channels and CK input channels a
-// stage: BH output rows of BM positions, so that each of the 8 warps holds
-// MT 16-position tiles × BN/8 8-channel tiles of accumulators (64 floats a
-// thread, 32 at BN 16).
+// Tile configuration of the 1×1×1 conv for BN output channels and CK input
+// channels a stage: BH output rows of BM positions, so that each of the 8
+// warps holds MT 16-position tiles × BN/8 8-channel tiles of accumulators
+// (64 floats a thread, 32 at BN 16).
 template <int BN, int CK>
 struct Cfg {
   static constexpr int BH = 256 / BN < 8 ? 256 / BN : 8;
@@ -127,13 +124,9 @@ struct Cfg {
   static constexpr int lda = CK + 8;
   static constexpr int ldb = BN + 8;
   static constexpr int ldc = BN + 4;   // float32 epilogue rows
-  static __host__ __device__ int rows(int ks) { return BH - 1 + ks; }
-  static __host__ __device__ int cols(int ks) { return BM - 1 + ks; }
-  static __host__ __device__ size_t a_elems(int ks) {
-    return static_cast<size_t>(rows(ks)) * cols(ks) * lda;
-  }
-  static __host__ __device__ size_t bytes(int ks) {
-    const size_t ab = a_elems(ks) * 2 + static_cast<size_t>(ks) * ks * CK * ldb * 2;
+  static constexpr size_t a_elems = static_cast<size_t>(BH) * BM * lda;
+  static constexpr size_t bytes() {
+    const size_t ab = a_elems * 2 + static_cast<size_t>(CK) * ldb * 2;
     const size_t c = static_cast<size_t>(BH) * BM * ldc * 4;
     return ab > c ? ab : c;
   }
@@ -155,6 +148,10 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], unsigned a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
 __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], unsigned a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
@@ -170,8 +167,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Two blocks an SM (at most 128 registers a thread), so that one block's
-// copies overlap the other's products.
+// The 1×1×1 conv.  Two blocks an SM (at most 128 registers a thread), so
+// that one block's copies overlap the other's products.
 template <int BN, int CK>
 __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
   using bf16 = __nv_bfloat16;
@@ -191,19 +188,15 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
   const int b = blockIdx.z / p.d_out;
   const int dz = blockIdx.z % p.d_out;
 
-  const Taps td = conv_taps(p.ks), th = td, tw = td;
-  const int dbase = dz - p.pad;
-  const int hbase = hy * BH - p.pad;
-  const int wbase = wt * BM - p.pad;
-  const int rows = C::rows(p.ks);
-  const int cols = C::cols(p.ks);
-  const int ntap = th.n * tw.n;
+  const int h0 = hy * BH, w0 = wt * BM;
   bf16* as = reinterpret_cast<bf16*>(smem);
-  bf16* bs = as + C::a_elems(p.ks);
+  bf16* bs = as + C::a_elems;
   const unsigned as_s = static_cast<unsigned>(__cvta_generic_to_shared(as));
   const unsigned bs_s = static_cast<unsigned>(__cvta_generic_to_shared(bs));
   const bf16* x = static_cast<const bf16*>(p.x);
   const bf16* w = static_cast<const bf16*>(p.w);
+  const bf16* xplane = x + (static_cast<size_t>(b) * p.d_in + dz) * p.h_in *
+                               static_cast<size_t>(p.w_in) * p.cin;
 
   float acc[MT][N8][4];
 #pragma unroll
@@ -213,94 +206,47 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[t][j][k] = 0.f;
 
-  // C_out not a multiple of 8 (the heads): the weight columns past C_out
-  // are zeroed once here and never written by a stage.
-  const int nreal = p.cout - n0 < BN ? p.cout - n0 : BN;
-  if (p.cout % 8 != 0) {
-    for (int i = tid; i < p.ks * p.ks * CK * ldb; i += kThreads) bs[i] = __float2bfloat16(0.f);
-  }
-
   // This lane's row / column within the 16×16 blocks that ldmatrix reads.
   const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
   const int b_row = lane & 15, b_col = (lane >> 4) * 8;
 
-  // A stage is one input plane (one kd tap) and one chunk of CK input
-  // channels: every (kh, kw) tap of the block reads the staged strips.
-  for (int a = 0; a < td.n; ++a) {
-    const int di = dbase + td.off[a];
-    if (di < 0 || di >= p.d_in) continue;  // padding plane: contributes 0
-    const bf16* xplane = x + (static_cast<size_t>(b) * p.d_in + di) * p.h_in *
-                                 static_cast<size_t>(p.w_in) * p.cin;
-    for (int c0 = 0; c0 < p.cin; c0 += CK) {
-      __syncthreads();  // the previous stage's products are done
-      constexpr int vpr = CK / 8;
-      for (int row = 0; row < rows; ++row) {
-        const int hi = hbase + row;
-        const bool hok = hi >= 0 && hi < p.h_in;
-        const bf16* xrow = xplane + (hok ? static_cast<size_t>(hi) * p.w_in * p.cin : 0) + c0;
-        bf16* dst = as + static_cast<size_t>(row) * cols * lda;
-        for (int i = tid; i < cols * vpr; i += kThreads) {
-          const int col = i / vpr, v = i % vpr;
-          const int wi = wbase + col;
-          const bool ok = hok && wi >= 0 && wi < p.w_in && c0 + v * 8 < p.cin;
-          cp_async16(dst + col * lda + v * 8, ok ? xrow + static_cast<size_t>(wi) * p.cin + v * 8 : x,
-                     ok);
-        }
-      }
-      if (p.cout % 8 == 0) {
-        constexpr int nv = BN / 8;
-        for (int i = tid; i < ntap * CK * nv; i += kThreads) {
-          const int n = (i % nv) * 8, rest = i / nv;
-          const int k = rest % CK, tp = rest / CK;
-          const int tap = (td.k[a] * p.ks + th.k[tp / tw.n]) * p.ks + tw.k[tp % tw.n];
-          const bool ok = n0 + n < p.cout && c0 + k < p.cin;
-          cp_async16(bs + (tp * CK + k) * ldb + n,
-                     ok ? w + (static_cast<size_t>(tap) * p.cin + c0 + k) * p.cout + n0 + n : w,
-                     ok);
-        }
-      } else {
-        for (int i = tid; i < ntap * CK * nreal; i += kThreads) {
-          const int n = i % nreal, rest = i / nreal;
-          const int k = rest % CK, tp = rest / CK;
-          const int tap = (td.k[a] * p.ks + th.k[tp / tw.n]) * p.ks + tw.k[tp % tw.n];
-          bs[(tp * CK + k) * ldb + n] =
-              c0 + k < p.cin ? w[(static_cast<size_t>(tap) * p.cin + c0 + k) * p.cout + n0 + n]
-                             : __float2bfloat16(0.f);
-        }
-      }
-      cp_async_wait_all();
-      __syncthreads();
+  for (int c0 = 0; c0 < p.cin; c0 += CK) {
+    __syncthreads();  // the previous stage's products are done
+    constexpr int vpr = CK / 8;
+    for (int i = tid; i < BH * BM * vpr; i += kThreads) {
+      const int v = i % vpr, m = (i / vpr) % BM, row = i / (vpr * BM);
+      const int hi = h0 + row, wi = w0 + m;
+      const bool ok = hi < p.h_in && wi < p.w_in && c0 + v * 8 < p.cin;
+      cp_async16(as + (row * BM + m) * lda + v * 8,
+                 ok ? xplane + (static_cast<size_t>(hi) * p.w_in + wi) * p.cin + c0 + v * 8 : x,
+                 ok);
+    }
+    constexpr int nv = BN / 8;
+    for (int i = tid; i < CK * nv; i += kThreads) {
+      const int n = (i % nv) * 8, k = i / nv;
+      const bool ok = n0 + n < p.cout && c0 + k < p.cin;
+      cp_async16(bs + k * ldb + n, ok ? w + static_cast<size_t>(c0 + k) * p.cout + n0 + n : w, ok);
+    }
+    cp_async_wait_all();
+    __syncthreads();
 
+    const unsigned bb = bs_s + 2 * (b_row * ldb + b_col);
+    unsigned ab[MT];
 #pragma unroll
-      for (int hi = 0; hi < 3; ++hi) {
-        if (hi >= th.n) break;
+    for (int t = 0; t < MT; ++t) ab[t] = as_s + 2 * (((warp * MT + t) * 16 + a_row) * lda + a_col);
 #pragma unroll
-        for (int wi = 0; wi < 3; ++wi) {
-          if (wi >= tw.n) break;
-          const unsigned bb = bs_s + 2 * ((hi * tw.n + wi) * CK * ldb + b_row * ldb + b_col);
-          unsigned ab[MT];
+    for (int kk = 0; kk < CK; kk += 16) {
+      unsigned fa[MT][4];
 #pragma unroll
-          for (int t = 0; t < MT; ++t) {
-            const int tile = warp * MT + t;
-            const int r = tile / (BM / 16), m0 = (tile % (BM / 16)) * 16;
-            ab[t] = as_s + 2 * (((r + th.off[hi]) * cols + m0 + a_row + tw.off[wi]) * lda + a_col);
-          }
+      for (int t = 0; t < MT; ++t) ldsm_x4(fa[t], ab[t] + 2 * kk);
 #pragma unroll
-          for (int kk = 0; kk < CK; kk += 16) {
-            unsigned fa[MT][4];
+      for (int nb = 0; nb < BN / 16; ++nb) {
+        unsigned fb[4];
+        ldsm_x4_trans(fb, bb + 2 * (kk * ldb + nb * 16));
 #pragma unroll
-            for (int t = 0; t < MT; ++t) ldsm_x4(fa[t], ab[t] + 2 * kk);
-#pragma unroll
-            for (int nb = 0; nb < BN / 16; ++nb) {
-              unsigned fb[4];
-              ldsm_x4_trans(fb, bb + 2 * (kk * ldb + nb * 16));
-#pragma unroll
-              for (int t = 0; t < MT; ++t) {
-                mma_bf16(acc[t][2 * nb], fa[t], fb[0], fb[1]);
-                mma_bf16(acc[t][2 * nb + 1], fa[t], fb[2], fb[3]);
-              }
-            }
-          }
+        for (int t = 0; t < MT; ++t) {
+          mma_bf16(acc[t][2 * nb], fa[t], fb[0], fb[1]);
+          mma_bf16(acc[t][2 * nb + 1], fa[t], fb[2], fb[3]);
         }
       }
     }
@@ -312,9 +258,7 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
     const int g = lane >> 2, q = lane & 3;
 #pragma unroll
     for (int t = 0; t < MT; ++t) {
-      const int tile = warp * MT + t;
-      const int r = tile / (BM / 16), m0 = (tile % (BM / 16)) * 16;
-      float* c = cs + (r * BM + m0 + g) * ldc + 2 * q;
+      float* c = cs + ((warp * MT + t) * 16 + g) * ldc + 2 * q;
 #pragma unroll
       for (int j = 0; j < N8; ++j) {
         *reinterpret_cast<float2*>(c + j * 8) = make_float2(acc[t][j][0], acc[t][j][1]);
@@ -324,54 +268,45 @@ __global__ void __launch_bounds__(kThreads, 2) igemm_bf16(Params p) {
   }
   __syncthreads();
 
-  // Epilogue: 8 channels (16 bytes) a thread where C_out allows, else one.
+  // Epilogue, 8 channels (16 bytes) a thread.
   const bf16* res = static_cast<const bf16*>(p.res);
   const bf16* pm = static_cast<const bf16*>(p.post_mul);
   bf16* out = static_cast<bf16*>(p.out);
-  const int vec = p.cout % 8 == 0 ? 8 : 1;
-  const int nvec = vec == 8 ? BN / 8 : nreal;
+  constexpr int nvec = BN / 8;
   for (int e = tid; e < BH * BM * nvec; e += kThreads) {
-    const int n = (e % nvec) * vec;
+    const int n = (e % nvec) * 8;
     const int m = (e / nvec) % BM;
     const int r = e / (nvec * BM);
     const int co = n0 + n;
-    const int ho = hy * BH + r, wo = wt * BM + m;
+    const int ho = h0 + r, wo = w0 + m;
     if (co >= p.cout || ho >= p.h_out || wo >= p.w_out) continue;
     const size_t o =
         (((static_cast<size_t>(b) * p.d_out + dz) * p.h_out + ho) * p.w_out + wo) * p.cout + co;
     // post_mul: the same (h, w) on every plane
     const size_t po = ((static_cast<size_t>(b) * p.h_out + ho) * p.w_out + wo) * p.cout + co;
     const float* c = cs + (r * BM + m) * ldc + n;
-    if (vec == 8) {
-      float v[8];
+    float v[8];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = c[k] + (p.bias ? p.bias[co + k] : 0.f);
-      if (res) {
-        const uint4 rv = *reinterpret_cast<const uint4*>(res + o);
-        const bf16* rr = reinterpret_cast<const bf16*>(&rv);
+    for (int k = 0; k < 8; ++k) v[k] = c[k] + (p.bias ? p.bias[co + k] : 0.f);
+    if (res) {
+      const uint4 rv = *reinterpret_cast<const uint4*>(res + o);
+      const bf16* rr = reinterpret_cast<const bf16*>(&rv);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] += __bfloat162float(rr[k]);
-      }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = activate(v[k], p.act);
-      if (pm) {
-        const uint4 mv = *reinterpret_cast<const uint4*>(pm + po);
-        const bf16* mm = reinterpret_cast<const bf16*>(&mv);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) v[k] *= __bfloat162float(mm[k]);
-      }
-      uint4 ov;
-      bf16* oo = reinterpret_cast<bf16*>(&ov);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) oo[k] = __float2bfloat16(v[k]);
-      *reinterpret_cast<uint4*>(out + o) = ov;
-    } else {
-      float v = c[0] + (p.bias ? p.bias[co] : 0.f);
-      if (res) v += __bfloat162float(res[o]);
-      v = activate(v, p.act);
-      if (pm) v *= __bfloat162float(pm[po]);
-      out[o] = __float2bfloat16(v);
+      for (int k = 0; k < 8; ++k) v[k] += __bfloat162float(rr[k]);
     }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = activate(v[k], p.act);
+    if (pm) {
+      const uint4 mv = *reinterpret_cast<const uint4*>(pm + po);
+      const bf16* mm = reinterpret_cast<const bf16*>(&mv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] *= __bfloat162float(mm[k]);
+    }
+    uint4 ov;
+    bf16* oo = reinterpret_cast<bf16*>(&ov);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) oo[k] = __float2bfloat16(v[k]);
+    *reinterpret_cast<uint4*>(out + o) = ov;
   }
 }
 
@@ -425,15 +360,14 @@ __global__ void direct_f32(Params p) {
   static_cast<float*>(p.out)[e] = acc;
 }
 
-// The dynamic shared-memory attribute, set once an instantiation (to the
-// largest stage any kernel size needs, k 3).
+// The dynamic shared-memory attribute, set once an instantiation.
 template <int BN, int CK>
 cudaError_t prepare_bf16() {
   static bool done = false;
   if (done) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(igemm_bf16<BN, CK>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(Cfg<BN, CK>::bytes(3)));
+                                             static_cast<int>(Cfg<BN, CK>::bytes()));
   done = e == cudaSuccess;
   return e;
 }
@@ -444,7 +378,7 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
   if (cudaError_t e = prepare_bf16<BN, CK>()) return static_cast<int>(e);
   const int ntn = ceil_div(p.cout, BN);
   const dim3 grid(ceil_div(p.w_out, BM) * ntn, ceil_div(p.h_out, BH), p.b * p.d_out);
-  igemm_bf16<BN, CK><<<grid, kThreads, Cfg<BN, CK>::bytes(p.ks), stream>>>(p);
+  igemm_bf16<BN, CK><<<grid, kThreads, Cfg<BN, CK>::bytes(), stream>>>(p);
   return end();
 }
 
@@ -464,11 +398,9 @@ int launch_f32(const Params& p, cudaStream_t stream) {
   return end();
 }
 
-// A conv: bf16 at stride 1 on the tensor cores (stride 2 is conv_hopper.cuh's),
-// float32 on FMAs at any stride.
-inline int launch(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype != kBF16) return launch_f32<false>(p, stream);
-  if (p.stride != 1) return static_cast<int>(cudaErrorInvalidValue);
+// The bf16 1×1×1 conv (C_out a multiple of 8) on the tensor cores.
+inline int launch_k1(const Params& p, cudaStream_t stream) {
+  if (p.ks != 1 || p.stride != 1 || p.cout % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (p.cout <= 16) return launch_bf16<16>(p, stream);
   if (p.cout <= 32) return launch_bf16<32>(p, stream);
   if (p.cout <= 64) return launch_bf16<64>(p, stream);

@@ -52,8 +52,9 @@ SIGNATURES = {
     # the same two, channels-last output / volume
     "dv_concat_volume_cl": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
     "dv_dhw_mul_cl": [_P, _P, _P, _P, _I, _I, _L],
-    # x, w, bias|0, res|0, post_mul|0, out, b, d, h, w, cin, cout, ks, act (stride 1)
-    "dv_conv3d_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
+    # x, w, bias|0, res|0, post_mul|0, out, ws|0, plan|0, b, d, h, w, cin, cout, ks, act
+    # (stride 1)
+    "dv_conv3d_fold": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
     # x, w, bias|0, out, ws|0, plan|0, b, d, h, w, cin, cout, act (3×3×3 stride 2)
     "dv_conv3d_s2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
     # x, w, bias|0, res|0, post_mul|0, out, plan|0, b, d, h, w, cin, cout, ks, act
@@ -64,23 +65,26 @@ SIGNATURES = {
     "dv_unpack": [_P, _P, _I, _I, _L],
     # x, out, b, d, s, c_slot, co
     "dv_unpack_hwdc": [_P, _P, _I, _I, _L, _I, _I],
-    # x, w, bias|0, out, b, h, w, cin, cout, dilation
-    "dv_conv2d_flat": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+    # x, w, bias|0, out, plan|0, b, h, w, cin, cout, dilation
+    "dv_conv2d_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
 }
 _TAIL = [_I, _I, _P]
 
-# The bf16 stride-2 and transposed convs' tile plans: shape, tensor-core
+# The bf16 3×3×3 and dilated 2-D convs' tile plans: shape, tensor-core
 # form (csrc/conv_hopper.cuh TensorCores), device index, an int[PLAN_KEYS]
 # out (hopper::Plan's fields in order); return the CUDA error code.  The
 # launch entry points take the same ints back.
 PLAN_SIGNATURES = {
     # b, d, h, w, cin, cout, tc, device, plan
+    "dv_conv3d_s1_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     "dv_conv3d_s2_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     # b, d, h, w, cin, cout, ks, tc, device, plan
     "dv_conv3d_up_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # b, h, w, cin, cout, dilation, tc, device, plan
+    "dv_conv2d_flat_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 PLAN_KEYS = ("bh", "bmw", "nth", "ntw", "ntn", "splits", "bn", "ck", "mt", "blocks",
-             "smem_bytes", "blocks_per_sm", "positions", "wgmma")
+             "smem_bytes", "blocks_per_sm", "positions", "wgmma", "kh_a_stage")
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
@@ -177,17 +181,28 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _launch_helpers():
+    """``like.dtype`` → dtype code, and device index → the current stream's
+    handle: PyTorch's raw-stream binding, which spares each launch building
+    a ``torch.cuda.Stream`` (about a microsecond of host time a call)."""
+    import torch
+
+    codes = {getattr(torch, k.split(".")[1]): v for k, v in DTYPE_CODES.items()}
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return codes, raw or (lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
 def launch(name: str, like, *args) -> None:
     """Call C entry point ``name`` on ``like``'s device and current stream,
     with ``like``'s dtype code; raise on a non-zero CUDA error code."""
-    import torch
-
-    code = DTYPE_CODES.get(str(like.dtype))
+    codes, current_stream = _launch_helpers()
+    code = codes.get(like.dtype)
     if code is None:
         raise TypeError(f"kernels take float32 or bfloat16, got {like.dtype}")
-    stream = torch.cuda.current_stream(like.device).cuda_stream
+    index = like.device.index
     lib = library()
-    err = getattr(lib, name)(*args, code, like.device.index, stream)
+    err = getattr(lib, name)(*args, code, index, current_stream(index))
     if err != 0:
         msg = lib.dv_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -1,7 +1,8 @@
 """3×3 dilated 2-D convolution + bias, channels-last.
 
-Kernel: ``csrc/conv2d_flat.cu`` (implicit GEMM on the bf16 tensor cores, one
-kh tap staged at a time; a plain FMA kernel in float32), replacing
+Kernel: ``csrc/conv2d_flat.cu`` (bf16: the one-plane member of
+``csrc/conv_hopper.cuh``'s stride-1 kernel, the 3×3×3 convs' own, on a tile
+plan made once a shape; a plain FMA kernel in float32), replacing
 ``diffuvolume_tpu/ops/pallas/conv2d.py:conv2d_flat``.  It runs every 3×3
 conv of PCWNet's refinement net on the folded path when the model is folded
 with ``fold_pcw(model, refine_flat=True)`` (``models/pcw_fold.py``).
@@ -17,13 +18,16 @@ weights on the fill.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from diffuvolume_tpu_torch.ops.kernels import _build
+from diffuvolume_tpu_torch.ops.kernels.conv3d_fold import TC_AUTO
 
-# The largest dilation whose staged strip (BM + 2d positions a row) fits a
-# block's shared memory at every N tile.
+# The largest dilation whose staged strip (one kh tap's rows, the tile's
+# columns + 2d) fits a block's shared memory at every N tile.
 MAX_DILATION = 64
 
 
@@ -51,6 +55,18 @@ def conv2d_flat(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = No
                 dilation: int = 1) -> torch.Tensor:
     """3×3 stride-1 conv with padding and dilation ``dilation``,
     ``(B, H, W, C) → (B, H, W, Co)``."""
+    return _flat(x, w, bias, dilation, TC_AUTO)
+
+
+def conv2d_flat_on(tc: int, x: torch.Tensor, w: torch.Tensor,
+                   bias: torch.Tensor | None = None, dilation: int = 1) -> torch.Tensor:
+    """``conv2d_flat`` on tensor-core form ``tc`` (``conv3d_fold.TC_MMA``,
+    ``TC_WGMMA``; a bf16 plan without a wgmma form takes mma.sync), for
+    timing the forms against each other; counted as ``conv2d_flat``."""
+    return _flat(x, w, bias, dilation, tc)
+
+
+def _flat(x, w, bias, dilation, tc):
     _check(x, w, bias, dilation)
     if x.device.type == "cpu":
         return conv2d_flat_plain(x, w, bias, dilation)
@@ -64,12 +80,25 @@ def conv2d_flat(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = No
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("conv2d_flat: operands must be 16-byte aligned")
     b, h, wd, cin = x.shape
+    plan = flat_plan(x.shape, w.shape[3], dilation, x.device, tc) \
+        if x.dtype == torch.bfloat16 else None
     out = torch.empty((b, h, wd, w.shape[3]), dtype=x.dtype, device=x.device)
     _build.launch("dv_conv2d_flat", x, x.data_ptr(), w.data_ptr(),
-                  None if bias is None else bias.data_ptr(), out.data_ptr(), b, h, wd, cin,
-                  w.shape[3], dilation)
+                  None if bias is None else bias.data_ptr(), out.data_ptr(),
+                  None if plan is None else plan.ptr, b, h, wd, cin, w.shape[3], dilation)
     conv2d_flat.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def flat_plan(x_shape: tuple, cout: int, dilation: int, device: torch.device,
+              tc: int = TC_AUTO) -> _build.Plan:
+    """The tile plan the bf16 kernel takes for ``x (B, H, W, C) → C_out`` at
+    ``dilation`` on ``device`` (``_build.PLAN_KEYS``; ``kh_a_stage`` 3: a
+    stage holds every row the taps read, 1: one kh tap), made once a shape
+    and handed to every launch."""
+    b, h, w, cin = x_shape
+    return _build.plan("dv_conv2d_flat_plan", device, b, h, w, cin, cout, dilation, tc)
 
 
 conv2d_flat.launches = 0

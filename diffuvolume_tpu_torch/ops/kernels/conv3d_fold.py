@@ -1,9 +1,11 @@
 """3-D convolution with eval BatchNorm folded into its weights, channels-last.
 
-Kernel: ``csrc/conv3d_fold.cu`` (implicit GEMM on the bf16 tensor cores; a
-plain FMA kernel in float32; the stride-2 conv on ``csrc/conv_hopper.cuh``).
-One kernel serves five TPU kernels of
-``diffuvolume_tpu/ops/pallas/conv3d.py``; each has its own wrapper here and
+Kernels: ``csrc/conv3d_fold.cu`` — the bf16 3×3×3 convs on
+``csrc/conv_hopper.cuh`` (stride 1: ``conv_s1``; stride 2: ``conv_bf16``),
+the bf16 1×1×1 conv on ``csrc/conv_igemm.cuh``, a plain FMA kernel in
+float32.  They serve six TPU kernels of
+``diffuvolume_tpu/ops/pallas/conv3d.py`` (the first, second, fifth and
+sixth below share the stride-1 kernel); each has its own wrapper here and
 its own launch count:
 
 * ``conv3d_fold_p``  ← ``conv3d_fold_p`` (3×3×3, stride 1, + residual,
@@ -42,8 +44,9 @@ from diffuvolume_tpu_torch.ops.kernels import _build
 # The kernels' activation codes (csrc/conv_igemm.cuh Act).
 ACT_CODES = {None: 0, "relu": 1, "mish": 2, "leaky": 3}
 LEAKY_SLOPE = 0.01
-# Rows 7 and 8's tensor-core forms (csrc/conv_hopper.cuh TensorCores): the
-# plan's own choice (wgmma at 64 output channels a tile), or one forced.
+# The bf16 3×3×3 and 2-D convs' tensor-core forms (csrc/conv_hopper.cuh
+# TensorCores): the plan's own choice (wgmma at 64 output channels a tile,
+# and 128 at stride 1), or one forced.
 TC_AUTO, TC_MMA, TC_WGMMA = -1, 0, 1
 
 
@@ -139,7 +142,20 @@ def _fold(x, w, bias, stride, residual, act, ks, wrapper, post_mul=None, cin_ste
     out_shape = (b, *osz, w.shape[4])
     check_operands(x, w, bias, residual, out_shape, wrapper.__name__, post_mul, cin_step)
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    if stride == 2:
+    if stride == 1:
+        plan, ws = None, None
+        if ks == 3 and x.dtype == torch.bfloat16:
+            plan = s1_plan(x.shape, w.shape[4], x.device, tc)
+            if plan["splits"] > 1:
+                ws = torch.empty((plan["splits"], *out_shape), dtype=torch.float32,
+                                 device=x.device)
+        elif ks == 1 and x.dtype == torch.bfloat16 and w.shape[4] % 8:
+            raise ValueError(f"conv1x1_fold_p: bf16 C_out must be a multiple of 8, got "
+                             f"{w.shape[4]}")
+        _build.launch("dv_conv3d_fold", x, x.data_ptr(), w.data_ptr(), _ptr(bias),
+                      _ptr(residual), _ptr(post_mul), out.data_ptr(), _ptr(ws),
+                      None if plan is None else plan.ptr, b, d, h, wd, cin, w.shape[4], ks, code)
+    else:
         plan, ws = None, None
         if x.dtype == torch.bfloat16:
             if w.shape[4] % 8:
@@ -152,12 +168,19 @@ def _fold(x, w, bias, stride, residual, act, ks, wrapper, post_mul=None, cin_ste
         _build.launch("dv_conv3d_s2", x, x.data_ptr(), w.data_ptr(), _ptr(bias), out.data_ptr(),
                       _ptr(ws), None if plan is None else plan.ptr, b, d, h, wd, cin, w.shape[4],
                       code)
-    else:
-        _build.launch("dv_conv3d_fold", x, x.data_ptr(), w.data_ptr(), _ptr(bias),
-                      _ptr(residual), _ptr(post_mul), out.data_ptr(), b, d, h, wd, cin,
-                      w.shape[4], ks, code)
     wrapper.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def s1_plan(x_shape: tuple, cout: int, device: torch.device, tc: int = TC_AUTO) -> _build.Plan:
+    """The tile plan the bf16 stride-1 3×3×3 kernel (rows 5, 6, 14, 15)
+    takes for ``x (B, D, H, W, C) → C_out`` on ``device``
+    (``_build.PLAN_KEYS``: the tile, the grid's blocks, the K splits, shared
+    memory, blocks per SM, the tensor-core form), made once a shape and
+    handed to every launch."""
+    b, d, h, w, cin = x_shape
+    return _build.plan("dv_conv3d_s1_plan", device, b, d, h, w, cin, cout, tc)
 
 
 @functools.lru_cache(maxsize=256)
@@ -175,6 +198,17 @@ def conv3d_fold_p(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = 
                   post_mul: torch.Tensor | None = None) -> torch.Tensor:
     """3×3×3 stride-1 conv, ``(B, D, H, W, C) → (B, D, H, W, Co)``."""
     return _fold(x, w, bias, 1, residual, act, 3, conv3d_fold_p, post_mul)
+
+
+def conv3d_fold_p_on(tc: int, x: torch.Tensor, w: torch.Tensor,
+                     bias: torch.Tensor | None = None, residual: torch.Tensor | None = None,
+                     act: str | None = None,
+                     post_mul: torch.Tensor | None = None) -> torch.Tensor:
+    """``conv3d_fold_p`` on tensor-core form ``tc`` (``TC_MMA``,
+    ``TC_WGMMA``; a bf16 plan without a wgmma form takes mma.sync), for
+    timing the forms of the stride-1 kernel that rows 5, 6, 14 and 15 share
+    against each other; counted as ``conv3d_fold_p``."""
+    return _fold(x, w, bias, 1, residual, act, 3, conv3d_fold_p, post_mul, tc=tc)
 
 
 def conv3d_fold_x2(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,

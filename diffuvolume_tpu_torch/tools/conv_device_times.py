@@ -10,7 +10,10 @@ the package has them); the ``diffuvolume_tpu_torch`` package and its kernels
 come from ``--root`` (for example the parent commit, unpacked with
 ``git archive``).  Run it by its file path, as above: ``python -m`` would
 import this checkout's package first.  Rows 5–9, 14 and 15 at every shape of
-every path, both dtypes checked, bf16 timed.  Needs a CUDA device.
+every path and row 18 at the refinement's 11 convs, both dtypes checked,
+bf16 timed.  ``--rows stride1`` limits it to the stride-1 rows (5, 6, 9, 14,
+15, 18).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose diffuvolume_tpu_torch package is measured")
     ap.add_argument("--out", default=os.path.join("chiprun_out", "conv_device_times.json"))
+    ap.add_argument("--rows", choices=("all", "stride1"), default="all",
+                    help="stride1: only the cases of rows 5, 6, 9, 14, 15 and 18")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -53,7 +58,10 @@ def main(argv=None) -> int:
     for path, cases in (("ACV", cs.CONV_CASES), ("PCW", cs.PCW_CONV_CASES),
                         ("IGEV folded", cs.IGEV_CONV_CASES), ("IGEV module", cs.IGEV_SMALL_CASES),
                         *((f"{m.upper()} module, routed", c) for m, c in cs.PACKED_CASES.items())):
+        if args.rows == "stride1":
+            cases = [c for c in cases if c.kind in ("p", "k1")]
         out["paths"][path] = cs.conv_checks(dev, cases, path, iters=10)
+    out["paths"]["PCW flat refinement"] = cs.refine_checks(dev)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)

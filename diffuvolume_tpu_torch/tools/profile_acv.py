@@ -61,10 +61,12 @@ GROUPS = [
     ("port: patch stencils", r"depthwise_hw_kernel"),
     ("port: concat volume", r"concat_kernel|concat_cl_kernel"),
     ("port: dhw multiply", r"dhw_mul_kernel|dhw_mul_cl"),
+    # conv_s1<BN, MT, wgmma, plane, 2-D> and conv_s1_head<2-D>: the last
+    # template argument tells the 3-D conv from row 18
     ("port: 3-D conv, folded (conv3d_fold.cu)",
-     r"igemm_bf16|direct_f32<false|conv_bf16<false|splitk_finish"),
+     r"igemm_bf16|direct_f32<false|conv_bf16<false|splitk_finish|conv_s1(_head)?<[^>]*false>"),
     ("port: transposed conv, folded (conv3d_up.cu)", r"direct_f32<true|conv_bf16<true"),
-    ("port: dilated 2-D conv (conv2d_flat.cu)", r"conv2d_bf16|conv2d_f32"),
+    ("port: dilated 2-D conv (conv2d_flat.cu)", r"conv2d_f32|conv_s1(_head)?<[^>]*true>"),
     ("port: layout pack / unpack", r"to_last_kernel|to_first_kernel|hwdc"),
     # On the folded path every BatchNorm left is a 2-D one (the feature
     # trunk's; PCW's refinement net's unless it is flat): chip_smoke.py's op

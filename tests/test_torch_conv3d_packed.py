@@ -79,6 +79,30 @@ def test_conv3d_packed_refuses_outside_its_contract():
         conv3d_packed(torch.zeros((1, 4, 3, 5, 32)), torch.zeros((3, 3, 3, 32, 8)), act="mish")
 
 
+def test_plan_keys_follow_the_kernels_plan():
+    """The tile plans cross between C and Python as ints in
+    ``hopper::Plan``'s field order (``csrc/conv_hopper.cuh``):
+    ``_build.PLAN_KEYS`` names each of them, in that order; every plan entry
+    point has a ctypes signature ending in the int array."""
+    import re
+    from pathlib import Path
+
+    from diffuvolume_tpu_torch.ops.kernels import _build
+
+    src = (Path(_build.CSRC) / "conv_hopper.cuh").read_text()
+    body = re.search(r"struct Plan \{(.*?)\n\};", src, re.S).group(1)
+    fields = [name for line in body.splitlines()
+              for name in re.findall(r"(\w+)\s*[,;]", line.split("//")[0])]
+    assert len(fields) == len(_build.PLAN_KEYS) == 15
+    assert fields[:9] == ["bh", "bmw", "nth", "ntw", "ntn", "splits", "bn", "ck", "mt"]
+    assert _build.PLAN_KEYS[:9] == tuple(fields[:9])
+    for name in ("dv_conv3d_s1_plan", "dv_conv3d_s2_plan", "dv_conv3d_up_plan",
+                 "dv_conv2d_flat_plan"):
+        assert _build.PLAN_SIGNATURES[name][-1] is _build.ctypes.c_void_p
+        assert f"DV_EXPORT int {name}(" in "".join(
+            p.read_text() for p in Path(_build.CSRC).glob("*.cu"))
+
+
 def _jax_routed(monkeypatch, fn) -> list:
     """Trace ``fn`` with the JAX dispatch of ``DIFFU_PALLAS_CONV3D=1`` on a
     TPU (C_in ≤ 16 on the v2 kernel, else v1 ``conv3d_packed``), both

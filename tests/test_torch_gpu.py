@@ -898,3 +898,175 @@ def test_float32_acv_pipeline_matches_the_cpu_without_the_global_switch(card_def
     torch.cuda.synchronize()
     assert torch.equal(final, runs["staged"][0]) and torch.equal(base, runs["staged"][1])
     assert torch.backends.cudnn.allow_tf32
+
+
+# -- the stride-1 kernel (rows 5, 6, 14, 15) and row 18 on conv_hopper.cuh ----------
+
+def _conv3d_lib(x, wt, bias, res, act, pm, dtype):
+    """``F.conv3d`` in float32 on the same (rounded) operands, with the
+    kernels' epilogue by hand."""
+    return _epilogue_ref(torch.nn.functional.conv3d(
+        x.float().permute(0, 4, 1, 2, 3), wt.float().permute(4, 3, 0, 1, 2), padding=1),
+        bias, res, act, pm, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,real_cin,cout,shape,act,residual,post_mul", [
+    (128, 128, 128, (1, 6, 12, 39), "mish", True, False),    # PCW 1/32: K split, W 39
+    (128, 128, 128, (1, 12, 24, 78), "relu", True, True),    # PCW 1/16: W 78, post_mul
+    (128, 128, 128, (1, 12, 32, 60), None, False, False),    # ACV quarter: W 60
+    (64, 64, 128, (1, 6, 12, 39), "leaky", True, True),      # combine3's 64→128 part
+    (128, 128, 64, (1, 7, 9, 60), "mish", True, True),       # combine1 128→64, odd D and H
+    (64, 64, 64, (1, 5, 7, 120), "leaky", False, True),      # the half level's W 120
+    (48, 40, 32, (1, 4, 6, 39), "relu", False, False),       # 40 real in the 48 slot
+    (8, 8, 16, (1, 3, 5, 78), "leaky", True, True),          # C_in 8: a zero-filled half chunk
+    (16, 16, 16, (1, 3, 2, 9), None, True, False),           # fewer rows than a tile
+    (32, 32, 1, (1, 4, 6, 39), None, False, False),          # the 32→1 head
+    (16, 8, 1, (2, 3, 5, 20), None, False, False),           # IGEV's classifier, two batches
+    (48, 48, 48, (1, 6, 12, 39), "leaky", False, True),      # IGEV conv3_1: C_out 48 of 64
+])
+def test_conv3d_s1_plans(dev, dtype, cin, real_cin, cout, shape, act, residual, post_mul):
+    """The stride-1 kernel at the shapes its plan treats apart (narrow W,
+    split K, the half tile, zero-filled chunks, narrow C_out), with the
+    residual and post_mul through the split's float32 reduction, against
+    the plain version and ``F.conv3d``: the CONV_TOL bounds."""
+    x, wt, bias = _conv_inputs(dev, dtype, shape, cin, cout, 3, seed=250)
+    x[..., real_cin:] = 0
+    wt[..., real_cin:, :] = 0
+    n = shape[0]
+    res = _randn(dev, *shape, cout, seed=251).to(dtype) if residual else None
+    pm = (torch.sigmoid(_randn(dev, n, *shape[2:], cout, seed=252)).to(dtype)
+          if post_mul else None)
+    fn = kconv.conv3d_fold_small if cin in (8, 16) else kconv.conv3d_fold_p
+    kw = {} if fn is kconv.conv3d_fold_small else dict(residual=res, post_mul=pm)
+    if fn is kconv.conv3d_fold_small:
+        res = pm = None
+    got = fn(x, wt, bias, act=act, **kw)
+    want = kconv.conv3d_fold_plain(x, wt, bias, 1, res, act, pm)
+    lib = _conv3d_lib(x, wt, bias, res, act, pm, dtype)
+    torch.cuda.synchronize()
+    assert got.shape == (*shape, cout)
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(got.float(), lib.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("act", [None, "relu", "mish", "leaky"])
+def test_conv3d_s1_split_k_epilogues(dev, act):
+    """PCW's 1/32 128→128 splits K over blocks: every activation, with the
+    residual and post_mul, runs in the split's second pass and rounds once
+    (inputs at std 3 so Mish's tails and the leaky slope are reached)."""
+    x, wt, bias = _conv_inputs(dev, torch.bfloat16, (1, 6, 12, 39), 128, 128, 3, seed=260)
+    x = (x.float() * 3).bfloat16()
+    assert kconv.s1_plan(x.shape, 128, dev)["splits"] > 1
+    res = _randn(dev, 1, 6, 12, 39, 128, seed=261).bfloat16()
+    pm = torch.sigmoid(_randn(dev, 1, 12, 39, 128, seed=262)).bfloat16()
+    got = kconv.conv3d_fold_p(x, wt, bias, residual=res, act=act, post_mul=pm)
+    want = kconv.conv3d_fold_plain(x, wt, bias, 1, res, act, pm)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("tc", [kconv.TC_MMA, kconv.TC_WGMMA])
+@pytest.mark.parametrize("cin,cout,shape,act", [
+    (64, 64, (1, 6, 16, 60), "relu"),      # 64 channels a tile
+    (128, 128, (1, 4, 8, 78), "mish"),     # 128: two 64-channel halves a wgmma step
+    (32, 64, (1, 5, 9, 39), None),         # the wide entry class, W 39
+    (64, 32, (1, 6, 16, 60), "leaky"),     # 32 channels: m64n32k16, 64-byte swizzle
+    (32, 32, (1, 3, 5, 20), None),         # 32 channels at a small grid: smaller tiles
+])
+def test_conv3d_s1_tensor_core_forms(dev, tc, cin, cout, shape, act):
+    """The stride-1 kernel on each tensor-core form, with a residual and
+    post_mul, against the plain version: the bf16 CONV_TOL bounds."""
+    x, wt, bias = _conv_inputs(dev, torch.bfloat16, shape, cin, cout, 3, seed=270)
+    res = _randn(dev, *shape, cout, seed=271).bfloat16()
+    pm = torch.sigmoid(_randn(dev, shape[0], *shape[2:], cout, seed=272)).bfloat16()
+    assert kconv.s1_plan(x.shape, cout, dev, tc)["wgmma"] == (tc == kconv.TC_WGMMA)
+    got = kconv.conv3d_fold_p_on(tc, x, wt, bias, residual=res, act=act, post_mul=pm)
+    want = kconv.conv3d_fold_plain(x, wt, bias, 1, res, act, pm)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2.0 ** -7)
+
+
+def test_stride_1_plans(dev):
+    """The host's plans at the main path's shapes: a stage ring that fits
+    (at least one block an SM), the tiles' positions at least 85% used over
+    the plane, K split at PCW's 1/32 level, wgmma at 64 channels and up
+    (32 channels: mma.sync at the largest tile)."""
+    for x_shape, cout in [((1, 48, 128, 240, 32), 32), ((1, 48, 128, 240, 64), 32),
+                          ((1, 24, 64, 120, 64), 64), ((1, 12, 32, 60, 128), 128),
+                          ((1, 48, 96, 312, 32), 32), ((1, 24, 48, 156, 64), 64),
+                          ((1, 12, 24, 78, 128), 128), ((1, 6, 12, 39, 128), 128),
+                          ((1, 48, 96, 312, 32), 1)]:
+        pl = kconv.s1_plan(x_shape, cout, dev)
+        _, d, h, w, _ = x_shape
+        assert pl["blocks_per_sm"] >= 1 and pl["kh_a_stage"] == 3, (x_shape, pl)
+        assert h * w / (pl["nth"] * pl["ntw"] * pl["positions"]) >= 0.85, (x_shape, pl)
+        assert pl["wgmma"] == (cout >= 64), (x_shape, pl)
+    assert kconv.s1_plan((1, 6, 12, 39, 128), 128, dev)["splits"] > 1
+
+
+def test_conv1x1_refuses_partial_vectors(dev):
+    """Row 9's bf16 C_out must fill whole 16-byte vectors."""
+    x, wt, bias = _conv_inputs(dev, torch.bfloat16, (1, 4, 4, 8), 16, 12, 1, seed=280)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kconv.conv1x1_fold_p(x, wt, bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 2, 4, 8, 16, 64])
+@pytest.mark.parametrize("cin,real_cin,cout,shape", [
+    (160, 146, 128, (1, 20, 78)),    # conv1's 146 channels in the 160 slot
+    (128, 128, 96, (1, 9, 60)),      # conv5.conv1's C_out 96
+    (32, 32, 1, (2, 7, 39)),         # conv8: C_out 1, two images
+])
+def test_conv2d_flat_dilations(dev, dtype, d, cin, real_cin, cout, shape):
+    """Row 18 at every dilation the refinement uses and at the wrapper's
+    largest (whole-plane stages where a tile's strip fits, always at d ≤ 2;
+    one kh tap a stage at d 64; rows and columns past H and W at d 16 and
+    64), against the plain version and ``F.conv2d``: the CONV_TOL bounds."""
+    from diffuvolume_tpu_torch.ops.kernels import conv2d as k2
+
+    b, h, w = shape
+    x = _randn(dev, b, h, w, cin, seed=290)
+    wt = _randn(dev, 3, 3, cin, cout, seed=291) / (9 * real_cin) ** 0.5
+    x[..., real_cin:] = 0.0
+    wt[:, :, real_cin:] = 0.0
+    bv = _randn(dev, cout, seed=292) if cout > 1 else None
+    x, wt = x.to(dtype), wt.to(dtype)
+    got = k2.conv2d_flat(x, wt, bv, d)
+    want = k2.conv2d_flat_plain(x, wt, bv, d)
+    lib = torch.nn.functional.conv2d(x.float().permute(0, 3, 1, 2), wt.float().permute(3, 2, 0, 1),
+                                     bv, padding=d, dilation=d).permute(0, 2, 3, 1).to(dtype)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16 and d in (1, 2, 64):
+        assert k2.flat_plan(x.shape, cout, d, dev)["kh_a_stage"] == (3 if d <= 2 else 1)
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(got.float(), lib.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("tc", [kconv.TC_MMA, kconv.TC_WGMMA])
+@pytest.mark.parametrize("cin,cout,shape,d", [
+    (128, 128, (1, 24, 70), 1),     # conv2's class: 128 channels, ragged W
+    (128, 128, (1, 16, 64), 4),     # conv4's: one kh tap a stage
+    (128, 96, (1, 12, 40), 8),      # conv5.conv1: 96 as wgmma 64 + 32 or three 32 tiles
+    (96, 96, (1, 20, 70), 2),       # conv5.conv2's class at whole-plane stages
+    (96, 64, (1, 10, 33), 16),      # conv6.conv1: 64 channels
+])
+def test_conv2d_flat_tensor_core_forms(dev, tc, cin, cout, shape, d):
+    """Row 18 on each tensor-core form against the plain version: the bf16
+    CONV_TOL bounds."""
+    from diffuvolume_tpu_torch.ops.kernels import conv2d as k2
+
+    b, h, w = shape
+    x = _randn(dev, b, h, w, cin, seed=300).bfloat16()
+    wt = (_randn(dev, 3, 3, cin, cout, seed=301) / (9 * cin) ** 0.5).bfloat16()
+    bv = _randn(dev, cout, seed=302)
+    pl = k2.flat_plan(x.shape, cout, d, dev, tc)
+    assert pl["wgmma"] == (tc == kconv.TC_WGMMA)
+    assert pl["bn"] == ({96: 32, 64: 64}.get(cout, 128) if tc == kconv.TC_MMA else cout)
+    got = k2.conv2d_flat_on(tc, x, wt, bv, d)
+    want = k2.conv2d_flat_plain(x, wt, bv, d)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2.0 ** -7)

@@ -33,7 +33,8 @@ from diffuvolume_tpu_torch.models.pcw_fold import (
     fold_refine,
     refine_flat,
 )
-from diffuvolume_tpu_torch.ops.kernels.conv2d import conv2d_flat, conv2d_flat_plain
+from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
+from diffuvolume_tpu_torch.ops.kernels.conv2d import conv2d_flat, conv2d_flat_on, conv2d_flat_plain
 from torch_parity import jax_normal_draws, nchw, pcw_pair, stereo_pair, to_jax_variables
 
 H, W, MD = 64, 64, 192
@@ -65,6 +66,51 @@ def test_conv2d_flat_refuses_bad_operands():
             conv2d_flat(x, torch.zeros((3, 3, 8, 8)), dilation=d)
     with pytest.raises(ValueError, match="float32"):
         conv2d_flat(x, torch.zeros((3, 3, 8, 8)), torch.zeros(8, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("c,co", [(16, 8), (24, 1), (160, 128)])
+def test_conv2d_flat_is_the_one_plane_3d_conv(c, co):
+    """Row 18 at dilation 1 is the stride-1 3×3×3 conv (rows 5, 6, 14, 15)
+    on a one-plane volume with the weight in its middle kd tap: the planes
+    above and below are padding.  The card runs both on one kernel
+    (``csrc/conv_hopper.cuh`` ``conv_s1``); here their plain versions agree
+    to float32 summation order."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((2, 7, 9, c)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((3, 3, c, co)).astype(np.float32) * 0.1)
+    b = torch.from_numpy(rng.standard_normal((co,)).astype(np.float32))
+    k3 = torch.zeros((3, 3, 3, c, co))
+    k3[1] = k
+    want = kconv.conv3d_fold_plain(x[:, None], k3, b)[:, 0]
+    np.testing.assert_allclose(conv2d_flat_plain(x, k, b, 1).numpy(), want.numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("tc", [kconv.TC_MMA, kconv.TC_WGMMA])
+def test_forced_tensor_core_forms_take_the_plain_version_on_the_cpu(tc):
+    """``conv2d_flat_on`` and ``conv3d_fold_p_on`` (the timing entries that
+    force a tensor-core form) check their operands as the plain entries do,
+    compute the plain version on a CPU tensor and count no launch."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((1, 5, 6, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((3, 3, 16, 32)).astype(np.float32) * 0.1)
+    before = conv2d_flat.launches, kconv.conv3d_fold_p.launches
+    np.testing.assert_array_equal(conv2d_flat_on(tc, x, k, None, 2).numpy(),
+                                  conv2d_flat_plain(x, k, None, 2).numpy())
+    x3 = torch.from_numpy(rng.standard_normal((1, 3, 5, 6, 16)).astype(np.float32))
+    k3 = torch.from_numpy(rng.standard_normal((3, 3, 3, 16, 32)).astype(np.float32) * 0.1)
+    res = torch.from_numpy(rng.standard_normal((1, 3, 5, 6, 32)).astype(np.float32))
+    pm = torch.from_numpy(rng.random((1, 5, 6, 32)).astype(np.float32))
+    np.testing.assert_array_equal(
+        kconv.conv3d_fold_p_on(tc, x3, k3, None, residual=res, act="mish", post_mul=pm).numpy(),
+        kconv.conv3d_fold_plain(x3, k3, None, 1, res, "mish", pm).numpy())
+    assert (conv2d_flat.launches, kconv.conv3d_fold_p.launches) == before
+    with pytest.raises(ValueError, match="dilation"):
+        conv2d_flat_on(tc, x, k, None, 65)
+    with pytest.raises(ValueError, match="3×3×3"):
+        kconv.conv3d_fold_p_on(tc, x3, k3[:1, :1, :1].contiguous())
+    with pytest.raises(ValueError, match="act"):
+        kconv.conv3d_fold_p_on(tc, x3, k3, act="gelu")
 
 
 @pytest.fixture(scope="module")
