@@ -11,11 +11,14 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      and bfloat16: max-abs error against the stated tolerance, kernel / plain
      times (CUDA events), the time of one PyTorch call computing the same
      function where there is one, and the bound (bytes or operations over
-     the H100's peak rates); the convs (rows 5-9, 14, 15 with the epilogue
+     the H100's peak rates); rows 1 and 17 at the ACV and PCW shapes, both
+     align-corners conventions, timed on the card (torch.profiler's device
+     time, as the convs); the convs (rows 5-9, 14, 15 with the epilogue
      — none, ReLU, Mish, LeakyReLU, × post_mul — each path gives each shape;
      row 18 at the refinement's 11 convs) timed on the card (torch.profiler's
      device time; CUDA events and the host's time to issue a call beside
-     it), and their total over one pair's launches, by row; for every
+     it; row 9 beside ``F.linear`` on the (positions, C_in) view and
+     ``F.conv3d``), and their total over one pair's launches, by row; for every
      3×3×3 and 2-D conv shape also the tile plan (tile, blocks, K splits,
      blocks an SM, shared memory, tensor-core form, kh taps a stage) and,
      where the plan has a wgmma form (32 to 128 output channels a tile),
@@ -199,7 +202,6 @@ def kernel_checks(dev) -> dict:
     """Phase 3: each kernel at the main path's shapes, float32 and bfloat16."""
     from diffuvolume_tpu_torch.ops import cost_volume as plain
     from diffuvolume_tpu_torch.ops.kernels import concat_volume as kc
-    from diffuvolume_tpu_torch.ops.kernels import fused_head as kf
     from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
 
     g = torch.Generator().manual_seed(1)
@@ -212,27 +214,6 @@ def kernel_checks(dev) -> dict:
 
     bf16_ulp = 2.0 ** -7  # one bfloat16 ulp, relative, at worst
     out = {}
-    hw_out = MAIN_H * MAIN_W
-
-    # -- fused head: cost (1, 48, 128, 240) → (512, 960), 192 bins
-    log("fused_upsample_softargmin  cost (1,48,128,240) → (1,512,960), D=192")
-    cost32 = randn(1, D4, H4, W4) * 3.0
-    errs = {}
-    for dt in (torch.float32, torch.bfloat16):
-        cost = cost32.to(dt)
-        disp, unc = kf.fused_upsample_softargmin(cost, MAIN_DISP, (MAIN_H, MAIN_W))
-        pd, pu = kf.fused_upsample_softargmin_plain(cost, MAIN_DISP, (MAIN_H, MAIN_W))
-        torch.cuda.synchronize()
-        tag = str(dt).split(".")[1]
-        errs[tag] = max(check(f"{tag} disp", disp, pd, 1e-4, 1e-4),
-                        check(f"{tag} unc", unc, pu, 1e-4, 1e-4))
-    ms = time_ms(lambda: kf.fused_upsample_softargmin(cost32, MAIN_DISP, (MAIN_H, MAIN_W)), 50)
-    plain_ms = time_ms(lambda: kf.fused_upsample_softargmin_plain(
-        cost32, MAIN_DISP, (MAIN_H, MAIN_W)), 5)
-    nbytes = cost32.numel() * 4 + 2 * hw_out * 4
-    ops = hw_out * (9 * D4 + 13 * MAIN_DISP + 2)
-    out["fused_head"] = dict(errs=errs, ms=ms, plain_ms=plain_ms, bound=bound(nbytes, ops),
-                             library_ms=None, dtype="float32")
 
     # -- gwc volume: (1, 320, 128, 240) ×2 → (1, 40, 48, 128, 240)
     log("gwc_volume  features 2×(1,320,128,240) → (1,40,48,128,240)")
@@ -414,16 +395,14 @@ def dtype_tag(dt) -> str:
 
 
 def front_checks(dev) -> dict:
-    """Phase 3, rows 16, 10 and 17, and rows 1 and 4 at the PCW path's
-    shapes: the GWC volume in the conv slot (ACV's 48 slot; PCW's four
-    64-slot scales), the patch stencils, the uncertainty at a query, the
-    fused head with align-corners and the one-map multiply."""
+    """Phase 3, rows 16 and 10, and row 4 at the PCW path's shapes: the GWC
+    volume in the conv slot (ACV's 48 slot; PCW's four 64-slot scales), the
+    patch stencils and the one-map multiply."""
     import torch.nn.functional as F
 
     from diffuvolume_tpu_torch.ops import cost_volume as plain
     from diffuvolume_tpu_torch.ops.kernels import concat_volume as kc
     from diffuvolume_tpu_torch.ops.kernels import depthwise as kd
-    from diffuvolume_tpu_torch.ops.kernels import fused_head as kf
     from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
 
     g = torch.Generator().manual_seed(5)
@@ -523,54 +502,6 @@ def front_checks(dev) -> dict:
     out["depthwise_hw_p"] = mixed(cases, errs)
     del x32
 
-    # -- row 17: the uncertainty at a query, and row 1 at the PCW shape
-    hw = PCW_H * PCW_W
-    cost32 = randn(1, PCW_D4, PCW_H4, PCW_W4) * 3.0
-    q = torch.rand((1, PCW_H, PCW_W), generator=g).to(dev) * (MAIN_DISP - 1)
-    log(f"fused_uncertainty_at  cost (1,{PCW_D4},{PCW_H4},{PCW_W4}) + query → "
-        f"(1,{PCW_H},{PCW_W}), D={MAIN_DISP}, align_corners")
-    errs = {}
-    for dt in (torch.float32, torch.bfloat16):
-        tag = dtype_tag(dt)
-        got = kf.fused_uncertainty_at(cost32.to(dt), q, MAIN_DISP, (PCW_H, PCW_W), True)
-        want = kf.fused_uncertainty_at_plain(cost32.to(dt), q, MAIN_DISP, (PCW_H, PCW_W), True)
-        torch.cuda.synchronize()
-        errs[tag] = check(tag, got, want, 1e-4, 1e-4)
-    nbytes = cost32.numel() * 4 + 2 * hw * 4
-    ops = hw * (9 * PCW_D4 + 9 * MAIN_DISP + 2)
-    b_ms, by = bound(nbytes, ops)
-    # No one PyTorch call: library null.
-    out["fused_uncertainty_at"] = mixed([dict(
-        label="PCW (1,48,96,312) → (1,384,1248)", per_pair=PCW_STEPS, per_pair_acv=0,
-        per_pair_pcw=PCW_STEPS, errs=errs,
-        ms=time_ms(lambda: kf.fused_uncertainty_at(cost32, q, MAIN_DISP, (PCW_H, PCW_W), True),
-                   30),
-        plain_ms=time_ms(lambda: kf.fused_uncertainty_at_plain(
-            cost32, q, MAIN_DISP, (PCW_H, PCW_W), True), 3),
-        library_ms=None, bound_ms=b_ms, bound_by=by, ops_ms=ops / F32_OPS_PER_S * 1e3)], errs,
-        dtype="float32")
-
-    log("fused_upsample_softargmin at the PCW shape (align_corners), 4 per PCW pair")
-    errs = {}
-    for dt in (torch.float32, torch.bfloat16):
-        tag = dtype_tag(dt)
-        disp, unc = kf.fused_upsample_softargmin(cost32.to(dt), MAIN_DISP, (PCW_H, PCW_W), True)
-        pd, pu = kf.fused_upsample_softargmin_plain(cost32.to(dt), MAIN_DISP, (PCW_H, PCW_W),
-                                                    True)
-        torch.cuda.synchronize()
-        errs[tag] = max(check(f"{tag} disp", disp, pd, 1e-4, 1e-4),
-                        check(f"{tag} unc", unc, pu, 1e-4, 1e-4))
-    b_ms, by = bound(cost32.numel() * 4 + 2 * hw * 4, hw * (9 * PCW_D4 + 13 * MAIN_DISP + 2))
-    out["fused_head_pcw"] = dict(
-        errs=errs, ms=time_ms(lambda: kf.fused_upsample_softargmin(
-            cost32, MAIN_DISP, (PCW_H, PCW_W), True), 30),
-        plain_ms=time_ms(lambda: kf.fused_upsample_softargmin_plain(
-            cost32, MAIN_DISP, (PCW_H, PCW_W), True), 3),
-        library_ms=None, bound=(b_ms, by), dtype="float32", per_pair_pcw=1 + PCW_STEPS)
-    log(f"  {out['fused_head_pcw']['ms']:.4f} ms (plain {out['fused_head_pcw']['plain_ms']:.4f}, "
-        f"bound {b_ms:.4f} ms by {by})")
-    del cost32, q
-
     # -- row 4 with one map: PCW's noise into the 32-channel combine volume
     log(f"dhw_mul, one map  vol (1,{PCW_D4},{PCW_H4},{PCW_W4},32) × noise; 3 per PCW pair")
     vol32 = randn(1, PCW_D4, PCW_H4, PCW_W4, 32)
@@ -592,11 +523,97 @@ def front_checks(dev) -> dict:
     r = out["dhw_mul_one_map_pcw"]
     log(f"  bf16 {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library torch.mul "
         f"{r['library_ms']:.4f}, bound {b_ms:.4f} ms by {by})")
-    for k in ("gwc_volume_packed", "depthwise_hw_p", "fused_uncertainty_at"):
+    for k in ("gwc_volume_packed", "depthwise_hw_p"):
         v = out[k]
         lib = "null" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
         log(f"  {k}: {v['ms']:.4f} ms per launch (plain {v['plain_ms']:.4f} ms, library {lib}, "
             f"bound {v['bound'][0]:.4f} ms by {v['bound'][1]})")
+    return out
+
+
+class HeadCase(NamedTuple):
+    """One shape of the fused heads (rows 1 and 17): logits (B, D4, H4, W4)
+    → (H, W) at MAIN_DISP bins, the align-corners convention, and the
+    launches a pair of row 1 and of row 17 on the path it belongs to (0 for
+    the other convention, checked and timed but run by no path)."""
+    label: str
+    cost: tuple
+    out_hw: tuple
+    align_corners: bool
+    row1_acv: int
+    row1_pcw: int
+    row17_pcw: int
+
+
+HEAD_CASES = [
+    HeadCase("ACV (1,48,128,240) → 512×960", (1, D4, H4, W4), (MAIN_H, MAIN_W), False,
+             1 + STEPS, 0, 0),
+    HeadCase("ACV shape, align_corners", (1, D4, H4, W4), (MAIN_H, MAIN_W), True, 0, 0, 0),
+    HeadCase("PCW (1,48,96,312) → 384×1248, align_corners", (1, PCW_D4, PCW_H4, PCW_W4),
+             (PCW_H, PCW_W), True, 0, 1 + PCW_STEPS, PCW_STEPS),
+    HeadCase("PCW shape, no align_corners", (1, PCW_D4, PCW_H4, PCW_W4), (PCW_H, PCW_W), False,
+             0, 0, 0),
+]
+
+
+def head_checks(dev, iters: int = 20) -> dict:
+    """Phase 3, rows 1 and 17 at every ``HEAD_CASES`` shape: float32 and
+    bfloat16 logits against the plain versions (1e-4 absolute + 1e-4
+    relative), the float32 kernels (the paths' input) timed on the card
+    (``device_times``), the plain versions under CUDA events.  Row 1's
+    numbers in the ``kernels`` line are the ACV main path's shape, row 17's
+    PCW's; no one PyTorch call computes either (library null)."""
+    from diffuvolume_tpu_torch.ops.kernels import fused_head as kf
+
+    g = torch.Generator().manual_seed(3)
+    rows = {"fused_head": ({}, []), "fused_uncertainty_at": ({}, [])}
+    for case in HEAD_CASES:
+        (h, w), ac = case.out_hw, case.align_corners
+        cost32 = (torch.randn(case.cost, generator=g) * 3.0).to(dev)
+        q = (torch.rand((case.cost[0], h, w), generator=g) * (MAIN_DISP - 1)).to(dev)
+        hw, nd4 = case.cost[0] * h * w, case.cost[1]
+        calls = {
+            "fused_head": (lambda c: kf.fused_upsample_softargmin(c, MAIN_DISP, (h, w), ac),
+                           lambda c: kf.fused_upsample_softargmin_plain(c, MAIN_DISP, (h, w), ac),
+                           hw * (9 * nd4 + 13 * MAIN_DISP + 2), 2 * hw * 4,
+                           (case.row1_acv, case.row1_pcw)),
+            "fused_uncertainty_at": (
+                lambda c: kf.fused_uncertainty_at(c, q, MAIN_DISP, (h, w), ac),
+                lambda c: kf.fused_uncertainty_at_plain(c, q, MAIN_DISP, (h, w), ac),
+                hw * (9 * nd4 + 9 * MAIN_DISP + 2), 2 * hw * 4, (0, case.row17_pcw)),
+        }
+        for name, (kernel, plain, ops, io_bytes, (acv_n, pcw_n)) in calls.items():
+            log(f"{name}  {case.label}: cost {case.cost} → {(case.cost[0], h, w)}, "
+                f"D={MAIN_DISP}, align_corners={ac}")
+            errs, e = rows[name][0], {}
+            for dt in (torch.float32, torch.bfloat16):
+                tag = dtype_tag(dt)
+                got, want = kernel(cost32.to(dt)), plain(cost32.to(dt))
+                torch.cuda.synchronize()
+                got, want = (got, want) if isinstance(got, tuple) else ((None, got), (None, want))
+                e[tag] = max(check(f"{tag} {k}", a, b, 1e-4, 1e-4)
+                             for k, a, b in zip(("disp", "unc"), got, want) if a is not None)
+                errs[tag] = max(errs.get(tag, 0.0), e[tag])
+            t = device_times(lambda: kernel(cost32), iters)
+            b_ms, by = bound(cost32.numel() * 4 + io_bytes, ops)
+            rec = dict(label=case.label, cost=list(case.cost), out_hw=[h, w], align_corners=ac,
+                       per_pair=acv_n + pcw_n, per_pair_acv=acv_n, per_pair_pcw=pcw_n, errs=e,
+                       ms=t["ms"], events_ms=t["events_ms"], host_us=t["host_us"],
+                       plain_ms=time_ms(lambda: plain(cost32), 3), library_ms=None,
+                       bound_ms=b_ms, bound_by=by, ops_ms=ops / F32_OPS_PER_S * 1e3)
+            log(f"  float32 {t['ms']:.4f} ms on the card ({t['events_ms']:.4f} under CUDA "
+                f"events, {t['host_us']:.1f} µs of host to issue a call; plain "
+                f"{rec['plain_ms']:.4f}, bound {b_ms:.4f} ms by {by}); {acv_n} per ACV pair, "
+                f"{pcw_n} per PCW pair")
+            rows[name][1].append(rec)
+        del cost32, q
+    main = {"fused_head": HEAD_CASES[0].label, "fused_uncertainty_at": HEAD_CASES[2].label}
+    out = {}
+    for name, (errs, recs) in rows.items():
+        rec = next(r for r in recs if r["label"] == main[name])
+        out[name] = dict(errs=errs, ms=rec["ms"], plain_ms=rec["plain_ms"], library_ms=None,
+                         bound=(rec["bound_ms"], rec["bound_by"]), dtype="float32",
+                         shapes=recs)
     return out
 
 
@@ -887,11 +904,14 @@ def tile_plan(case: ConvCase, dev, tc: int = -1) -> dict | None:
     """The tile plan the bf16 kernel takes at the case's shape on
     tensor-core form ``tc`` (-1: its own choice; conv_hopper.cuh;
     ``_build.PLAN_KEYS``): rows 5, 6, 14, 15 (3×3×3 stride 1), 7 and 8;
-    else None (row 9, and a package without plans)."""
+    row 9 (its stream's plan: ``_build.K1_PLAN_KEYS``); else None (a
+    package without plans)."""
     from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
     from diffuvolume_tpu_torch.ops.kernels import conv3d_up as kup
 
     shape = (1, *case.dhw, case.cin)
+    if case.kind == "k1" and hasattr(kconv, "k1_plan"):
+        return dict(kconv.k1_plan(shape, case.cout, case.residual, dev))
     if case.kind == "p" and hasattr(kconv, "s1_plan"):
         return dict(kconv.s1_plan(shape, case.cout, dev, tc))
     if case.kind == "s2" and hasattr(kconv, "conv3d_fold_s2_on"):
@@ -997,6 +1017,21 @@ def conv_checks(dev, cases: list[ConvCase], path: str, iters: int = 20) -> dict:
                                padding=(ks - 1) // 2)
         lib_err = float((library().float() - lib_ref).abs().max())
         lib_t = device_times(library, iters)
+        conv_lib_ms, linear = lib_t["ms"], None
+        if case.kind == "k1":
+            # Row 9's function as one matmul: F.linear on the (positions,
+            # C_in) view with the bias, the library yardstick of its row;
+            # cuDNN's conv beside it.
+            x_rows, w_rows = op["x"].view(-1, cin), op["w"].view(cin, cout).t().contiguous()
+
+            def linear():
+                return F.linear(x_rows, w_rows, bias_b)
+            ref_rows = lib_ref.permute(0, 2, 3, 4, 1).reshape(-1, cout)
+            linear = dict(max_abs_vs_f32=float((linear().float() - ref_rows).abs().max()),
+                          **device_times(linear, iters))
+            lib_t = linear
+            log(f"  library F.linear {linear['ms']:.4f} ms on the card [max |Δ| to the float32 "
+                f"conv {linear['max_abs_vs_f32']:.2e}], F.conv3d {conv_lib_ms:.4f} ms")
         # The bound counts the function the path needs: the real channels,
         # not the slot's zero fill.  A transposed conv's output takes 27/8
         # taps on average (k3) or 8 (k4).
@@ -1015,7 +1050,11 @@ def conv_checks(dev, cases: list[ConvCase], path: str, iters: int = 20) -> dict:
             f"{lib_t['ms']:.4f} ms [max |Δ| to its float32 {lib_err:.2e}], bound {b_ms:.4f} ms "
             f"by {by}); {case.per_pair} per pair")
         plan = tile_plan(case, dev)
-        if plan is not None:
+        if plan is not None and case.kind == "k1":
+            log(f"  {plan['tiles']} tiles of {plan['positions']} positions on {plan['blocks']} "
+                f"blocks ({plan['blocks_per_sm']} an SM at {plan['smem_bytes']} B of shared "
+                f"memory), {plan['stages']} stages, {plan['bn']} channels a tile")
+        elif plan is not None:
             o_hw = o[1] * o[2] if case.kind in ("s2", "p") else h * w
             plan["fill"] = o_hw / (plan["nth"] * plan["ntw"] * plan["positions"])
             log("  " + plan_line(plan, plan["fill"]))
@@ -1026,7 +1065,7 @@ def conv_checks(dev, cases: list[ConvCase], path: str, iters: int = 20) -> dict:
             in_dhw=[d, h, w], kind=case.kind, out_dhw=list(o), residual=case.residual,
             act=case.act, post_mul=case.post_mul, bias=case.bias,
             per_pair=case.per_pair, errs=e, ms=t["ms"], plain_ms=plain_ms,
-            library_ms=lib_t["ms"],
+            library_ms=lib_t["ms"], library_conv_ms=conv_lib_ms, library_linear=linear,
             library_max_abs_vs_f32=lib_err, bound_ms=b_ms, bound_by=by,
             ops_ms=2 * macs / BF16_TC_OPS_PER_S * 1e3, macs=macs, bytes=nbytes))
         del op, x_cl, w_lib, lib_ref
@@ -1920,7 +1959,7 @@ def main() -> int:
 
     log("== 3. kernels against their plain versions (every path's shapes)")
     ncdhw = kernel_checks(dev)
-    checks = {**ncdhw, **volume_cl_checks(dev), **front_checks(dev),
+    checks = {**ncdhw, **head_checks(dev), **volume_cl_checks(dev), **front_checks(dev),
               **conv_checks(dev, CONV_CASES, "ACV"), **layout_checks(dev)}
     checks["pcw_convs"] = conv_checks(dev, PCW_CONV_CASES, "PCW", iters=10)
     igev = igev_volume_checks(dev)

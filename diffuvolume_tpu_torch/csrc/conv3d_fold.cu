@@ -41,7 +41,15 @@
 // ride the epilogue.  C_in 8 runs on a zero-filled half chunk, C_out below
 // 8 (the heads) on zero weight columns with element stores.
 //
-// 1×1×1 (row 9): conv_igemm.cuh's igemm_bf16.
+// 1×1×1 (row 9).  What bounds it on the H100: bytes (ACV's 32→32 at (48,
+// 128, 240) moves 189 MB, 56 µs at 3.35 TB/s, for 5 µs of bf16 tensor-core
+// work).  Design: conv_k1.cuh's conv_k1 — the positions as one flat GEMM
+// dimension, tiles of 128 or 256 contiguous positions × every input channel
+// brought by one bulk copy (cp.async.bulk on an mbarrier) each, the
+// residual's tile in the same stage, persistent blocks walking their tiles
+// through a ring of 2–6 stages, the weights staged once a block, and
+// 16-byte coalesced stores from a staging buffer while the next tiles'
+// copies are in flight.
 //
 // Stride 2 (row 7).  What bounds it on the H100, at the ACV shapes: bytes
 // for 32→64 (48, 128, 240) → (24, 64, 120), 94 MB in and 24 MB out, 35.2 µs
@@ -57,6 +65,7 @@
 #include <cstring>
 
 #include "conv_hopper.cuh"
+#include "conv_k1.cuh"
 
 namespace {
 
@@ -89,11 +98,28 @@ DV_EXPORT int dv_conv3d_fold(const void* x, const void* w, const void* bias, con
       fold_params(x, w, bias, res, post_mul, out, b, d, h, wd, cin, cout, ks, 1, act);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != dv::kBF16) return dv::igemm::launch_f32<false>(p, s);
-  if (ks == 1) return dv::igemm::launch_k1(p, s);
+  if (ks == 1) {
+    dv::k1::Plan pl;
+    return static_cast<int>(dv::k1::k1(true, p, device, pl, s));
+  }
   if (ks != 3 || plan == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   dv::hopper::Plan pl;
   std::memcpy(&pl, plan, sizeof pl);
   return static_cast<int>(dv::hopper::s1_run<false>(p, pl, 1, static_cast<float*>(ws), s));
+}
+
+// The bf16 1×1×1 conv's plan for a shape (with a residual or not), into
+// plan[k1::kPlanInts] (k1::Plan's fields in order).
+DV_EXPORT int dv_conv1x1_plan(int b, int d, int h, int wd, int cin, int cout, int residual,
+                              int device, int* plan) {
+  if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
+  static const char dummy = 0;
+  const dv::igemm::Params p = fold_params(nullptr, nullptr, nullptr, residual ? &dummy : nullptr,
+                                          nullptr, nullptr, b, d, h, wd, cin, cout, 1, 1, 0);
+  dv::k1::Plan pl;
+  if (cudaError_t e = dv::k1::k1(false, p, device, pl, nullptr)) return static_cast<int>(e);
+  std::memcpy(plan, &pl, sizeof pl);
+  return 0;
 }
 
 // The bf16 stride-1 3×3×3 conv's plan for a shape, into plan[kPlanInts]

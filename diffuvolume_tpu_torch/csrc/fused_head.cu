@@ -8,20 +8,34 @@
 // What bounds it on the H100: at the main path (cost 1×48×128×240 → 512×960,
 // 192 bins) the kernel reads 5.9 MB and writes 3.9 MB (about 3 µs at
 // 3.35 TB/s) but does about 1.3 G float32 operations (lerps, exp, the three
-// sums; about 20 µs at 67 TFLOP/s), so it is bound by operations.
+// sums; about 20 µs at 67 TFLOP/s), so it is bound by operations.  One exp a
+// bin on the SFU (16 a clock an SM, 132 SMs near 1.75 GHz) puts a floor near
+// 25 µs beside that: 94 M exps at the main path.  Before the operations,
+// shared memory: each bin's logit is a lerp of two values of the pixel's
+// column and a tap, and the SM serves one shared-memory wavefront a clock.
 //
 // Design.  The TPU kernel lifts W and D with dense interpolation matrices on
 // the MXU; those matrices have exactly two non-zero taps per row, so here
-// each axis is a 2-tap lerp and no work is spent on zeros.  One thread owns
-// one output pixel.  It first lerps the D4 quarter-resolution logits of its
-// column in H and W into shared memory (the cost volume is small and stays
-// in L2), then makes three passes over the D output bins, each lerping two
-// neighbours from shared memory: the max, then Σe and Σe·d (disparity), then
-// Σe·|d - d̂| (uncertainty, which needs d̂ first).  Recomputing the lerp and
-// exp in each pass costs less than holding 192 values per thread.  The D
-// taps are shared by the block and computed once into shared memory.  Tap
-// positions are computed in double, as the interpolation matrices are, and
-// the weights rounded to float32 once.  Accumulation is in float32.
+// each axis is a 2-tap lerp and no work is spent on zeros.  A block owns 64
+// output pixels × 4 rows.  A pixel's bins are split in 4 contiguous chunks
+// of NB (16, 48 or 96: up to 384 bins), one a thread; warp w holds chunk
+// w / 2 of 32 neighbouring pixels, so every tap it reads is one broadcast
+// address.  Once a block: the D taps (as offsets into the pixels' columns),
+// the rows' H taps and the pixels' W taps.  Each row:
+//   1. the block's source columns of the row's two source rows (every
+//      quarter-resolution bin) arrive by cp.async into one of two raw
+//      buffers, the next row's copy in flight while this row is computed;
+//      they are lerped in H, then each pixel's column in W ([bin][pixel]:
+//      a warp's 32 pixels read 32 banks);
+//   2. each thread's NB logits, straight-line: one tap and two column values
+//      a bin (three shared-memory wavefronts a bin for the warp);
+//   3. the logits stay in registers: the chunk's max, one exp a bin (the
+//      exponentials overwrite the logits; ex2.approx of a fused
+//      (l − m)·log2 e), Σe and Σe·d, then Σe·|d − d̂|; the four chunks meet
+//      through shared memory (the max, the two sums, the uncertainty).
+// Tap positions are computed in double, as the interpolation matrices are,
+// and the weights rounded to float32 once (tap() below, unchanged).
+// Accumulation is in float32.
 //
 // dv_fused_uncertainty_at: Σ_d softmax(upsampled logits)_d · |d − q| at a
 // given query field q (B, H, W), the PCW renewal score against the refined
@@ -32,8 +46,10 @@
 // Bound by operations too: at the PCW path (cost 1×48×96×312 → 384×1248,
 // 192 bins) it reads 5.8 MB + 1.9 MB and writes 1.9 MB (about 3 µs) and does
 // about 0.9 G float32 operations (about 14 µs at 67 TFLOP/s).  The same
-// column staging and bin lerps as the head, with two passes (the max, then Σe
-// and Σe·|d − q|): q is known, so the disparity pass is not needed.
+// kernel as the head (AT true) with q in place of d̂: no disparity sum.
+#include <algorithm>
+#include <cmath>
+
 #include "common.cuh"
 
 namespace dv {
@@ -70,163 +86,233 @@ __device__ __forceinline__ Tap tap(int o, int in_size, int out_size, bool align_
   return t;
 }
 
-// Shared memory of one block: the D4 lerped logits of each thread's column,
-// then the D output bins' taps (shared by the block).
-struct HeadSmem {
-  float* col;  // [d4][blockDim.x]
-  int* d_lo;   // [dfull]
-  int* d_hi;
-  float* d_wlo;
-  float* d_whi;
-};
+constexpr int kLanes = 4;                 // bin chunks a pixel, one a thread
+constexpr int kPix = 64;                  // pixels a block, along one output row
+constexpr int kRows = 4;                  // output rows a block, one after another
+constexpr int kThreads = kLanes * kPix;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ HeadSmem head_smem(float* smem, int d4, int dfull) {
-  HeadSmem s;
-  s.col = smem;
-  s.d_lo = reinterpret_cast<int*>(s.col + d4 * blockDim.x);
-  s.d_hi = s.d_lo + dfull;
-  s.d_wlo = reinterpret_cast<float*>(s.d_hi + dfull);
-  s.d_whi = s.d_wlo + dfull;
-  return s;
+// 2^x on the SFU (ex2.approx: about 2⁻²² relative error).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// The D taps into shared memory (all threads, one barrier), then this
-// thread's column (x, y) lerped in H and W at every quarter-resolution bin.
-// Returns false for a thread past the row's end (no barrier may follow).
-template <typename T>
-__device__ __forceinline__ bool head_column(const T* __restrict__ cost, const HeadSmem& s,
-                                            int d4, int h4, int w4, int dfull, int h, int w,
-                                            bool align_corners, int x, int y, int b) {
-  for (int d = threadIdx.x; d < dfull; d += blockDim.x) {
-    Tap t = tap(d, d4, dfull, align_corners);
-    s.d_lo[d] = t.lo;
-    s.d_hi[d] = t.hi;
-    s.d_wlo[d] = t.w_lo;
-    s.d_whi[d] = t.w_hi;
+// One source element into the staging buffer: cp.async (4 bytes, no
+// registers) for float32; bfloat16 through registers, widened.
+__device__ __forceinline__ void stage(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src) {
+  *dst = __bfloat162float(*src);
+}
+__device__ __forceinline__ void stage_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void stage_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// AT false: the head, (disp, unc) with unc = Σ p·|d − d̂|.  AT true: the
+// uncertainty at `query`, unc = Σ p·|d − q| (disp unused).  A block owns
+// kPix pixels × kRows rows; warp w holds 32 pixels' bin chunk w / 2, so a
+// warp reads one tap at a time.  Dynamic shared memory (sized in
+// launch_nb()): the D taps, the rows' H taps, the pixels' W taps, two raw
+// staging buffers (the two source rows × d4 bins × cw columns, cw =
+// 2^cw_log2 ≥ the block's source columns), the H-lerped columns [column][d4
+// + 1], every pixel's column of quarter-resolution logits [bin][kPix], and
+// the chunks' partial sums [4][kLanes][kPix].
+template <typename T, int NB, bool AT>
+__global__ void __launch_bounds__(kThreads)
+    head_kernel(const T* __restrict__ cost, const float* __restrict__ query,
+                float* __restrict__ disp, float* __restrict__ unc, int d4, int h4, int w4,
+                int dfull, int h, int w, bool align_corners, int cw_log2, int ncols_max) {
+  extern __shared__ float4 smem4[];
+  __shared__ int xs[2];                                          // the block's source columns
+  float4* taps = smem4;                                          // [NB · kLanes], bin order
+  float4* trow = taps + NB * kLanes;                             // [kRows]
+  float4* tcol = trow + kRows;                                   // [kPix]
+  const int cw = 1 << cw_log2, ld = d4 + 1;
+  float* raw = reinterpret_cast<float*>(tcol + kPix);            // [2][2][d4][cw]
+  float* hs = raw + 4 * d4 * cw;                                 // [column][d4 + 1]
+  float* col = hs + ncols_max * ld;                              // [d4][kPix]
+  float* red = col + d4 * kPix;                                  // [4][kLanes][kPix]
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int j = warp / (kPix / 32), p = warp % (kPix / 32) * 32 + tid % 32;
+  const int x0 = blockIdx.x * kPix, y0 = blockIdx.y * kRows, b = blockIdx.z;
+  const int rows = min(kRows, h - y0), npix = min(kPix, w - x0);
+  const int x = x0 + p;
+
+  // 1. Taps, once a block: D (bins past dfull take the last bin's and are
+  // masked below; lo and hi as offsets into the pixels' columns), H for each
+  // row, W for each pixel.
+  for (int o = tid; o < NB * kLanes; o += kThreads) {
+    const Tap t = tap(min(o, dfull - 1), d4, dfull, align_corners);
+    taps[o] = make_float4(__int_as_float(t.lo * kPix), __int_as_float(t.hi * kPix), t.w_lo,
+                          t.w_hi);
+  }
+  if (tid < rows) {
+    const Tap t = tap(y0 + tid, h4, h, align_corners);
+    trow[tid] = make_float4(__int_as_float(t.lo), __int_as_float(t.hi), t.w_lo, t.w_hi);
+  }
+  if (j == 0) {
+    const Tap t = tap(min(x, w - 1), w4, w, align_corners);
+    tcol[p] = make_float4(__int_as_float(t.lo), __int_as_float(t.hi), t.w_lo, t.w_hi);
+    if (p == 0) xs[0] = t.lo;
+    if (p == npix - 1) xs[1] = t.hi;
   }
   __syncthreads();
-  if (x >= w) return false;
+  const int xs0 = xs[0], ncols = xs[1] - xs0 + 1;
+  const float4 tx = tcol[p];
 
-  const Tap ty = tap(y, h4, h, align_corners);
-  const Tap tx = tap(x, w4, w, align_corners);
-  const T* base = cost + static_cast<size_t>(b) * d4 * h4 * w4;
-  const int tid = threadIdx.x;
-  const int stride = blockDim.x;
-  for (int k = 0; k < d4; ++k) {
-    const T* plane = base + static_cast<size_t>(k) * h4 * w4;
-    const T* r0 = plane + static_cast<size_t>(ty.lo) * w4;
-    const T* r1 = plane + static_cast<size_t>(ty.hi) * w4;
-    // H first, then W: the order of the separable matrix products.
-    float a = to_f32(r0[tx.lo]) * ty.w_lo + to_f32(r1[tx.lo]) * ty.w_hi;
-    float c = to_f32(r0[tx.hi]) * ty.w_lo + to_f32(r1[tx.hi]) * ty.w_hi;
-    s.col[k * stride + tid] = a * tx.w_lo + c * tx.w_hi;
+  // 2. Row r's two source rows (every bin, the block's columns) into raw
+  // buffer r % 2, and from there lerped in H into hs.  The copy of row r + 1
+  // is in flight while row r is computed.
+  const int c = tid & (cw - 1), k0 = tid >> cw_log2, kstep = kThreads >> cw_log2;
+  const size_t plane = static_cast<size_t>(h4) * w4;
+  auto copy_row = [&](int r) {
+    if (c < ncols) {
+      const float4 t = trow[r];
+      const size_t base = static_cast<size_t>(b) * d4 * h4;
+      const T* s0 = cost + (base + __float_as_int(t.x)) * w4 + xs0 + c;
+      const T* s1 = cost + (base + __float_as_int(t.y)) * w4 + xs0 + c;
+      float* dst = raw + (r & 1) * 2 * d4 * cw + c;
+      for (int k = k0; k < d4; k += kstep) {
+        stage(dst + k * cw, s0 + k * plane);
+        stage(dst + (d4 + k) * cw, s1 + k * plane);
+      }
+    }
+    stage_commit();
+  };
+
+  // This thread's share of its pixel's column: bins kc·j … kc·j + kc − 1.
+  const int kc = (d4 + kLanes - 1) / kLanes;
+  const int ka = min(kc * j, d4), kb = min(ka + kc, d4);
+  const float* hlo = hs + (__float_as_int(tx.x) - xs0) * ld;
+  const float* hhi = hs + (__float_as_int(tx.y) - xs0) * ld;
+  const float* cp = col + p;
+  const float4* tj = taps + j * NB;
+  float* rp = red + p;
+  const int o0 = j * NB;
+  const float d0 = static_cast<float>(o0);
+  copy_row(0);
+  for (int r = 0; r < rows; ++r) {
+    stage_wait();
+    __syncthreads();  // raw buffer r % 2 whole; hs, col and red read for row r − 1
+    if (r + 1 < rows) copy_row(r + 1);
+    if (c < ncols) {
+      const float4 t = trow[r];
+      const float* src = raw + (r & 1) * 2 * d4 * cw + c;
+      // H first, then W: the order of the separable matrix products.
+      for (int k = k0; k < d4; k += kstep)
+        hs[c * ld + k] = src[k * cw] * t.z + src[(d4 + k) * cw] * t.w;
+    }
+    __syncthreads();
+    for (int k = ka; k < kb; ++k) col[k * kPix + p] = hlo[k] * tx.z + hhi[k] * tx.w;
+    __syncthreads();
+
+    // 3. This thread's logits, its pixel's column lerped in D, straight-line
+    // over its chunk's bins (one tap a bin for the whole warp).
+    float l[NB];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const float4 t = tj[i];
+      l[i] = cp[__float_as_int(t.x)] * t.z + cp[__float_as_int(t.y)] * t.w;
+    }
+    if (o0 + NB > dfull) {
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+        if (o0 + i >= dfull) l[i] = -CUDART_INF_F;
+    }
+
+    // 4. Softmax moments over registers, one exp a bin; the four chunks of
+    // a pixel combined through shared memory.
+    float m = l[0];
+#pragma unroll
+    for (int i = 1; i < NB; ++i) m = fmaxf(m, l[i]);
+    rp[j * kPix] = m;
+    __syncthreads();
+    m = fmaxf(fmaxf(rp[0], rp[kPix]), fmaxf(rp[2 * kPix], rp[3 * kPix]));
+    const float mk = m * kLog2e;
+    float z = 0.f, sd = 0.f;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      l[i] = ex2(fmaf(l[i], kLog2e, -mk));
+      z += l[i];
+      if constexpr (!AT) sd = fmaf(l[i], static_cast<float>(i), sd);
+    }
+    float* rz = rp + kLanes * kPix;
+    rz[j * kPix] = z;
+    if constexpr (!AT) rz[(kLanes + j) * kPix] = fmaf(d0, z, sd);
+    __syncthreads();
+    const float zq = (rz[0] + rz[kPix]) + (rz[2 * kPix] + rz[3 * kPix]);
+    const size_t o = (static_cast<size_t>(b) * h + y0 + r) * w + min(x, w - 1);
+    float ref;
+    if constexpr (AT) {
+      ref = query[o];
+    } else {
+      const float* rs = rz + kLanes * kPix;
+      ref = ((rs[0] + rs[kPix]) + (rs[2 * kPix] + rs[3 * kPix])) / zq;
+    }
+    const float a = d0 - ref;
+    float u = 0.f;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) u = fmaf(l[i], fabsf(a + static_cast<float>(i)), u);
+    float* ru = rz + 2 * kLanes * kPix;
+    ru[j * kPix] = u;
+    __syncthreads();
+    if (j == 0 && x < w) {
+      if constexpr (!AT) disp[o] = ref;
+      unc[o] = ((ru[0] + ru[kPix]) + (ru[2 * kPix] + ru[3 * kPix])) / zq;
+    }
   }
-  return true;
 }
 
-// The upsampled logit of output bin d, lerped from the thread's column.
-__device__ __forceinline__ float head_logit(const HeadSmem& s, int d) {
-  const int tid = threadIdx.x, stride = blockDim.x;
-  return s.col[s.d_lo[d] * stride + tid] * s.d_wlo[d] +
-         s.col[s.d_hi[d] * stride + tid] * s.d_whi[d];
+// The most source columns a block of kPix pixels reads along W (w4 → w):
+// the span of kPix − 1 output steps, plus the two taps' reach and a margin
+// for the rounding of the tap positions.
+int head_cols(int w4, int w) {
+  double s = static_cast<double>(w4) / w;
+  if (w > 1) s = fmax(s, static_cast<double>(w4 - 1) / (w - 1));
+  return std::min(w4, static_cast<int>(std::ceil((kPix - 1) * s)) + 4);
 }
 
-template <typename T>
-__global__ void fused_head_kernel(const T* __restrict__ cost, float* __restrict__ disp,
-                                  float* __restrict__ unc, int d4, int h4, int w4, int dfull,
-                                  int h, int w, bool align_corners) {
-  extern __shared__ float smem[];
-  const HeadSmem s = head_smem(smem, d4, dfull);
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
-  if (!head_column(cost, s, d4, h4, w4, dfull, h, w, align_corners, x, y, b)) return;
-
-  float m = -CUDART_INF_F;
-  for (int d = 0; d < dfull; ++d) m = fmaxf(m, head_logit(s, d));
-  float z = 0.f, sd = 0.f;
-  for (int d = 0; d < dfull; ++d) {
-    float e = expf(head_logit(s, d) - m);
-    z += e;
-    sd += e * static_cast<float>(d);
-  }
-  const float dh = sd / z;
-  float u = 0.f;
-  for (int d = 0; d < dfull; ++d) {
-    float e = expf(head_logit(s, d) - m);
-    u += e * fabsf(static_cast<float>(d) - dh);
-  }
-  const size_t o = (static_cast<size_t>(b) * h + y) * w + x;
-  disp[o] = dh;
-  unc[o] = u / z;
-}
-
-// The renewal uncertainty against a given disparity q (B, H, W):
-// Σ_d softmax(upsampled logits)_d · |d − q|, two passes over the bins.
-template <typename T>
-__global__ void fused_unc_at_kernel(const T* __restrict__ cost, const float* __restrict__ query,
-                                    float* __restrict__ unc, int d4, int h4, int w4, int dfull,
-                                    int h, int w, bool align_corners) {
-  extern __shared__ float smem[];
-  const HeadSmem s = head_smem(smem, d4, dfull);
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
-  if (!head_column(cost, s, d4, h4, w4, dfull, h, w, align_corners, x, y, b)) return;
-
-  const size_t o = (static_cast<size_t>(b) * h + y) * w + x;
-  const float q = query[o];
-  float m = -CUDART_INF_F;
-  for (int d = 0; d < dfull; ++d) m = fmaxf(m, head_logit(s, d));
-  float z = 0.f, u = 0.f;
-  for (int d = 0; d < dfull; ++d) {
-    float e = expf(head_logit(s, d) - m);
-    z += e;
-    u += e * fabsf(static_cast<float>(d) - q);
-  }
-  unc[o] = u / z;
-}
-
-constexpr int kThreads = 128;
-
-size_t head_smem_bytes(int d4, int dfull) {
-  return sizeof(float) * d4 * kThreads + (2 * sizeof(int) + 2 * sizeof(float)) * dfull;
-}
-
-template <typename Kernel>
-int prepare(Kernel kern, size_t smem) {
+template <typename T, int NB, bool AT>
+int launch_nb(const void* cost, const void* query, void* disp, void* unc, int b, int d4, int h4,
+              int w4, int dfull, int h, int w, int align_corners, cudaStream_t stream) {
+  const int ncols = head_cols(w4, w);
+  int cw_log2 = 0;
+  while ((1 << cw_log2) < ncols) ++cw_log2;
+  if ((1 << cw_log2) > kThreads) return static_cast<int>(cudaErrorInvalidValue);  // W shrinks
+  const size_t smem = sizeof(float4) * (NB * kLanes + kRows + kPix) +
+                      sizeof(float) * (4 * d4 * (1 << cw_log2) + ncols * (d4 + 1) +
+                                       d4 * kPix + 4 * kLanes * kPix);
+  auto kern = head_kernel<T, NB, AT>;
   if (smem > 48 * 1024) {
-    return static_cast<int>(cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+    if (cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem)))
+      return static_cast<int>(e);
   }
-  return 0;
-}
-
-template <typename T>
-int launch(const void* cost, void* disp, void* unc, int b, int d4, int h4, int w4, int dfull,
-           int h, int w, int align_corners, cudaStream_t stream) {
-  const size_t smem = head_smem_bytes(d4, dfull);
-  auto kern = fused_head_kernel<T>;
-  if (int e = prepare(kern, smem)) return e;
-  dim3 grid(ceil_div(w, kThreads), h, b);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(cost), static_cast<float*>(disp),
-                                         static_cast<float*>(unc), d4, h4, w4, dfull, h, w,
-                                         align_corners != 0);
+  dim3 grid(ceil_div(w, kPix), ceil_div(h, kRows), b);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(cost), static_cast<const float*>(query), static_cast<float*>(disp),
+      static_cast<float*>(unc), d4, h4, w4, dfull, h, w, align_corners != 0, cw_log2, ncols);
   return end();
 }
 
-template <typename T>
-int launch_unc_at(const void* cost, const void* query, void* unc, int b, int d4, int h4, int w4,
-                  int dfull, int h, int w, int align_corners, cudaStream_t stream) {
-  const size_t smem = head_smem_bytes(d4, dfull);
-  auto kern = fused_unc_at_kernel<T>;
-  if (int e = prepare(kern, smem)) return e;
-  dim3 grid(ceil_div(w, kThreads), h, b);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(cost),
-                                         static_cast<const float*>(query),
-                                         static_cast<float*>(unc), d4, h4, w4, dfull, h, w,
-                                         align_corners != 0);
-  return end();
+// Bins a lane: the fewest of 16, 48, 96 that cover dfull over the quad.
+template <typename T, bool AT>
+int launch(const void* cost, const void* query, void* disp, void* unc, int b, int d4, int h4,
+           int w4, int dfull, int h, int w, int align_corners, cudaStream_t s) {
+  if (dfull < 1 || d4 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dfull <= 16 * kLanes)
+    return launch_nb<T, 16, AT>(cost, query, disp, unc, b, d4, h4, w4, dfull, h, w,
+                                align_corners, s);
+  if (dfull <= 48 * kLanes)
+    return launch_nb<T, 48, AT>(cost, query, disp, unc, b, d4, h4, w4, dfull, h, w,
+                                align_corners, s);
+  if (dfull <= 96 * kLanes)
+    return launch_nb<T, 96, AT>(cost, query, disp, unc, b, d4, h4, w4, dfull, h, w,
+                                align_corners, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -238,8 +324,10 @@ DV_EXPORT int dv_fused_head(const void* cost, void* disp, void* unc, int b, int 
   if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == dv::kBF16)
-    return dv::launch<__nv_bfloat16>(cost, disp, unc, b, d4, h4, w4, d, h, w, align_corners, s);
-  return dv::launch<float>(cost, disp, unc, b, d4, h4, w4, d, h, w, align_corners, s);
+    return dv::launch<__nv_bfloat16, false>(cost, nullptr, disp, unc, b, d4, h4, w4, d, h, w,
+                                            align_corners, s);
+  return dv::launch<float, false>(cost, nullptr, disp, unc, b, d4, h4, w4, d, h, w,
+                                  align_corners, s);
 }
 
 DV_EXPORT int dv_fused_uncertainty_at(const void* cost, const void* query, void* unc, int b,
@@ -248,7 +336,8 @@ DV_EXPORT int dv_fused_uncertainty_at(const void* cost, const void* query, void*
   if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == dv::kBF16)
-    return dv::launch_unc_at<__nv_bfloat16>(cost, query, unc, b, d4, h4, w4, d, h, w,
-                                            align_corners, s);
-  return dv::launch_unc_at<float>(cost, query, unc, b, d4, h4, w4, d, h, w, align_corners, s);
+    return dv::launch<__nv_bfloat16, true>(cost, query, nullptr, unc, b, d4, h4, w4, d, h, w,
+                                           align_corners, s);
+  return dv::launch<float, true>(cost, query, nullptr, unc, b, d4, h4, w4, d, h, w,
+                                 align_corners, s);
 }

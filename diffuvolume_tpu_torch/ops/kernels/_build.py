@@ -82,9 +82,15 @@ PLAN_SIGNATURES = {
     "dv_conv3d_up_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # b, h, w, cin, cout, dilation, tc, device, plan
     "dv_conv2d_flat_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # b, d, h, w, cin, cout, residual, device, plan (K1_PLAN_KEYS)
+    "dv_conv1x1_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 PLAN_KEYS = ("bh", "bmw", "nth", "ntw", "ntn", "splits", "bn", "ck", "mt", "blocks",
              "smem_bytes", "blocks_per_sm", "positions", "wgmma", "kh_a_stage")
+# The bf16 1×1×1 conv's plan (csrc/conv_k1.cuh k1::Plan): positions a tile,
+# ring stages, grid, blocks an SM, shared memory a block, tiles, output
+# channels a tile.
+K1_PLAN_KEYS = ("positions", "stages", "blocks", "blocks_per_sm", "smem_bytes", "tiles", "bn")
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
@@ -214,15 +220,16 @@ class Plan(dict):
     plan)."""
 
 
-def plan(name: str, device, *args) -> Plan:
+def plan(name: str, device, *args, keys: tuple = PLAN_KEYS) -> Plan:
     """The tile plan C entry point ``name`` picks for ``args`` (the shape
-    and the tensor-core form) on ``device`` (a CUDA ``torch.device``)."""
-    ints = (ctypes.c_int * len(PLAN_KEYS))()
+    and the tensor-core form) on ``device`` (a CUDA ``torch.device``), as
+    ``keys`` → int."""
+    ints = (ctypes.c_int * len(keys))()
     lib = library()
     err = getattr(lib, name)(*args, device.index or 0, ints)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} ({lib.dv_error_string(err).decode()})")
-    pl = Plan(zip(PLAN_KEYS, ints))
+    pl = Plan(zip(keys, ints))
     pl.ints, pl.ptr = ints, ctypes.addressof(ints)
     return pl
 

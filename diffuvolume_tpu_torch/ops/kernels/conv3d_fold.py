@@ -2,8 +2,8 @@
 
 Kernels: ``csrc/conv3d_fold.cu`` — the bf16 3×3×3 convs on
 ``csrc/conv_hopper.cuh`` (stride 1: ``conv_s1``; stride 2: ``conv_bf16``),
-the bf16 1×1×1 conv on ``csrc/conv_igemm.cuh``, a plain FMA kernel in
-float32.  They serve six TPU kernels of
+the bf16 1×1×1 conv on ``csrc/conv_k1.cuh``, a plain FMA kernel in
+float32 (``csrc/conv_igemm.cuh``).  They serve six TPU kernels of
 ``diffuvolume_tpu/ops/pallas/conv3d.py`` (the first, second, fifth and
 sixth below share the stride-1 kernel); each has its own wrapper here and
 its own launch count:
@@ -191,6 +191,18 @@ def s2_plan(x_shape: tuple, cout: int, device: torch.device, tc: int = TC_AUTO) 
     form), made once a shape and handed to every launch."""
     b, d, h, w, cin = x_shape
     return _build.plan("dv_conv3d_s2_plan", device, b, d, h, w, cin, cout, tc)
+
+
+@functools.lru_cache(maxsize=256)
+def k1_plan(x_shape: tuple, cout: int, residual: bool, device: torch.device) -> _build.Plan:
+    """The plan the bf16 1×1×1 kernel (row 9, ``csrc/conv_k1.cuh``) takes for
+    ``x (B, D, H, W, C) → C_out`` on ``device`` (``_build.K1_PLAN_KEYS``:
+    positions a tile, ring stages, grid, blocks an SM, shared memory, tiles,
+    channels a tile); the kernel makes the same plan at each launch, this
+    reports it."""
+    b, d, h, w, cin = x_shape
+    return _build.plan("dv_conv1x1_plan", device, b, d, h, w, cin, cout, int(residual),
+                       keys=_build.K1_PLAN_KEYS)
 
 
 def conv3d_fold_p(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,

@@ -6,7 +6,9 @@ Kernels: ``csrc/fused_head.cu``.  ``fused_upsample_softargmin`` replaces
 (the uncertainty against a given disparity, PCW's renewal score).  Plain
 versions: ``fused_upsample_softargmin_plain`` and
 ``fused_uncertainty_at_plain``, which materialise the ``(B, D, H, W)``
-probability volume through ``ops/regression.py``.
+probability volume through ``ops/regression.py``.  The kernels split a
+pixel's bins over four threads of up to 96 bins each: ``max_disp`` up to
+``MAX_BINS`` on the card.
 """
 
 from __future__ import annotations
@@ -18,6 +20,14 @@ from diffuvolume_tpu_torch.ops.regression import (
     disparity_uncertainty,
     upsample_cost_and_regress,
 )
+
+# The most disparity bins the kernels take (csrc/fused_head.cu: 4 threads × 96).
+MAX_BINS = 384
+
+
+def _check_bins(max_disp: int) -> None:
+    if not 1 <= max_disp <= MAX_BINS:
+        raise ValueError(f"max_disp must be in [1, {MAX_BINS}] on the card, got {max_disp}")
 
 
 def fused_upsample_softargmin_plain(
@@ -49,6 +59,7 @@ def fused_upsample_softargmin(
         return fused_upsample_softargmin_plain(cost, max_disp, out_hw, align_corners)
     if cost.dim() != 4:
         raise ValueError(f"cost must be (B, D4, H4, W4), got {tuple(cost.shape)}")
+    _check_bins(max_disp)
     _build.check_cuda(cost)
     b, d4, h4, w4 = cost.shape
     h, w = out_hw
@@ -91,6 +102,7 @@ def fused_uncertainty_at(
         return fused_uncertainty_at_plain(cost, query, max_disp, out_hw, align_corners)
     if cost.dim() != 4:
         raise ValueError(f"cost must be (B, D4, H4, W4), got {tuple(cost.shape)}")
+    _check_bins(max_disp)
     b, d4, h4, w4 = cost.shape
     h, w = out_hw
     if tuple(query.shape) != (b, h, w) or query.dtype != torch.float32:

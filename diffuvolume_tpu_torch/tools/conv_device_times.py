@@ -1,8 +1,8 @@
-"""Phase 3's fold-conv checks and times (``chip_smoke.conv_checks``) for the
-package of another checkout, so that two versions are compared in one call
-on one card.
+"""Phase 3's fold-conv and head checks and times (``chip_smoke.conv_checks``,
+``chip_smoke.head_checks``) for the package of another checkout, so that two
+versions are compared in one call on one card.
 
-    python diffuvolume_tpu_torch/tools/conv_device_times.py --root DIR [--out FILE]
+    python diffuvolume_tpu_torch/tools/conv_device_times.py --root DIR [--rows ROWS] [--out FILE]
 
 This checkout's ``chip_smoke.py`` does the measuring (device time from
 torch.profiler, CUDA events, host time a call, the tensor-core forms where
@@ -12,7 +12,10 @@ come from ``--root`` (for example the parent commit, unpacked with
 import this checkout's package first.  Rows 5–9, 14 and 15 at every shape of
 every path and row 18 at the refinement's 11 convs, both dtypes checked,
 bf16 timed.  ``--rows stride1`` limits it to the stride-1 rows (5, 6, 9, 14,
-15, 18).
+15, 18); ``--rows k1`` to row 9 at every shape of the ACV, PCW and IGEV
+folded paths (with ``F.linear`` and ``F.conv3d`` as yardsticks); ``--rows
+head`` to rows 1 and 17 at the ACV and PCW shapes, both align-corners
+conventions (float32 timed).
 Needs a CUDA device.
 """
 
@@ -33,8 +36,9 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose diffuvolume_tpu_torch package is measured")
     ap.add_argument("--out", default=os.path.join("chiprun_out", "conv_device_times.json"))
-    ap.add_argument("--rows", choices=("all", "stride1"), default="all",
-                    help="stride1: only the cases of rows 5, 6, 9, 14, 15 and 18")
+    ap.add_argument("--rows", choices=("all", "stride1", "k1", "head"), default="all",
+                    help="stride1: only the cases of rows 5, 6, 9, 14, 15 and 18; k1: row 9; "
+                         "head: rows 1 and 17")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -55,13 +59,18 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {"root": root, "card": cs.card_line(), "paths": {}}
-    for path, cases in (("ACV", cs.CONV_CASES), ("PCW", cs.PCW_CONV_CASES),
-                        ("IGEV folded", cs.IGEV_CONV_CASES), ("IGEV module", cs.IGEV_SMALL_CASES),
-                        *((f"{m.upper()} module, routed", c) for m, c in cs.PACKED_CASES.items())):
-        if args.rows == "stride1":
-            cases = [c for c in cases if c.kind in ("p", "k1")]
-        out["paths"][path] = cs.conv_checks(dev, cases, path, iters=10)
-    out["paths"]["PCW flat refinement"] = cs.refine_checks(dev)
+    paths = [("ACV", cs.CONV_CASES), ("PCW", cs.PCW_CONV_CASES),
+             ("IGEV folded", cs.IGEV_CONV_CASES), ("IGEV module", cs.IGEV_SMALL_CASES),
+             *((f"{m.upper()} module, routed", c) for m, c in cs.PACKED_CASES.items())]
+    kinds = {"stride1": ("p", "k1"), "k1": ("k1",), "head": ()}.get(args.rows)
+    if args.rows == "head":
+        out["head"] = cs.head_checks(dev)
+    for path, cases in paths:
+        cases = [c for c in cases if kinds is None or c.kind in kinds]
+        if cases:
+            out["paths"][path] = cs.conv_checks(dev, cases, path, iters=10)
+    if args.rows in ("all", "stride1"):
+        out["paths"]["PCW flat refinement"] = cs.refine_checks(dev)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)

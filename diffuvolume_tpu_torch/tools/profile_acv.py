@@ -54,8 +54,9 @@ from diffuvolume_tpu_torch.utils.device import resolve_device
 # Kernel name → group, first match wins.  BatchNorm comes before the cuDNN
 # group: cuDNN's own BatchNorm kernels (``cudnn::bn_fw_inf_…``) carry its name.
 GROUPS = [
-    ("port: fused head", r"fused_head_kernel"),
-    ("port: uncertainty at query", r"fused_unc_at_kernel"),
+    # head_kernel<T, bins a lane, at a query>: rows 1 and 17
+    ("port: fused head", r"head_kernel<[^>]*false>"),
+    ("port: uncertainty at query", r"head_kernel<[^>]*true>"),
     ("port: gwc volume", r"gwc_kernel"),
     ("port: gwc volume in the slot", r"gwc_slot_kernel"),
     ("port: patch stencils", r"depthwise_hw_kernel"),
@@ -64,7 +65,7 @@ GROUPS = [
     # conv_s1<BN, MT, wgmma, plane, 2-D> and conv_s1_head<2-D>: the last
     # template argument tells the 3-D conv from row 18
     ("port: 3-D conv, folded (conv3d_fold.cu)",
-     r"igemm_bf16|direct_f32<false|conv_bf16<false|splitk_finish|conv_s1(_head)?<[^>]*false>"),
+     r"conv_k1<|direct_f32<false|conv_bf16<false|splitk_finish|conv_s1(_head)?<[^>]*false>"),
     ("port: transposed conv, folded (conv3d_up.cu)", r"direct_f32<true|conv_bf16<true"),
     ("port: dilated 2-D conv (conv2d_flat.cu)", r"conv2d_f32|conv_s1(_head)?<[^>]*true>"),
     ("port: layout pack / unpack", r"to_last_kernel|to_first_kernel|hwdc"),

@@ -1070,3 +1070,105 @@ def test_conv2d_flat_tensor_core_forms(dev, tc, cin, cout, shape, d):
     want = k2.conv2d_flat_plain(x, wt, bv, d)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=2.0 ** -7)
+
+
+# -- rows 1, 17 and 9 in their Hopper designs ------------------------------------
+
+# (B, D4, H4, W4) → (D, H, W), align_corners: 4× on every axis as at ACV
+# (taps repeat every 4 bins), PCW's align-corners ratio (47/191 in D: the
+# taps never repeat), a D that leaves a lane's bins past the end, 384 bins
+# (96 a lane), and H not a multiple of the 4 rows a block walks; W is not a
+# multiple of the 64 pixels a block holds.
+HEAD_EDGES = [
+    ((2, 48, 8, 25), (192, 32, 100), False),
+    ((1, 48, 6, 26), (192, 24, 104), True),
+    ((1, 24, 5, 17), (100, 20, 67), True),
+    ((1, 96, 4, 20), (384, 16, 80), False),
+    ((2, 12, 3, 10), (48, 10, 40), False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cost_shape,out,align_corners", HEAD_EDGES)
+def test_fused_head_edges(dev, dtype, cost_shape, out, align_corners):
+    """Row 1 at the paths' size ratios and the lane split's edges: 1e-4
+    absolute + 1e-4 relative against the plain version."""
+    d, h, w = out
+    cost = (_randn(dev, *cost_shape, seed=310) * 3).to(dtype)
+    disp, unc = kf.fused_upsample_softargmin(cost, d, (h, w), align_corners)
+    pd, pu = kf.fused_upsample_softargmin_plain(cost, d, (h, w), align_corners)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(disp, pd, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(unc, pu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cost_shape,out,align_corners", HEAD_EDGES)
+def test_fused_uncertainty_at_edges(dev, dtype, cost_shape, out, align_corners):
+    """Row 17 at the same shapes, the query drawn over every bin."""
+    d, h, w = out
+    cost = (_randn(dev, *cost_shape, seed=311) * 3).to(dtype)
+    g = torch.Generator().manual_seed(312)
+    q = (torch.rand((cost_shape[0], h, w), generator=g) * (d - 1)).to(dev)
+    got = kf.fused_uncertainty_at(cost, q, d, (h, w), align_corners)
+    want = kf.fused_uncertainty_at_plain(cost, q, d, (h, w), align_corners)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_fused_heads_refuse_too_many_bins(dev):
+    """Four lanes of 96 bins: max_disp above 384 raises instead of launching."""
+    cost = _randn(dev, 1, 97, 2, 3)
+    with pytest.raises(ValueError, match="max_disp"):
+        kf.fused_upsample_softargmin(cost, 388, (8, 12))
+    with pytest.raises(ValueError, match="max_disp"):
+        kf.fused_uncertainty_at(cost, torch.zeros((1, 8, 12), device=dev), 388, (8, 12))
+
+
+@pytest.mark.parametrize("act", [None, "relu", "mish", "leaky"])
+@pytest.mark.parametrize("cin,cout,shape,residual", [
+    (16, 16, (2, 3, 5, 39), True),      # IGEV's agg1_0 up half; M not a multiple of the tile
+    (32, 32, (1, 8, 48, 200), False),   # 76,800 positions: 256-position tiles, a ring that wraps
+    (32, 32, (1, 8, 48, 200), True),
+    (64, 64, (1, 6, 24, 78), False),    # PCW's 1/8 width
+    (128, 128, (1, 5, 12, 39), True),   # one block an SM
+    (16, 8, (1, 4, 6, 33), False),      # C_out below the tile's 16
+    (32, 24, (1, 4, 6, 33), True),
+    (32, 200, (1, 3, 4, 35), True),     # C_out past 128: two passes over the staged tile
+])
+def test_conv1x1_stream(dev, act, cin, cout, shape, residual):
+    """Row 9's bf16 kernel with every epilogue, at C_out tiles and tile
+    counts the paths and their edges give: the bf16 CONV_TOL bounds."""
+    x, wt, bias = _conv_inputs(dev, torch.bfloat16, shape, cin, cout, 1, seed=320)
+    x = (x.float() * 3).bfloat16()
+    b, d, h, w = shape
+    res = _randn(dev, b, d, h, w, cout, seed=323).bfloat16() if residual else None
+    got = kconv.conv1x1_fold_p(x, wt, bias, act=act, residual=res)
+    want = kconv.conv3d_fold_plain(x, wt, bias, 1, res, act)
+    torch.cuda.synchronize()
+    atol, rtol = CONV_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_conv1x1_stream_without_bias(dev):
+    """The IGEV skip half: no bias, no activation."""
+    x, wt, _ = _conv_inputs(dev, torch.bfloat16, (1, 6, 12, 39), 32, 32, 1, seed=330)
+    got = kconv.conv1x1_fold_p(x, wt)
+    want = kconv.conv3d_fold_plain(x, wt)
+    torch.cuda.synchronize()
+    atol, rtol = CONV_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_conv1x1_plans(dev):
+    """Row 9's plans: at least two blocks an SM at the ACV and PCW full- and
+    half-resolution shapes, every SM busy; 256-position tiles only at 32
+    channels and below; one block a tile where the tiles are few."""
+    full = kconv.k1_plan((1, 48, 128, 240, 32), 32, False, dev)
+    half = kconv.k1_plan((1, 24, 64, 120, 64), 64, False, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for pl in (full, half):
+        assert pl["blocks_per_sm"] >= 2 and pl["blocks"] == pl["blocks_per_sm"] * sms, pl
+    assert (full["positions"], half["positions"]) == (256, 128)
+    small = kconv.k1_plan((1, 6, 12, 39, 32), 32, True, dev)
+    assert small["blocks"] == small["tiles"] == -(-6 * 12 * 39 // 128), small
