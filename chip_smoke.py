@@ -12,8 +12,10 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      times (CUDA events), the time of one PyTorch call computing the same
      function where there is one, and the bound (bytes or operations over
      the H100's peak rates); rows 1 and 17 at the ACV and PCW shapes, both
-     align-corners conventions, timed on the card (torch.profiler's device
-     time, as the convs); the convs (rows 5-9, 14, 15 with the epilogue
+     align-corners conventions, row 16 at every path's shape (ACV, PCW 1/4
+     … 1/32, IGEV) and row 10 (each stencil, and the fused pair the ACV
+     attention chain runs, asserted equal to two single launches), timed
+     on the card (torch.profiler's device time, as the convs); the convs (rows 5-9, 14, 15 with the epilogue
      — none, ReLU, Mish, LeakyReLU, × post_mul — each path gives each shape;
      row 18 at the refinement's 11 convs) timed on the card (torch.profiler's
      device time; CUDA events and the host's time to issue a call beside
@@ -394,74 +396,130 @@ def dtype_tag(dt) -> str:
     return str(dt).split(".")[1]
 
 
-def front_checks(dev) -> dict:
-    """Phase 3, rows 16 and 10, and row 4 at the PCW path's shapes: the GWC
-    volume in the conv slot (ACV's 48 slot; PCW's four 64-slot scales), the
-    patch stencils and the one-map multiply."""
-    import torch.nn.functional as F
+class VolumeCase(NamedTuple):
+    """One shape of row 16 (the GWC volume in the conv slot): features (1,
+    C, H, W) → (1, D, H, W, slot), G groups, cc concat channels, and the
+    launches a pair on each folded path."""
+    label: str
+    c: int
+    groups: int
+    dhw: tuple
+    cc: int
+    slot: int
+    mask_ref: bool
+    acv: int
+    pcw: int
+    igev: int
 
+
+VOLUME_CASES = [
+    VolumeCase("ACV 40 in 48", FEAT_C, GROUPS, (D4, H4, W4), 0, ATT_SLOT, False, 2, 0, 0),
+    *(VolumeCase(f"PCW {sc}", FEAT_C, GROUPS, (d, h, w), PCW_CC, PCW_SLOT, True, 0, 2, 0)
+      for sc, d, h, w in PCW_VOLUMES),
+    VolumeCase("IGEV 8 groups in 16", IGEV_C, IGEV_GROUPS, G1, 0, IGEV_SLOT, False, 0, 0, 2),
+]
+# Row 10 at the ACV slot volume: the attention chain's two stencils alone and
+# the fused pair it runs; (label, dilations of the first, of the second).
+PATCH_DIL = (1,) * ATT_SLOT
+PATCH_L123_DIL = (1,) * 8 + (2,) * 16 + (3,) * 16 + (1,) * (ATT_SLOT - GROUPS)
+
+
+def volume_checks(dev) -> dict:
+    """Phase 3, row 16 at every ``VOLUME_CASES`` shape: float32 (1e-6 +
+    1e-5 relative) and bf16 (one ulp) against the plain version; bf16 timed
+    on the card (torch.profiler's device time, CUDA events and the host's
+    time to issue a call beside it), with the tile plan."""
     from diffuvolume_tpu_torch.ops import cost_volume as plain
-    from diffuvolume_tpu_torch.ops.kernels import concat_volume as kc
-    from diffuvolume_tpu_torch.ops.kernels import depthwise as kd
     from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
 
     g = torch.Generator().manual_seed(5)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=g).to(dev)
-
     bf16_ulp = 2.0 ** -7
-    out = {}
-
-    # -- row 16: (label, D, H, W, cc, slot, mask_ref, launches per ACV / PCW pair)
-    log("gwc_volume_packed  features (1,320,H,W) [+ concat (1,12,H,W)] → (1,D,H,W,slot)")
     cases, errs = [], {}
-    vol_cases = [("ACV 40 in 48", D4, H4, W4, 0, ATT_SLOT, False, 2, 0)]
-    vol_cases += [(f"PCW {sc}", d, h, w, PCW_CC, PCW_SLOT, True, 0, 2)
-                  for sc, d, h, w in PCW_VOLUMES]
-    for label, d, h, w, cc, slot, mask_ref, acv_n, pcw_n in vol_cases:
-        l32, r32 = randn(1, FEAT_C, h, w), randn(1, FEAT_C, h, w)
-        cat32 = dict(cat_l=randn(1, cc, h, w), cat_r=randn(1, cc, h, w)) if cc else {}
-        log(f"  {label}: D {d}, (H, W) ({h},{w}), slot {slot}, mask_ref {mask_ref}")
+    log("gwc_volume_packed  features (1,C,H,W) [+ concat (1,12,H,W)] → (1,D,H,W,slot)")
+    for vc in VOLUME_CASES:
+        d, h, w = vc.dhw
+        l32 = torch.randn((1, vc.c, h, w), generator=g).to(dev)
+        r32 = torch.randn((1, vc.c, h, w), generator=g).to(dev)
+        cat32 = {k: torch.randn((1, vc.cc, h, w), generator=g).to(dev)
+                 for k in ("cat_l", "cat_r")} if vc.cc else {}
         e = {}
         for dt, rtol in ((torch.float32, 1e-5), (torch.bfloat16, bf16_ulp)):
             tag = dtype_tag(dt)
-            args = (l32.to(dt), r32.to(dt), d, GROUPS, slot)
-            kw = dict(mask_ref=mask_ref, **{k: v.to(dt) for k, v in cat32.items()})
+            args = (l32.to(dt), r32.to(dt), d, vc.groups, vc.slot)
+            kw = dict(mask_ref=vc.mask_ref, **{k: v.to(dt) for k, v in cat32.items()})
             got, want = kg.gwc_volume_packed(*args, **kw), plain.gwc_volume_slot(*args, **kw)
             torch.cuda.synchronize()
-            e[tag] = check(tag, got, want, 1e-6, rtol)
+            e[tag] = check(f"{vc.label} {tag}", got, want, 1e-6, rtol)
             errs[tag] = max(errs.get(tag, 0.0), e[tag])
             del got, want
         lb, rb = l32.bfloat16(), r32.bfloat16()
         cb = {k: v.bfloat16() for k, v in cat32.items()}
         pairs_dw = sum(max(w - k, 0) for k in range(d))
-        nbytes = (2 * lb.numel() + 2 * cc * h * w + d * h * w * slot) * 2
-        ops = 2 * FEAT_C * h * pairs_dw
+        nbytes = (2 * lb.numel() + 2 * vc.cc * h * w + d * h * w * vc.slot) * 2
+        ops = 2 * vc.c * h * pairs_dw
         b_ms, by = bound(nbytes, ops)
-        rec = dict(label=label, dhw=[d, h, w], cc=cc, slot=slot, mask_ref=mask_ref,
-                   per_pair=acv_n + pcw_n, per_pair_acv=acv_n, per_pair_pcw=pcw_n, errs=e,
-                   ms=time_ms(lambda: kg.gwc_volume_packed(lb, rb, d, GROUPS, slot,
-                                                           mask_ref=mask_ref, **cb), 20),
-                   plain_ms=time_ms(lambda: plain.gwc_volume_slot(lb, rb, d, GROUPS, slot,
-                                                                  mask_ref=mask_ref, **cb), 2),
-                   library_ms=None, bound_ms=b_ms, bound_by=by, ops_ms=ops / F32_OPS_PER_S * 1e3)
-        log(f"  bf16 {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, bound {b_ms:.4f} ms by "
-            f"{by}); {acv_n} per ACV pair, {pcw_n} per PCW pair")
+        t = device_times(lambda: kg.gwc_volume_packed(lb, rb, d, vc.groups, vc.slot,
+                                                      mask_ref=vc.mask_ref, **cb), 20)
+        plan = kg.slot_plan(1, vc.c, vc.cc, h, w, d, vc.slot, torch.bfloat16, dev)
+        rec = dict(label=vc.label, c=vc.c, groups=vc.groups, dhw=[d, h, w], cc=vc.cc,
+                   slot=vc.slot, mask_ref=vc.mask_ref, per_pair=vc.acv + vc.pcw + vc.igev,
+                   per_pair_acv=vc.acv, per_pair_pcw=vc.pcw, per_pair_igev=vc.igev, errs=e,
+                   ms=t["ms"], events_ms=t["events_ms"], host_us=t["host_us"],
+                   plain_ms=time_ms(lambda: plain.gwc_volume_slot(
+                       lb, rb, d, vc.groups, vc.slot, mask_ref=vc.mask_ref, **cb), 2),
+                   library_ms=None, bound_ms=b_ms, bound_by=by,
+                   ops_ms=ops / F32_OPS_PER_S * 1e3, plan=plan)
+        tile = "" if plan is None else (f"; tile {plan['tw']} W × {plan['ds']} D, "
+                                        f"{plan['blocks']} blocks of {plan['threads']}")
+        log(f"  bf16 {rec['ms']:.4f} ms device (events {t['events_ms']:.4f}, host "
+            f"{t['host_us']:.0f} µs; plain {rec['plain_ms']:.4f}, bound {b_ms:.4f} ms by "
+            f"{by}){tile}; a pair ACV {vc.acv} / PCW {vc.pcw} / IGEV {vc.igev}")
         cases.append(rec)
+        del l32, r32, lb, rb, cat32, cb
     # No one PyTorch call builds a group-wise correlation volume: library null.
-    out["gwc_volume_packed"] = mixed(cases, errs)
+    out = mixed(cases, errs)
+    out["ms_by_path"] = {}
+    for path in ("acv", "pcw", "igev"):
+        sel = [c for c in cases if c[f"per_pair_{path}"]]
+        n = sum(c[f"per_pair_{path}"] for c in sel)
+        out["ms_by_path"][path] = dict(
+            ms=sum(c["ms"] * c[f"per_pair_{path}"] for c in sel) / n,
+            bound_ms=sum(c["bound_ms"] * c[f"per_pair_{path}"] for c in sel) / n,
+            pair_ms=sum(c["ms"] * c[f"per_pair_{path}"] for c in sel))
+    log("  gwc_volume_packed a launch by path: " + ", ".join(
+        f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}; a pair {v['pair_ms']:.4f})"
+        for k, v in out["ms_by_path"].items()))
+    return out
 
-    # -- row 10: the two patch stencils on the ACV slot volume
-    log(f"depthwise_hw_p  (1,{D4},{H4},{W4},{ATT_SLOT}): patch (dil 1), patch_l1/2/3 (dil 1,2,3)")
-    x32 = randn(1, D4, H4, W4, ATT_SLOT)
+
+def stencil_checks(dev) -> dict:
+    """Phase 3, row 10 on the ACV slot volume (1, 48, 128, 240, 48) bf16:
+    ``patch`` (dilation 1) and ``patch_l123`` (1/2/3) alone and the fused
+    pair the attention chain runs (``depthwise_hw_p2``: equal to two single launches bit for bit, asserted;
+    within the stencil tolerance of the plain second stencil on the kernel's
+    intermediate, and in float32 of the plain pair).  Device time
+    (torch.profiler) for the kernels and the library's grouped ``F.conv3d``;
+    the ``kernels`` line's row 10 is the fused pair, which the path
+    launches."""
+    import torch.nn.functional as F
+
+    from diffuvolume_tpu_torch.ops.kernels import depthwise as kd
+
+    g = torch.Generator().manual_seed(7)
+    x32 = torch.randn((1, D4, H4, W4, ATT_SLOT), generator=g).to(dev)
     x32[..., GROUPS:] = 0.0
-    dil_l = (1,) * 8 + (2,) * 16 + (3,) * 16 + (1,) * (ATT_SLOT - GROUPS)
-    cases, errs = [], {}
-    for label, dil in (("patch, dilation 1", (1,) * ATT_SLOT), ("patch_l1/2/3, dilation 1/2/3",
-                                                                  dil_l)):
-        wt = randn(3, 3, ATT_SLOT) * 0.3
+    wts = []
+    for _ in range(2):
+        wt = torch.randn((3, 3, ATT_SLOT), generator=g).to(dev) * 0.3
         wt[..., GROUPS:] = 0.0
+        wts.append(wt)
+    vox = D4 * H4 * W4
+    ops = 2 * 9 * GROUPS * vox
+    xb = x32.bfloat16()
+    log(f"depthwise_hw_p  (1,{D4},{H4},{W4},{ATT_SLOT}): patch (dil 1), patch_l1/2/3 (dil 1,2,3)")
+    cases, errs = [], {}
+    for label, dil, wt in (("patch, dilation 1", PATCH_DIL, wts[0]),
+                           ("patch_l1/2/3, dilation 1/2/3", PATCH_L123_DIL, wts[1])):
         e = {}
         for dt in (torch.float32, torch.bfloat16):
             tag = dtype_tag(dt)
@@ -471,7 +529,6 @@ def front_checks(dev) -> dict:
             e[tag] = check(f"{label} {tag}", got, want, *CONV_TOL[tag])
             errs[tag] = max(errs.get(tag, 0.0), e[tag])
             del got, want
-        xb = x32.bfloat16()
         # The library: one grouped F.conv3d on channels-last bf16 operands;
         # the mixed dilations as one 7×7 kernel with each channel's taps at
         # its own spacing (zeros between).
@@ -488,23 +545,71 @@ def front_checks(dev) -> dict:
             return F.conv3d(x_cl, w_lib, padding=(0, r, r), groups=ATT_SLOT)
         lib_err = float((library().permute(0, 2, 3, 4, 1).float()
                          - kd.depthwise_hw_p(xb, wt, dil).float()).abs().max())
-        vox = D4 * H4 * W4
-        b_ms, by = bound(2 * vox * ATT_SLOT * 2, 2 * 9 * GROUPS * vox)
-        rec = dict(label=label, dil=sorted(set(dil)), per_pair=2, per_pair_acv=2, per_pair_pcw=0,
-                   errs=e, ms=time_ms(lambda: kd.depthwise_hw_p(xb, wt, dil), 20),
+        b_ms, by = bound(2 * vox * ATT_SLOT * 2, ops)
+        t = device_times(lambda: kd.depthwise_hw_p(xb, wt, dil), 20)
+        plan = kd.depthwise_plan(D4, H4, W4, ATT_SLOT, torch.bfloat16, max(dil), 0, dev)
+        # per_pair weighs the mean over the two shapes (each once).
+        rec = dict(label=label, dil=sorted(set(dil)), per_pair=1, errs=e, ms=t["ms"],
+                   events_ms=t["events_ms"], host_us=t["host_us"],
                    plain_ms=time_ms(lambda: kd.depthwise_hw_plain(xb, wt, dil), 3),
-                   library_ms=time_ms(library, 20), library_max_abs_vs_kernel=lib_err,
-                   bound_ms=b_ms, bound_by=by, ops_ms=2 * 9 * GROUPS * vox / F32_OPS_PER_S * 1e3)
-        log(f"  bf16 {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, library "
+                   library_ms=device_times(library, 20)["ms"], library_max_abs_vs_kernel=lib_err,
+                   bound_ms=b_ms, bound_by=by, ops_ms=ops / F32_OPS_PER_S * 1e3, plan=plan)
+        log(f"  bf16 {rec['ms']:.4f} ms device (events {t['events_ms']:.4f}, host "
+            f"{t['host_us']:.0f} µs; plain {rec['plain_ms']:.4f}, library "
             f"{rec['library_ms']:.4f} [max |Δ| to the kernel {lib_err:.2e}], bound {b_ms:.4f} ms "
-            f"by {by}); 2 per ACV pair")
+            f"by {by}){'' if plan is None else '; plan ' + str(plan)}")
         cases.append(rec)
-    out["depthwise_hw_p"] = mixed(cases, errs)
-    del x32
+    out = {"depthwise_hw_p": mixed(cases, errs)}
+    pair_ms = sum(c["ms"] for c in cases)
 
-    # -- row 4 with one map: PCW's noise into the 32-channel combine volume
+    log("depthwise_hw_p2  the pair in one launch: patch, then patch_l1/2/3")
+    args = (wts[0], PATCH_DIL, wts[1], PATCH_L123_DIL)
+    e = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = dtype_tag(dt)
+        x = x32.to(dt)
+        got = kd.depthwise_hw_p2(x, *args)
+        mid = kd.depthwise_hw_p(x, wts[0], PATCH_DIL)
+        two = kd.depthwise_hw_p(mid, wts[1], PATCH_L123_DIL)
+        torch.cuda.synchronize()
+        if not torch.equal(got, two):
+            raise AssertionError(f"the fused pair differs from two single launches ({tag})")
+        e[tag] = check(f"fused pair {tag} (two launches: equal)", got,
+                       kd.depthwise_hw_plain(mid, wts[1], PATCH_L123_DIL), *CONV_TOL[tag])
+        if dt == torch.float32:
+            e[tag] = max(e[tag], check("fused pair float32 against the plain pair", got,
+                                       kd.depthwise_hw_plain2(x, *args), *CONV_TOL[tag]))
+        del got, mid, two
+    b_ms, by = bound(2 * vox * ATT_SLOT * 2, 2 * ops)
+    t = device_times(lambda: kd.depthwise_hw_p2(xb, *args), 20)
+    plan = kd.depthwise_plan(D4, H4, W4, ATT_SLOT, torch.bfloat16, 1, 3, dev)
+    # No one PyTorch call applies the two stencils: library null.
+    rec = dict(label="patch then patch_l1/2/3, one launch", per_pair=2, errs=e, ms=t["ms"],
+               events_ms=t["events_ms"], host_us=t["host_us"],
+               plain_ms=time_ms(lambda: kd.depthwise_hw_plain2(xb, *args), 3), library_ms=None,
+               bound_ms=b_ms, bound_by=by, ops_ms=2 * ops / F32_OPS_PER_S * 1e3, plan=plan)
+    log(f"  bf16 {rec['ms']:.4f} ms device (events {t['events_ms']:.4f}, host "
+        f"{t['host_us']:.0f} µs; plain {rec['plain_ms']:.4f}, bound {b_ms:.4f} ms by {by}); the "
+        f"two alone {pair_ms:.4f} ms; plan {plan}; 2 per ACV pair")
+    out["depthwise_hw_p2"] = mixed([rec], e)
+    out["chain_ms"] = rec["ms"]
+    return out
+
+
+def front_checks(dev) -> dict:
+    """Phase 3, rows 16 and 10 (``tools/conv_device_times.py --rows front``)."""
+    return {"gwc_volume_packed": volume_checks(dev), **stencil_checks(dev)}
+
+
+def pcw_mul_checks(dev) -> dict:
+    """Phase 3, row 4 with one map at the PCW path's shape: the noise into
+    the 32-channel combine volume, 3 per PCW pair."""
+    from diffuvolume_tpu_torch.ops import cost_volume as plain
+    from diffuvolume_tpu_torch.ops.kernels import concat_volume as kc
+
+    g = torch.Generator().manual_seed(8)
     log(f"dhw_mul, one map  vol (1,{PCW_D4},{PCW_H4},{PCW_W4},32) × noise; 3 per PCW pair")
-    vol32 = randn(1, PCW_D4, PCW_H4, PCW_W4, 32)
+    vol32 = torch.randn((1, PCW_D4, PCW_H4, PCW_W4, 32), generator=g).to(dev)
     m32 = torch.rand((1, PCW_D4, PCW_H4, PCW_W4), generator=g).to(dev)
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -515,20 +620,13 @@ def front_checks(dev) -> dict:
         errs[tag] = check(tag, got, want, 0.0, 0.0)
     vb, mb = vol32.bfloat16(), m32.bfloat16()
     b_ms, by = bound(2 * vb.numel() * 2 + mb.numel() * 2, vb.numel())
-    out["dhw_mul_one_map_pcw"] = dict(
-        errs=errs, ms=time_ms(lambda: kc.dhw_mul(vb, mb, None, channels_last=True), 20),
-        plain_ms=time_ms(lambda: plain.volume_dhw_mul(vb, mb, None, True), 3),
-        library_ms=time_ms(lambda: torch.mul(vb, mb[..., None]), 20), bound=(b_ms, by),
-        dtype="bfloat16", per_pair_pcw=PCW_STEPS)
-    r = out["dhw_mul_one_map_pcw"]
+    r = dict(errs=errs, ms=time_ms(lambda: kc.dhw_mul(vb, mb, None, channels_last=True), 20),
+             plain_ms=time_ms(lambda: plain.volume_dhw_mul(vb, mb, None, True), 3),
+             library_ms=time_ms(lambda: torch.mul(vb, mb[..., None]), 20), bound=(b_ms, by),
+             dtype="bfloat16", per_pair_pcw=PCW_STEPS)
     log(f"  bf16 {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library torch.mul "
         f"{r['library_ms']:.4f}, bound {b_ms:.4f} ms by {by})")
-    for k in ("gwc_volume_packed", "depthwise_hw_p"):
-        v = out[k]
-        lib = "null" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms"
-        log(f"  {k}: {v['ms']:.4f} ms per launch (plain {v['plain_ms']:.4f} ms, library {lib}, "
-            f"bound {v['bound'][0]:.4f} ms by {v['bound'][1]})")
-    return out
+    return {"dhw_mul_one_map_pcw": r}
 
 
 class HeadCase(NamedTuple):
@@ -1231,10 +1329,9 @@ def refine_checks(dev, iters: int = 10) -> dict:
 
 
 def igev_volume_checks(dev) -> dict:
-    """Phase 3 at the IGEV path's shapes: row 16 (the folded path's 8-group
-    volume in its 16 slot, cpg 12: the scalar product loop), row 2 (the
-    module path's NCDHW volume) and row 13 (the GEV and the classifier's
-    cost to the lookup's layouts)."""
+    """Phase 3 at the IGEV path's shapes: row 2 (the module path's NCDHW
+    volume, 8 groups) and row 13 (the GEV and the classifier's cost to the
+    lookup's layouts).  Row 16 at the IGEV shape is in ``volume_checks``."""
     from diffuvolume_tpu_torch.ops import cost_volume as plain
     from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
     from diffuvolume_tpu_torch.ops.kernels import layout as kl
@@ -1247,29 +1344,23 @@ def igev_volume_checks(dev) -> dict:
     pairs_dw = sum(max(w - k, 0) for k in range(d))
     ops = 2 * IGEV_C * h * pairs_dw
     out = {}
-    for name, fn, ref, c_out in (
-            ("gwc_volume_packed",
-             lambda a, b: kg.gwc_volume_packed(a, b, d, IGEV_GROUPS, IGEV_SLOT),
-             lambda a, b: plain.gwc_volume_slot(a, b, d, IGEV_GROUPS, IGEV_SLOT), IGEV_SLOT),
-            ("gwc_volume", lambda a, b: kg.gwc_volume(a, b, d, IGEV_GROUPS),
-             lambda a, b: plain.build_gwc_volume(a, b, d, IGEV_GROUPS), IGEV_GROUPS)):
-        log(f"{name} at IGEV  features 2×(1,{IGEV_C},{h},{w}) → G {IGEV_GROUPS}, D {d}, "
-            f"{c_out} channels")
-        errs = {}
-        for dt, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
-            tag = dtype_tag(dt)
-            got, want = fn(l32.to(dt), r32.to(dt)), ref(l32.to(dt), r32.to(dt))
-            torch.cuda.synchronize()
-            errs[tag] = check(tag, got, want, 1e-6, rtol)
-            del got, want
-        b_ms, by = bound((2 * lb.numel() + d * h * w * c_out) * 2, ops)
-        rec = dict(label=f"IGEV (1,{IGEV_C},{h},{w}) → D {d}, {c_out} channels", per_pair=2,
-                   errs=errs, ms=time_ms(lambda: fn(lb, rb), 20),
-                   plain_ms=time_ms(lambda: ref(lb, rb), 2), library_ms=None, bound_ms=b_ms,
-                   bound_by=by, ops_ms=ops / F32_OPS_PER_S * 1e3)
-        log(f"  bf16 {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, bound {b_ms:.4f} ms by "
-            f"{by}); 2 per IGEV {'folded' if c_out == IGEV_SLOT else 'module'} pair")
-        out[name] = mixed([rec], errs)
+    log(f"gwc_volume at IGEV  features 2×(1,{IGEV_C},{h},{w}) → G {IGEV_GROUPS}, D {d}")
+    errs = {}
+    for dt, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        tag = dtype_tag(dt)
+        got = kg.gwc_volume(l32.to(dt), r32.to(dt), d, IGEV_GROUPS)
+        want = plain.build_gwc_volume(l32.to(dt), r32.to(dt), d, IGEV_GROUPS)
+        torch.cuda.synchronize()
+        errs[tag] = check(tag, got, want, 1e-6, rtol)
+        del got, want
+    b_ms, by = bound((2 * lb.numel() + d * h * w * IGEV_GROUPS) * 2, ops)
+    rec = dict(label=f"IGEV (1,{IGEV_C},{h},{w}) → D {d}, {IGEV_GROUPS} groups", per_pair=2,
+               errs=errs, ms=time_ms(lambda: kg.gwc_volume(lb, rb, d, IGEV_GROUPS), 20),
+               plain_ms=time_ms(lambda: plain.build_gwc_volume(lb, rb, d, IGEV_GROUPS), 2),
+               library_ms=None, bound_ms=b_ms, bound_by=by, ops_ms=ops / F32_OPS_PER_S * 1e3)
+    log(f"  bf16 {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, bound {b_ms:.4f} ms by "
+        f"{by}); 2 per IGEV module pair")
+    out["gwc_volume"] = mixed([rec], errs)
 
     # -- row 13: (label, channels in the slot, co) at (48, 96, 312)
     cases, errs = [], {}
@@ -1576,11 +1667,12 @@ def expected_launches(packed: bool, routed: bool = False) -> dict:
     and 2 attention chains (baseline + DDIM prep).  The convs are
     ``CONV_CASES``; an aggregation pass has 2 pack + 2 unpack, an attention
     chain 2 pack + 1 unpack and, on the folded path, its GWC volume in the
-    slot and 2 patch stencils (the module path builds the NCDHW volume).  A
-    routed module path adds ``routed_launches``."""
+    slot and its 2 patch stencils in one launch (the module path builds the
+    NCDHW volume).  A routed module path adds ``routed_launches``."""
     out = {"fused_head": 6, "concat_volume": 2, "dhw_mul": STEPS,
            "gwc_volume": 0 if packed else 2}
-    folded = {"pack": 14, "unpack": 14, "gwc_volume_packed": 2, "depthwise_hw_p": 4}
+    folded = {"pack": 14, "unpack": 14, "gwc_volume_packed": 2, "depthwise_hw_p": 0,
+              "depthwise_hw_p2": 2}
     for case in CONV_CASES:
         folded[case.row] = folded.get(case.row, 0) + case.per_pair
     out.update({k: (v if packed else 0) for k, v in folded.items()})
@@ -1882,8 +1974,8 @@ KERNEL_META = {  # name → (source, TPU kernel file:line, its function)
                "diffuvolume_tpu/ops/pallas/conv3d.py:1140", "unpack_padded_k"),
     "gwc_volume_packed": ("diffuvolume_tpu_torch/csrc/gwc_volume.cu",
                           "diffuvolume_tpu/ops/pallas/gwc_volume.py:132", "gwc_volume_packed"),
-    "depthwise_hw_p": ("diffuvolume_tpu_torch/csrc/depthwise_hw.cu",
-                       "diffuvolume_tpu/ops/pallas/conv3d.py:792", "depthwise_hw_p"),
+    "depthwise_hw_p2": ("diffuvolume_tpu_torch/csrc/depthwise_hw.cu",
+                        "diffuvolume_tpu/ops/pallas/conv3d.py:792", "depthwise_hw_p"),
     "fused_uncertainty_at": ("diffuvolume_tpu_torch/csrc/fused_head.cu",
                              "diffuvolume_tpu/ops/pallas/fused_head.py:195",
                              "fused_uncertainty_at"),
@@ -1960,12 +2052,13 @@ def main() -> int:
     log("== 3. kernels against their plain versions (every path's shapes)")
     ncdhw = kernel_checks(dev)
     checks = {**ncdhw, **head_checks(dev), **volume_cl_checks(dev), **front_checks(dev),
+              **pcw_mul_checks(dev),
               **conv_checks(dev, CONV_CASES, "ACV"), **layout_checks(dev)}
     checks["pcw_convs"] = conv_checks(dev, PCW_CONV_CASES, "PCW", iters=10)
     igev = igev_volume_checks(dev)
     checks["igev_convs"] = conv_checks(dev, IGEV_CONV_CASES, "IGEV folded", iters=10)
     small = conv_checks(dev, IGEV_SMALL_CASES, "IGEV module", iters=10)
-    checks["igev_volumes"] = {k: igev[k] for k in ("gwc_volume_packed", "gwc_volume")}
+    checks["igev_volumes"] = {"gwc_volume": igev["gwc_volume"]}
     checks["unpack_hwdc"], checks["conv3d_fold_small"] = igev["unpack_hwdc"], small[
         "conv3d_fold_small"]
     checks["conv2d_flat"] = refine_checks(dev)
@@ -1989,6 +2082,7 @@ def main() -> int:
                 "conv3d_fold_s2": kconv.conv3d_fold_s2, "conv3d_fold_up": kup.conv3d_fold_up,
                 "conv1x1_fold_p": kconv.conv1x1_fold_p, "pack": kl.pack, "unpack": kl.unpack,
                 "gwc_volume_packed": kg.gwc_volume_packed, "depthwise_hw_p": kd.depthwise_hw_p,
+                "depthwise_hw_p2": kd.depthwise_hw_p2,
                 "fused_uncertainty_at": kf.fused_uncertainty_at, "unpack_hwdc": kl.unpack_hwdc,
                 "conv3d_fold_small": kconv.conv3d_fold_small,
                 "conv3d_packed": kconv.conv3d_packed, "conv2d_flat": k2.conv2d_flat}
@@ -2043,6 +2137,7 @@ def main() -> int:
             "max_abs_err_bf16": c["errs"]["bfloat16"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
             "library_ms": c["library_ms"], "timed_dtype": c["dtype"],
+            **({"ms_by_path": c["ms_by_path"]} if "ms_by_path" in c else {}),
         })
     kind = torch.cuda.get_device_name(0)
     elapsed = time.perf_counter() - t_start

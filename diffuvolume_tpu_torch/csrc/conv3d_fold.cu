@@ -45,11 +45,11 @@
 // 128, 240) moves 189 MB, 56 µs at 3.35 TB/s, for 5 µs of bf16 tensor-core
 // work).  Design: conv_k1.cuh's conv_k1 — the positions as one flat GEMM
 // dimension, tiles of 128 or 256 contiguous positions × every input channel
-// brought by one bulk copy (cp.async.bulk on an mbarrier) each, the
-// residual's tile in the same stage, persistent blocks walking their tiles
-// through a ring of 2–6 stages, the weights staged once a block, and
-// 16-byte coalesced stores from a staging buffer while the next tiles'
-// copies are in flight.
+// copied by 16-byte cp.async into a ring of 2–3 stages (the x tile
+// swizzled for conflict-free ldmatrix reads), the residual's tile in the
+// same stage, persistent blocks walking their tiles, the weights staged
+// once a block, and 16-byte coalesced stores from a staging buffer while
+// the next tiles' copies are in flight.
 //
 // Stride 2 (row 7).  What bounds it on the H100, at the ACV shapes: bytes
 // for 32→64 (48, 128, 240) → (24, 64, 120), 94 MB in and 24 MB out, 35.2 µs

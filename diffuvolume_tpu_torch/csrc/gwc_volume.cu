@@ -28,26 +28,34 @@
 //     [G+2cc, slot)   0
 //   Replaces diffuvolume_tpu/ops/pallas/gwc_volume.py:gwc_volume_packed
 //   (the ACV attention chain's 40-in-48 volume; PCW's 40+12+12 = 64 volumes
-//   at 1/4 … 1/32).  Plain version: ops/cost_volume.py gwc_volume_slot.
+//   at 1/4 … 1/32; IGEV's 8 groups of 12 channels in a 16 slot).  Plain
+//   version: ops/cost_volume.py gwc_volume_slot.
 //
 // What bounds it on the H100: bytes, the output.  ACV (1, 48, 128, 240, 48)
 // bf16 writes 141.6 MB (about 42 µs at 3.35 TB/s) from 39 MB of features;
 // PCW's 1/4 volume (1, 48, 96, 312, 64) writes 184 MB (about 55 µs).  The
-// 472 M (ACV) multiply-adds are about 14 µs of float32 work.
+// 426 M (ACV) multiply-adds are about 13 µs of float32 work, but each one
+// also costs a bf16 → float32 conversion and shared-memory bandwidth.
 //
 // Design.  The TPU kernel packs D-phases into 128 lanes with halo rows and
 // slices the shifts out of a flattened row; none of that carries over.  A
-// block owns one (b, h) row and 32 W positions: it copies the left tile and
-// the right strip that the shifts reach (32 + D − 1 positions), all C + cc
-// channels each, into shared memory as [position][channel] rows (the row
-// stride an odd number of 16-byte units), then loops over d inside the
-// block.  Each thread makes 16 bytes of one (d, w) slot; the 8 threads of a
-// quarter-warp take one channel vector at 8 neighbouring positions, so their
-// 16-byte reads of the staged rows fall in distinct bank groups, and a warp
-// stores each position's slot in whole 16-byte runs.  (Channel vectors
-// first, the first design, read one row with 6 threads at once: 0.55 ms at
-// the ACV shape, H100.)  Sums in float32 in channel order, divided by cpg,
-// rounded once.
+// block owns one (b, h) row, a tile of `tw` W positions and a range of `ds`
+// disparities (slot_plan below: 32 × 24 at full resolution, so that several
+// small blocks an SM hide each other's staging; D split further where a
+// small level's grid would leave SMs idle).  Staging: the features are NCHW, so a thread reads
+// 16 bytes (8 bf16 W positions) of each of 8 channels and transposes them in
+// registers (byte permutes) into 8 [position][channel] rows, one 16-byte
+// store each; the row stride is an odd number of 16-byte units.  Compute: a
+// thread owns half a 16-byte output vector (4 bf16 groups) of one position,
+// keeps its left channels (4·cpg values) in float32 registers across the d
+// loop and reads only the right row's 4·cpg channels a d, as 16-byte loads
+// (8-byte for odd cpg); quarter-warps take 4 positions × 2 halves, so the
+// reads fall in distinct bank groups.  The concat halves and the fill are
+// copied by threads of their own.  Sums in float32 in channel order,
+// divided by cpg, rounded once.  cpg 1, 2, 3, 4, 6, 8, 12 and 16 are
+// compiled.
+#include <cstring>
+
 #include "common.cuh"
 
 namespace dv {
@@ -108,129 +116,321 @@ int launch(const void* left, const void* right, void* out, int b, int c, int h, 
 
 // -- the volume in the conv slot ----------------------------------------------
 
-constexpr int kSlotTileW = 32;
+// One shape's plan, in ops/kernels/_build.py SLOT_PLAN_KEYS order: a block
+// makes tw W positions × ds disparities of one row (nds blocks split D) from
+// a staged left tile and right strip of tw + ds − 1 positions, rows ld
+// elements apart, with `threads` threads; `blocks` the grid.
+struct SlotPlan {
+  int tw, ds, nds, threads, smem_bytes, blocks, ld;
+};
+
+constexpr int kSlotMaxDs = 24;       // disparities a block at most
+constexpr int kSlotMaxThreads = 512;  // gwc_slot_kernel's launch bound
+
+// The rule, from the H100's times at every path's shape (PERF.md): tiles of
+// 32 positions (16 below W 128, 8 below W 64), so that several small blocks
+// an SM hide each other's staging; at most kSlotMaxDs disparities a block,
+// half of D below that; D split further while the grid would leave SMs
+// idle; rows of C + cc channels rounded up to whole 16-byte units, then to
+// an odd number of them (neighbouring positions in distinct bank groups);
+// one thread a work item (half a 16-byte output vector a position).
+// force_tw, force_ds > 0 take that tile instead (for timing).
+inline cudaError_t slot_plan(int b, int c, int cc, int h, int w, int d, int slot, int elsize,
+                             int force_tw, int force_ds, int device, SlotPlan& p) {
+  int sms = 0, optin = 0;
+  if (cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device))
+    return e;
+  if (cudaError_t e =
+          cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device))
+    return e;
+  if ((elsize != 2 && elsize != 4) || d < 1) return cudaErrorInvalidValue;
+  const int vec = 16 / elsize;
+  p.tw = force_tw > 0 ? force_tw : (w >= 128 ? 32 : (w >= 64 ? 16 : 8));
+  auto blocks = [&](int ds) {
+    return static_cast<long long>(ceil_div(w, p.tw)) * h * b * ceil_div(d, ds);
+  };
+  if (force_ds > 0) {
+    p.ds = force_ds;
+  } else {
+    p.ds = d >= kSlotMaxDs ? kSlotMaxDs : (d + 1) / 2;
+    while (blocks(p.ds) < sms && p.ds > 1) p.ds = (p.ds + 1) / 2;
+  }
+  int units = (c + cc + vec - 1) / vec;
+  if (units % 2 == 0) ++units;
+  p.ld = units * vec;
+  p.nds = ceil_div(d, p.ds);
+  const long long smem = static_cast<long long>(2 * p.tw + p.ds - 1) * p.ld * elsize;
+  const int items = p.tw * slot / (8 / elsize);
+  p.threads = items < kSlotMaxThreads ? ceil_div(items, 32) * 32 : kSlotMaxThreads;
+  p.smem_bytes = static_cast<int>(smem);
+  p.blocks = static_cast<int>(blocks(p.ds));
+  if (p.tw < 4 || p.tw % 4 || p.ds < 1 || smem > optin) return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
 
 struct SlotGeom {
   int c, cc, groups, slot, dmax, h, w, mask_ref;
+  int tw, ds, nds, ld, chunk;  // from the plan; ld: staged row stride in elements
 };
 
-// Shared-memory row stride in elements: C + cc channels rounded up to whole
-// 16-byte vectors, then to an odd number of them.
-template <typename T>
-__host__ __device__ inline int slot_row_stride(int channels) {
-  constexpr int kVec = 16 / sizeof(T);
-  int n = (channels + kVec - 1) / kVec;
-  if (n % 2 == 0) ++n;
-  return n * kVec;
-}
+// The raw bits of one element.
+template <typename T> struct BitsOf { using type = unsigned int; };
+template <> struct BitsOf<__nv_bfloat16> { using type = unsigned short; };
 
-// Σ a[j]·b[j] over n elements in float32, in order; 16-byte reads where
-// `vec` says both rows are aligned to them and n is a whole number of them.
-template <typename T>
-__device__ __forceinline__ float row_dot(const T* a, const T* b, int n, bool vec) {
-  constexpr int kVec = 16 / sizeof(T);
-  float s = 0.f;
-  if (vec) {
-    for (int j = 0; j < n; j += kVec) {
-      const uint4 ra = *reinterpret_cast<const uint4*>(a + j);
-      const uint4 rb = *reinterpret_cast<const uint4*>(b + j);
-      const T* pa = reinterpret_cast<const T*>(&ra);
-      const T* pb = reinterpret_cast<const T*>(&rb);
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+// N elements at p (8·k bytes, aligned to 16 when a multiple of 16) → float32.
+template <typename T, int N>
+__device__ __forceinline__ void lds_f32(const T* p, float (&f)[N]) {
+  constexpr int kBytes = N * static_cast<int>(sizeof(T));
+  static_assert(kBytes % 8 == 0, "whole 8-byte units");
+  unsigned u[kBytes / 4];
+  if constexpr (kBytes % 16 == 0) {
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) s += to_f32(pa[k]) * to_f32(pb[k]);
+    for (int i = 0; i < kBytes / 16; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      u[4 * i] = v.x, u[4 * i + 1] = v.y, u[4 * i + 2] = v.z, u[4 * i + 3] = v.w;
     }
   } else {
-    for (int j = 0; j < n; ++j) s += to_f32(a[j]) * to_f32(b[j]);
+#pragma unroll
+    for (int i = 0; i < kBytes / 8; ++i) {
+      const uint2 v = reinterpret_cast<const uint2*>(p)[i];
+      u[2 * i] = v.x, u[2 * i + 1] = v.y;
+    }
   }
-  return s;
+#pragma unroll
+  for (int i = 0; i < kBytes / 4; ++i) {
+    if constexpr (sizeof(T) == 2) {
+      f[2 * i] = bf16_lo(u[i]);
+      f[2 * i + 1] = bf16_hi(u[i]);
+    } else {
+      f[i] = __uint_as_float(u[i]);
+    }
+  }
 }
 
+// 8 bytes of T (4 bf16 or 2 float32) from float32 values, rounded once.
 template <typename T>
-__global__ void gwc_slot_kernel(const T* __restrict__ left, const T* __restrict__ right,
-                                const T* __restrict__ cat_l, const T* __restrict__ cat_r,
-                                T* __restrict__ out, SlotGeom g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  constexpr int kVec = 16 / sizeof(T);
-  const int nch = g.c + g.cc;                 // channels staged per position
-  const int ld = slot_row_stride<T>(nch);
-  const int rw = kSlotTileW + g.dmax - 1;     // right strip: w0 - D + 1 … w0 + 31
-  T* ls = sm;                                 // (kSlotTileW, ld)
-  T* rs = sm + kSlotTileW * ld;               // (rw, ld)
-  const int w0 = blockIdx.x * kSlotTileW;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t hw = static_cast<size_t>(g.h) * g.w;
+__device__ __forceinline__ uint2 pack8(const float* v) {
+  if constexpr (sizeof(T) == 2) {
+    auto b = [](float x) {
+      return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(x)));
+    };
+    return make_uint2(b(v[0]) | b(v[1]) << 16, b(v[2]) | b(v[3]) << 16);
+  } else {
+    return make_uint2(__float_as_uint(v[0]), __float_as_uint(v[1]));
+  }
+}
 
-  // Stage the rows: feature channels, then the concat channels; positions
-  // outside the image are zero.  Consecutive threads read consecutive w.
-  auto stage = [&](T* dst, int npos, int x0, const T* feat, const T* cat) {
-    for (int i = threadIdx.x; i < nch * npos; i += blockDim.x) {
-      const int ch = i / npos, k = i % npos, x = x0 + k;
-      T v = from_f32<T>(0.f);
-      if (x >= 0 && x < g.w) {
-        const size_t at = static_cast<size_t>(y) * g.w + x;
-        v = ch < g.c ? feat[(static_cast<size_t>(b) * g.c + ch) * hw + at]
-                     : cat[(static_cast<size_t>(b) * g.cc + (ch - g.c)) * hw + at];
-      }
-      dst[k * ld + ch] = v;
-    }
+// Stage positions [x0, x0 + n) ∩ [0, W) of row (b, y): the C feature
+// channels then the cc concat channels, as rows dst[(x − x0)·ld + ch].
+// Positions outside the image are not written (no output reads them).
+// chunk == kVec: a thread reads kVec W positions (16 bytes) of each of kVec
+// channels and transposes them in registers, one 16-byte store a position;
+// it needs H·W a multiple of kVec and 16-byte aligned features.  chunk == 1:
+// one element a channel.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* __restrict__ dst, int x0, int n,
+                                           const T* __restrict__ feat,
+                                           const T* __restrict__ cat, const SlotGeom& g,
+                                           int b, int y) {
+  constexpr int kVec = 16 / sizeof(T);
+  using Bits = typename BitsOf<T>::type;
+  const int lo = max(x0, 0), hi = min(x0 + n, g.w);
+  if (lo >= hi) return;
+  const int nch = g.c + g.cc;
+  const int noct = (nch + kVec - 1) / kVec;
+  const long long hw = static_cast<long long>(g.h) * g.w;
+  const long long row = static_cast<long long>(y) * g.w;
+  auto channel = [&](int ch) -> const T* {
+    if (ch < g.c) return feat + (static_cast<long long>(b) * g.c + ch) * hw + row;
+    if (ch < nch) return cat + (static_cast<long long>(b) * g.cc + (ch - g.c)) * hw + row;
+    return nullptr;
   };
-  stage(ls, kSlotTileW, w0, left, cat_l);
-  stage(rs, rw, w0 - (g.dmax - 1), right, cat_r);
+  if (g.chunk == kVec) {
+    // Chunks start where the element index is a multiple of kVec.
+    const int xs = lo - static_cast<int>((row + lo) % kVec);
+    const int nck = (hi - xs + kVec - 1) / kVec;
+    for (int i = threadIdx.x; i < noct * nck; i += blockDim.x) {
+      const int oct = i % noct, xa = xs + (i / noct) * kVec;
+      uint4 e[kVec];
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const T* src = channel(oct * kVec + j);
+        e[j] = src ? *reinterpret_cast<const uint4*>(src + xa) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int p = 0; p < kVec; ++p) {
+        const int x = xa + p;
+        if (x < lo || x >= hi) continue;
+        uint4 v;
+        if constexpr (sizeof(T) == 2) {
+          // position p of 8 channels: the low or high halves of word p / 2
+          const unsigned sel = (p & 1) ? 0x7632u : 0x5410u;
+          auto wd = [&](int j) { return reinterpret_cast<const unsigned*>(&e[j])[p >> 1]; };
+          v = make_uint4(__byte_perm(wd(0), wd(1), sel), __byte_perm(wd(2), wd(3), sel),
+                         __byte_perm(wd(4), wd(5), sel), __byte_perm(wd(6), wd(7), sel));
+        } else {
+          auto wd = [&](int j) { return reinterpret_cast<const unsigned*>(&e[j])[p]; };
+          v = make_uint4(wd(0), wd(1), wd(2), wd(3));
+        }
+        *reinterpret_cast<uint4*>(dst + (x - x0) * g.ld + oct * kVec) = v;
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < noct * (hi - lo); i += blockDim.x) {
+      const int oct = i % noct, x = lo + i / noct;
+      Bits e[kVec];
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const T* src = channel(oct * kVec + j);
+        e[j] = src ? reinterpret_cast<const Bits*>(src)[x] : Bits(0);
+      }
+      uint4 v;
+      if constexpr (sizeof(T) == 2) {
+        v = make_uint4(e[0] | unsigned(e[1]) << 16, e[2] | unsigned(e[3]) << 16,
+                       e[4] | unsigned(e[5]) << 16, e[6] | unsigned(e[7]) << 16);
+      } else {
+        v = make_uint4(e[0], e[1], e[2], e[3]);
+      }
+      *reinterpret_cast<uint4*>(dst + (x - x0) * g.ld + oct * kVec) = v;
+    }
+  }
+}
+
+template <typename T, int CPG>
+__global__ void __launch_bounds__(kSlotMaxThreads)
+    gwc_slot_kernel(const T* __restrict__ left, const T* __restrict__ right,
+                    const T* __restrict__ cat_l, const T* __restrict__ cat_r,
+                    T* __restrict__ out, SlotGeom g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kHalf = kVec / 2;  // groups a thread makes: 8 output bytes
+  T* ls = reinterpret_cast<T*>(smem_raw);  // (tw, ld): the left tile
+  T* rs = ls + g.tw * g.ld;                // (tw + ds − 1, ld): the right strip
+  const int w0 = blockIdx.x * g.tw;
+  const int y = blockIdx.y;
+  const int b = blockIdx.z / g.nds;
+  const int d0 = (blockIdx.z % g.nds) * g.ds;
+  const int dend = min(d0 + g.ds, g.dmax);
+  // Right position x − d lies at strip row (x − w0) + d0 + ds − 1 − d.
+  stage_rows(ls, w0, g.tw, left, cat_l, g, b, y);
+  stage_rows(rs, w0 - d0 - g.ds + 1, g.tw + g.ds - 1, right, cat_r, g, b, y);
   __syncthreads();
 
-  const int cpg = g.c / g.groups;
-  const bool vec = cpg % kVec == 0;
-  const float n = static_cast<float>(cpg);
-  // Work item → (d, group of 8 positions, channel vector, position in the
-  // group): the 8 threads of each quarter-warp read 8 different staged rows
-  // (distinct 16-byte bank groups, as the row stride is odd) and the warp
-  // stores whole 16-byte runs of each position's slot.
-  const int nv = g.slot / kVec;
-  for (int i = threadIdx.x; i < g.dmax * kSlotTileW * nv; i += blockDim.x) {
-    const int ch0 = ((i / 8) % nv) * kVec;
-    const int xl = i % 8 + 8 * ((i / (8 * nv)) % (kSlotTileW / 8));
-    const int d = i / (nv * kSlotTileW);
-    const int x = w0 + xl;
-    if (x >= g.w) continue;
-    const bool valid = x >= d;
-    const T* lrow = ls + xl * ld;
-    const T* rrow = rs + (xl + g.dmax - 1 - d) * ld;
-    uint4 raw;
-    T* vals = reinterpret_cast<T*>(&raw);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      const int ch = ch0 + k;
-      float v = 0.f;
-      if (ch < g.groups) {
-        if (valid) v = row_dot(lrow + ch * cpg, rrow + ch * cpg, cpg, vec) / n;
-      } else if (ch < g.groups + g.cc) {
-        if (valid || !g.mask_ref) v = to_f32(lrow[g.c + ch - g.groups]);
-      } else if (ch < g.groups + 2 * g.cc) {
-        if (valid) v = to_f32(rrow[g.c + ch - g.groups - g.cc]);
-      }
-      vals[k] = from_f32<T>(v);
+  // Work items: the group half-vectors (in pairs: quarter-warps take 4
+  // positions × 2 halves), then the rest of the slot, half a vector each.
+  const int nhv = (g.groups / kHalf) & ~1;
+  const int nvp = nhv / 2;
+  const int ntail = g.slot / kHalf - nhv;
+  const int n_gwc = g.tw * nhv;
+  const int n_items = n_gwc + g.tw * ntail;
+  const size_t dstride = static_cast<size_t>(g.h) * g.w * g.slot;
+  const float n = static_cast<float>(CPG);
+  for (int it = threadIdx.x; it < n_items; it += blockDim.x) {
+    int pos, hv;
+    if (it < n_gwc) {
+      const int rest = it >> 3;
+      pos = 4 * (rest / nvp) + ((it >> 1) & 3);
+      hv = 2 * (rest % nvp) + (it & 1);
+    } else {
+      pos = (it - n_gwc) / ntail;
+      hv = nhv + (it - n_gwc) % ntail;
     }
-    const size_t o = (((static_cast<size_t>(b) * g.dmax + d) * g.h + y) * g.w + x) * g.slot + ch0;
-    *reinterpret_cast<uint4*>(out + o) = raw;
+    const int x = w0 + pos;
+    if (x >= g.w) continue;
+    T* o = out + (((static_cast<size_t>(b) * g.dmax + d0) * g.h + y) * g.w + x) * g.slot +
+           hv * kHalf;
+    const T* lrow = ls + pos * g.ld;
+    const T* rrow = rs + (pos + d0 + g.ds - 1) * g.ld;  // at d = 0; minus d rows
+    if (it < n_gwc) {
+      float lf[kHalf * CPG];
+      lds_f32<T, kHalf * CPG>(lrow + hv * kHalf * CPG, lf);
+      for (int d = d0; d < dend; ++d, o += dstride) {
+        float v[kHalf];
+        if (x >= d) {
+          float rf[kHalf * CPG];
+          lds_f32<T, kHalf * CPG>(rrow - d * g.ld + hv * kHalf * CPG, rf);
+#pragma unroll
+          for (int k = 0; k < kHalf; ++k) {
+            float s = 0.f;
+#pragma unroll
+            for (int j = 0; j < CPG; ++j) s = fmaf(lf[k * CPG + j], rf[k * CPG + j], s);
+            v[k] = s / n;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < kHalf; ++k) v[k] = 0.f;
+        }
+        *reinterpret_cast<uint2*>(o) = pack8<T>(v);
+      }
+    } else {
+      for (int d = d0; d < dend; ++d, o += dstride) {
+        const bool valid = x >= d;
+        const T* r = rrow - d * g.ld;
+        float v[kHalf];
+#pragma unroll
+        for (int k = 0; k < kHalf; ++k) {
+          const int ch = hv * kHalf + k;
+          float val = 0.f;
+          if (ch < g.groups) {  // groups past the last whole pair of half-vectors
+            if (valid) {
+              float s = 0.f;
+#pragma unroll
+              for (int j = 0; j < CPG; ++j)
+                s = fmaf(to_f32(lrow[ch * CPG + j]), to_f32(r[ch * CPG + j]), s);
+              val = s / n;
+            }
+          } else if (ch < g.groups + g.cc) {
+            if (valid || !g.mask_ref) val = to_f32(lrow[g.c + ch - g.groups]);
+          } else if (ch < g.groups + 2 * g.cc) {
+            if (valid) val = to_f32(r[g.c + ch - g.groups - g.cc]);
+          }
+          v[k] = val;
+        }
+        *reinterpret_cast<uint2*>(o) = pack8<T>(v);
+      }
+    }
   }
 }
 
-template <typename T>
-int launch_slot(const void* left, const void* right, const void* cat_l, const void* cat_r,
-                void* out, int b, const SlotGeom& g, cudaStream_t stream) {
-  const int ld = slot_row_stride<T>(g.c + g.cc);
-  const size_t smem = sizeof(T) * static_cast<size_t>(ld) * (2 * kSlotTileW + g.dmax - 1);
-  cudaError_t e = cudaFuncSetAttribute(gwc_slot_kernel<T>,
+template <typename T, int CPG>
+int launch_slot_cpg(const void* left, const void* right, const void* cat_l, const void* cat_r,
+                    void* out, int b, const SlotGeom& g, const SlotPlan& p,
+                    cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(gwc_slot_kernel<T, CPG>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
+                                       p.smem_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(ceil_div(g.w, kSlotTileW), g.h, b);
-  gwc_slot_kernel<T><<<grid, kThreads, smem, stream>>>(
+  dim3 grid(ceil_div(g.w, g.tw), g.h, b * g.nds);
+  gwc_slot_kernel<T, CPG><<<grid, p.threads, p.smem_bytes, stream>>>(
       static_cast<const T*>(left), static_cast<const T*>(right), static_cast<const T*>(cat_l),
       static_cast<const T*>(cat_r), static_cast<T*>(out), g);
   return end();
+}
+
+inline bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <typename T>
+int launch_slot(const void* left, const void* right, const void* cat_l, const void* cat_r,
+                void* out, int b, SlotGeom g, const SlotPlan& p, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  g.tw = p.tw, g.ds = p.ds, g.nds = p.nds, g.ld = p.ld;
+  const bool vec = (static_cast<long long>(g.h) * g.w) % kVec == 0 && aligned16(left) &&
+                   aligned16(right) && aligned16(cat_l) && aligned16(cat_r);
+  g.chunk = vec ? kVec : 1;
+  switch (g.c / g.groups) {
+    case 1: return launch_slot_cpg<T, 1>(left, right, cat_l, cat_r, out, b, g, p, stream);
+    case 2: return launch_slot_cpg<T, 2>(left, right, cat_l, cat_r, out, b, g, p, stream);
+    case 3: return launch_slot_cpg<T, 3>(left, right, cat_l, cat_r, out, b, g, p, stream);
+    case 4: return launch_slot_cpg<T, 4>(left, right, cat_l, cat_r, out, b, g, p, stream);
+    case 6: return launch_slot_cpg<T, 6>(left, right, cat_l, cat_r, out, b, g, p, stream);
+    case 8: return launch_slot_cpg<T, 8>(left, right, cat_l, cat_r, out, b, g, p, stream);
+    case 12: return launch_slot_cpg<T, 12>(left, right, cat_l, cat_r, out, b, g, p, stream);
+    case 16: return launch_slot_cpg<T, 16>(left, right, cat_l, cat_r, out, b, g, p, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -245,14 +445,31 @@ DV_EXPORT int dv_gwc_volume(const void* left, const void* right, void* out, int 
   return dv::launch<float>(left, right, out, b, c, h, w, groups, d, s);
 }
 
-DV_EXPORT int dv_gwc_volume_slot(const void* left, const void* right, const void* cat_l,
-                                 const void* cat_r, void* out, int b, int c, int cc, int h,
-                                 int w, int groups, int d, int slot, int mask_ref, int dtype,
-                                 int device, void* stream) {
+// The plan (SlotPlan's ints) of the volume in the slot for a shape: dtype
+// code, a forced tile (tw, ds; 0: the rule's), device.
+DV_EXPORT int dv_gwc_slot_plan(int b, int c, int cc, int h, int w, int d, int slot, int dtype,
+                               int tw, int ds, int device, int* plan) {
   if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
+  dv::SlotPlan p;
+  const int elsize = dtype == dv::kBF16 ? 2 : 4;
+  if (cudaError_t e = dv::slot_plan(b, c, cc, h, w, d, slot, elsize, tw, ds, device, p))
+    return static_cast<int>(e);
+  std::memcpy(plan, &p, sizeof p);
+  return 0;
+}
+
+// `plan`: dv_gwc_slot_plan's for this shape, dtype and device.
+DV_EXPORT int dv_gwc_volume_slot(const void* left, const void* right, const void* cat_l,
+                                 const void* cat_r, void* out, const int* plan, int b, int c,
+                                 int cc, int h, int w, int groups, int d, int slot, int mask_ref,
+                                 int dtype, int device, void* stream) {
+  if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
+  if (plan == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  const dv::SlotGeom g{c, cc, groups, slot, d, h, w, mask_ref};
+  dv::SlotPlan p;
+  std::memcpy(&p, plan, sizeof p);
+  const dv::SlotGeom g{c, cc, groups, slot, d, h, w, mask_ref, 0, 0, 0, 0, 0};
   if (dtype == dv::kBF16)
-    return dv::launch_slot<__nv_bfloat16>(left, right, cat_l, cat_r, out, b, g, s);
-  return dv::launch_slot<float>(left, right, cat_l, cat_r, out, b, g, s);
+    return dv::launch_slot<__nv_bfloat16>(left, right, cat_l, cat_r, out, b, g, p, s);
+  return dv::launch_slot<float>(left, right, cat_l, cat_r, out, b, g, p, s);
 }

@@ -17,7 +17,7 @@ The volumes between convs are ``(B, D, H4, W4, C)``.  The attention chain's
 front is channels-last from the start (``acv.py:595-612`` of the JAX
 package): the GWC volume is written straight into its 48-channel slot
 (``gwc_volume_packed``), the patch convs run on it as two per-channel
-stencil launches (``depthwise_hw_p``), and ``dres1_att_0`` reads it.  The
+stencils in one launch (``depthwise_hw_p2``), and ``dres1_att_0`` reads it.  The
 modules the folded path does not touch (feature trunk, concat convs, window
 attention, time embedding) run as they are on the module path.
 
@@ -51,7 +51,7 @@ from diffuvolume_tpu_torch.ops.kernels.conv3d_fold import (
     conv3d_fold_x2,
 )
 from diffuvolume_tpu_torch.ops.kernels.conv3d_up import conv3d_fold_up
-from diffuvolume_tpu_torch.ops.kernels.depthwise import depthwise_hw_p
+from diffuvolume_tpu_torch.ops.kernels.depthwise import depthwise_hw_p2
 from diffuvolume_tpu_torch.ops.kernels.fused_head import fused_upsample_softargmin
 from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume_packed
 from diffuvolume_tpu_torch.ops.kernels.layout import pack, unpack
@@ -188,13 +188,13 @@ class FoldedACV:
         """``ACVNet.build_cost_volume`` with the attention chain folded and
         channels-last from the GWC volume on (``acv.py:546-654`` of the JAX
         package, its packed branch, ``595-612``): the trunk, the 40-group
-        volume written into its 48-channel slot, the two patch stencils, then
-        ``dres1_att_0`` on the slot."""
+        volume written into its 48-channel slot, the two patch stencils (one
+        launch), then ``dres1_att_0`` on the slot."""
         m = self.model
         _check_geometry(m.max_disp // 4, left.shape[1] // 4, left.shape[2] // 4)
         feat_l, feat_r = m.trunk(left, right)
         vol = gwc_volume_packed(feat_l, feat_r, m.max_disp // 4, m.num_groups, self.att_slot)
-        vol = depthwise_hw_p(depthwise_hw_p(vol, *self.patch), *self.patch_l123)
+        vol = depthwise_hw_p2(vol, *self.patch, *self.patch_l123)
         a = conv3d_fold_x2(vol, *self.dres1_att_0, act="relu")
         a = conv3d_fold_p(a, *self.dres1_att_1)
         a = hourglass_folded(self.dres2_att_, a)

@@ -41,10 +41,13 @@ SIGNATURES = {
     "dv_fused_uncertainty_at": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
     # left, right, out, b, c, h, w, groups, d
     "dv_gwc_volume": [_P, _P, _P, _I, _I, _I, _I, _I, _I],
-    # left, right, cat_l|0, cat_r|0, out, b, c, cc, h, w, groups, d, slot, mask_ref
-    "dv_gwc_volume_slot": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I],
-    # x, wt, dil, out, b, d, h, w, c
-    "dv_depthwise_hw": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
+    # left, right, cat_l|0, cat_r|0, out, plan (SLOT_PLAN_KEYS), b, c, cc, h, w, groups,
+    # d, slot, mask_ref
+    "dv_gwc_volume_slot": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I],
+    # x, wt, dil, out, plan (DW_PLAN_KEYS), b, d, h, w, c, max dil
+    "dv_depthwise_hw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+    # x, wt1, dil1, wt2, dil2, out, plan, b, d, h, w, c, max dil1, max dil2
+    "dv_depthwise_hw2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
     # cl, cr, att|0, out, b, c, d, h, w
     "dv_concat_volume": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
     # vol, m1, m2|0, out, b, c, dhw
@@ -84,6 +87,12 @@ PLAN_SIGNATURES = {
     "dv_conv2d_flat_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     # b, d, h, w, cin, cout, residual, device, plan (K1_PLAN_KEYS)
     "dv_conv1x1_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # b, c, cc, h, w, d, slot, dtype, forced tw, ds (0: the rule's), device, plan
+    # (SLOT_PLAN_KEYS)
+    "dv_gwc_slot_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # planes, h, w, c, max dil1, max dil2 (0: one stencil), dtype, forced tw, warps a
+    # channel vector, blocks (0: the rule's), device, plan (DW_PLAN_KEYS)
+    "dv_depthwise_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 PLAN_KEYS = ("bh", "bmw", "nth", "ntw", "ntn", "splits", "bn", "ck", "mt", "blocks",
              "smem_bytes", "blocks_per_sm", "positions", "wgmma", "kh_a_stage")
@@ -91,6 +100,14 @@ PLAN_KEYS = ("bh", "bmw", "nth", "ntw", "ntn", "splits", "bn", "ck", "mt", "bloc
 # ring stages, grid, blocks an SM, shared memory a block, tiles, output
 # channels a tile.
 K1_PLAN_KEYS = ("positions", "stages", "blocks", "blocks_per_sm", "smem_bytes", "tiles", "bn")
+# The GWC volume in the slot's plan (csrc/gwc_volume.cu SlotPlan): W positions
+# and disparities a block, D ranges, threads, shared memory a block, grid,
+# staged row stride in elements.
+SLOT_PLAN_KEYS = ("tw", "ds", "nds", "threads", "smem_bytes", "blocks", "ld")
+# The patch stencils' plan (csrc/depthwise_hw.cu DwPlan): W tile, grid, warps
+# a (stage, channel vector), the staged rows' skew, threads and shared memory
+# a block, blocks an SM.
+DW_PLAN_KEYS = ("tw", "blocks", "wpc", "skew", "threads", "smem_bytes", "blocks_per_sm")
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}

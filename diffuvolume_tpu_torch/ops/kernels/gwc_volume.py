@@ -9,7 +9,11 @@ Kernels: ``csrc/gwc_volume.cu``.
   volume written straight into the channels-last slot that the folded conv
   chain reads, with the concat halves fused in (the ACV attention chain's 40
   channels in a 48 slot; PCW's 40 + 12 + 12 in 64).  Plain version:
-  ``ops/cost_volume.py:gwc_volume_slot``.
+  ``ops/cost_volume.py:gwc_volume_slot``.  ``slot_plan`` reports the tile
+  the kernel's plan picks on a device (W positions and disparities a block,
+  threads, shared memory; ``csrc/gwc_volume.cu`` ``slot_plan``), made once a
+  shape and handed to every launch; ``gwc_volume_packed_on`` forces another
+  tile, for timing.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -17,10 +21,26 @@ raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from diffuvolume_tpu_torch.ops.cost_volume import build_gwc_volume, gwc_volume_slot, slot_width
 from diffuvolume_tpu_torch.ops.kernels import _build
+
+# cpg values the row-16 kernel is compiled for (csrc/gwc_volume.cu launch_slot).
+SLOT_CPG = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
+@functools.lru_cache(maxsize=256)
+def slot_plan(b: int, c: int, cc: int, h: int, w: int, d: int, slot: int, dtype: torch.dtype,
+              device: torch.device, tile: tuple[int, int] = (0, 0)) -> _build.Plan:
+    """The plan of ``gwc_volume_packed`` for ``(b, c, h, w)`` features, ``cc``
+    concat channels, ``d`` disparities into a ``slot``-wide volume on
+    ``device`` (``_build.SLOT_PLAN_KEYS``); ``tile`` (W positions,
+    disparities a block) forces a tile, 0 the plan's own."""
+    return _build.plan("dv_gwc_slot_plan", device, b, c, cc, h, w, d, slot,
+                       _build.DTYPE_CODES[str(dtype)], *tile, keys=_build.SLOT_PLAN_KEYS)
 
 
 def gwc_volume(
@@ -63,6 +83,21 @@ def gwc_volume_packed(
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
+    return _slot(left, right, max_disp, num_groups, slot, cat_l, cat_r, mask_ref, (0, 0))
+
+
+def gwc_volume_packed_on(
+    tile: tuple[int, int], left: torch.Tensor, right: torch.Tensor, max_disp: int,
+    num_groups: int, slot: int | None = None, cat_l: torch.Tensor | None = None,
+    cat_r: torch.Tensor | None = None, mask_ref: bool = False,
+) -> torch.Tensor:
+    """``gwc_volume_packed`` on ``tile`` (W positions, disparities a block;
+    0 the plan's own), for timing tiles against each other; counted as
+    ``gwc_volume_packed``."""
+    return _slot(left, right, max_disp, num_groups, slot, cat_l, cat_r, mask_ref, tuple(tile))
+
+
+def _slot(left, right, max_disp, num_groups, slot, cat_l, cat_r, mask_ref, tile):
     if (cat_l is None) != (cat_r is None):
         raise ValueError("give both concat halves or neither")
     cc = 0 if cat_l is None else cat_l.shape[1]
@@ -74,6 +109,9 @@ def gwc_volume_packed(
     b, c, h, w = left.shape
     if c % num_groups:
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    if c // num_groups not in SLOT_CPG:
+        raise ValueError(f"the kernel is compiled for {SLOT_CPG} channels a group, "
+                         f"got {c // num_groups}")
     if slot % 16 or slot < num_groups + 2 * cc:
         raise ValueError(f"slot must be a multiple of 16 holding {num_groups + 2 * cc} "
                          f"channels, got {slot}")
@@ -85,11 +123,12 @@ def gwc_volume_packed(
                                  f"got {tuple(t.shape)} {t.dtype}")
         cats = [cat_l, cat_r]
     _build.check_cuda(left, right, *cats)
+    p = slot_plan(b, c, cc, h, w, max_disp, slot, left.dtype, left.device, tile)
     out = torch.empty((b, max_disp, h, w, slot), dtype=left.dtype, device=left.device)
     _build.launch(
         "dv_gwc_volume_slot", left, left.data_ptr(), right.data_ptr(),
         cat_l.data_ptr() if cc else None, cat_r.data_ptr() if cc else None, out.data_ptr(),
-        b, c, cc, h, w, num_groups, max_disp, slot, int(mask_ref),
+        p.ptr, b, c, cc, h, w, num_groups, max_disp, slot, int(mask_ref),
     )
     gwc_volume_packed.launches += 1
     return out

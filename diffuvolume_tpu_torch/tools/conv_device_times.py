@@ -15,8 +15,14 @@ bf16 timed.  ``--rows stride1`` limits it to the stride-1 rows (5, 6, 9, 14,
 15, 18); ``--rows k1`` to row 9 at every shape of the ACV, PCW and IGEV
 folded paths (with ``F.linear`` and ``F.conv3d`` as yardsticks); ``--rows
 head`` to rows 1 and 17 at the ACV and PCW shapes, both align-corners
-conventions (float32 timed).
-Needs a CUDA device.
+conventions (float32 timed); ``--rows front`` to row 16 at every shape of the
+ACV, PCW and IGEV folded paths and row 10 (both stencils and the fused
+pair; ``chip_smoke.front_checks``); a package from before the fused pair
+(``--root`` of an older checkout) reports no plans and runs the pair as two
+launches (``_older_front``).  With ``--sweep``, also the tiles the two
+plans chose among (``front_sweep``: row 16 at each shape, the stencils at
+the ACV shape, bf16, device time; this package's ``*_on`` entry points
+only).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,14 +37,98 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 
 
+def _older_front() -> None:
+    """Let phase 3's ``front_checks`` run on a package from before rows 16
+    and 10 reported plans and row 10 had its fused pair: no plan, and the
+    pair as two single launches (what such a package's attention chain
+    runs)."""
+    from diffuvolume_tpu_torch.ops.kernels import depthwise as kd
+    from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
+
+    if not hasattr(kg, "slot_plan"):
+        kg.slot_plan = lambda *args, **kwargs: None
+    if not hasattr(kd, "depthwise_plan"):
+        kd.depthwise_plan = lambda *args, **kwargs: None
+    if not hasattr(kd, "depthwise_hw_p2"):
+        kd.depthwise_hw_p2 = lambda x, wt1, dil1, wt2, dil2: kd.depthwise_hw_p(
+            kd.depthwise_hw_p(x, wt1, dil1), wt2, dil2)
+        kd.depthwise_hw_plain2 = lambda x, wt1, dil1, wt2, dil2: kd.depthwise_hw_plain(
+            kd.depthwise_hw_plain(x, wt1, dil1), wt2, dil2)
+
+
+def front_sweep(cs, dev) -> dict:
+    """Rows 16 and 10 at other tiles than their plans' (the package's
+    ``*_on`` entry points): each row-16 shape at W tiles of 8–120 positions,
+    all of D or part of it a block; the ACV shape's stencils and fused pair
+    at W tiles of 80, 120 and 240, one or two warps a channel vector, one or
+    two blocks an SM.  bf16, device time
+    (torch.profiler); each tile's result held equal to the plan's."""
+    import itertools
+
+    import torch
+
+    from diffuvolume_tpu_torch.ops.kernels import depthwise as kd
+    from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
+
+    g = torch.Generator().manual_seed(9)
+    out = {"gwc_volume_packed": {}, "depthwise": {}}
+
+    def timed(fn, ref):
+        try:
+            got = fn()
+        except (RuntimeError, ValueError) as e:  # a tile the card cannot launch
+            return str(e).splitlines()[0][:80]
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError("a tile changed the result")
+        return cs.device_times(fn, 10)["ms"]
+
+    for vc in cs.VOLUME_CASES:
+        d, h, w = vc.dhw
+        l, r = (torch.randn((1, vc.c, h, w), generator=g).to(dev).bfloat16() for _ in "lr")
+        cat = {k: torch.randn((1, vc.cc, h, w), generator=g).to(dev).bfloat16()
+               for k in ("cat_l", "cat_r")} if vc.cc else {}
+        call = lambda tile=(0, 0): kg.gwc_volume_packed_on(  # noqa: E731
+            tile, l, r, d, vc.groups, vc.slot, mask_ref=vc.mask_ref, **cat)
+        ref = call()
+        rec = {"plan": kg.slot_plan(1, vc.c, vc.cc, h, w, d, vc.slot, torch.bfloat16, dev)}
+        for tw, ds in itertools.product((8, 16, 32, 64, 120), sorted({d, -(-d // 2), 24})):
+            if ds > d or tw > -(-w // 4) * 4:
+                continue
+            rec[f"{tw} W x {ds} D"] = timed(lambda: call((tw, ds)), ref)
+        out["gwc_volume_packed"][vc.label] = rec
+        best = sorted((v, k) for k, v in rec.items() if isinstance(v, float))[:3]
+        cs.log(f"  sweep row 16 {vc.label}: plan {rec['plan']}; fastest {best}")
+
+    x = torch.randn((1, cs.D4, cs.H4, cs.W4, cs.ATT_SLOT), generator=g).to(dev).bfloat16()
+    w1, w2 = (torch.randn((3, 3, cs.ATT_SLOT), generator=g).to(dev) for _ in "12")
+    forms = {"patch": (lambda t=(0, 0, 0): kd.depthwise_hw_p_on(t, x, w1, cs.PATCH_DIL)),
+             "patch_l123": (lambda t=(0, 0, 0): kd.depthwise_hw_p_on(t, x, w2,
+                                                                     cs.PATCH_L123_DIL)),
+             "pair": (lambda t=(0, 0, 0): kd.depthwise_hw_p2_on(t, x, w1, cs.PATCH_DIL, w2,
+                                                                cs.PATCH_L123_DIL))}
+    for name, call in forms.items():
+        ref = call()
+        rec = {}
+        for tw, wpc, blocks in itertools.product((80, 120, 240), (1, 2), (132, 264)):
+            rec[f"{tw} W, {wpc} warps a vector, {blocks} blocks"] = timed(
+                lambda: call((tw, wpc, blocks)), ref)
+        out["depthwise"][name] = rec
+        best = sorted((v, k) for k, v in rec.items() if isinstance(v, float))[:3]
+        cs.log(f"  sweep row 10 {name}: fastest {best}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose diffuvolume_tpu_torch package is measured")
     ap.add_argument("--out", default=os.path.join("chiprun_out", "conv_device_times.json"))
-    ap.add_argument("--rows", choices=("all", "stride1", "k1", "head"), default="all",
+    ap.add_argument("--sweep", action="store_true",
+                    help="with --rows front: time the tiles the plans chose among")
+    ap.add_argument("--rows", choices=("all", "stride1", "k1", "head", "front"), default="all",
                     help="stride1: only the cases of rows 5, 6, 9, 14, 15 and 18; k1: row 9; "
-                         "head: rows 1 and 17")
+                         "head: rows 1 and 17; front: rows 16 and 10")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -62,9 +152,14 @@ def main(argv=None) -> int:
     paths = [("ACV", cs.CONV_CASES), ("PCW", cs.PCW_CONV_CASES),
              ("IGEV folded", cs.IGEV_CONV_CASES), ("IGEV module", cs.IGEV_SMALL_CASES),
              *((f"{m.upper()} module, routed", c) for m, c in cs.PACKED_CASES.items())]
-    kinds = {"stride1": ("p", "k1"), "k1": ("k1",), "head": ()}.get(args.rows)
+    kinds = {"stride1": ("p", "k1"), "k1": ("k1",), "head": (), "front": ()}.get(args.rows)
     if args.rows == "head":
         out["head"] = cs.head_checks(dev)
+    if args.rows == "front":
+        _older_front()
+        out["front"] = cs.front_checks(dev)
+        if args.sweep:
+            out["front_sweep"] = front_sweep(cs, dev)
     for path, cases in paths:
         cases = [c for c in cases if kinds is None or c.kind in kinds]
         if cases:

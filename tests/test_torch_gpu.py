@@ -296,6 +296,12 @@ def test_fold_launch_counts(dev):
     (1, 80, 40, 12, 2, 39, 6, 64, False),
     (1, 320, 40, 12, 2, 70, 48, 64, True),   # C = 320, D = 48 > W/2
     (1, 24, 8, 4, 3, 9, 12, 32, True),       # cpg 3: no 16-byte product reads; D > W
+    (2, 320, 40, 0, 2, 64, 48, 48, False),   # cpg 8 (ACV), B = 2, H·W a multiple of 8
+    (1, 320, 40, 12, 3, 78, 12, 64, True),   # PCW 1/16: C = 320, the D split
+    (1, 96, 8, 0, 2, 104, 48, 16, False),    # IGEV: cpg 12 in a 16 slot
+    (2, 96, 8, 12, 3, 20, 24, 48, True),     # cpg 12 with concat halves; D ≥ W: all masked
+    (1, 48, 8, 0, 1, 13, 4, 16, False),      # cpg 6; H·W odd: one element a staged read
+    (1, 48, 12, 4, 2, 20, 6, 32, True),      # 12 groups: bf16's last 4 past the paired halves
 ])
 def test_gwc_volume_packed(dev, dtype, b, c, g, cc, h, w, d, slot, mask_ref):
     """The group means: float32 to 1e-5 relative (summation order), bf16 to
@@ -313,6 +319,46 @@ def test_gwc_volume_packed(dev, dtype, b, c, g, cc, h, w, d, slot, mask_ref):
     rel = 1e-5 if dtype == torch.float32 else BF16_REL
     torch.testing.assert_close(got[..., :g].float(), want[..., :g], rtol=rel, atol=1e-6)
     assert torch.equal(got[..., g:].float(), want[..., g:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tw,ds", [(4, 1), (8, 5), (12, 48), (32, 7), (60, 48), (64, 16)])
+@pytest.mark.parametrize("mask_ref", [False, True])
+def test_gwc_volume_packed_tiles(dev, dtype, tw, ds, mask_ref):
+    """Every tile (``gwc_volume_packed_on``) gives the same volume: W tiles
+    that do not divide W (the ragged last tile), D split across blocks with
+    a ragged last range, and fewer threads than work items (64 positions of
+    a 64 slot); both sides of the ``w < d`` diagonal."""
+    b, c, g, cc, h, w, d, slot = 1, 320, 40, 12, 2, 78, 48, 64
+    left, right = (_randn(dev, b, c, h, w, seed=s).to(dtype) for s in (5, 6))
+    cats = dict(cat_l=_randn(dev, b, cc, h, w, seed=7).to(dtype),
+                cat_r=_randn(dev, b, cc, h, w, seed=8).to(dtype))
+    want = kg.gwc_volume_packed(left, right, d, g, slot, mask_ref=mask_ref, **cats)
+    got = kg.gwc_volume_packed_on((tw, ds), left, right, d, g, slot, mask_ref=mask_ref, **cats)
+    ref = plain.gwc_volume_slot(left, right, d, g, slot, mask_ref=mask_ref, **cats)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rel, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(1, 48, 128, 240, 48, 0, 48), (1, 48, 96, 312, 64, 12, 48),
+                                   (1, 24, 48, 156, 64, 12, 24), (1, 12, 24, 78, 64, 12, 12),
+                                   (1, 6, 12, 39, 64, 12, 6), (1, 48, 96, 312, 16, 0, 48)])
+def test_gwc_volume_packed_path_shapes(dev, shape):
+    """Each path's shape (ACV, PCW 1/4 … 1/32, IGEV) on its plan, bf16,
+    against the plain version in bf16 (one ulp)."""
+    b, d, h, w, slot, cc, _ = shape
+    c, g = (96, 8) if slot == 16 else (320, 40)
+    left, right = (_randn(dev, b, c, h, w, seed=s).bfloat16() for s in (9, 10))
+    cats = {}
+    if cc:
+        cats = dict(cat_l=_randn(dev, b, cc, h, w, seed=11).bfloat16(),
+                    cat_r=_randn(dev, b, cc, h, w, seed=12).bfloat16())
+    got = kg.gwc_volume_packed(left, right, d, g, slot, mask_ref=bool(cc), **cats)
+    want = plain.gwc_volume_slot(left, right, d, g, slot, mask_ref=bool(cc), **cats)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-6)
 
 
 def test_gwc_volume_packed_refuses_bad_operands(dev):
@@ -333,10 +379,14 @@ DIL_48 = (1,) * 8 + (2,) * 16 + (3,) * 16 + (1,) * 8
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,dil", [((2, 3, 9, 37, 48), DIL_48), ((1, 4, 5, 7, 48), (1,) * 48),
-                                       ((1, 2, 4, 3, 16), (3,) * 8 + (1,) * 8)])
+                                       ((1, 2, 4, 3, 16), (3,) * 8 + (1,) * 8),
+                                       ((1, 2, 6, 70, 16), (2,) * 8 + (3,) * 8),
+                                       ((2, 1, 2, 5, 32), (3,) * 16 + (1,) * 16),
+                                       ((1, 2, 40, 9, 48), DIL_48)])
 def test_depthwise_hw_p(dev, dtype, shape, dil):
     """Every dilation reaches past the H and W edges (zero there) and never
-    across D: float32 to 1e-4 (summation order), bf16 within one rounding."""
+    across D; H and W below 2·dil + 1; mixed dilations, one a vector:
+    float32 to 1e-4 (summation order), bf16 within one rounding."""
     x = _randn(dev, *shape, seed=7).to(dtype)
     wt = _randn(dev, 3, 3, shape[-1], seed=8)
     got = kd.depthwise_hw_p(x, wt, dil)
@@ -346,11 +396,57 @@ def test_depthwise_hw_p(dev, dtype, shape, dil):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tw,blocks,wpc", [(1, 1, 1), (5, 3, 1), (16, 7, 2), (37, 40, 2), (48, 2, 1),
+                                           (12, 500, 1)])
+def test_depthwise_hw_tiles(dev, dtype, tw, blocks, wpc):
+    """Every split (``depthwise_hw_p_on`` / ``depthwise_hw_p2_on``: W tiles
+    ragged at the end; one block for all columns, a few blocks whose shares
+    cross columns, more blocks than rows; one or two warps a channel vector
+    for one stencil, one for the fused pair, whose two stages fill the
+    block) gives the plan's result bit for bit."""
+    x = _randn(dev, 1, 2, 11, 37, 48, seed=20).to(dtype)
+    w1, w2 = _randn(dev, 3, 3, 48, seed=21), _randn(dev, 3, 3, 48, seed=22)
+    assert torch.equal(kd.depthwise_hw_p_on((tw, wpc, blocks), x, w2, DIL_48),
+                       kd.depthwise_hw_p(x, w2, DIL_48))
+    assert torch.equal(kd.depthwise_hw_p2_on((tw, 1, blocks), x, w1, (1,) * 48, w2, DIL_48),
+                       kd.depthwise_hw_p2(x, w1, (1,) * 48, w2, DIL_48))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,dil1,dil2", [
+    ((2, 3, 9, 37, 48), (1,) * 48, DIL_48),             # the attention chain
+    ((1, 4, 5, 7, 48), (2,) * 48, DIL_48),              # H, W below 2·(dil1 + dil2) + 1
+    ((1, 2, 4, 3, 16), (3,) * 8 + (1,) * 8, (1,) * 16),
+    ((1, 1, 128, 240, 48), (1,) * 48, DIL_48),          # one plane of the ACV shape
+])
+def test_depthwise_hw_p2(dev, dtype, shape, dil1, dil2):
+    """The fused pair equals two single launches bit for bit, and the plain
+    second stencil on the kernel's intermediate within the stencil
+    tolerance (in bf16 a plain intermediate may round one ulp apart, which
+    the second stencil spreads); in float32 also the plain pair."""
+    x = _randn(dev, *shape, seed=9).to(dtype)
+    w1, w2 = _randn(dev, 3, 3, shape[-1], seed=10), _randn(dev, 3, 3, shape[-1], seed=11)
+    got = kd.depthwise_hw_p2(x, w1, dil1, w2, dil2)
+    mid = kd.depthwise_hw_p(x, w1, dil1)
+    two = kd.depthwise_hw_p(mid, w2, dil2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, two)
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), kd.depthwise_hw_plain(mid, w2, dil2).float(),
+                               atol=atol, rtol=rtol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, kd.depthwise_hw_plain2(x, w1, dil1, w2, dil2),
+                                   atol=atol, rtol=rtol)
+
+
 def test_depthwise_hw_p_refuses_bad_operands(dev):
     x = _randn(dev, 1, 2, 4, 5, 16).to(torch.bfloat16)
     wt = _randn(dev, 3, 3, 16)
     with pytest.raises(ValueError, match="one dilation each"):
         kd.depthwise_hw_p(x, wt, (1,) * 4 + (2,) * 12)
+    with pytest.raises(ValueError, match="one dilation each"):
+        kd.depthwise_hw_p2(x, wt, (1,) * 16, wt, (1,) * 4 + (2,) * 12)
     with pytest.raises(TypeError):
         kd.depthwise_hw_p(x, wt.to(torch.bfloat16), (1,) * 16)
     with pytest.raises(ValueError):
@@ -440,17 +536,22 @@ def test_dhw_mul_one_map(dev, dtype, channels_last):
 
 
 def test_new_launch_counts(dev):
-    """The three new wrappers count their own launches only."""
-    counters = (kg.gwc_volume_packed, kd.depthwise_hw_p, kf.fused_uncertainty_at,
-                kf.fused_upsample_softargmin, kg.gwc_volume)
+    """The front's wrappers count their own launches only: the GWC volume
+    in the slot, the single and the fused stencils, the uncertainty at a
+    query."""
+    counters = (kg.gwc_volume_packed, kd.depthwise_hw_p, kd.depthwise_hw_p2,
+                kf.fused_uncertainty_at, kf.fused_upsample_softargmin, kg.gwc_volume)
     before = [f.launches for f in counters]
     feat = _randn(dev, 1, 16, 2, 9)
     vol = kg.gwc_volume_packed(feat, feat, 4, 8)
-    kd.depthwise_hw_p(vol, _randn(dev, 3, 3, 16), (1,) * 16)
+    wt = _randn(dev, 3, 3, 16)
+    kd.depthwise_hw_p(vol, wt, (1,) * 16)
+    kd.depthwise_hw_p2(vol, wt, (1,) * 16, wt, (2,) * 16)
+    kd.depthwise_hw_p2(vol, wt, (1,) * 16, wt, (2,) * 16)
     kf.fused_uncertainty_at(_randn(dev, 1, 4, 2, 3), torch.zeros((1, 8, 12), device=dev), 16,
                             (8, 12))
-    assert [f.launches for f in counters] == [before[0] + 1, before[1] + 1, before[2] + 1,
-                                              *before[3:]]
+    assert [f.launches for f in counters] == [before[0] + 1, before[1] + 1, before[2] + 2,
+                                              before[3] + 1, *before[4:]]
 
 
 # -- the IGEV path's kernel forms -----------------------------------------------
