@@ -8,10 +8,14 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
   3. each kernel against its plain PyTorch version on the card, at every
      shape the paths (ACV, PCW, IGEV; the flat refinement's 2-D convs, row
      18; the routed module paths' 3-D convs, row 15) give it, in float32 (TF32 off)
-     and bfloat16: max-abs error against the stated tolerance, kernel / plain
-     times (CUDA events), the time of one PyTorch call computing the same
+     and bfloat16: max-abs error against the stated tolerance, the kernel's
+     time on the card (torch.profiler's device time, CUDA events and the
+     host's time to issue a call beside it; the plain versions under CUDA
+     events), the device time of one PyTorch call computing the same
      function where there is one, and the bound (bytes or operations over
-     the H100's peak rates); rows 1 and 17 at the ACV and PCW shapes, both
+     the H100's peak rates); rows 2-4 (row 3 in both forms, with its
+     channels-last plan) and rows 11-13 (with rows 11-12's transpose plan)
+     at every path's shape; rows 1 and 17 at the ACV and PCW shapes, both
      align-corners conventions, row 16 at every path's shape (ACV, PCW 1/4
      … 1/32, IGEV) and row 10 (each stencil, and the fused pair the ACV
      attention chain runs, asserted equal to two single launches), timed
@@ -182,6 +186,12 @@ def device_times(fn, iters: int, warmup: int = 2) -> dict:
     raise AssertionError("torch.profiler saw no device time in 8 sessions")
 
 
+def on_card(t: dict) -> str:
+    """A ``device_times`` reading as phase 3 prints it."""
+    return (f"{t['ms']:.4f} ms device (events {t['events_ms']:.4f}, host "
+            f"{t['host_us']:.0f} µs)")
+
+
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -230,13 +240,13 @@ def kernel_checks(dev) -> dict:
         errs[tag] = check(f"{tag} volume", got, want, 1e-6, rtol)
         del got, want
     lb, rb = l32.bfloat16(), r32.bfloat16()
-    ms = time_ms(lambda: kg.gwc_volume(lb, rb, D4, GROUPS), 20)
+    t = device_times(lambda: kg.gwc_volume(lb, rb, D4, GROUPS), 20)
     plain_ms = time_ms(lambda: plain.build_gwc_volume(lb, rb, D4, GROUPS), 3)
     cpg = FEAT_C // GROUPS
     pairs_dw = sum(max(W4 - d, 0) for d in range(D4))
     nbytes = 2 * lb.numel() * 2 + GROUPS * D4 * H4 * W4 * 2
     ops = GROUPS * H4 * pairs_dw * 2 * cpg
-    out["gwc_volume"] = dict(errs=errs, ms=ms, plain_ms=plain_ms, bound=bound(nbytes, ops),
+    out["gwc_volume"] = dict(errs=errs, **t, plain_ms=plain_ms, bound=bound(nbytes, ops),
                              library_ms=None, dtype="bfloat16")
 
     # -- concat volume: (1, 32, 128, 240) ×2 (+ att) → (1, 64, 48, 128, 240)
@@ -257,13 +267,15 @@ def kernel_checks(dev) -> dict:
             del got, want
         errs[tag] = e
     clb, crb, attb = cl32.bfloat16(), cr32.bfloat16(), att32.bfloat16()
-    ms = time_ms(lambda: kc.concat_volume(clb, crb, D4, attb), 20)
+    t = device_times(lambda: kc.concat_volume(clb, crb, D4, attb), 20)
     plain_ms = time_ms(lambda: plain.concat_volume_mul(clb, crb, D4, attb), 3)
     vol_elems = 2 * CAT_C * D4 * H4 * W4
     nbytes = 2 * clb.numel() * 2 + attb.numel() * 2 + vol_elems * 2
-    out["concat_volume"] = dict(errs=errs, ms=ms, plain_ms=plain_ms,
+    # Without att, for the channels-last form's comparison (the DDIM prep's call).
+    no_att = device_times(lambda: kc.concat_volume(clb, crb, D4), 20)
+    out["concat_volume"] = dict(errs=errs, **t, plain_ms=plain_ms,
                                 bound=bound(nbytes, vol_elems), library_ms=None,
-                                dtype="bfloat16")
+                                dtype="bfloat16", without_att=no_att)
 
     # -- dhw multiply: vol (1, 64, 48, 128, 240) × att ⊙ noise
     log("dhw_mul  vol (1,64,48,128,240) × (att ⊙ noise) (1,48,128,240)")
@@ -280,7 +292,7 @@ def kernel_checks(dev) -> dict:
         del got, want, vol
     volb = kc.concat_volume(clb, crb, D4)
     noiseb = noise32.bfloat16()
-    ms = time_ms(lambda: kc.dhw_mul(volb, attb, noiseb), 20)
+    t = device_times(lambda: kc.dhw_mul(volb, attb, noiseb), 20)
     plain_ms = time_ms(lambda: plain.volume_dhw_mul(volb, attb, noiseb), 3)
     # The library: one bfloat16 einsum on the same three inputs (two bf16
     # roundings, so within 2⁻⁶ relative of the kernel's one).  For scale
@@ -288,19 +300,20 @@ def kernel_checks(dev) -> dict:
     def library():
         return torch.einsum("bcdhw,bdhw,bdhw->bcdhw", volb, attb, noiseb)
     check("bfloat16 library einsum", library(), kc.dhw_mul(volb, attb, noiseb), 0.0, 2.0 ** -6)
-    library_ms = time_ms(library, 20)
+    library_ms = device_times(library, 20)["ms"]
     mapb = attb * noiseb
-    mul_ms = time_ms(lambda: torch.mul(volb, mapb[:, None]), 20)
+    mul_ms = device_times(lambda: torch.mul(volb, mapb[:, None]), 20)["ms"]
     nbytes = 2 * volb.numel() * 2 + 2 * attb.numel() * 2
     ops = attb.numel() + volb.numel()
-    out["dhw_mul"] = dict(errs=errs, ms=ms, plain_ms=plain_ms, bound=bound(nbytes, ops),
+    out["dhw_mul"] = dict(errs=errs, **t, plain_ms=plain_ms, bound=bound(nbytes, ops),
                           library_ms=library_ms, library_mul_ms=mul_ms, dtype="bfloat16")
     del volb, mapb
     for k, v in out.items():
-        lib = "" if v["library_ms"] is None else f", library {v['library_ms']:.4f} ms"
-        log(f"  {k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms{lib}, "
+        lib = "" if v["library_ms"] is None else f", library {v['library_ms']:.4f} ms device"
+        log(f"  {k}: {on_card(v)} (plain {v['plain_ms']:.4f} ms{lib}, "
             f"bound {v['bound'][0]:.4f} ms by {v['bound'][1]}, {v['dtype']})")
-    log(f"  dhw_mul for scale: bf16 torch.mul with the map formed {mul_ms:.4f} ms")
+    log(f"  concat_volume without att: {on_card(out['concat_volume']['without_att'])}")
+    log(f"  dhw_mul for scale: bf16 torch.mul with the map formed {mul_ms:.4f} ms device")
     return out
 
 
@@ -324,8 +337,19 @@ def mixed(cases: list[dict], errs: dict, dtype: str = "bfloat16") -> dict:
                 dtype=dtype, shapes=cases)
 
 
+def concat_plan_line(plan: dict | None) -> str:
+    """Row 3's channels-last plan as phase 3 prints it ('' for none)."""
+    if plan is None:
+        return ""
+    return (f"; tile {plan['tw']} W × {plan['ds']} D, {plan['items']} items on "
+            f"{plan['blocks']} blocks of {plan['threads']} ({plan['blocks_per_sm']} an SM)")
+
+
 def volume_cl_checks(dev) -> dict:
-    """Phase 3, rows 3-4 in their channels-last forms (the folded path's)."""
+    """Phase 3, rows 3-4 in their channels-last forms (the folded path's):
+    each exact against its plain version in float32 and bf16; bf16 timed on
+    the card (``device_times``), row 3 with and without att and its plan, row
+    4 beside its one-call library einsum."""
     from diffuvolume_tpu_torch.ops import cost_volume as plain
     from diffuvolume_tpu_torch.ops.kernels import concat_volume as kc
 
@@ -354,11 +378,14 @@ def volume_cl_checks(dev) -> dict:
     for a, label in ((attb, "with att (baseline)"), (None, "without att (DDIM prep)")):
         nbytes = 2 * clb.numel() * 2 + (0 if a is None else a.numel() * 2) + vol_elems * 2
         b_ms, _ = bound(nbytes, vol_elems if a is not None else 0)
+        t = device_times(lambda: kc.concat_volume(clb, crb, D4, a, channels_last=True), 20)
+        plan = kc.concat_plan(1, CAT_C, H4, W4, D4, a is not None, torch.bfloat16, dev)
         cases.append(dict(
-            label=label, per_pair=1,
-            ms=time_ms(lambda: kc.concat_volume(clb, crb, D4, a, channels_last=True), 20),
+            label=label, per_pair=1, **t,
             plain_ms=time_ms(lambda: plain.concat_volume_mul(clb, crb, D4, a, True), 3),
-            library_ms=None, bound_ms=b_ms, ops_ms=0.0))
+            library_ms=None, bound_ms=b_ms, ops_ms=0.0, plan=plan))
+        log(f"  bf16 {label}: {on_card(t)}, plain {cases[-1]['plain_ms']:.4f}, bound "
+            f"{b_ms:.4f} ms{concat_plan_line(plan)}")
     out["concat_volume"] = mixed(cases, errs)
 
     log("dhw_mul, channels-last  vol (1,48,128,240,64) × (att ⊙ noise) (1,48,128,240)")
@@ -380,15 +407,16 @@ def volume_cl_checks(dev) -> dict:
           kc.dhw_mul(volb, attb, noiseb, channels_last=True), 0.0, 2.0 ** -6)
     nbytes = 2 * volb.numel() * 2 + 2 * attb.numel() * 2
     b_ms, _ = bound(nbytes, attb.numel() + volb.numel())
+    t = device_times(lambda: kc.dhw_mul(volb, attb, noiseb, channels_last=True), 20)
     out["dhw_mul"] = mixed([dict(
-        label="(1,48,128,240,64)", per_pair=STEPS,
-        ms=time_ms(lambda: kc.dhw_mul(volb, attb, noiseb, channels_last=True), 20),
+        label="(1,48,128,240,64)", per_pair=STEPS, **t,
         plain_ms=time_ms(lambda: plain.volume_dhw_mul(volb, attb, noiseb, True), 3),
-        library_ms=time_ms(library, 20), bound_ms=b_ms, ops_ms=0.0)], errs)
+        library_ms=device_times(library, 20)["ms"], bound_ms=b_ms, ops_ms=0.0)], errs)
+    log(f"  bf16 {on_card(t)}")
     for k, v in out.items():
-        lib = "" if v["library_ms"] is None else f", library {v['library_ms']:.4f} ms"
-        log(f"  {k} (channels-last): {v['ms']:.4f} ms per launch (plain {v['plain_ms']:.4f} ms"
-            f"{lib}, bound {v['bound'][0]:.4f} ms by {v['bound'][1]})")
+        lib = "" if v["library_ms"] is None else f", library {v['library_ms']:.4f} ms device"
+        log(f"  {k} (channels-last): {v['ms']:.4f} ms device a launch (plain "
+            f"{v['plain_ms']:.4f} ms{lib}, bound {v['bound'][0]:.4f} ms by {v['bound'][1]})")
     return out
 
 
@@ -620,12 +648,12 @@ def pcw_mul_checks(dev) -> dict:
         errs[tag] = check(tag, got, want, 0.0, 0.0)
     vb, mb = vol32.bfloat16(), m32.bfloat16()
     b_ms, by = bound(2 * vb.numel() * 2 + mb.numel() * 2, vb.numel())
-    r = dict(errs=errs, ms=time_ms(lambda: kc.dhw_mul(vb, mb, None, channels_last=True), 20),
-             plain_ms=time_ms(lambda: plain.volume_dhw_mul(vb, mb, None, True), 3),
-             library_ms=time_ms(lambda: torch.mul(vb, mb[..., None]), 20), bound=(b_ms, by),
-             dtype="bfloat16", per_pair_pcw=PCW_STEPS)
-    log(f"  bf16 {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library torch.mul "
-        f"{r['library_ms']:.4f}, bound {b_ms:.4f} ms by {by})")
+    t = device_times(lambda: kc.dhw_mul(vb, mb, None, channels_last=True), 20)
+    r = dict(errs=errs, **t, plain_ms=time_ms(lambda: plain.volume_dhw_mul(vb, mb, None, True), 3),
+             library_ms=device_times(lambda: torch.mul(vb, mb[..., None]), 20)["ms"],
+             bound=(b_ms, by), dtype="bfloat16", per_pair_pcw=PCW_STEPS)
+    log(f"  bf16 {on_card(t)} (plain {r['plain_ms']:.4f}, library torch.mul "
+        f"{r['library_ms']:.4f} ms device, bound {b_ms:.4f} ms by {by})")
     return {"dhw_mul_one_map_pcw": r}
 
 
@@ -1189,20 +1217,35 @@ def conv_checks(dev, cases: list[ConvCase], path: str, iters: int = 20) -> dict:
     return out
 
 
+def layout_plan_line(plan: dict | None) -> str:
+    """Rows 11-12's transpose plan as phase 3 prints it ('' for none)."""
+    if plan is None:
+        return ""
+    form = (f"16-byte {plan['lr']}×8 lanes a tile column" if plan["vec"]
+            else "element tiles (a stride or pointer leaves a partial vector)")
+    return (f"; {form}, {plan['tiles']} warp tiles on {plan['blocks']} blocks of "
+            f"{plan['threads']} ({plan['blocks_per_sm']} an SM)")
+
+
+# Rows 11-12 at the ACV folded path's shape: (label, C, c_slot, (D, H, W), a
+# pair): the hourglass bottleneck around the attention block (one of each
+# per hourglass).  The patch volume is built in its slot (row 16).
+LAYOUT_CASES = [("128, quarter", 128, 128, QUARTER, 14)]
+
+
 def layout_checks(dev) -> dict:
-    """Phase 3, rows 11-12: pack (NCDHW → NDHWC, slot fill) and unpack."""
+    """Phase 3, rows 11-12: pack (NCDHW → NDHWC, slot fill) and unpack, exact
+    in float32 and bf16; bf16 timed on the card (``device_times``) beside the
+    library copy, with the transpose's plan."""
     from diffuvolume_tpu_torch.ops.kernels import layout as kl
 
     g = torch.Generator().manual_seed(4)
     out = {}
-    # (label, C, c_slot, (D, H, W), per pair): the hourglass bottleneck
-    # after the attention block (one per hourglass).  The patch volume no
-    # longer goes through a pack: it is built in its slot (row 16).
-    for name, cases in (("pack", [("128, quarter", 128, 128, QUARTER, 14)]),
-                        ("unpack", [("128, quarter", 128, 128, QUARTER, 14)])):
+    for name in ("pack", "unpack"):
         errs, rec = {}, []
-        for label, c, c_slot, (d, h, w), per_pair in cases:
+        for label, c, c_slot, (d, h, w), per_pair in LAYOUT_CASES:
             log(f"{name} {label}: C {c}, (D,H,W) ({d},{h},{w})")
+            s = d * h * w
             x32 = torch.randn((1, c, d, h, w) if name == "pack" else (1, d, h, w, c),
                               generator=g).to(dev)
             fn = (lambda x: kl.pack(x, c_slot)) if name == "pack" else kl.unpack
@@ -1216,18 +1259,23 @@ def layout_checks(dev) -> dict:
             if name == "pack":  # no slot fill in the library copy
                 def library():
                     return xb.contiguous(memory_format=torch.channels_last_3d)
+                mnl = (c, s, c_slot)
             else:
                 def library():
                     return xb.permute(0, 4, 1, 2, 3).contiguous()
-            nbytes = (c + c_slot) * d * h * w * 2
+                mnl = (s, c, s)
+            nbytes = (c + c_slot) * s * 2
             b_ms, _ = bound(nbytes, 0)
+            t = device_times(lambda: fn(xb), 50)
+            lib = device_times(library, 50)
+            plan = kl.transpose_plan(1, *mnl, torch.bfloat16, dev)
             rec.append(dict(label=label, c=c, c_slot=c_slot, dhw=[d, h, w], per_pair=per_pair,
-                            ms=time_ms(lambda: fn(xb), 50),
-                            plain_ms=time_ms(lambda: ref(xb), 10),
-                            library_ms=time_ms(library, 50), bound_ms=b_ms, ops_ms=0.0))
+                            **t, plain_ms=time_ms(lambda: ref(xb), 10),
+                            library_ms=lib["ms"], library_events_ms=lib["events_ms"],
+                            bound_ms=b_ms, ops_ms=0.0, plan=plan))
             r = rec[-1]
-            log(f"  bf16 {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-                f"{r['library_ms']:.4f}, bound {b_ms:.4f} ms by bytes); {per_pair} per pair")
+            log(f"  bf16 {on_card(t)}; plain {r['plain_ms']:.4f}, library {on_card(lib)}, "
+                f"bound {b_ms:.4f} ms by bytes; {per_pair} per pair{layout_plan_line(plan)}")
         out[name] = mixed(rec, errs)
     return out
 
@@ -1330,11 +1378,10 @@ def refine_checks(dev, iters: int = 10) -> dict:
 
 def igev_volume_checks(dev) -> dict:
     """Phase 3 at the IGEV path's shapes: row 2 (the module path's NCDHW
-    volume, 8 groups) and row 13 (the GEV and the classifier's cost to the
-    lookup's layouts).  Row 16 at the IGEV shape is in ``volume_checks``."""
+    volume, 8 groups, on the card by ``device_times``) and row 13
+    (``hwdc_checks``).  Row 16 at the IGEV shape is in ``volume_checks``."""
     from diffuvolume_tpu_torch.ops import cost_volume as plain
     from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
-    from diffuvolume_tpu_torch.ops.kernels import layout as kl
 
     g = torch.Generator().manual_seed(6)
     d, h, w = G1
@@ -1354,15 +1401,28 @@ def igev_volume_checks(dev) -> dict:
         errs[tag] = check(tag, got, want, 1e-6, rtol)
         del got, want
     b_ms, by = bound((2 * lb.numel() + d * h * w * IGEV_GROUPS) * 2, ops)
+    t = device_times(lambda: kg.gwc_volume(lb, rb, d, IGEV_GROUPS), 20)
     rec = dict(label=f"IGEV (1,{IGEV_C},{h},{w}) → D {d}, {IGEV_GROUPS} groups", per_pair=2,
-               errs=errs, ms=time_ms(lambda: kg.gwc_volume(lb, rb, d, IGEV_GROUPS), 20),
+               errs=errs, **t,
                plain_ms=time_ms(lambda: plain.build_gwc_volume(lb, rb, d, IGEV_GROUPS), 2),
                library_ms=None, bound_ms=b_ms, bound_by=by, ops_ms=ops / F32_OPS_PER_S * 1e3)
-    log(f"  bf16 {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, bound {b_ms:.4f} ms by "
+    log(f"  bf16 {on_card(t)} (plain {rec['plain_ms']:.4f}, bound {b_ms:.4f} ms by "
         f"{by}); 2 per IGEV module pair")
     out["gwc_volume"] = mixed([rec], errs)
 
-    # -- row 13: (label, channels in the slot, co) at (48, 96, 312)
+    out["unpack_hwdc"] = hwdc_checks(dev)
+    return out
+
+
+def hwdc_checks(dev) -> dict:
+    """Phase 3, row 13 at the IGEV folded path's two shapes (the GEV's 8 of
+    16 channels, the classifier's 1-channel cost, each 2 a pair), exact in
+    float32 and bf16; bf16 timed on the card (``device_times``) beside the
+    library's permute and copy."""
+    from diffuvolume_tpu_torch.ops.kernels import layout as kl
+
+    g = torch.Generator().manual_seed(7)
+    d, h, w = G1
     cases, errs = [], {}
     for label, c_slot, co in (("GEV: 8 of 16 channels", IGEV_SLOT, 8),
                               ("classifier cost: 1 channel", 1, 1)):
@@ -1380,16 +1440,16 @@ def igev_volume_checks(dev) -> dict:
         def library():
             return xb[..., :co].permute(0, 2, 3, 1, 4).contiguous()
         b_ms, by = bound(2 * d * h * w * co * 2, 0)
-        rec = dict(label=label, c_slot=c_slot, co=co, dhw=[d, h, w], per_pair=2, errs=e,
-                   ms=time_ms(lambda: kl.unpack_hwdc(xb, co), 50),
+        t = device_times(lambda: kl.unpack_hwdc(xb, co), 50)
+        lib = device_times(library, 50)
+        rec = dict(label=label, c_slot=c_slot, co=co, dhw=[d, h, w], per_pair=2, errs=e, **t,
                    plain_ms=time_ms(lambda: kl.unpack_hwdc_plain(xb, co), 10),
-                   library_ms=time_ms(library, 50), bound_ms=b_ms, bound_by=by, ops_ms=0.0)
-        log(f"  bf16 {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, library permute + "
-            f"contiguous {rec['library_ms']:.4f}, bound {b_ms:.4f} ms by bytes); 2 per IGEV "
-            f"folded pair")
+                   library_ms=lib["ms"], library_events_ms=lib["events_ms"], bound_ms=b_ms,
+                   bound_by=by, ops_ms=0.0)
+        log(f"  bf16 {on_card(t)}; plain {rec['plain_ms']:.4f}, library permute + contiguous "
+            f"{on_card(lib)}, bound {b_ms:.4f} ms by bytes; 2 per IGEV folded pair")
         cases.append(rec)
-    out["unpack_hwdc"] = mixed(cases, errs)
-    return out
+    return mixed(cases, errs)
 
 
 # A sampler decision may flip between the card and the CPU where its

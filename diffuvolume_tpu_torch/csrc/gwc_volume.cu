@@ -42,7 +42,8 @@
 // block owns one (b, h) row, a tile of `tw` W positions and a range of `ds`
 // disparities (slot_plan below: 32 × 24 at full resolution, so that several
 // small blocks an SM hide each other's staging; D split further where a
-// small level's grid would leave SMs idle).  Staging: the features are NCHW, so a thread reads
+// small level's grid would leave SMs idle).  Staging (csrc/stage.cuh, shared
+// with row 3): the features are NCHW, so a thread reads
 // 16 bytes (8 bf16 W positions) of each of 8 channels and transposes them in
 // registers (byte permutes) into 8 [position][channel] rows, one 16-byte
 // store each; the row stride is an odd number of 16-byte units.  Compute: a
@@ -57,6 +58,7 @@
 #include <cstring>
 
 #include "common.cuh"
+#include "stage.cuh"
 
 namespace dv {
 namespace {
@@ -173,10 +175,6 @@ struct SlotGeom {
   int tw, ds, nds, ld, chunk;  // from the plan; ld: staged row stride in elements
 };
 
-// The raw bits of one element.
-template <typename T> struct BitsOf { using type = unsigned int; };
-template <> struct BitsOf<__nv_bfloat16> { using type = unsigned short; };
-
 __device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
 
@@ -223,82 +221,6 @@ __device__ __forceinline__ uint2 pack8(const float* v) {
   }
 }
 
-// Stage positions [x0, x0 + n) ∩ [0, W) of row (b, y): the C feature
-// channels then the cc concat channels, as rows dst[(x − x0)·ld + ch].
-// Positions outside the image are not written (no output reads them).
-// chunk == kVec: a thread reads kVec W positions (16 bytes) of each of kVec
-// channels and transposes them in registers, one 16-byte store a position;
-// it needs H·W a multiple of kVec and 16-byte aligned features.  chunk == 1:
-// one element a channel.
-template <typename T>
-__device__ __forceinline__ void stage_rows(T* __restrict__ dst, int x0, int n,
-                                           const T* __restrict__ feat,
-                                           const T* __restrict__ cat, const SlotGeom& g,
-                                           int b, int y) {
-  constexpr int kVec = 16 / sizeof(T);
-  using Bits = typename BitsOf<T>::type;
-  const int lo = max(x0, 0), hi = min(x0 + n, g.w);
-  if (lo >= hi) return;
-  const int nch = g.c + g.cc;
-  const int noct = (nch + kVec - 1) / kVec;
-  const long long hw = static_cast<long long>(g.h) * g.w;
-  const long long row = static_cast<long long>(y) * g.w;
-  auto channel = [&](int ch) -> const T* {
-    if (ch < g.c) return feat + (static_cast<long long>(b) * g.c + ch) * hw + row;
-    if (ch < nch) return cat + (static_cast<long long>(b) * g.cc + (ch - g.c)) * hw + row;
-    return nullptr;
-  };
-  if (g.chunk == kVec) {
-    // Chunks start where the element index is a multiple of kVec.
-    const int xs = lo - static_cast<int>((row + lo) % kVec);
-    const int nck = (hi - xs + kVec - 1) / kVec;
-    for (int i = threadIdx.x; i < noct * nck; i += blockDim.x) {
-      const int oct = i % noct, xa = xs + (i / noct) * kVec;
-      uint4 e[kVec];
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        const T* src = channel(oct * kVec + j);
-        e[j] = src ? *reinterpret_cast<const uint4*>(src + xa) : make_uint4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int p = 0; p < kVec; ++p) {
-        const int x = xa + p;
-        if (x < lo || x >= hi) continue;
-        uint4 v;
-        if constexpr (sizeof(T) == 2) {
-          // position p of 8 channels: the low or high halves of word p / 2
-          const unsigned sel = (p & 1) ? 0x7632u : 0x5410u;
-          auto wd = [&](int j) { return reinterpret_cast<const unsigned*>(&e[j])[p >> 1]; };
-          v = make_uint4(__byte_perm(wd(0), wd(1), sel), __byte_perm(wd(2), wd(3), sel),
-                         __byte_perm(wd(4), wd(5), sel), __byte_perm(wd(6), wd(7), sel));
-        } else {
-          auto wd = [&](int j) { return reinterpret_cast<const unsigned*>(&e[j])[p]; };
-          v = make_uint4(wd(0), wd(1), wd(2), wd(3));
-        }
-        *reinterpret_cast<uint4*>(dst + (x - x0) * g.ld + oct * kVec) = v;
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < noct * (hi - lo); i += blockDim.x) {
-      const int oct = i % noct, x = lo + i / noct;
-      Bits e[kVec];
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        const T* src = channel(oct * kVec + j);
-        e[j] = src ? reinterpret_cast<const Bits*>(src)[x] : Bits(0);
-      }
-      uint4 v;
-      if constexpr (sizeof(T) == 2) {
-        v = make_uint4(e[0] | unsigned(e[1]) << 16, e[2] | unsigned(e[3]) << 16,
-                       e[4] | unsigned(e[5]) << 16, e[6] | unsigned(e[7]) << 16);
-      } else {
-        v = make_uint4(e[0], e[1], e[2], e[3]);
-      }
-      *reinterpret_cast<uint4*>(dst + (x - x0) * g.ld + oct * kVec) = v;
-    }
-  }
-}
-
 template <typename T, int CPG>
 __global__ void __launch_bounds__(kSlotMaxThreads)
     gwc_slot_kernel(const T* __restrict__ left, const T* __restrict__ right,
@@ -315,8 +237,10 @@ __global__ void __launch_bounds__(kSlotMaxThreads)
   const int d0 = (blockIdx.z % g.nds) * g.ds;
   const int dend = min(d0 + g.ds, g.dmax);
   // Right position x − d lies at strip row (x − w0) + d0 + ds − 1 − d.
-  stage_rows(ls, w0, g.tw, left, cat_l, g, b, y);
-  stage_rows(rs, w0 - d0 - g.ds + 1, g.tw + g.ds - 1, right, cat_r, g, b, y);
+  // The C feature channels then the cc concat channels (stage.cuh).
+  stage_rows(ls, g.ld, w0, g.tw, left, g.c, cat_l, g.cc, b, y, g.h, g.w, g.chunk);
+  stage_rows(rs, g.ld, w0 - d0 - g.ds + 1, g.tw + g.ds - 1, right, g.c, cat_r, g.cc, b, y, g.h,
+             g.w, g.chunk);
   __syncthreads();
 
   // Work items: the group half-vectors (in pairs: quarter-warps take 4

@@ -52,8 +52,9 @@ SIGNATURES = {
     "dv_concat_volume": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
     # vol, m1, m2|0, out, b, c, dhw
     "dv_dhw_mul": [_P, _P, _P, _P, _I, _I, _L],
-    # the same two, channels-last output / volume
-    "dv_concat_volume_cl": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
+    # the same two, channels-last output / volume; the concat takes its plan
+    # (CONCAT_PLAN_KEYS): cl, cr, att|0, out, plan, b, c, d, h, w
+    "dv_concat_volume_cl": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I],
     "dv_dhw_mul_cl": [_P, _P, _P, _P, _I, _I, _L],
     # x, w, bias|0, res|0, post_mul|0, out, ws|0, plan|0, b, d, h, w, cin, cout, ks, act
     # (stride 1)
@@ -62,12 +63,12 @@ SIGNATURES = {
     "dv_conv3d_s2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
     # x, w, bias|0, res|0, post_mul|0, out, plan|0, b, d, h, w, cin, cout, ks, act
     "dv_conv3d_up": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
-    # x, out, b, c, s, c_slot
-    "dv_pack": [_P, _P, _I, _I, _L, _I],
-    # x, out, b, c, s
-    "dv_unpack": [_P, _P, _I, _I, _L],
-    # x, out, b, d, s, c_slot, co
-    "dv_unpack_hwdc": [_P, _P, _I, _I, _L, _I, _I],
+    # x, out, plan (TRANSPOSE_PLAN_KEYS), b, c, s, c_slot
+    "dv_pack": [_P, _P, _P, _I, _I, _L, _I],
+    # x, out, plan, b, c, s
+    "dv_unpack": [_P, _P, _P, _I, _I, _L],
+    # x, out, plan|0 (TRANSPOSE_PLAN_KEYS, a one-channel slot), b, d, s, c_slot, co
+    "dv_unpack_hwdc": [_P, _P, _P, _I, _I, _L, _I, _I],
     # x, w, bias|0, out, plan|0, b, h, w, cin, cout, dilation
     "dv_conv2d_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
 }
@@ -93,6 +94,12 @@ PLAN_SIGNATURES = {
     # planes, h, w, c, max dil1, max dil2 (0: one stencil), dtype, forced tw, warps a
     # channel vector, blocks (0: the rule's), device, plan (DW_PLAN_KEYS)
     "dv_depthwise_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # b, c, h, w, d, att, dtype, forced tw, ds, blocks (0: the rule's), device, plan
+    # (CONCAT_PLAN_KEYS)
+    "dv_concat_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # b, m, n, ldo, dtype, 16-byte aligned, forced lanes a tile column (1: the
+    # element form), blocks (0: the rule's), device, plan (TRANSPOSE_PLAN_KEYS)
+    "dv_transpose_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 PLAN_KEYS = ("bh", "bmw", "nth", "ntw", "ntn", "splits", "bn", "ck", "mt", "blocks",
              "smem_bytes", "blocks_per_sm", "positions", "wgmma", "kh_a_stage")
@@ -108,6 +115,14 @@ SLOT_PLAN_KEYS = ("tw", "ds", "nds", "threads", "smem_bytes", "blocks", "ld")
 # a (stage, channel vector), the staged rows' skew, threads and shared memory
 # a block, blocks an SM.
 DW_PLAN_KEYS = ("tw", "blocks", "wpc", "skew", "threads", "smem_bytes", "blocks_per_sm")
+# The channels-last concat's plan (csrc/concat_volume.cu ConcatPlan): W
+# positions and disparities a work item, items, threads, grid, blocks an SM,
+# shared memory a block.
+CONCAT_PLAN_KEYS = ("tw", "ds", "items", "threads", "blocks", "blocks_per_sm", "smem_bytes")
+# pack / unpack's transpose plan (csrc/layout.cu TransposePlan): the 16-byte
+# form or the element form, lanes a tile column, tiles, threads, grid, blocks
+# an SM.
+TRANSPOSE_PLAN_KEYS = ("vec", "lr", "tiles", "threads", "blocks", "blocks_per_sm")
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}

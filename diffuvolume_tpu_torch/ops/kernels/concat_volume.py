@@ -9,10 +9,16 @@ Kernels: ``csrc/concat_volume.cu``.  ``concat_volume`` replaces
 The inference pipeline builds the scan-invariant volume once with
 ``att=None`` and each DDIM step pays only ``dhw_mul(volume, att, noise)``.
 Both take ``channels_last=True`` on the folded path (``(B, D, H, W, C)``
-volumes for the conv kernels) and write NCDHW on the module path.
+volumes for the conv kernels) and write NCDHW on the module path.  The
+channels-last concat runs on a plan made in its source (``concat_plan``:
+W tile, D range, grid; ``csrc/concat_volume.cu``
+``concat_plan_t``), made once a shape and handed to every launch;
+``concat_volume_cl_on`` forces another, for timing.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -34,6 +40,17 @@ def _check_vectors(c: int, t: torch.Tensor, what: str) -> None:
                          f"({16 // t.element_size()} channels of {t.dtype}), got {c}")
 
 
+@functools.lru_cache(maxsize=256)
+def concat_plan(b: int, c: int, h: int, w: int, d: int, att: bool, dtype: torch.dtype,
+                device: torch.device, force: tuple = (0, 0, 0)) -> _build.Plan:
+    """The plan of the channels-last ``concat_volume`` for ``(b, c, h, w)``
+    features and ``d`` disparities, with ``att`` or without, on ``device``
+    (``_build.CONCAT_PLAN_KEYS``); ``force`` (W tile, D range, blocks) takes
+    those, 0 the plan's own."""
+    return _build.plan("dv_concat_plan", device, b, c, h, w, d, int(att),
+                       _build.DTYPE_CODES[str(dtype)], *force, keys=_build.CONCAT_PLAN_KEYS)
+
+
 def concat_volume(
     cl: torch.Tensor, cr: torch.Tensor, max_disp: int, att: torch.Tensor | None = None,
     channels_last: bool = False,
@@ -47,6 +64,18 @@ def concat_volume(
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
+    return _concat(cl, cr, max_disp, att, channels_last, (0, 0, 0))
+
+
+def concat_volume_cl_on(force: tuple, cl: torch.Tensor, cr: torch.Tensor, max_disp: int,
+                        att: torch.Tensor | None = None) -> torch.Tensor:
+    """The channels-last ``concat_volume`` on the plan ``force`` gives (see
+    ``concat_plan``), for timing plans against each other; counted as
+    ``concat_volume``."""
+    return _concat(cl, cr, max_disp, att, True, tuple(force))
+
+
+def _concat(cl, cr, max_disp, att, channels_last, force):
     if cl.device.type == "cpu":
         return concat_volume_mul(cl, cr, max_disp, att, channels_last)
     if cl.shape != cr.shape or cl.dtype != cr.dtype or cl.dim() != 4:
@@ -55,15 +84,18 @@ def concat_volume(
     if att is not None:
         _check_map(att, cl, (b, max_disp, h, w))
     _build.check_cuda(cl, cr, *([] if att is None else [att]))
-    if channels_last:
-        _check_vectors(c, cl, "concat_volume")
     shape = (b, max_disp, h, w, 2 * c) if channels_last else (b, 2 * c, max_disp, h, w)
     out = torch.empty(shape, dtype=cl.dtype, device=cl.device)
-    _build.launch(
-        "dv_concat_volume_cl" if channels_last else "dv_concat_volume", cl, cl.data_ptr(),
-        cr.data_ptr(), None if att is None else att.data_ptr(), out.data_ptr(), b, c,
-        max_disp, h, w,
-    )
+    if out.numel() == 0:
+        return out
+    args = (cl.data_ptr(), cr.data_ptr(), None if att is None else att.data_ptr(),
+            out.data_ptr())
+    if channels_last:
+        _check_vectors(c, cl, "concat_volume")
+        p = concat_plan(b, c, h, w, max_disp, att is not None, cl.dtype, cl.device, force)
+        _build.launch("dv_concat_volume_cl", cl, *args, p.ptr, b, c, max_disp, h, w)
+    else:
+        _build.launch("dv_concat_volume", cl, *args, b, c, max_disp, h, w)
     concat_volume.launches += 1
     return out
 

@@ -68,7 +68,7 @@ GROUPS = [
      r"conv_k1<|direct_f32<false|conv_bf16<false|splitk_finish|conv_s1(_head)?<[^>]*false>"),
     ("port: transposed conv, folded (conv3d_up.cu)", r"direct_f32<true|conv_bf16<true"),
     ("port: dilated 2-D conv (conv2d_flat.cu)", r"conv2d_f32|conv_s1(_head)?<[^>]*true>"),
-    ("port: layout pack / unpack", r"to_last_kernel|to_first_kernel|hwdc"),
+    ("port: layout pack / unpack", r"transpose_vec_kernel|transpose_tile_kernel|hwdc"),
     # On the folded path every BatchNorm left is a 2-D one (the feature
     # trunk's; PCW's refinement net's unless it is flat): chip_smoke.py's op
     # census shows no 3-D one.

@@ -1273,3 +1273,174 @@ def test_conv1x1_plans(dev):
     assert (full["positions"], half["positions"]) == (256, 128)
     small = kconv.k1_plan((1, 6, 12, 39, 32), 32, True, dev)
     assert small["blocks"] == small["tiles"] == -(-6 * 12 * 39 // 128), small
+
+
+# -- row 3's channels-last concat and rows 11-12's transposer -----------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_att", [False, True])
+def test_concat_volume_channels_last_acv_shape(dev, dtype, with_att):
+    """The ACV main path's shape, 2×(1, 32, 128, 240) → (1, 48, 128, 240,
+    64): copies and one float32 product an element rounded once, exact."""
+    cl, cr = (_randn(dev, 1, 32, 128, 240, seed=s).to(dtype) for s in (400, 401))
+    att = torch.softmax(_randn(dev, 1, 48, 128, 240, seed=402), 1).to(dtype) if with_att else None
+    got = kc.concat_volume(cl, cr, 48, att, channels_last=True)
+    want = plain.concat_volume_mul(cl, cr, 48, att, channels_last=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_att", [False, True])
+@pytest.mark.parametrize("c", [8, 16, 32, 64])
+@pytest.mark.parametrize("d,w", [(12, 37), (48, 20), (7, 60)])
+def test_concat_volume_channels_last_edges(dev, dtype, with_att, c, d, w):
+    """W not a multiple of the tile (37: tiles of 32, the last part empty),
+    D > W (planes whose right half is all zero), a W the tile divides, B =
+    2, C a side 8, 16, 32 and 64 (bank groups a quarter-warp: 8 / C·size
+    positions): exact."""
+    b, h = 2, 3
+    cl, cr = (_randn(dev, b, c, h, w, seed=s).to(dtype) for s in (403, 404))
+    att = torch.softmax(_randn(dev, b, d, h, w, seed=405), 1).to(dtype) if with_att else None
+    got = kc.concat_volume(cl, cr, d, att, channels_last=True)
+    want = plain.concat_volume_mul(cl, cr, d, att, channels_last=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_att", [False, True])
+@pytest.mark.parametrize("force", [(16, 5, 0), (24, 48, 3), (60, 7, 0), (32, 12, 5), (8, 1, 0),
+                                   (40, 20, 1)])
+def test_concat_volume_channels_last_forced_plans(dev, dtype, with_att, force):
+    """Other W tiles, D ranges (1 to all of D) and grids fewer than the
+    items (blocks walking several): exact.  Features at an H·W that is no
+    whole vector stage by element reads."""
+    b, c, d, h, w = 2, 32, 20, 3, 61
+    cl, cr = (_randn(dev, b, c, h, w, seed=s).to(dtype) for s in (406, 407))
+    att = torch.softmax(_randn(dev, b, d, h, w, seed=408), 1).to(dtype) if with_att else None
+    got = kc.concat_volume_cl_on(force, cl, cr, d, att)
+    want = plain.concat_volume_mul(cl, cr, d, att, channels_last=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_concat_plan_acv_shape(dev):
+    """Row 3's plan at the ACV shape, bf16: a W tile that divides 240, one
+    wave of blocks walking the items, within one block's shared memory and
+    the kernel's threads."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for att in (False, True):
+        p = kc.concat_plan(1, 32, 128, 240, 48, att, torch.bfloat16, dev)
+        assert 240 % p["tw"] == 0 and 48 % p["ds"] == 0, p
+        assert p["items"] == 128 * (240 // p["tw"]) * (48 // p["ds"]), p
+        assert p["threads"] % 32 == 0 and p["threads"] <= 512, p
+        assert p["smem_bytes"] <= 232448 and p["blocks_per_sm"] >= 1, p
+        assert p["blocks"] == min(p["items"], sms * p["blocks_per_sm"]), p
+
+
+ACV_BOTTLENECK = (1, 128, 12, 32, 60)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,c_slot,dhw", [
+    (1, 128, 128, (12, 32, 60)),    # the ACV folded path's bottleneck
+    (1, 40, 48, (4, 6, 10)),        # c_slot > C: the fill
+    (1, 16, 16, (3, 5, 7)),         # S not a multiple of 8: element tiles
+    (1, 13, 16, (2, 4, 8)),         # C not a multiple of 8, the slot whole
+    (2, 24, 32, (3, 4, 8)),         # B = 2
+    (2, 12, 12, (5, 3, 3)),         # neither side whole vectors
+])
+def test_pack_unpack_transposer(dev, dtype, b, c, c_slot, dhw):
+    """pack and unpack against the plain versions at the main path's shape
+    and the edges the 16-byte form leaves to element tiles: exact, the slot
+    fill included; unpack(pack(x)) is x on its channels."""
+    x = _randn(dev, b, c, *dhw, seed=410).to(dtype)
+    pk = kl.pack(x, c_slot)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, kl.pack_plain(x, c_slot))
+    back = kl.unpack(pk)
+    torch.cuda.synchronize()
+    assert torch.equal(back, kl.unpack_plain(pk))
+    assert torch.equal(back[:, :c], x) and not back[:, c:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_unpack_round_trip(dev, dtype):
+    """unpack(pack(x)) equals x at the ACV bottleneck."""
+    x = _randn(dev, *ACV_BOTTLENECK, seed=411).to(dtype)
+    back = kl.unpack(kl.pack(x))
+    torch.cuda.synchronize()
+    assert torch.equal(back, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_unpack_unaligned_views(dev, dtype):
+    """Contiguous views at an offset that is no multiple of 16 bytes take
+    the element form: exact."""
+    b, c, d, h, w = 1, 16, 2, 4, 8
+    n = b * c * d * h * w
+    flat = _randn(dev, n + 1, seed=412).to(dtype)
+    x = flat[1:].view(b, c, d, h, w)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    assert torch.equal(kl.pack(x, 24), kl.pack_plain(x, 24))
+    y = flat[1:].view(b, d, h, w, c)
+    got = kl.unpack(y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kl.unpack_plain(y))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("force", [(1, 0), (2, 0), (4, 0), (8, 0), (2, 3), (4, 1), (8, 5)])
+def test_pack_unpack_forced_plans(dev, dtype, force):
+    """Every form (element tiles; 2, 4 or 8 lanes a tile column) on the
+    plan's grid and on grids smaller than the tiles (warps walking
+    several), pack with a slot fill and a ragged last tile: exact."""
+    x = _randn(dev, 2, 40, 3, 5, 24, seed=413).to(dtype)
+    pk = kl.pack_on(force, x, 48)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, kl.pack_plain(x, 48))
+    back = kl.unpack_on(force, pk)
+    torch.cuda.synchronize()
+    assert torch.equal(back, kl.unpack_plain(pk))
+
+
+def test_transpose_plan_acv_bottleneck(dev):
+    """rows 11-12's plan at the main path's shape: the 16-byte form, one
+    warp a tile in a single wave (every tile's warp resident at once)."""
+    b, c, (d, h, w) = 1, 128, ACV_BOTTLENECK[2:]
+    s = d * h * w
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m, n, ldo in ((c, s, c), (s, c, s)):
+        p = kl.transpose_plan(b, m, n, ldo, torch.bfloat16, dev)
+        assert p["vec"] == 1 and p["lr"] in (2, 4, 8), p
+        assert p["tiles"] == -(-ldo // (8 * p["lr"])) * -(-n // (8 * 32 // p["lr"])), p
+        assert p["blocks"] * p["threads"] // 32 >= p["tiles"], p
+        assert p["blocks"] <= sms * p["blocks_per_sm"], p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 48, 4, 40), (1, 48, 96, 312)])
+def test_unpack_hwdc_cost_on_the_transposer(dev, dtype, shape):
+    """Row 13's one-channel slot (IGEV's classifier cost) on the
+    transposer's 16-byte form, B = 2 and the IGEV shape: exact."""
+    b, d, h, w = shape
+    x = _randn(dev, b, d, h, w, 1, seed=414).to(dtype)
+    got = kl.unpack_hwdc(x, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kl.unpack_hwdc_plain(x, 1))
+
+
+def test_row_3_11_12_launch_counts(dev):
+    """The forced forms count as their rows, and each wrapper its own
+    launches only."""
+    counters = (kc.concat_volume, kl.pack, kl.unpack, kl.unpack_hwdc)
+    before = [f.launches for f in counters]
+    cl = _randn(dev, 1, 8, 2, 9).bfloat16()
+    kc.concat_volume(cl, cl, 4, channels_last=True)
+    kc.concat_volume_cl_on((8, 2, 0), cl, cl, 4)
+    x = _randn(dev, 1, 8, 2, 3, 8)
+    kl.unpack(kl.pack_on((2, 0), x))
+    kl.unpack_on((1, 0), kl.pack(x))
+    assert [f.launches for f in counters] == [before[0] + 2, before[1] + 2, before[2] + 2,
+                                              before[3]]
