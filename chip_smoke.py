@@ -13,7 +13,8 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      host's time to issue a call beside it; the plain versions under CUDA
      events), the device time of one PyTorch call computing the same
      function where there is one, and the bound (bytes or operations over
-     the H100's peak rates); rows 2-4 (row 3 in both forms, with its
+     the H100's peak rates); rows 2-4 (row 2 at the ACV and IGEV module
+     paths' shapes with its plan, row 3 in both forms with its
      channels-last plan) and rows 11-13 (with rows 11-12's transpose plan)
      at every path's shape; rows 1 and 17 at the ACV and PCW shapes, both
      align-corners conventions, row 16 at every path's shape (ACV, PCW 1/4
@@ -62,7 +63,16 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      pair, 5 timed pairs, launch counts (asserted), the same census, a finite
      (1, 384, 1248) output; then its module path, 2 timed pairs, and
      routed, 2 timed pairs;
-  9. one ``kernels`` JSON line, the card line, and the result line.
+  9. the evaluation entry point: ``cli/evaluate`` on the card over a
+     synthetic SceneFlow-layout set written to a temporary directory (3
+     pairs at 540×960 with PFM ground truth, cropped to 512×960 by
+     ``TEST_CROP``), random weights, ACV DDIM-5, float32, folded: launch
+     counts per pair (asserted, as phase 5's), finite ``FINAL:`` metrics,
+     ``metrics_batch`` on the card within 1e-5 of the same metrics on the
+     CPU from the same disparities, the CLI's pairs/s; then
+     ``tools/bench.py --model acv --reps 3`` in a subprocess, its JSON line
+     parsed;
+ 10. one ``kernels`` JSON line, the card line, and the result line.
 Each path's launch counts are set to 0 just before it is driven and read
 just after.  Everything printed is also written to
 ``chiprun_out/chip_smoke.json``.  Run from a directory without the
@@ -246,8 +256,12 @@ def kernel_checks(dev) -> dict:
     pairs_dw = sum(max(W4 - d, 0) for d in range(D4))
     nbytes = 2 * lb.numel() * 2 + GROUPS * D4 * H4 * W4 * 2
     ops = GROUPS * H4 * pairs_dw * 2 * cpg
-    out["gwc_volume"] = dict(errs=errs, **t, plain_ms=plain_ms, bound=bound(nbytes, ops),
-                             library_ms=None, dtype="bfloat16")
+    plan = kg.gwc_plan(1, FEAT_C, H4, W4, GROUPS, D4, torch.bfloat16, dev)
+    b_ms, by = bound(nbytes, ops)
+    log(f"  bf16 {on_card(t)} (plain {plain_ms:.4f}, bound {b_ms:.4f} ms by {by})"
+        f"{gwc_plan_line(plan)}")
+    out["gwc_volume"] = dict(errs=errs, **t, plain_ms=plain_ms, bound=(b_ms, by),
+                             library_ms=None, dtype="bfloat16", plan=plan)
 
     # -- concat volume: (1, 32, 128, 240) ×2 (+ att) → (1, 64, 48, 128, 240)
     log("concat_volume  features 2×(1,32,128,240), att (1,48,128,240) → (1,64,48,128,240)")
@@ -335,6 +349,16 @@ def mixed(cases: list[dict], errs: dict, dtype: str = "bfloat16") -> dict:
                 library_ms=mean("library_ms"),
                 bound=(b_ms, "operations" if by_ops >= b_ms - 1e-12 else "bytes"),
                 dtype=dtype, shapes=cases)
+
+
+def gwc_plan_line(plan: dict | None) -> str:
+    """Row 2's plan as phase 3 prints it ('' for none)."""
+    if plan is None:
+        return ""
+    form = "16-byte" if plan["vec"] else "element"
+    return (f"; tile {plan['tw']} W × {plan['ds']} D an item ({form} form), {plan['items']} "
+            f"items on {plan['blocks']} blocks of {plan['threads']} ({plan['blocks_per_sm']} "
+            f"an SM), shared memory {plan['smem_bytes']} B")
 
 
 def concat_plan_line(plan: dict | None) -> str:
@@ -1377,9 +1401,16 @@ def refine_checks(dev, iters: int = 10) -> dict:
 
 
 def igev_volume_checks(dev) -> dict:
-    """Phase 3 at the IGEV path's shapes: row 2 (the module path's NCDHW
-    volume, 8 groups, on the card by ``device_times``) and row 13
-    (``hwdc_checks``).  Row 16 at the IGEV shape is in ``volume_checks``."""
+    """Phase 3 at the IGEV path's shapes: row 2 (``igev_gwc_checks``) and
+    row 13 (``hwdc_checks``).  Row 16 at the IGEV shape is in
+    ``volume_checks``."""
+    return {"gwc_volume": igev_gwc_checks(dev), "unpack_hwdc": hwdc_checks(dev)}
+
+
+def igev_gwc_checks(dev) -> dict:
+    """Row 2 at the IGEV module path's shape (8 groups of 12 channels)
+    against its plain version in float32 and bf16, bf16 on the card by
+    ``device_times``, with its plan."""
     from diffuvolume_tpu_torch.ops import cost_volume as plain
     from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
 
@@ -1390,7 +1421,6 @@ def igev_volume_checks(dev) -> dict:
     lb, rb = l32.bfloat16(), r32.bfloat16()
     pairs_dw = sum(max(w - k, 0) for k in range(d))
     ops = 2 * IGEV_C * h * pairs_dw
-    out = {}
     log(f"gwc_volume at IGEV  features 2×(1,{IGEV_C},{h},{w}) → G {IGEV_GROUPS}, D {d}")
     errs = {}
     for dt, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
@@ -1402,16 +1432,15 @@ def igev_volume_checks(dev) -> dict:
         del got, want
     b_ms, by = bound((2 * lb.numel() + d * h * w * IGEV_GROUPS) * 2, ops)
     t = device_times(lambda: kg.gwc_volume(lb, rb, d, IGEV_GROUPS), 20)
+    plan = kg.gwc_plan(1, IGEV_C, h, w, IGEV_GROUPS, d, torch.bfloat16, dev)
     rec = dict(label=f"IGEV (1,{IGEV_C},{h},{w}) → D {d}, {IGEV_GROUPS} groups", per_pair=2,
                errs=errs, **t,
                plain_ms=time_ms(lambda: plain.build_gwc_volume(lb, rb, d, IGEV_GROUPS), 2),
-               library_ms=None, bound_ms=b_ms, bound_by=by, ops_ms=ops / F32_OPS_PER_S * 1e3)
+               library_ms=None, bound_ms=b_ms, bound_by=by, ops_ms=ops / F32_OPS_PER_S * 1e3,
+               plan=plan)
     log(f"  bf16 {on_card(t)} (plain {rec['plain_ms']:.4f}, bound {b_ms:.4f} ms by "
-        f"{by}); 2 per IGEV module pair")
-    out["gwc_volume"] = mixed([rec], errs)
-
-    out["unpack_hwdc"] = hwdc_checks(dev)
-    return out
+        f"{by}); 2 per IGEV module pair{gwc_plan_line(plan)}")
+    return mixed([rec], errs)
 
 
 def hwdc_checks(dev) -> dict:
@@ -2009,6 +2038,105 @@ def igev_path(dev, counters, packed: bool, pairs: int, routed: bool = False) -> 
                  igev_expected_launches(packed, routed), packed, (1, IGEV_H, IGEV_W))
 
 
+# The evaluation entry point (phase 9): a synthetic SceneFlow-layout set of
+# EVAL_PAIRS pairs at 540×960, cropped to the main path's 512×960 by
+# SceneFlowDataset.TEST_CROP; then tools/bench.py with BENCH_REPS timed pairs.
+EVAL_PAIRS, EVAL_H, EVAL_W = 3, 540, 960
+BENCH_REPS = 3
+METRIC_ATOL = 1e-5
+
+
+def write_sceneflow(root: str, pairs: int, h: int, w: int, seed: int = 0) -> None:
+    """``pairs`` stereo pairs in the SceneFlow test tree's layout under
+    ``root`` (frames_finalpass/TEST/…/{left,right}/*.png and
+    disparity/TEST/…/left/*.pfm): random RGB images, the right one the left
+    shifted 4 px, and a PFM ground truth of 4 px plus noise, a tenth of it
+    0 (invalid)."""
+    from PIL import Image
+
+    from diffuvolume_tpu_torch.data.readers import write_pfm
+
+    rng = np.random.default_rng(seed)
+    scene = os.path.join("TEST", "A", "0000")
+    for sub in (("frames_finalpass", "left"), ("frames_finalpass", "right"),
+                ("disparity", "left")):
+        os.makedirs(os.path.join(root, sub[0], scene, sub[1]), exist_ok=True)
+    for k in range(pairs):
+        name = f"{6 + k:04d}"
+        img = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+        Image.fromarray(img).save(os.path.join(root, "frames_finalpass", scene, "left",
+                                               name + ".png"))
+        Image.fromarray(np.roll(img, -4, axis=1)).save(
+            os.path.join(root, "frames_finalpass", scene, "right", name + ".png"))
+        disp = 4.0 + rng.uniform(0.0, 0.5, (h, w)).astype(np.float32)
+        disp[rng.uniform(size=(h, w)) < 0.1] = 0.0
+        write_pfm(os.path.join(root, "disparity", scene, "left", name + ".pfm"), disp)
+
+
+def evaluate_phase(dev, counters, card: str) -> dict:
+    """Phase 9: ``cli/evaluate`` on the card over a synthetic SceneFlow set
+    (random weights, ACV DDIM-5, float32, the folded path), its launch
+    counts set to 0 just before and read just after (per pair as the main
+    path's), finite ``FINAL:`` metrics, and ``metrics_batch`` on the card
+    against the same metrics on the CPU from the same disparities (within
+    ``METRIC_ATOL``); then ``tools/bench.py --model acv`` in a subprocess,
+    its JSON line parsed."""
+    import tempfile
+
+    from diffuvolume_tpu_torch.cli import evaluate
+    from diffuvolume_tpu_torch.eval.metrics import metrics_batch
+
+    seen = []
+    with tempfile.TemporaryDirectory() as root:
+        write_sceneflow(root, EVAL_PAIRS, EVAL_H, EVAL_W)
+        args = evaluate.parse_args(["--backbone", "acv", "--datapath", root,
+                                    "--device", str(dev), "--seed", "0"])
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        result = evaluate.run(args, on_pair=lambda i, final, gt, mask, m: seen.append(
+            (final.cpu(), gt.cpu(), mask.cpu(), {k: v.cpu() for k, v in m.items()})))
+        wall_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+    per_pair = {k: v / EVAL_PAIRS for k, v in launches.items()}
+    expected = {k: expected_launches(packed=True).get(k, 0) for k in counters}
+    log(f"  launches per pair: {per_pair}")
+    if per_pair != expected:
+        raise AssertionError(f"the evaluate CLI's launch counts {per_pair} != {expected}")
+    final = result["final"]
+    if len(seen) != EVAL_PAIRS or not all(math.isfinite(v) for v in final.values()):
+        raise AssertionError(f"FINAL metrics not finite over {EVAL_PAIRS} pairs: {final}")
+    worst = 0.0
+    for disp, gt, mask, card_m in seen:
+        if tuple(disp.shape) != (1, MAIN_H, MAIN_W):
+            raise AssertionError(f"the CLI's disparity is {tuple(disp.shape)}")
+        cpu_m = metrics_batch(disp, gt, mask)
+        for k, v in cpu_m.items():
+            worst = max(worst, float((card_m[k] - v).abs().max()))
+    log(f"  FINAL {final}; metrics on the card against the CPU: max abs diff {worst:.3e} "
+        f"(tol {METRIC_ATOL:g})")
+    if worst > METRIC_ATOL:
+        raise AssertionError("metrics_batch on the card disagrees with the CPU")
+    log(f"  evaluate CLI: {result['pairs_per_s']:.4f} pairs/s (pairs 2-{EVAL_PAIRS}, float32), "
+        f"{wall_s:.1f} s with set-up; {card}")
+
+    cmd = [sys.executable, "-m", "diffuvolume_tpu_torch.tools.bench", "--model", "acv",
+           "--reps", str(BENCH_REPS)]
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"tools/bench.py failed ({proc.returncode}):\n{proc.stderr[-2000:]}")
+    bench = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not (bench["pairs_per_s"] > 0 and math.isfinite(bench["busy_ms_per_pair"])):
+        raise AssertionError(f"tools/bench.py printed {bench}")
+    log(f"  tools/bench.py --model acv --reps {BENCH_REPS}: {bench['pairs_per_s']:.4f} pairs/s "
+        f"(median {bench['pairs_per_s_median']:.4f}, p10 {bench['pairs_per_s_p10']:.4f}, p90 "
+        f"{bench['pairs_per_s_p90']:.4f}), busy {bench['busy_ms_per_pair']:.2f} ms a pair, "
+        f"idle {bench['idle_share']:.3f}; {bench['card']}")
+    return dict(final=final, pairs_per_s=result["pairs_per_s"], wall_s=wall_s,
+                metric_max_abs_diff=worst, launches=launches, launches_per_pair=per_pair,
+                bench=bench)
+
+
 KERNEL_META = {  # name → (source, TPU kernel file:line, its function)
     "fused_head": ("diffuvolume_tpu_torch/csrc/fused_head.cu",
                    "diffuvolume_tpu/ops/pallas/fused_head.py:83", "fused_upsample_softargmin"),
@@ -2181,6 +2309,10 @@ def main() -> int:
                                            pairs=ROUTED_TIMED_PAIRS["igev"], routed=True)
     census["igev_module_routed"] = census_fewer(runs, "igev_module", "igev_module_routed", {
         "conv_5d_dense": routed_launches("igev")["conv3d_packed"]})
+    log(f"== 9. the evaluation entry point: cli/evaluate (ACV DDIM-5, random weights, "
+        f"{EVAL_PAIRS} synthetic SceneFlow pairs {EVAL_H}×{EVAL_W} cropped to "
+        f"{MAIN_H}×{MAIN_W}, float32), then tools/bench.py")
+    runs["acv_evaluate_cli"] = evaluate_phase(dev, counters, card)
 
     kernels = []
     for name, (source, replaces, tpu_fn) in KERNEL_META.items():

@@ -1,6 +1,6 @@
 // Group-wise correlation volumes.
 //
-// dv_gwc_volume: the NCDHW volume (the module path of the ACV model)
+// dv_gwc_volume: the NCDHW volume (the module paths of the ACV and IGEV models)
 //   out[b, g, d, h, w] = mean_{c in group g} left[b, c, h, w] * right[b, c, h, w - d]
 // for w >= d, zero elsewhere.  Features (B, C, H, W), volume (B, G, D, H, W).
 //   Replaces diffuvolume_tpu/ops/pallas/gwc_volume.py:gwc_volume_pallas.
@@ -9,15 +9,38 @@
 // What bounds it on the H100: at the main path (C=320, G=40, D=48, 128×240,
 // bf16) it reads 2×19.7 MB and writes 118 MB (about 47 µs at 3.35 TB/s)
 // and does about 1.1 G float32 multiply-adds (about 17 µs at 67 TFLOP/s),
-// so it is bound by bytes, nearly all of them the output.
+// so its bound is the bytes, nearly all of them the output.
 //
-// Design.  One full row pair at C=320 is 2×154 KB in bf16, over a block's
-// 227 KB of shared memory, so a block takes one (b, h, group): the group's
-// cpg channels of one left and one right row, converted to float32 into
-// shared memory once (2×8×240×4 = 15 KB), then every (d, w) output of that
-// row and group.  Consecutive threads own consecutive w of one d, so both
-// the shared-memory reads and the global stores are contiguous.  The
-// products are summed in float32 and divided by cpg, as the mean is.
+// Design.  Each output vector is 16 bytes of one output row (b, g, d, h):
+// V = 8 bf16 (4 float32) consecutive W positions.  A thread owns one item,
+// V consecutive W positions and a range of disparities of one (b, g, h),
+// taken in steps of V (gwc_plan: three).  A step makes the V × V outputs of
+// disparities d0 … d0 + V − 1 and walks the group's cpg channels in order.
+// For each channel it reads one 16-byte vector of the left row at x0 and the
+// two 16-byte vectors of the right row at x0 − d0 − V and x0 − d0: every
+// right position that any of its V × V outputs needs (x0 + k − d); x0 and
+// d0 are multiples of V, so each vector lies wholly inside the row or
+// wholly left of it (zeros).  The V × V float32 sums stay in registers, V²
+// FMAs a channel from 3 loads, so an output costs 3·cpg / V² 16-byte loads
+// (0.375 at cpg 8); the features are read straight from global memory (each
+// right vector again by the items of the neighbouring W vectors and
+// disparity steps, out of L1 and L2) and nothing is staged.  Items run W
+// vector fastest, then the disparity ranges of one (b, g, h) row, so a
+// block's items share their rows in L1.  Each output vector is one 16-byte
+// streaming store (st.global.cs: the 118 MB ACV volume is 2.4 times the
+// L2).  Sums in float32 in channel order, divided by cpg, rounded once to
+// the output type (bf16 in pairs, cvt.rn.bf16x2); 0 where w < d.  The
+// division is a multiply by 1/cpg where cpg is a power of two, else the
+// quotient by the rounded reciprocal corrected once by its FMA remainder
+// (div_cpg, the correctly rounded quotient in three instructions).  On the
+// H100 the kernel is bound by instruction issue about as much as by bytes:
+// an output costs cpg FMAs and, a channel, 3/64 loads and 24/64 bf16
+// conversions; the IEEE division alone cost a quarter of IGEV's cpg-12
+// time, and staging the rows in shared memory (cp.async) or prefetching them
+// into L2 made both shapes slower (PERF.md).  A W that is not a
+// multiple of V, or an unaligned tensor, takes the element form (the same
+// items, element loads and stores, bounds checked).  cpg 1, 2, 3, 4, 6, 8,
+// 12 and 16 are compiled; any other cpg runs a loop over a run-time count.
 //
 // dv_gwc_volume_slot: the volume written straight into the channels-last
 // slot that the folded conv chain reads, with the concat halves fused in:
@@ -63,58 +86,210 @@
 namespace dv {
 namespace {
 
-template <typename T>
-__global__ void gwc_kernel(const T* __restrict__ left, const T* __restrict__ right,
-                           T* __restrict__ out, int c, int h, int w, int groups, int dmax) {
-  extern __shared__ float smem[];
-  const int cpg = c / groups;
-  float* ls = smem;            // [cpg][w]
-  float* rs = smem + cpg * w;  // [cpg][w]
-  const int row = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
-  const size_t hw = static_cast<size_t>(h) * w;
-  const size_t in_off = (static_cast<size_t>(b) * c + static_cast<size_t>(g) * cpg) * hw +
-                        static_cast<size_t>(row) * w;
-  for (int i = threadIdx.x; i < cpg * w; i += blockDim.x) {
-    const int ch = i / w, x = i - ch * w;
-    const size_t off = in_off + ch * hw + x;
-    ls[i] = to_f32(left[off]);
-    rs[i] = to_f32(right[off]);
-  }
-  __syncthreads();
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
 
-  T* obase = out + (static_cast<size_t>(b) * groups + g) * dmax * hw + static_cast<size_t>(row) * w;
-  const float n = static_cast<float>(cpg);
-  for (int i = threadIdx.x; i < dmax * w; i += blockDim.x) {
-    const int d = i / w, x = i - d * w;
-    float v = 0.f;
-    if (x >= d) {
-      float acc = 0.f;
-      for (int ch = 0; ch < cpg; ++ch) acc += ls[ch * w + x] * rs[ch * w + x - d];
-      v = acc / n;
+// One shape's plan, in ops/kernels/_build.py GWC_PLAN_KEYS order: an item
+// makes tw W positions × ds disparities (a multiple of V), in steps of V;
+// vec 1 for 16-byte loads and stores, 0 for the element form; items and
+// the grid of blocks of `threads`; blocks an SM (the occupancy API); no
+// shared memory.
+struct GwcPlan {
+  int tw, ds, vec, items, threads, blocks, blocks_per_sm, smem_bytes;
+};
+
+constexpr int kGwcMaxThreads = 512;  // gwc_ncdhw_kernel's launch bound: ≤ 128 registers
+
+struct GwcGeom {
+  int c, h, w, groups, cpg, dmax, ds, nvec, nds, items;
+};
+
+// a / n from inv = 1 / n rounded: the quotient by the reciprocal,
+// corrected once by its remainder (an FMA, exact where the quotient is
+// normal).  Correctly rounded for normal quotients; three instructions in
+// place of the IEEE division's reciprocal, refinement and range check.
+__device__ __forceinline__ float div_cpg(float a, float n, float inv) {
+  const float q = a * inv;
+  return fmaf(fmaf(-q, n, a), inv, q);
+}
+
+// Two float32 values rounded to bf16 (to nearest even) in one word, the
+// first in the low half.
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// V elements of row `row` from position p (a multiple of V) → float32;
+// zeros left of the row; the element form checks each position.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_run(const T* __restrict__ row, int p, int w, float* f) {
+  constexpr int V = 16 / sizeof(T);
+  if constexpr (VEC) {
+    if (p < 0) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) f[i] = 0.f;
+      return;
     }
-    obase[d * hw + x] = from_f32<T>(v);
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(row + p));
+    const unsigned wd[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 2) {
+        f[2 * i] = bf16_lo(wd[i]);
+        f[2 * i + 1] = bf16_hi(wd[i]);
+      } else {
+        f[i] = __uint_as_float(wd[i]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) f[i] = (p + i >= 0 && p + i < w) ? to_f32(row[p + i]) : 0.f;
   }
 }
 
-constexpr int kThreads = 256;
+template <typename T, int CPG, bool VEC>
+__global__ void __launch_bounds__(kGwcMaxThreads)
+    gwc_ncdhw_kernel(const T* __restrict__ left, const T* __restrict__ right,
+                     T* __restrict__ out, GwcGeom g) {
+  constexpr int V = 16 / sizeof(T);
+  const int item = blockIdx.x * blockDim.x + threadIdx.x;
+  if (item >= g.items) return;
+  int rest = item;
+  const int xv = rest % g.nvec;
+  rest /= g.nvec;
+  const int dc = rest % g.nds;
+  rest /= g.nds;
+  const int y = rest % g.h;
+  rest /= g.h;
+  const int grp = rest % g.groups;
+  const int b = rest / g.groups;
+  const int cpg = CPG > 0 ? CPG : g.cpg;
+  const int x0 = xv * V;
+  const long long hw = static_cast<long long>(g.h) * g.w;
+  const long long in_off =
+      (static_cast<long long>(b) * g.c + static_cast<long long>(grp) * cpg) * hw +
+      static_cast<long long>(y) * g.w;
+  const T* lrow = left + in_off;
+  const T* rrow = right + in_off;
+  T* orow = out + (static_cast<long long>(b) * g.groups + grp) * g.dmax * hw +
+            static_cast<long long>(y) * g.w + x0;
+  const float n = static_cast<float>(cpg), inv = 1.f / n;
+  constexpr bool pow2 = CPG > 0 && (CPG & (CPG - 1)) == 0;  // then a · inv is a / n
+  const int dbeg = dc * g.ds, dend = min(dbeg + g.ds, g.dmax);
+  for (int d0 = dbeg; d0 < dend; d0 += V) {
+    float acc[V][V];
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[j][k] = 0.f;
+#pragma unroll 2
+    for (int ch = 0; ch < cpg; ++ch) {
+      float lf[V], win[2 * V];  // win[i]: right position x0 − d0 − V + i
+      load_run<T, VEC>(lrow + ch * hw, x0, g.w, lf);
+      load_run<T, VEC>(rrow + ch * hw, x0 - d0 - V, g.w, win);
+      load_run<T, VEC>(rrow + ch * hw, x0 - d0, g.w, win + V);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[j][k] = fmaf(lf[k], win[k - j + V], acc[j][k]);
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int d = d0 + j;
+      if (d >= dend) break;
+      float v[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        v[k] = x0 + k < d ? 0.f : pow2 ? acc[j][k] * inv : div_cpg(acc[j][k], n, inv);
+      T* o = orow + d * hw;
+      if constexpr (VEC) {
+        uint4 u;
+        if constexpr (sizeof(T) == 2) {
+          u = make_uint4(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]), bf16x2(v[4], v[5]),
+                         bf16x2(v[6], v[7]));
+        } else {
+          u = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                         __float_as_uint(v[3]));
+        }
+        __stcs(reinterpret_cast<uint4*>(o), u);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          if (x0 + k < g.w) o[k] = from_f32<T>(v[k]);
+      }
+    }
+  }
+}
+
+template <typename T, bool VEC>
+const void* gwc_fn(int cpg) {
+  switch (cpg) {
+    case 1: return reinterpret_cast<const void*>(gwc_ncdhw_kernel<T, 1, VEC>);
+    case 2: return reinterpret_cast<const void*>(gwc_ncdhw_kernel<T, 2, VEC>);
+    case 3: return reinterpret_cast<const void*>(gwc_ncdhw_kernel<T, 3, VEC>);
+    case 4: return reinterpret_cast<const void*>(gwc_ncdhw_kernel<T, 4, VEC>);
+    case 6: return reinterpret_cast<const void*>(gwc_ncdhw_kernel<T, 6, VEC>);
+    case 8: return reinterpret_cast<const void*>(gwc_ncdhw_kernel<T, 8, VEC>);
+    case 12: return reinterpret_cast<const void*>(gwc_ncdhw_kernel<T, 12, VEC>);
+    case 16: return reinterpret_cast<const void*>(gwc_ncdhw_kernel<T, 16, VEC>);
+    default: return reinterpret_cast<const void*>(gwc_ncdhw_kernel<T, 0, VEC>);
+  }
+}
 
 template <typename T>
-int launch(const void* left, const void* right, void* out, int b, int c, int h, int w,
-           int groups, int dmax, cudaStream_t stream) {
-  const size_t smem = 2 * sizeof(float) * (c / groups) * w;
-  auto kern = gwc_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  dim3 grid(h, groups, b);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(left),
-                                         static_cast<const T*>(right), static_cast<T*>(out), c,
-                                         h, w, groups, dmax);
+const void* gwc_fn(int cpg, bool vec) {
+  return vec ? gwc_fn<T, true>(cpg) : gwc_fn<T, false>(cpg);
+}
+
+// The rule, from the H100's times at the ACV and IGEV module paths' shapes
+// (PERF.md): three steps of V disparities an item (24 bf16; all of D when
+// that is less) and 128 threads a block.  At ACV one step an item read 25%
+// slower, all 48 disparities 3% slower, 256 or 512 threads 4-9% slower; at
+// IGEV 256 or 512 threads read 3% faster.  vec when W is a multiple of V
+// and both tensors are 16-byte aligned (`aligned`).
+// force_ds > 0 (rounded up to a multiple of V) and force_threads > 0 take
+// those instead (for timing).
+template <typename T>
+cudaError_t gwc_plan(int b, int c, int h, int w, int groups, int d, bool aligned, int force_ds,
+                     int force_threads, int device, GwcPlan& p) {
+  constexpr int V = 16 / sizeof(T);
+  if (b < 1 || h < 1 || w < 1 || d < 1 || groups < 1 || c % groups) return cudaErrorInvalidValue;
+  p.tw = V;
+  p.ds = min(force_ds > 0 ? ceil_div(force_ds, V) * V : 3 * V, ceil_div(d, V) * V);
+  p.vec = aligned && w % V == 0;
+  p.threads = force_threads > 0 ? force_threads : 128;
+  if (p.threads % 32 || p.threads > kGwcMaxThreads) return cudaErrorInvalidValue;
+  const long long items =
+      static_cast<long long>(b) * groups * h * ceil_div(w, V) * ceil_div(d, p.ds);
+  if (items > (1LL << 31) - 1) return cudaErrorInvalidValue;
+  p.items = static_cast<int>(items);
+  p.blocks = ceil_div(items, p.threads);
+  p.smem_bytes = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.blocks_per_sm,
+                                                       gwc_fn<T>(c / groups, p.vec), p.threads, 0);
+}
+
+template <typename T>
+int launch(const void* left, const void* right, void* out, const GwcPlan& p, int b, int c, int h,
+           int w, int groups, int dmax, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  GwcGeom g{c, h, w, groups, c / groups, dmax, p.ds, ceil_div(w, V), ceil_div(dmax, p.ds),
+            p.items};
+  auto aligned = [](const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) == 0; };
+  if (p.tw != V || p.ds % V || p.ds < 1 || c % groups ||
+      static_cast<long long>(b) * groups * h * g.nvec * g.nds != p.items ||
+      (p.vec && (w % V || !aligned(left) || !aligned(right) || !aligned(out))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* l = static_cast<const T*>(left);
+  const T* r = static_cast<const T*>(right);
+  T* o = static_cast<T*>(out);
+  void* args[] = {&l, &r, &o, &g};
+  if (cudaError_t e = cudaLaunchKernel(gwc_fn<T>(g.cpg, p.vec), dim3(p.blocks), dim3(p.threads),
+                                       args, 0, stream))
+    return static_cast<int>(e);
   return end();
 }
-
 
 // -- the volume in the conv slot ----------------------------------------------
 
@@ -174,9 +349,6 @@ struct SlotGeom {
   int c, cc, groups, slot, dmax, h, w, mask_ref;
   int tw, ds, nds, ld, chunk;  // from the plan; ld: staged row stride in elements
 };
-
-__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
 
 // N elements at p (8·k bytes, aligned to 16 when a multiple of 16) → float32.
 template <typename T, int N>
@@ -360,13 +532,34 @@ int launch_slot(const void* left, const void* right, const void* cat_l, const vo
 }  // namespace
 }  // namespace dv
 
-DV_EXPORT int dv_gwc_volume(const void* left, const void* right, void* out, int b, int c, int h,
-                            int w, int groups, int d, int dtype, int device, void* stream) {
+// The plan (GwcPlan's ints) of the NCDHW volume for a shape: dtype code,
+// whether both features are 16-byte aligned, a forced disparities an item
+// and threads a block (0: the rule's), device.
+DV_EXPORT int dv_gwc_plan(int b, int c, int h, int w, int groups, int d, int dtype, int aligned,
+                          int ds, int threads, int device, int* plan) {
   if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
+  dv::GwcPlan p;
+  cudaError_t e = dtype == dv::kBF16
+                      ? dv::gwc_plan<__nv_bfloat16>(b, c, h, w, groups, d, aligned, ds, threads,
+                                                    device, p)
+                      : dv::gwc_plan<float>(b, c, h, w, groups, d, aligned, ds, threads, device, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  std::memcpy(plan, &p, sizeof p);
+  return 0;
+}
+
+// `plan`: dv_gwc_plan's for this shape, dtype and device.
+DV_EXPORT int dv_gwc_volume(const void* left, const void* right, void* out, const int* plan,
+                            int b, int c, int h, int w, int groups, int d, int dtype, int device,
+                            void* stream) {
+  if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
+  if (plan == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  dv::GwcPlan p;
+  std::memcpy(&p, plan, sizeof p);
   if (dtype == dv::kBF16)
-    return dv::launch<__nv_bfloat16>(left, right, out, b, c, h, w, groups, d, s);
-  return dv::launch<float>(left, right, out, b, c, h, w, groups, d, s);
+    return dv::launch<__nv_bfloat16>(left, right, out, p, b, c, h, w, groups, d, s);
+  return dv::launch<float>(left, right, out, p, b, c, h, w, groups, d, s);
 }
 
 // The plan (SlotPlan's ints) of the volume in the slot for a shape: dtype

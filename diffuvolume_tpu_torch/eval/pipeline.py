@@ -299,3 +299,38 @@ def igev_baseline_inference(model: IGEVStereo | FoldedIGEV, left, right, *, iter
     dev, (model,), left, right = _inputs((model,), FoldedIGEV, packed, left, right, device)
     with float32_exact(model):
         return igev_forward(model, left, right, iters)
+
+
+_BASELINE_FOLDS = ((ACVNet, FoldedACV), (PCWNet, FoldedPCW), (IGEVStereo, FoldedIGEV))
+
+
+@torch.no_grad()
+def baseline_inference(model, left, right, *, iters: int | None = None,
+                       device: str | torch.device | None = None,
+                       packed: bool = True) -> torch.Tensor:
+    """The frozen baseline alone, one pass, no diffusion (the reference's
+    baseline-only evaluation: KITTI15/evaluate_stereo_origin.py; SceneFlow
+    and KITTI12 evaluate ``model_origin`` alone).  Counterpart of the JAX
+    package's ``baseline_inference``.
+
+    Args:
+      model: an eval-mode ``ACVNet``, ``PCWNet`` or ``IGEVStereo``
+        (``diffusion`` off), already on ``device``, or its fold.
+      left, right: ``(B, H, W, 3)`` images (normalised; RAW for IGEV).
+      iters: IGEV's GRU iterations (32 when None); ACV and PCW take none.
+      device: where to run; default ``cuda:0``.
+      packed: the folded path; ``False`` the module path.
+
+    Returns ``(B, H, W)`` float32.
+    """
+    kind = next(((m, f) for m, f in _BASELINE_FOLDS if isinstance(model, (m, f))), None)
+    if kind is None:
+        raise TypeError(f"no baseline pass for a {type(model).__name__}")
+    if kind[1] is FoldedIGEV:
+        return igev_baseline_inference(model, left, right, iters=32 if iters is None else iters,
+                                       device=device, packed=packed)
+    if iters is not None:
+        raise ValueError(f"a {kind[0].__name__} takes no GRU iterations")
+    dev, (model,), left, right = _inputs((model,), kind[1], packed, left, right, device)
+    with float32_exact(model):
+        return model(left, right)[-1].float()

@@ -39,8 +39,8 @@ SIGNATURES = {
     "dv_fused_head": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
     # cost, query, unc, b, d4, h4, w4, d, h, w, align_corners
     "dv_fused_uncertainty_at": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I],
-    # left, right, out, b, c, h, w, groups, d
-    "dv_gwc_volume": [_P, _P, _P, _I, _I, _I, _I, _I, _I],
+    # left, right, out, plan (GWC_PLAN_KEYS), b, c, h, w, groups, d
+    "dv_gwc_volume": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
     # left, right, cat_l|0, cat_r|0, out, plan (SLOT_PLAN_KEYS), b, c, cc, h, w, groups,
     # d, slot, mask_ref
     "dv_gwc_volume_slot": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I],
@@ -88,6 +88,9 @@ PLAN_SIGNATURES = {
     "dv_conv2d_flat_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     # b, d, h, w, cin, cout, residual, device, plan (K1_PLAN_KEYS)
     "dv_conv1x1_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # b, c, h, w, groups, d, dtype, 16-byte aligned, forced disparities an item,
+    # threads a block (0: the rule's), device, plan (GWC_PLAN_KEYS)
+    "dv_gwc_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # b, c, cc, h, w, d, slot, dtype, forced tw, ds (0: the rule's), device, plan
     # (SLOT_PLAN_KEYS)
     "dv_gwc_slot_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -107,6 +110,11 @@ PLAN_KEYS = ("bh", "bmw", "nth", "ntw", "ntn", "splits", "bn", "ck", "mt", "bloc
 # ring stages, grid, blocks an SM, shared memory a block, tiles, output
 # channels a tile.
 K1_PLAN_KEYS = ("positions", "stages", "blocks", "blocks_per_sm", "smem_bytes", "tiles", "bn")
+# The NCDHW GWC volume's plan (csrc/gwc_volume.cu GwcPlan): W positions and
+# disparities an item, the 16-byte form or the element form, items, threads a
+# block, grid, blocks an SM, shared memory a block.
+GWC_PLAN_KEYS = ("tw", "ds", "vec", "items", "threads", "blocks", "blocks_per_sm",
+                 "smem_bytes")
 # The GWC volume in the slot's plan (csrc/gwc_volume.cu SlotPlan): W positions
 # and disparities a block, D ranges, threads, shared memory a block, grid,
 # staged row stride in elements.

@@ -3,8 +3,13 @@
 Kernels: ``csrc/gwc_volume.cu``.
 
 * ``gwc_volume`` replaces ``diffuvolume_tpu/ops/pallas/gwc_volume.py:
-  gwc_volume_pallas``: the NCDHW volume of the ACV module path.  Plain
-  version: ``ops/cost_volume.py:build_gwc_volume``.
+  gwc_volume_pallas``: the NCDHW volume of the ACV and IGEV module paths.
+  Plain version: ``ops/cost_volume.py:build_gwc_volume``.  ``gwc_plan``
+  reports the kernel's plan on a device (W positions and disparities a
+  thread's item, the 16-byte or element form, items, threads, grid, blocks
+  an SM; ``csrc/gwc_volume.cu`` ``gwc_plan``), made once a shape and handed
+  to every launch; ``gwc_volume_on`` forces another item or block size, for
+  timing.
 * ``gwc_volume_packed`` replaces ``gwc_volume_packed`` of the same file: the
   volume written straight into the channels-last slot that the folded conv
   chain reads, with the concat halves fused in (the ACV attention chain's 40
@@ -33,6 +38,19 @@ SLOT_CPG = (1, 2, 3, 4, 6, 8, 12, 16)
 
 
 @functools.lru_cache(maxsize=256)
+def gwc_plan(b: int, c: int, h: int, w: int, groups: int, d: int, dtype: torch.dtype,
+             device: torch.device, aligned: bool = True,
+             tile: tuple[int, int] = (0, 0)) -> _build.Plan:
+    """The plan of ``gwc_volume`` for ``(b, c, h, w)`` features in ``groups``
+    groups and ``d`` disparities on ``device`` (``_build.GWC_PLAN_KEYS``);
+    ``aligned``: both features 16-byte aligned; ``tile`` (disparities an
+    item, threads a block) forces those, 0 the plan's own."""
+    return _build.plan("dv_gwc_plan", device, b, c, h, w, groups, d,
+                       _build.DTYPE_CODES[str(dtype)], int(aligned), *tile,
+                       keys=_build.GWC_PLAN_KEYS)
+
+
+@functools.lru_cache(maxsize=256)
 def slot_plan(b: int, c: int, cc: int, h: int, w: int, d: int, slot: int, dtype: torch.dtype,
               device: torch.device, tile: tuple[int, int] = (0, 0)) -> _build.Plan:
     """The plan of ``gwc_volume_packed`` for ``(b, c, h, w)`` features, ``cc``
@@ -52,6 +70,18 @@ def gwc_volume(
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
+    return _ncdhw(left, right, max_disp, num_groups, (0, 0))
+
+
+def gwc_volume_on(tile: tuple[int, int], left: torch.Tensor, right: torch.Tensor,
+                  max_disp: int, num_groups: int) -> torch.Tensor:
+    """``gwc_volume`` on ``tile`` (disparities an item, threads a block; 0
+    the plan's own), for timing plans against each other; counted as
+    ``gwc_volume``."""
+    return _ncdhw(left, right, max_disp, num_groups, tuple(tile))
+
+
+def _ncdhw(left, right, max_disp, num_groups, tile):
     if left.device.type == "cpu":
         return build_gwc_volume(left, right, max_disp, num_groups)
     if left.shape != right.shape or left.dtype != right.dtype or left.dim() != 4:
@@ -60,10 +90,12 @@ def gwc_volume(
     if c % num_groups:
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
     _build.check_cuda(left, right)
+    aligned = left.data_ptr() % 16 == 0 and right.data_ptr() % 16 == 0
+    p = gwc_plan(b, c, h, w, num_groups, max_disp, left.dtype, left.device, aligned, tile)
     out = torch.empty((b, num_groups, max_disp, h, w), dtype=left.dtype,
                       device=left.device)
     _build.launch(
-        "dv_gwc_volume", left, left.data_ptr(), right.data_ptr(), out.data_ptr(),
+        "dv_gwc_volume", left, left.data_ptr(), right.data_ptr(), out.data_ptr(), p.ptr,
         b, c, h, w, num_groups, max_disp,
     )
     gwc_volume.launches += 1

@@ -21,15 +21,16 @@ pair; ``chip_smoke.front_checks``); a package from before the fused pair
 (``--root`` of an older checkout) reports no plans and runs the pair as two
 launches (``_older_front``).  ``--rows volume``: row 3 in both forms (the
 NCDHW volume and the folded path's channels-last one), with and without
-att, row 2 at the ACV shape, and row 4 (NCDHW, channels-last, PCW's one
-map) as the control; ``--rows layout``: rows 11 and 12 at the ACV folded
-path's shape and row 13 at IGEV's two, each beside the library copy.  A
-package from before rows 3 and 11-12 had plans reports none
-(``_older_plans``).  With ``--sweep``, also the tiles the plans chose
-among, bf16, device time, through this package's ``*_on`` entry points
-only: ``--rows front`` row 16 at each shape and the stencils at the ACV
+att, row 2 at the ACV and IGEV module paths' shapes with its plan, and row
+4 (NCDHW, channels-last, PCW's one map) as the control; ``--rows layout``:
+rows 11 and 12 at the ACV folded path's shape and row 13 at IGEV's two,
+each beside the library copy.  A package from before rows 2, 3 and 11-12
+had plans reports none (``_older_plans``).  With ``--sweep``, also the
+tiles the plans chose among, bf16, device time, through this package's
+``*_on`` entry points only: ``--rows front`` row 16 at each shape and the stencils at the ACV
 shape (``front_sweep``); ``--rows volume`` row 3's W tiles, D ranges and
-grids at the ACV shape (``volume_sweep``); ``--rows
+grids at the ACV shape and row 2's disparities an item and block sizes at
+both shapes (``volume_sweep``); ``--rows
 layout`` rows 11-12's lanes a tile column and grids, and the element-tile
 form (``layout_sweep``).  Needs a CUDA device.
 """
@@ -67,10 +68,13 @@ def _older_front() -> None:
 
 def _older_plans() -> None:
     """Let phase 3's volume and layout checks run on a package from before
-    rows 3 and 11-12 reported plans: no plan."""
+    rows 2, 3 and 11-12 reported plans: no plan."""
     from diffuvolume_tpu_torch.ops.kernels import concat_volume as kc
+    from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
     from diffuvolume_tpu_torch.ops.kernels import layout as kl
 
+    if not hasattr(kg, "gwc_plan"):
+        kg.gwc_plan = lambda *args, **kwargs: None
     if not hasattr(kc, "concat_plan"):
         kc.concat_plan = lambda *args, **kwargs: None
     if not hasattr(kl, "transpose_plan"):
@@ -128,6 +132,34 @@ def volume_sweep(cs, dev) -> dict:
                 cs, lambda: call((p["tw"], p["ds"], blocks)), ref)
         out[label] = rec
         cs.log(f"  sweep row 3 {label}: plan {p}; fastest {_fastest(rec)}")
+    out["gwc_volume"] = gwc_sweep(cs, dev)
+    return out
+
+
+def gwc_sweep(cs, dev) -> dict:
+    """Row 2 at the ACV and IGEV module paths' shapes, bf16: one to three
+    steps of 8 disparities an item or all of D, on blocks of 128, 256 or
+    512 threads (``gwc_volume_on``)."""
+    import itertools
+
+    import torch
+
+    from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
+
+    g = torch.Generator().manual_seed(12)
+    out = {}
+    shapes = (("ACV", cs.FEAT_C, cs.GROUPS, cs.FULL),
+              ("IGEV", cs.IGEV_C, cs.IGEV_GROUPS, cs.G1))
+    for label, c, groups, (d, h, w) in shapes:
+        l, r = (torch.randn((1, c, h, w), generator=g).to(dev).bfloat16() for _ in "lr")
+        call = lambda t=(0, 0): kg.gwc_volume_on(t, l, r, d, groups)  # noqa: E731
+        ref = call()
+        rec = {"plan": kg.gwc_plan(1, c, h, w, groups, d, torch.bfloat16, dev)}
+        for ds, threads in itertools.product((8, 16, 24, d), (128, 256, 512)):
+            rec[f"{ds} D an item, {threads} threads"] = _timed(
+                cs, lambda: call((ds, threads)), ref)
+        out[label] = rec
+        cs.log(f"  sweep row 2 {label}: plan {rec['plan']}; fastest {_fastest(rec)}")
     return out
 
 
@@ -262,8 +294,9 @@ def main(argv=None) -> int:
     if args.rows in ("volume", "layout"):
         _older_plans()
     if args.rows == "volume":
-        out["volume"] = {"ncdhw": cs.kernel_checks(dev), **cs.volume_cl_checks(dev),
-                         **cs.pcw_mul_checks(dev)}
+        out["volume"] = {"ncdhw": cs.kernel_checks(dev),
+                         "gwc_volume_igev": cs.igev_gwc_checks(dev),
+                         **cs.volume_cl_checks(dev), **cs.pcw_mul_checks(dev)}
         if args.sweep:
             out["volume_sweep"] = volume_sweep(cs, dev)
     if args.rows == "layout":

@@ -57,7 +57,7 @@ GROUPS = [
     # head_kernel<T, bins a lane, at a query>: rows 1 and 17
     ("port: fused head", r"head_kernel<[^>]*false>"),
     ("port: uncertainty at query", r"head_kernel<[^>]*true>"),
-    ("port: gwc volume", r"gwc_kernel"),
+    ("port: gwc volume", r"gwc_ncdhw_kernel"),
     ("port: gwc volume in the slot", r"gwc_slot_kernel"),
     ("port: patch stencils", r"depthwise_hw_kernel"),
     ("port: concat volume", r"concat_kernel|concat_cl_kernel"),

@@ -1444,3 +1444,100 @@ def test_row_3_11_12_launch_counts(dev):
     kl.unpack_on((1, 0), kl.pack(x))
     assert [f.launches for f in counters] == [before[0] + 2, before[1] + 2, before[2] + 2,
                                               before[3]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cpg", [1, 8, 12, 16, 5])
+@pytest.mark.parametrize("b,h,w,d", [(1, 3, 40, 12), (2, 2, 37, 9), (1, 2, 6, 20)])
+def test_gwc_volume_ncdhw_cpg_and_edges(dev, dtype, cpg, b, h, w, d):
+    """Row 2 at cpg 1, 8, 12 and 16 (compiled) and 5 (the run-time loop),
+    at a W that is a multiple of 8, one that is not (the element form) and
+    D > W: against the float32 plain version on the same rounded inputs,
+    float32 to 1e-5 relative (summation order), bf16 to one rounding."""
+    g = 3
+    left, right = (_randn(dev, b, g * cpg, h, w, seed=s).to(dtype) for s in (31, 32))
+    got = kg.gwc_volume(left, right, d, g)
+    want = plain.build_gwc_volume(left.float(), right.float(), d, g)
+    torch.cuda.synchronize()
+    rel = 1e-5 if dtype == torch.float32 else BF16_REL
+    torch.testing.assert_close(got.float(), want, rtol=rel, atol=1e-6)
+    if d > w:
+        assert torch.all(got[:, :, w:] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gwc_volume_ncdhw_unaligned_takes_the_element_form(dev, dtype):
+    """Features 2 elements past a 16-byte boundary: the plan's element form,
+    the same volume as the aligned call."""
+    b, c, h, w, g, d = 1, 16, 3, 32, 2, 10
+    base = _randn(dev, 2 * b * c * h * w + 2, seed=33).to(dtype)
+    left = base[2:2 + b * c * h * w].view(b, c, h, w)
+    right = base[2 + b * c * h * w:].view(b, c, h, w)
+    assert kg.gwc_plan(b, c, h, w, g, d, dtype, dev, aligned=False)["vec"] == 0
+    got = kg.gwc_volume(left, right, d, g)
+    want = kg.gwc_volume(left.clone(), right.clone(), d, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [(8, 128), (16, 256), (24, 512), (48, 64), (4, 32)])
+def test_gwc_volume_ncdhw_forced_tiles(dev, dtype, tile):
+    """Every forced item and block size (``gwc_volume_on``) gives the plan's
+    volume bit for bit, and counts as ``gwc_volume``."""
+    left, right = (_randn(dev, 1, 96, 7, 48, seed=s).to(dtype) for s in (34, 35))
+    ref = kg.gwc_volume(left, right, 48, 8)
+    before = kg.gwc_volume.launches
+    got = kg.gwc_volume_on(tile, left, right, 48, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert kg.gwc_volume.launches == before + 1
+
+
+@pytest.mark.parametrize("shape", [(320, 40, 48, 128, 240), (96, 8, 48, 96, 312)])
+def test_gwc_plan_module_path_shapes(dev, shape):
+    """The plan at the ACV and IGEV module paths' shapes: the 16-byte form,
+    three steps of 8 disparities an item, blocks of 128 covering every
+    item, at least one block an SM, no shared memory."""
+    c, g, d, h, w = shape
+    p = kg.gwc_plan(1, c, h, w, g, d, torch.bfloat16, dev)
+    assert (p["tw"], p["ds"], p["vec"], p["threads"], p["smem_bytes"]) == (8, 24, 1, 128, 0)
+    assert p["items"] == g * h * (w // 8) * (d // 24)
+    assert p["blocks"] == -(-p["items"] // 128) and p["blocks_per_sm"] >= 1
+
+
+def test_prefetch_to_device_on_the_card(dev):
+    """``data/loader.py`` on a CUDA device: batches come over from pinned
+    memory on a side stream, land on the card equal to the host arrays
+    after the consumer's stream has waited for them; file names pass
+    through."""
+    import numpy as np
+
+    from diffuvolume_tpu_torch.data.loader import prefetch_to_device
+
+    g = np.random.default_rng(40)
+    batches = [{"left": g.standard_normal((2, 16, 24, 3)).astype(np.float32),
+                "disp_gt": g.uniform(0, 9, (2, 16, 24)).astype(np.float32),
+                "filenames": [f"a{i}", f"b{i}"]} for i in range(5)]
+    got = list(prefetch_to_device(iter(batches), device=dev, size=2))
+    assert len(got) == 5
+    for m, b in zip(got, batches):
+        assert m["filenames"] == b["filenames"]
+        for k in ("left", "disp_gt"):
+            assert m[k].device == dev
+            assert torch.equal(m[k].cpu(), torch.from_numpy(b[k]))
+
+
+def test_metrics_on_the_card_match_the_cpu(dev):
+    """``eval/metrics.py`` on the card against the CPU on the same tensors:
+    the float64 masked sums give the same float32 means."""
+    from diffuvolume_tpu_torch.eval.metrics import metrics_batch
+
+    gen = torch.Generator().manual_seed(41)
+    gt = torch.rand((2, 96, 160), generator=gen) * 90
+    est = gt + torch.randn((2, 96, 160), generator=gen) * 40
+    mask = (gt > 5) & (gt < 85)
+    cpu = metrics_batch(est, gt, mask)
+    card = metrics_batch(est.to(dev), gt.to(dev), mask.to(dev))
+    for k, v in cpu.items():
+        assert torch.allclose(card[k].cpu(), v, rtol=0, atol=1e-5), k

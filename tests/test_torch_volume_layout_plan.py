@@ -93,3 +93,23 @@ def test_pack_unpack_plain_at_the_edges_match_jax(c, c_slot, dhw):
     got = kl.pack(torch.from_numpy(np.moveaxis(x, -1, 1).copy()), c_slot)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(kl.unpack(got)[:, :c].numpy(), np.moveaxis(x, -1, 1))
+
+
+def test_gwc_plan_keys_follow_the_kernels_plan():
+    """Row 2's plan crosses between C and Python as ints in ``GwcPlan``'s
+    field order, and ``dv_gwc_volume`` takes the plan's address after its
+    tensors; ``gwc_volume_on`` takes the plain version on a CPU tensor."""
+    src = (Path(_build.CSRC) / "gwc_volume.cu").read_text()
+    body = re.search(r"struct GwcPlan \{(.*?)\n\};", src, re.S).group(1)
+    fields = [name for line in body.splitlines()
+              for name in re.findall(r"(\w+)\s*[,;]", line.split("//")[0])]
+    assert tuple(fields) == _build.GWC_PLAN_KEYS
+    assert _build.PLAN_SIGNATURES["dv_gwc_plan"][-1] is _build.ctypes.c_void_p
+    assert _build.SIGNATURES["dv_gwc_volume"][3] is _build.ctypes.c_void_p
+    assert re.search(r"DV_EXPORT int dv_gwc_volume\([^)]*const int\* plan", src)
+    from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
+
+    g = torch.Generator().manual_seed(21)
+    left, right = (torch.randn((1, 24, 3, 11), generator=g) for _ in "lr")
+    assert torch.equal(kg.gwc_volume_on((16, 128), left, right, 5, 2),
+                       plain.build_gwc_volume(left, right, 5, 2))
