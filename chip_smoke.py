@@ -72,7 +72,24 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      CPU from the same disparities, the CLI's pairs/s; then
      ``tools/bench.py --model acv --reps 3`` in a subprocess, its JSON line
      parsed;
- 10. one ``kernels`` JSON line, the card line, and the result line.
+ 10. training: every wrapper refuses a CUDA input that requires grad in
+     grad mode (the kernels have no backward); one ACV SceneFlow train
+     step on the card against the CPU at B=2, 32×64, max_disp 64 (tamed
+     seeded weights, injected draws), float32 without TF32 and float64:
+     the loss, every gradient, the BatchNorm statistics and the parameters
+     after Adam within the stated tolerances; then ``cli/train.py``: the
+     ACV SceneFlow recipe (``acvnet_ddim``, stage ``full``) over a
+     synthetic SceneFlow set of 540×960 pairs, the random 256×512 crop,
+     batch 4, float32, 8 steps (each loss finite, step times, training
+     pairs/s, peak memory; every parameter with a finite non-zero gradient;
+     parameters and BatchNorm statistics moved), its epoch evaluation
+     (ACV DDIM-5 on the kernels, one pair, launch counts asserted as
+     phase 5's, none in the steps) and its checkpoint loaded and evaluated
+     by ``cli/evaluate``; the KITTI12 recipe (PCWNet, 256×512) and the
+     KITTI15 recipe (IGEV-Stereo, 320×736, ``--bf16``, 22 GRU iterations,
+     ``--init_from`` a calibrated random IGEV), batch 1, 3 steps each over
+     a synthetic KITTI set;
+ 11. one ``kernels`` JSON line, the card line, and the result line.
 Each path's launch counts are set to 0 just before it is driven and read
 just after.  Everything printed is also written to
 ``chiprun_out/chip_smoke.json``.  Run from a directory without the
@@ -2137,6 +2154,398 @@ def evaluate_phase(dev, counters, card: str) -> dict:
                 bench=bench)
 
 
+# The training phase (10): the card-against-CPU step at the parity tests'
+# size, then the recipes through cli/train.py.
+TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_DISP = 2, 32, 64, 64
+# Card against CPU, the worst tensor's relative L2 (float32: two float32
+# runs each within the floor tests/test_torch_train_acv.py measures, 5.4e-3,
+# of the float64 gradient; float64: summation order only).
+TRAIN_TOL = {"float32": dict(loss=1e-4, grad=3e-2, stat=1e-4, param=1e-2),
+             "float64": dict(loss=1e-10, grad=1e-6, stat=1e-8, param=1e-6)}
+# A gradient that vanishes in exact arithmetic is rounding: a tensor's
+# whole gradient under VANISH of the largest tensor's (a conv's bias before
+# a training-mode BatchNorm), or an element under RESOLVE of its tensor's
+# RMS (the key third of an attention block's qkv bias: the softmax does
+# not see a shift of every key).  Adam's first step moves such an element
+# by ±lr at rounding's whim; the parameters after the step are compared
+# over the other elements.
+VANISH, RESOLVE = 1e-9, 1e-4
+# The ACV SceneFlow recipe at full width: the training crop, the per-card
+# batch (the reference's 23 over 6 GPUs), at least 8 steps.
+ACV_TRAIN_BATCH, ACV_TRAIN_STEPS = 4, 8
+KITTI_H, KITTI_W = 375, 1242
+IGEV_TRAIN_CROP, IGEV_TRAIN_ITERS = (320, 736), 22
+OTHER_TRAIN_STEPS = 3
+
+
+def grad_refusal_calls(dev) -> dict:
+    """Every counted wrapper on float32 CUDA inputs of a shape it takes;
+    ``call(track)`` passes its first tensor through ``track``."""
+    from diffuvolume_tpu_torch.ops.kernels import concat_volume as kc
+    from diffuvolume_tpu_torch.ops.kernels import conv2d as k2
+    from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
+    from diffuvolume_tpu_torch.ops.kernels import conv3d_up as kup
+    from diffuvolume_tpu_torch.ops.kernels import depthwise as kd
+    from diffuvolume_tpu_torch.ops.kernels import fused_head as kf
+    from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
+    from diffuvolume_tpu_torch.ops.kernels import layout as kl
+
+    def r(*shape):
+        return torch.randn(shape, device=dev) * 0.1
+
+    def conv(fn, cin, cout, k=3, dhw=(4, 4, 8), **kw):
+        return lambda g: fn(g(r(1, *dhw, cin)), r(k, k, k, cin, cout), r(cout), **kw)
+
+    dil = (1,) * 16
+    return {
+        "fused_head": lambda g: kf.fused_upsample_softargmin(g(r(1, 4, 2, 3)), 8, (4, 6)),
+        "fused_uncertainty_at": lambda g: kf.fused_uncertainty_at(g(r(1, 4, 2, 3)), r(1, 4, 6),
+                                                                  8, (4, 6)),
+        "gwc_volume": lambda g: kg.gwc_volume(g(r(1, 8, 2, 8)), r(1, 8, 2, 8), 4, 4),
+        "gwc_volume_packed": lambda g: kg.gwc_volume_packed(g(r(1, 80, 3, 37)), r(1, 80, 3, 37),
+                                                            12, 40, 48),
+        "concat_volume": lambda g: kc.concat_volume(g(r(1, 4, 2, 8)), r(1, 4, 2, 8), 4),
+        "dhw_mul": lambda g: kc.dhw_mul(g(r(1, 4, 4, 2, 8)), r(1, 4, 2, 8), r(1, 4, 2, 8)),
+        "conv3d_fold_p": conv(kconv.conv3d_fold_p, 32, 32),
+        "conv3d_fold_x2": conv(kconv.conv3d_fold_x2, 64, 32),
+        "conv3d_fold_s2": conv(kconv.conv3d_fold_s2, 32, 64),
+        "conv1x1_fold_p": conv(kconv.conv1x1_fold_p, 32, 32, k=1),
+        "conv3d_fold_small": conv(kconv.conv3d_fold_small, 8, 8),
+        "conv3d_packed": conv(kconv.conv3d_packed, 32, 32),
+        "conv3d_fold_up": conv(kup.conv3d_fold_up, 32, 32, dhw=(2, 2, 4)),
+        "pack": lambda g: kl.pack(g(r(1, 32, 4, 4, 8))),
+        "unpack": lambda g: kl.unpack(g(r(1, 4, 4, 8, 32))),
+        "unpack_hwdc": lambda g: kl.unpack_hwdc(g(r(1, 4, 4, 8, 16)), 8),
+        "depthwise_hw_p": lambda g: kd.depthwise_hw_p(g(r(1, 4, 5, 7, 16)), r(3, 3, 16), dil),
+        "depthwise_hw_p2": lambda g: kd.depthwise_hw_p2(g(r(1, 4, 5, 7, 16)), r(3, 3, 16), dil,
+                                                        r(3, 3, 16), (2,) * 16),
+        "conv2d_flat": lambda g: k2.conv2d_flat(g(r(1, 7, 9, 32)), r(3, 3, 32, 32), r(32)),
+    }
+
+
+def grad_refusals(dev, counters: dict) -> dict:
+    """Phase 10 (a): each wrapper raises on a CUDA input that requires grad
+    in grad mode (``_build.check_cuda``), and launches on the same input
+    under ``torch.no_grad``."""
+    calls = grad_refusal_calls(dev)
+    if set(calls) != set(counters):
+        raise AssertionError(f"refusal calls {sorted(calls)} != wrappers {sorted(counters)}")
+    refused = []
+    for name, call in calls.items():
+        try:
+            call(lambda t: t.requires_grad_())
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            refused.append(name)
+        else:
+            raise AssertionError(f"{name} launched on an input that requires grad")
+        with torch.no_grad():
+            out = call(lambda t: t.requires_grad_())
+        if not all(torch.isfinite(o).all() for o in (out if isinstance(out, tuple) else (out,))):
+            raise AssertionError(f"{name} under no_grad gave non-finite values")
+    torch.cuda.synchronize()
+    log(f"  {len(refused)} wrappers refuse a tracked input in grad mode and launch under "
+        f"no_grad: {', '.join(refused)}")
+    return {"refused": refused}
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def train_step_agreement(dev) -> dict:
+    """Phase 10 (b): one ACV SceneFlow step (``make_train_step``, Adam) on
+    the card against the same step on the CPU, at the parity tests' size
+    (B=2, 32×64, max_disp 64): seeded weights tamed as the tests tame them,
+    one injected timestep and noise.  Float32 (no TF32: ``float32_exact``)
+    and float64.  Compared: the loss, every gradient (relative L2 a tensor;
+    a gradient that vanishes in exact arithmetic, under ``VANISH`` of the
+    largest on the CPU, must vanish on the card), the BatchNorm running
+    statistics and the parameters after Adam (over the elements whose
+    gradient ``RESOLVE`` resolves)."""
+    from diffuvolume_tpu_torch.eval.pipeline import float32_exact
+    from diffuvolume_tpu_torch.models.acv import ACVNet
+    from diffuvolume_tpu_torch.tools.random_weights import (calibrate_heads, random_acv,
+                                                            tame_residual_branches)
+    from diffuvolume_tpu_torch.train.loop import TrainState, make_optimizer, make_train_step
+    from diffuvolume_tpu_torch.train.lr import milestone_lr_schedule
+
+    b, h, w, md = TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_DISP
+    g = torch.Generator().manual_seed(5)
+    left = torch.randn((b, h, w, 3), generator=g) * 0.3
+    right = torch.roll(left, -3, dims=2)
+    gt = torch.rand((b, h, w), generator=g) * (md + 8) + 0.5
+    gt[:, :, :3] = 0.0
+    t = torch.randint(0, 1000, (1,), generator=g).expand(b)
+    noise = torch.randn((b, md // 4, h // 4, w // 4), generator=g)
+    src = tame_residual_branches(random_acv(md, True, torch.Generator().manual_seed(11)))
+    calibrate_heads(src, left, right)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        runs = {}
+        for where in ("cpu", dev):
+            model = ACVNet(md, True)
+            model.load_state_dict(src.state_dict())
+            model = model.to(where, dtype).train()
+            state = TrainState(model, make_optimizer(model), milestone_lr_schedule(1e-3, "10:2", 1))
+            batch = {"left": left.to(where, dtype), "right": right.to(where, dtype),
+                     "disp_gt": gt.to(where, dtype)}
+            with float32_exact(model):
+                res = make_train_step(model)(state, batch, t=t.to(where),
+                                             noise=noise.to(where, dtype))
+            runs[str(where)] = (model, float(res["loss"]))
+        (cpu, cpu_loss), (card, card_loss) = runs["cpu"], runs[str(dev)]
+        cp, gp = dict(cpu.named_parameters()), dict(card.named_parameters())
+        tiny = VANISH * max(float(p.grad.norm()) for p in cp.values())
+        worst = dict(loss=abs(card_loss / cpu_loss - 1), grad=0.0, stat=0.0, param=0.0)
+        names, unresolved = {}, 0
+        for k, p in cp.items():
+            q = gp[k]
+            if not torch.isfinite(q.grad).all():
+                raise AssertionError(f"card gradient of {k} is not finite")
+            if float(p.grad.norm()) <= tiny:
+                if float(q.grad.norm()) > tiny * 1e3:
+                    raise AssertionError(f"{k}: vanishing on the CPU, {q.grad.norm()} on the card")
+                continue
+            resolved = p.grad.abs() > RESOLVE * p.grad.pow(2).mean().sqrt()
+            unresolved += int((~resolved).sum())
+            for key, val in (("grad", rel_l2(q.grad, p.grad)),
+                             ("param", rel_l2(q.detach().cpu()[resolved], p.detach()[resolved]))):
+                if val > worst[key]:
+                    worst[key], names[key] = val, k
+        worst["tensors"], worst["unresolved_elements"] = names, unresolved
+        csd, gsd = cpu.state_dict(), card.state_dict()
+        for k, v in csd.items():
+            if k.endswith(("running_mean", "running_var")):
+                worst["stat"] = max(worst["stat"], rel_l2(gsd[k], v))
+        tag = "float32" if dtype == torch.float32 else "float64"
+        tol = TRAIN_TOL[tag]
+        log(f"  ACV train step, card against CPU, {tag}: loss {worst['loss']:.2e} (tol "
+            f"{tol['loss']:g}), gradients {worst['grad']:.2e} (tol {tol['grad']:g}), BatchNorm "
+            f"statistics {worst['stat']:.2e} (tol {tol['stat']:g}), parameters after Adam "
+            f"{worst['param']:.2e} (tol {tol['param']:g}, {unresolved} unresolved elements "
+            f"left out); worst tensor, relative L2 ({names})")
+        if any(worst[k] > tol[k] for k in tol):
+            raise AssertionError(f"the {tag} train step on the card disagrees with the CPU")
+        out[tag] = worst
+    return out
+
+
+def write_kitti(root: str, pairs: int, h: int, w: int, seed: int = 0) -> str:
+    """``pairs`` stereo pairs in the KITTI 2015 layout under ``root``
+    (image_2, image_3 PNGs, disp_occ_0 16-bit PNGs of disparity × 256, a
+    tenth 0 = invalid), the right image the left shifted 4 px; returns the
+    list file's path."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for sub in ("image_2", "image_3", "disp_occ_0"):
+        os.makedirs(os.path.join(root, "training", sub), exist_ok=True)
+    lines = []
+    for k in range(pairs):
+        name = f"{k:06d}_10.png"
+        img = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+        Image.fromarray(img).save(os.path.join(root, "training", "image_2", name))
+        Image.fromarray(np.roll(img, -4, axis=1)).save(os.path.join(root, "training", "image_3",
+                                                                   name))
+        disp = 4.0 + rng.uniform(0.0, 0.5, (h, w))
+        disp[rng.uniform(size=(h, w)) < 0.1] = 0.0
+        Image.fromarray((disp * 256).astype(np.uint16)).save(
+            os.path.join(root, "training", "disp_occ_0", name))
+        lines.append(" ".join(f"training/{d}/{name}" for d in ("image_2", "image_3",
+                                                               "disp_occ_0")))
+    path = os.path.join(root, "train.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def calibrated_igev_checkpoint(ckpt_dir: str, trainlist: str, datapath: str, dev) -> None:
+    """A checkpoint of a random IGEV-Stereo (``random_igev``, seed 0)
+    calibrated by ``calibrate_igev`` on the KITTI15 training set's first
+    crop, for ``--init_from``."""
+    from diffuvolume_tpu_torch.data.kitti import KITTIDataset
+    from diffuvolume_tpu_torch.tools.random_weights import calibrate_igev, random_igev
+    from diffuvolume_tpu_torch.train.checkpoint import save_checkpoint
+
+    s = KITTIDataset(datapath, trainlist, training=True, seed=1)[0]
+    model = random_igev(MAIN_DISP, True, torch.Generator().manual_seed(0)).to(dev)
+    with torch.no_grad():
+        calibrate_igev(model, torch.from_numpy(s["left"])[None].to(dev),
+                       torch.from_numpy(s["right"])[None].to(dev))
+    save_checkpoint(ckpt_dir, 0, model)
+
+
+def recipe_run(name: str, argv: list, counters: dict, batch: int, check_every_grad: bool,
+               crop: tuple, card: str) -> dict:
+    """``cli/train.run`` with ``argv``: the launch counts set to 0 at its
+    first step, the device's peak memory from its start; each step's loss
+    finite and its time (synchronised); after the first and the last step
+    every parameter has a finite gradient; with ``check_every_grad`` none
+    is all zeros and every parameter and BatchNorm statistic moved from the
+    first step's start, else some of each moved."""
+    from diffuvolume_tpu_torch.cli import train as train_cli
+
+    marks, snap, checked = [], {}, []
+
+    def check_grads(state):
+        for k, p in state.model.named_parameters():
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                raise AssertionError(f"{name}: {k} has no finite gradient")
+            if check_every_grad and not p.grad.abs().sum() > 0:
+                raise AssertionError(f"{name}: {k}'s gradient is all zeros")
+        checked.append(state.step)
+
+    def on_start(state):
+        snap.update({k: v.detach().clone() for k, v in state.model.state_dict().items()})
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    steps = []
+
+    def on_step(state, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        loss = float(metrics["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"{name}: step {state.step} loss {loss}")
+        steps.append(loss)
+        if state.step == 1:
+            check_grads(state)
+
+    torch.cuda.reset_peak_memory_stats()
+    result = train_cli.run(train_cli.parse_args(argv), on_start=on_start, on_step=on_step)
+    state = result["state"]
+    check_grads(state)
+    launches = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = {k: not torch.equal(v.detach(), snap[k].to(v.device))
+             for k, v in state.model.state_dict().items() if v.is_floating_point()}
+    stats = [k for k in moved if k.endswith(("running_mean", "running_var"))]
+    params = [k for k, _ in state.model.named_parameters()]
+    # With check_every_grad every parameter and statistic moves.  Else some
+    # may not: IGEV's rollout runs its upsampling BatchNorms frozen, and
+    # under the KITTI15 clip a gradient element far below Adam's eps moves
+    # its float32 parameter by less than its rounding.
+    need = all if check_every_grad else any
+    if not need(moved[k] for k in params) or not need(moved[k] for k in stats):
+        raise AssertionError(f"{name}: parameters or BatchNorm statistics did not move")
+    dts = np.diff(marks) * 1e3
+    after = dts[1:] if len(dts) > 1 else dts
+    rec = dict(steps=len(steps), losses=steps, step_ms=dts.tolist(),
+               step_ms_median=float(np.median(after)), step_ms_p10=float(np.percentile(after, 10)),
+               step_ms_p90=float(np.percentile(after, 90)),
+               pairs_per_s=batch * len(after) / (after.sum() / 1e3), peak_gib=peak,
+               grads_checked_at_steps=checked, params_moved=sum(moved[k] for k in params),
+               not_moved=[k for k in params + stats if not moved[k]][:8],
+               params=len(params), stats_moved=sum(moved[k] for k in stats), stats=len(stats),
+               launches=launches, crop=list(crop), batch=batch, card=card,
+               best_d1=result["best_d1"])
+    log(f"  {name}: {len(steps)} steps at {crop[0]}×{crop[1]}, batch {batch}; losses "
+        f"{', '.join(f'{x:.3f}' for x in steps)}; step {rec['step_ms_median']:.1f} ms median "
+        f"(p10 {rec['step_ms_p10']:.1f}, p90 {rec['step_ms_p90']:.1f}; first "
+        f"{dts[0]:.1f}) after the first, {rec['pairs_per_s']:.3f} training pairs/s, peak "
+        f"{peak:.2f} GiB allocated; {rec['params_moved']}/{len(params)} parameters and "
+        f"{rec['stats_moved']}/{len(stats)} BatchNorm statistics moved (not: "
+        f"{rec['not_moved']}); {card}")
+    return rec
+
+
+def training_phase(dev, counters: dict, card: str) -> dict:
+    """Phase 10: (a) the wrappers refuse tracked inputs; (b) one ACV train
+    step on the card against the CPU; (c) ``cli/train.py`` with the ACV
+    SceneFlow recipe (``acvnet_ddim``, stage ``full``) over a synthetic
+    SceneFlow set of 540×960 pairs, the random 256×512 crop, batch 4,
+    float32, ``ACV_TRAIN_STEPS`` steps, then the epoch's DDIM-5 evaluation
+    (``--eval_freq 1 --eval_max_images 1``, a random baseline checkpoint)
+    on the kernels with phase 5's launch counts for its one pair and no
+    launch in the steps; the checkpoint loaded by ``cli/evaluate`` and
+    evaluated on the card; (d) the KITTI12 recipe (PCWNet, 256×512, batch
+    1) and the KITTI15 recipe (IGEV-Stereo, 320×736, ``--bf16``, 22 GRU
+    iterations, batch 1, warm-started from a calibrated random IGEV),
+    ``OTHER_TRAIN_STEPS`` steps each, over a
+    synthetic KITTI set."""
+    import tempfile
+
+    from diffuvolume_tpu_torch.cli import evaluate
+    from diffuvolume_tpu_torch.data.kitti import KITTIDataset
+    from diffuvolume_tpu_torch.data.sceneflow import SceneFlowDataset
+    from diffuvolume_tpu_torch.tools.random_weights import random_acv
+    from diffuvolume_tpu_torch.train.checkpoint import checkpoint_path, latest_step
+
+    out = {"refusals": grad_refusals(dev, counters), "card_vs_cpu": train_step_agreement(dev)}
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        sf_root, kitti_root = os.path.join(root, "sceneflow"), os.path.join(root, "kitti")
+        pairs = ACV_TRAIN_BATCH * ACV_TRAIN_STEPS
+        write_sceneflow(sf_root, pairs, EVAL_H, EVAL_W)
+        base = os.path.join(root, "baseline.ckpt")
+        torch.save({"model": random_acv(MAIN_DISP, False, torch.Generator().manual_seed(0))
+                    .state_dict()}, base)
+        logdir = os.path.join(root, "acv")
+        rec = recipe_run("ACV SceneFlow recipe (acvnet_ddim, stage full, float32)", [
+            "--datapath", sf_root, "--model", "acvnet_ddim", "--stage", "full",
+            "--batch_size", str(ACV_TRAIN_BATCH), "--epochs", "1", "--maxdisp", str(MAIN_DISP),
+            "--eval_freq", "1", "--eval_max_images", "1", "--eval_baseline_ckpt", base,
+            "--logdir", logdir, "--summary_freq", "100", "--device", str(dev)],
+            counters, ACV_TRAIN_BATCH, True, SceneFlowDataset.TRAIN_CROP, card)
+        want = {k: expected_launches(packed=True).get(k, 0) for k in counters}
+        if rec["launches"] != want:
+            raise AssertionError(f"the training run's launches {rec['launches']} != one eval "
+                                 f"pair's {want} (the steps launch none)")
+        if rec["steps"] < ACV_TRAIN_STEPS or not 0.0 <= rec["best_d1"] <= 1.0:
+            raise AssertionError(f"{rec['steps']} steps, epoch eval D1 {rec['best_d1']}")
+        log(f"  epoch evaluation: D1 {rec['best_d1']:.4f} on 1 pair; launches {want} "
+            f"(phase 5's a pair), none in the steps")
+        ckpt = checkpoint_path(logdir, latest_step(logdir))
+        loaded = evaluate.load_model(ckpt, "acv", True, MAIN_DISP, 0, dev)
+        ev = evaluate.run(evaluate.parse_args([
+            "--backbone", "acv", "--datapath", sf_root, "--baseline_ckpt", base, "--ddim_ckpt",
+            ckpt, "--maxdisp", str(MAIN_DISP), "--max_images", "1", "--device", str(dev)]))
+        if not all(math.isfinite(v) for v in ev["final"].values()):
+            raise AssertionError(f"cli/evaluate on the trained checkpoint: {ev['final']}")
+        n_params = sum(p.numel() for p in loaded.parameters())
+        log(f"  {os.path.basename(ckpt)} loaded by cli/evaluate ({n_params} parameters) and "
+            f"evaluated on the card: FINAL {ev['final']}")
+        rec["evaluate_final"] = ev["final"]
+        runs["acv_sceneflow"] = rec
+
+        trainlist = write_kitti(kitti_root, OTHER_TRAIN_STEPS, KITTI_H, KITTI_W)
+        common = ["--datapath", kitti_root, "--trainlist", trainlist, "--batch_size", "1",
+                  "--epochs", "1", "--maxdisp", str(MAIN_DISP), "--summary_freq", "100",
+                  "--device", str(dev)]
+        runs["pcw_kitti12"] = recipe_run("PCW KITTI12 recipe (pcwnet_ddim, float32)", common + [
+            "--dataset", "kitti12", "--model", "pcwnet_ddim",
+            "--logdir", os.path.join(root, "pcw")], counters, 1, False,
+            KITTIDataset.TRAIN_CROP, card)
+        saved = KITTIDataset.TRAIN_CROP
+        KITTIDataset.TRAIN_CROP = IGEV_TRAIN_CROP
+        try:
+            # Warm-started (--init_from) from a random IGEV calibrated on the
+            # first training crop: at the initialisation alone the random GRU
+            # walks the disparity hundreds of px off, the gradients' global
+            # norm overflows float32, and the clip zeroes every update.
+            init = os.path.join(root, "igev_init")
+            calibrated_igev_checkpoint(init, trainlist, kitti_root, dev)
+            runs["igev_kitti15"] = recipe_run(
+                "IGEV KITTI15 recipe (igev_ddim, --bf16, 22 GRU iterations)", common + [
+                    "--dataset", "kitti15", "--model", "igev_ddim", "--bf16", "--iters",
+                    str(IGEV_TRAIN_ITERS), "--lr", "2e-4", "--init_from", init,
+                    "--logdir", os.path.join(root, "igev")], counters, 1, False,
+                IGEV_TRAIN_CROP, card)
+        finally:
+            KITTIDataset.TRAIN_CROP = saved
+        for key in ("pcw_kitti12", "igev_kitti15"):
+            if any(runs[key]["launches"].values()):
+                raise AssertionError(f"{key}'s steps launched kernels: {runs[key]['launches']}")
+    out["recipes"] = runs
+    return out
+
+
 KERNEL_META = {  # name → (source, TPU kernel file:line, its function)
     "fused_head": ("diffuvolume_tpu_torch/csrc/fused_head.cu",
                    "diffuvolume_tpu/ops/pallas/fused_head.py:83", "fused_upsample_softargmin"),
@@ -2313,6 +2722,16 @@ def main() -> int:
         f"{EVAL_PAIRS} synthetic SceneFlow pairs {EVAL_H}×{EVAL_W} cropped to "
         f"{MAIN_H}×{MAIN_W}, float32), then tools/bench.py")
     runs["acv_evaluate_cli"] = evaluate_phase(dev, counters, card)
+    log("== 10. training: the wrappers refuse tracked inputs, one ACV step on the card "
+        "against the CPU, then cli/train.py: the ACV SceneFlow recipe at 256×512, batch 4, "
+        "with its epoch evaluation; PCW KITTI12 and IGEV KITTI15")
+    t_train = time.perf_counter()
+    training = training_phase(dev, counters, card)
+    training["elapsed_s"] = time.perf_counter() - t_train
+    log(f"  training phase: {training['elapsed_s']:.1f} s")
+    acv_train = training["recipes"]["acv_sceneflow"]
+    runs["acv_train_cli"] = dict(launches=acv_train["launches"], launches_per_pair={
+        k: v / 1 for k, v in acv_train["launches"].items()})
 
     kernels = []
     for name, (source, replaces, tpu_fn) in KERNEL_META.items():
@@ -2341,7 +2760,7 @@ def main() -> int:
                    "build_s": build_s, "kernels": kernels, "kernel_checks": checks,
                    "ncdhw_volume_checks": {k: ncdhw[k] for k in ("concat_volume", "dhw_mul")},
                    "agreement": agreement, "runs": runs, "census_against": census,
-                   "elapsed_s": elapsed}, f, indent=1)
+                   "training": training, "elapsed_s": elapsed}, f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -54,5 +54,7 @@ MODELS = {
 
 def build_model(name: str, **kwargs):
     """A new model of the registry's ``name`` (PyTorch's default
-    initialisation, training mode, on the CPU in float32)."""
+    initialisation, training mode, on the CPU in float32); ``kwargs`` go to
+    the model (``max_disp``; ACVNet's ``attn_weights_only`` and
+    ``freeze_attn_weights``, as the JAX train CLI passes them)."""
     return MODELS[name](**kwargs)

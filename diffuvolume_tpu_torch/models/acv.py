@@ -1,17 +1,20 @@
-"""ACVNet backbone and its DiffuVolume variant, eval only.
+"""ACVNet backbone and its DiffuVolume variant.
 
 Counterpart of ``diffuvolume_tpu/models/acv.py`` (``ACVNet``:
-``build_cost_volume``, ``denoise``, the baseline eval forward).  Module names
+``build_cost_volume``, ``denoise``, the baseline eval forward, the training
+forward).  Module names
 follow the reference state dict, so its checkpoints load with
 ``load_state_dict``.  Images enter as ``(B, H, W, 3)`` and disparities leave
 as ``(B, H, W)``, the JAX package's layouts; inside, features are NCHW and
 volumes NCDHW.
 
-The volume work runs on the port's kernels: the group-wise correlation
+The eval volume work runs on the port's kernels: the group-wise correlation
 volume (``gwc_volume``), the concat volume (``concat_volume``), the per-step
 attention × noise multiply (``dhw_mul``) and the fused regression head
 (``fused_upsample_softargmin``).  The 2-D and 3-D convolutions are PyTorch
-convolutions.
+convolutions.  The kernels have no backward, so ``train_forward`` runs the
+differentiable plain ops instead (``ops/cost_volume.py``,
+``ops/regression.py``), as the JAX package's training runs XLA's.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import NamedTuple
 import torch
 import torch.nn as nn
 
+from diffuvolume_tpu_torch.diffusion import encode_disparity_volume, make_schedule, q_sample
 from diffuvolume_tpu_torch.models.layers import (
     ACVFeatureExtractor,
     ConvBN,
@@ -30,9 +34,11 @@ from diffuvolume_tpu_torch.models.layers import (
     convbn_3d,
     init_weights,
 )
+from diffuvolume_tpu_torch.ops.cost_volume import build_concat_volume, build_gwc_volume
 from diffuvolume_tpu_torch.ops.kernels.concat_volume import concat_volume, dhw_mul
 from diffuvolume_tpu_torch.ops.kernels.fused_head import fused_upsample_softargmin
 from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume
+from diffuvolume_tpu_torch.ops.regression import regress_head
 
 
 class ConcatEntry(NamedTuple):
@@ -52,15 +58,20 @@ def _classif() -> nn.Sequential:
 
 class ACVNet(nn.Module):
     """ACVNet with attention-filtered concat volume, optionally with the
-    DiffuVolume time embedding (``diffusion=True``)."""
+    DiffuVolume time embedding (``diffusion=True``).  ``attn_weights_only``
+    and ``freeze_attn_weights`` are the SceneFlow recipe's staged training
+    (``train_forward``)."""
 
     def __init__(self, max_disp: int = 192, diffusion: bool = True, scale: float = 1.0,
-                 num_groups: int = 40, concat_channels: int = 32):
+                 num_groups: int = 40, concat_channels: int = 32,
+                 attn_weights_only: bool = False, freeze_attn_weights: bool = False):
         super().__init__()
         self.max_disp = max_disp
         self.diffusion = diffusion
         self.scale = scale
         self.num_groups = num_groups
+        self.attn_weights_only = attn_weights_only
+        self.freeze_attn_weights = freeze_attn_weights
         relu = lambda: nn.ReLU(inplace=True)  # noqa: E731
 
         self.feature_extraction = ACVFeatureExtractor()
@@ -174,6 +185,64 @@ class ACVNet(nn.Module):
         noise = self.time_embedding(latent, t)
         noise = noise.clamp(-self.scale, self.scale)
         return (noise / self.scale + 1.0) / 2.0
+
+    # ---- training forward (acv_ddim.py:424-482; acv.py:168-260) ----
+
+    def _train_cost_volume(self, left, right):
+        """``(ac_volume (B, 2C, D, H4, W4), att_weights (B, D, H4, W4))`` on
+        the differentiable ops, the trunk run once a view."""
+        feat_l, feat_r = self.trunk(left, right)
+        gwc = self.patch(build_gwc_volume(feat_l, feat_r, self.max_disp // 4, self.num_groups))
+        patch_volume = torch.cat([
+            self.patch_l1(gwc[:, :8]),
+            self.patch_l2(gwc[:, 8:24]),
+            self.patch_l3(gwc[:, 24:40]),
+        ], dim=1)
+        att_weights = self.classif_att_(self.dres2_att_(self.dres1_att_(patch_volume)))[:, 0]
+        volume = build_concat_volume(self.concatconv(feat_l), self.concatconv(feat_r),
+                                     self.max_disp // 4)
+        return torch.softmax(att_weights, dim=1)[:, None] * volume, att_weights
+
+    def train_forward(self, left: torch.Tensor, right: torch.Tensor,
+                      disp_gt_q: torch.Tensor | None = None, t: torch.Tensor | None = None,
+                      noise: torch.Tensor | None = None,
+                      mask_gt: torch.Tensor | None = None) -> list[torch.Tensor]:
+        """The JAX package's ``ACVNet.__call__(..., train=True)``: the heads
+        ``[pred_att, pred0, pred1, pred2]`` (``(B, H, W)`` float32;
+        ``[pred0, pred1, pred2]`` with ``freeze_attn_weights``, ``[pred_att]``
+        with ``attn_weights_only``).  The diffusion model takes the
+        quarter-res ground truth in bin units ``disp_gt_q (B, H4, W4)``, one
+        timestep a sample ``t (B,)`` and the noise ``(B, D4, H4, W4)``:
+        ``q_sample`` of the encoded ground truth, time-embedded, clamped and
+        mapped to [0, 1], multiplies the volume.  With
+        ``freeze_attn_weights`` no gradient reaches the cost volume's
+        branch, but its BatchNorm statistics are updated, as under the JAX
+        package's ``stop_gradient``."""
+        out_hw = (left.shape[1], left.shape[2])
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze_attn_weights):
+            ac_volume, att_weights = self._train_cost_volume(left, right)
+
+        def pred_att():
+            return regress_head(att_weights, self.max_disp, out_hw)
+
+        if self.attn_weights_only:
+            return [pred_att()]
+        if self.diffusion:
+            x_start = encode_disparity_volume(disp_gt_q, self.max_disp // 4, self.scale,
+                                              valid_mask=mask_gt)
+            noisy = q_sample(make_schedule(1000, device=x_start.device), x_start, t, noise)
+            ac_volume = ac_volume * self.embed_noise(noisy, t)[:, None]
+
+        cost0 = self.dres0(ac_volume)
+        cost0 = self.dres1(cost0) + cost0
+        out1 = self.dres2(cost0)
+        out2 = self.dres3(out1)
+        pred2 = regress_head(self.classif2(out2)[:, 0], self.max_disp, out_hw)
+        pred0 = regress_head(self.classif0(cost0)[:, 0], self.max_disp, out_hw)
+        pred1 = regress_head(self.classif1(out1)[:, 0], self.max_disp, out_hw)
+        if self.freeze_attn_weights:
+            return [pred0, pred1, pred2]
+        return [pred_att(), pred0, pred1, pred2]
 
     # ---- baseline eval forward ----
 

@@ -1,4 +1,4 @@
-"""IGEV-Stereo's feature extractors and basic blocks, eval only.
+"""IGEV-Stereo's feature extractors and basic blocks.
 
 Counterpart of ``diffuvolume_tpu/models/igev/extractor.py``: the norms and
 conv blocks of the reference's ``submodule.py`` (``BasicConv``,
@@ -20,7 +20,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from diffuvolume_tpu_torch.models.layers import BatchNorm2d, BatchNorm3d
 from diffuvolume_tpu_torch.ops.kernels.conv3d_fold import LEAKY_SLOPE, conv3d_fold_small
+from diffuvolume_tpu_torch.ops.regression import at_least_f32
 
 # The mobilenetv2_100 stages of the reference's Feature split
 # (extractor.py:332-341): (expansion, channels, repeats, first stride), and
@@ -58,7 +60,7 @@ class InstanceNorm(nn.Module):
     taken in float32 and returned in the input's dtype."""
 
     def forward(self, x):
-        return F.instance_norm(x.float(), eps=1e-5).to(x.dtype)
+        return F.instance_norm(at_least_f32(x), eps=1e-5).to(x.dtype)
 
 
 def _conv(dims: int, deconv: bool):
@@ -70,9 +72,11 @@ def _conv(dims: int, deconv: bool):
 class BasicConv(nn.Module):
     """Conv (or transposed conv) without bias, BatchNorm, LeakyReLU 0.01
     (``submodule.py:9-37``).  ``bn=False`` registers no BatchNorm (the
-    reference registers an unused one on ``cost_agg.conv1_up``).  A 3-D
-    3×3×3 stride-1 conv at 8 or 16 input channels runs on
-    ``conv3d_fold_small``, as the JAX package's TPU dispatch runs it."""
+    reference registers an unused one on ``cost_agg.conv1_up``).  In eval
+    mode a 3-D 3×3×3 stride-1 conv at 8 or 16 input channels runs on
+    ``conv3d_fold_small``, as the JAX package's TPU dispatch runs it; in
+    training mode PyTorch's conv (the kernel has no backward), as the JAX
+    dispatch keeps XLA's in training."""
 
     def __init__(self, in_ch, out_ch, deconv=False, is_3d=False, bn=True, relu=True,
                  kernel_size=3, stride=1, padding=1):
@@ -80,12 +84,13 @@ class BasicConv(nn.Module):
         self.relu = relu
         self.conv = _conv(3 if is_3d else 2, deconv)(in_ch, out_ch, kernel_size, stride=stride,
                                                       padding=padding, bias=False)
-        self.bn = (nn.BatchNorm3d if is_3d else nn.BatchNorm2d)(out_ch) if bn else None
+        self.bn = (BatchNorm3d if is_3d else BatchNorm2d)(out_ch) if bn else None
         self.small = (is_3d and not deconv and kernel_size == 3 and stride == 1
                       and padding == 1 and in_ch <= 16)
 
     def forward(self, x):
-        x = conv3x3x3_small(x, self.conv.weight) if self.small else self.conv(x)
+        x = (conv3x3x3_small(x, self.conv.weight) if self.small and not self.training
+             else self.conv(x))
         if self.bn is not None:
             x = self.bn(x)
         return leaky_relu(x) if self.relu else x
@@ -135,9 +140,9 @@ class DepthwiseSeparable(nn.Module):
     def __init__(self, in_ch, out_ch, stride):
         super().__init__()
         self.conv_dw = nn.Conv2d(in_ch, in_ch, 3, stride, 1, groups=in_ch, bias=False)
-        self.bn1 = nn.BatchNorm2d(in_ch)
+        self.bn1 = BatchNorm2d(in_ch)
         self.conv_pw = nn.Conv2d(in_ch, out_ch, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(out_ch)
+        self.bn2 = BatchNorm2d(out_ch)
         self.skip = stride == 1 and in_ch == out_ch
 
     def forward(self, x):
@@ -154,11 +159,11 @@ class InvertedResidual(nn.Module):
         super().__init__()
         mid = in_ch * expand
         self.conv_pw = nn.Conv2d(in_ch, mid, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(mid)
+        self.bn1 = BatchNorm2d(mid)
         self.conv_dw = nn.Conv2d(mid, mid, 3, stride, 1, groups=mid, bias=False)
-        self.bn2 = nn.BatchNorm2d(mid)
+        self.bn2 = BatchNorm2d(mid)
         self.conv_pwl = nn.Conv2d(mid, out_ch, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out_ch)
+        self.bn3 = BatchNorm2d(out_ch)
         self.skip = stride == 1 and in_ch == out_ch
 
     def forward(self, x):
@@ -176,7 +181,7 @@ class Feature(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv_stem = nn.Conv2d(3, 32, 3, 2, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(32)
+        self.bn1 = BatchNorm2d(32)
         c = 32
         blocks = []
         for stages in MBV2_BLOCKS:
@@ -219,12 +224,12 @@ class ResidualBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(in_ch, planes, 3, stride, 1)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1)
-        self.norm1 = nn.BatchNorm2d(planes)
-        self.norm2 = nn.BatchNorm2d(planes)
+        self.norm1 = BatchNorm2d(planes)
+        self.norm2 = BatchNorm2d(planes)
         if stride == 1 and in_ch == planes:
             self.downsample = None
         else:
-            self.norm3 = nn.BatchNorm2d(planes)
+            self.norm3 = BatchNorm2d(planes)
             self.downsample = nn.Sequential(nn.Conv2d(in_ch, planes, 1, stride), self.norm3)
 
     def forward(self, x):
@@ -244,7 +249,7 @@ class MultiBasicEncoder(nn.Module):
     def __init__(self, output_dim=((128, 128, 128), (128, 128, 128))):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 1, 3)
-        self.norm1 = nn.BatchNorm2d(64)
+        self.norm1 = BatchNorm2d(64)
         chans = [(64, 64, 1), (64, 96, 2), (96, 128, 2), (128, 128, 2), (128, 128, 2)]
         for i, (cin, c, s) in enumerate(chans):
             setattr(self, f"layer{i + 1}",

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from diffuvolume_tpu_torch.ops.regression import at_least_f32
 from diffuvolume_tpu_torch.ops.sampling import hat_sample_last2
 
 
@@ -105,9 +106,9 @@ def band_exact_domain(w4: int, num_levels: int = 2, band: int = 64) -> tuple[flo
 def premultiply(pyramid: GeoPyramid, noise: torch.Tensor) -> GeoPyramid:
     """The DiffuVolume latent's transform ``noise (B, D, H, W)`` multiplied
     into the GEV once per DDIM step (the per-lookup multiply of
-    ``geometry_ddim.py:56`` hoisted out of the GRU loop), in float32,
-    stored in the GEV's dtype."""
-    geo = pyramid.geo.float() * noise.float().permute(0, 2, 3, 1)[..., None]
+    ``geometry_ddim.py:56`` hoisted out of the GRU loop), in float32
+    (float64 for float64), stored in the GEV's dtype."""
+    geo = at_least_f32(pyramid.geo) * at_least_f32(noise).permute(0, 2, 3, 1)[..., None]
     return pyramid._replace(geo=geo.to(pyramid.geo.dtype))
 
 
@@ -128,19 +129,21 @@ def geo_lookup(pyramid: GeoPyramid, disp: torch.Tensor, coords: torch.Tensor,
     geo = pyramid.geo
     d, c = geo.shape[-2:]
     dev = disp.device
-    dx = torch.arange(-radius, radius + 1, dtype=torch.float32, device=dev)
+    disp = at_least_f32(disp)
+    ft = disp.dtype
+    dx = torch.arange(-radius, radius + 1, dtype=ft, device=dev)
     # All levels as one contraction over the level-0 bins: sampling the
     # 2ⁱ-pooled volume at x is contracting the level-0 bins with the hat
     # max(0, 1 − |x − ⌊d·2⁻ⁱ⌋|)·2⁻ⁱ.
-    scale = (2.0 ** -torch.arange(nl, dtype=torch.float32, device=dev)).repeat_interleave(j)
-    x0 = disp.float()[..., None] * scale + dx.repeat(nl)                 # (B, H, W, L·J)
-    bins = torch.floor(torch.arange(d, dtype=torch.float32, device=dev)[None, :]
+    scale = (2.0 ** -torch.arange(nl, dtype=ft, device=dev)).repeat_interleave(j)
+    x0 = disp[..., None] * scale + dx.repeat(nl)                         # (B, H, W, L·J)
+    bins = torch.floor(torch.arange(d, dtype=ft, device=dev)[None, :]
                        * scale[:, None])                                 # (L·J, D)
     wgt = (1.0 - (x0[..., None] - bins).abs()).clamp_min(0.0) * scale[:, None]
     if geo.dtype == torch.bfloat16:
         wgt = wgt.to(torch.bfloat16)
     else:
-        geo = geo.float()
+        geo = geo.to(ft)
     geo_out = torch.einsum("bhwjd,bhwdc->bhwjc", wgt, geo)                # (B, H, W, L·J, C)
 
     corr_out = []
@@ -149,12 +152,12 @@ def geo_lookup(pyramid: GeoPyramid, disp: torch.Tensor, coords: torch.Tensor,
         if pyramid.band_levels:
             # Positions relative to the level's anchor ⌊w·2⁻ⁱ⌋: the w term
             # collapses to the residue fraction.
-            cs = coords.float() * s
-            p = (cs - torch.floor(cs) - disp.float() * s)[..., None] + dx + float(
+            cs = coords.to(ft) * s
+            p = (cs - torch.floor(cs) - disp * s)[..., None] + dx + float(
                 pyramid.band_offs[i])
             vol = pyramid.band_levels[i]
         else:
-            p = ((coords.float() - disp.float()) * s)[..., None] + dx
+            p = ((coords.to(ft) - disp) * s)[..., None] + dx
             vol = pyramid.corr_levels[i]
         corr_out.append(hat_sample_last2(vol[..., None], p)[..., 0])    # (B, H, W, J)
 

@@ -1,8 +1,10 @@
-"""IGEV-Stereo and its DiffuVolume variant, eval only.
+"""IGEV-Stereo and its DiffuVolume variant.
 
 Counterpart of ``diffuvolume_tpu/models/igev/model.py`` (``FeatureAtt``,
 ``HourglassGEV``, ``IGEVStereo``, ``igev_encode``, ``igev_rollout`` with
-``test_mode=True`` and ``noise_mode="pixel"``, the eval ``igev_forward``):
+``test_mode=True`` and ``noise_mode="pixel"``, the eval ``igev_forward``;
+and the training forward, ``igev_forward(..., train=True)``, as
+``igev_train_forward``):
 a MobileNetV2 trunk, an 8-group correlation volume aggregated by a
 feature-attended 3-D hourglass into the Geometry Encoding Volume (GEV), a
 three-level ConvGRU that refines the quarter-resolution disparity from
@@ -18,7 +20,10 @@ cuDNN and BatchNorm, in ``channels_last_3d`` memory, with its 3×3×3 convs at
 8 or 16 input channels on the port's kernel (``conv3d_fold_small``) and the
 8-group volume on ``gwc_volume``; ``models/igev/gev_fold.py`` runs the whole
 tower on the port's folded kernels.  The rollout's lookups, the GRU and the
-upsampling are plain PyTorch on both paths.
+upsampling are plain PyTorch on both paths.  The training forward runs
+every op plain (the kernels have no backward): the volume on
+``ops/cost_volume.py``, the convs on PyTorch's, the lookup on the dense
+correlation (``corr_mode="volume"``, the JAX package's default).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from diffuvolume_tpu_torch.models.igev.extractor import (
     BasicConv,
@@ -48,7 +54,9 @@ from diffuvolume_tpu_torch.models.igev.geometry import (
 )
 from diffuvolume_tpu_torch.models.igev.update import BasicMultiUpdateBlock
 from diffuvolume_tpu_torch.models.layers import DynamicHead, init_weights
+from diffuvolume_tpu_torch.ops.cost_volume import build_gwc_volume
 from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume
+from diffuvolume_tpu_torch.ops.regression import at_least_f32
 from diffuvolume_tpu_torch.ops.sampling import context_upsample
 
 GEV_GROUPS = 8
@@ -167,8 +175,8 @@ class IGEVStereo(nn.Module):
             self.time_embedding = DynamicHead(180, out_bins=max_disp // 4)
         self.stem_2 = _stem(3, 32)
         self.stem_4 = _stem(32, 48)
-        # spx, spx_2, spx_4: the training forward's init-disparity upsampling;
-        # registered so that reference checkpoints load, unused at eval.
+        # spx, spx_2, spx_4: the training forward's init-disparity upsampling
+        # (unused at eval).
         self.spx = nn.Sequential(nn.ConvTranspose2d(2 * 32, 9, 4, 2, 1))
         self.spx_2 = Conv2x(24, 32, deconv=True, norm="instance")
         self.spx_4 = nn.Sequential(BasicConvIN(96, 24, kernel_size=3, stride=1, padding=1),
@@ -238,6 +246,35 @@ class IGEVStereo(nn.Module):
         return IGEVEncoding(match_l, match_r, gev, regress(cost), *self.context(left_n),
                             stem_2x)
 
+    def train_encode(self, left: torch.Tensor, right: torch.Tensor):
+        """The training encode (``encode(train=True)``): each view through
+        the trunk on its own (BatchNorm's batch statistics are a view's, as
+        the reference's), the GEV tower on the differentiable ops, and the
+        superpixel weights of the initial disparity's upsampling.  Returns
+        ``(IGEVEncoding, spx_pred (B, 9, H, W) float32)``."""
+        def norm(x):
+            return (2.0 * (at_least_f32(x).permute(0, 3, 1, 2) / 255.0) - 1.0).to(self.dtype)
+
+        left_n, right_n = norm(left).contiguous(), norm(right).contiguous()
+        feat_l, feat_r = self.feature(left_n), self.feature(right_n)
+        stem_2x = self.stem_2(left_n)
+        stem_4x = self.stem_4(stem_2x)
+        stem_4y = self.stem_4(self.stem_2(right_n))
+        feat_l[0] = torch.cat([feat_l[0], stem_4x], dim=1)  # 96 channels at 1/4
+        feat_r[0] = torch.cat([feat_r[0], stem_4y], dim=1)
+        match_l, match_r = self.desc(self.conv(feat_l[0])), self.desc(self.conv(feat_r[0]))
+
+        gwc = channels_last(build_gwc_volume(match_l, match_r, self.max_disp // 4, GEV_GROUPS))
+        gev = self.cost_agg(self.corr_feature_att(self.corr_stem(gwc), feat_l[0]), feat_l)
+        cost = F.conv3d(gev, self.classifier.weight, padding=1)[:, 0]
+        init_disp = regress(cost.permute(0, 2, 3, 1))
+        net_list, inp_list = self.context(left_n)
+        spx_pred = torch.softmax(at_least_f32(self.spx(self.spx_2(self.spx_4(feat_l[0]),
+                                                                   stem_2x))), dim=1)
+        enc = IGEVEncoding(match_l, match_r, gev.permute(0, 3, 4, 2, 1).contiguous(), init_disp,
+                           net_list, inp_list, stem_2x)
+        return enc, spx_pred
+
     # ---- one GRU step, the upsampling, the noise embedding ----
 
     def update(self, net_list, inp_list, geo_feat, disp):
@@ -247,19 +284,27 @@ class IGEVStereo(nn.Module):
         dt = self.dtype
         net_list, mask_feat, delta = self.update_block(
             net_list, inp_list, geo_feat.permute(0, 3, 1, 2).to(dt), disp[:, None].to(dt))
-        return net_list, mask_feat, delta[:, 0].float()
+        return net_list, mask_feat, at_least_f32(delta[:, 0])
 
     def upsample(self, disp, mask_feat_4, stem_2x):
         """Superpixel ×4 upsampling (``igev_stereo_ddim.py:203-211``) of the
         quarter-res ``disp (B, H4, W4)`` → ``(B, H, W)`` float32."""
         xspx = self.spx_2_gru(mask_feat_4, stem_2x)
-        spx_pred = torch.softmax(self.spx_gru(xspx).float(), dim=1)
-        return context_upsample(disp.float() * 4.0, spx_pred)
+        spx_pred = torch.softmax(at_least_f32(self.spx_gru(xspx)), dim=1)
+        return context_upsample(at_least_f32(disp) * 4.0, spx_pred)
 
     def embed_noise(self, noisy: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """The time-embedded latent clamped to ±scale and mapped to [0, 1]
         (``igev_stereo_ddim.py:228-231``), float32."""
-        y = self.time_embedding(noisy.float(), t).float()
+        y = at_least_f32(self.time_embedding(at_least_f32(noisy), t))
+        y = y.clamp(-self.scale, self.scale)
+        return (y / self.scale + 1.0) / 2.0
+
+    def embed_noise_train(self, noisy: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """The training variant of ``embed_noise``: ``t/1000`` is added
+        before the clamp (``igev_stereo_ddim.py:433``)."""
+        y = at_least_f32(self.time_embedding(at_least_f32(noisy), t))
+        y = y + (t.to(y.dtype) / 1000.0)[:, None, None, None]
         y = y.clamp(-self.scale, self.scale)
         return (y / self.scale + 1.0) / 2.0
 
@@ -276,8 +321,8 @@ class IGEVStereo(nn.Module):
 def regress(cost: torch.Tensor) -> torch.Tensor:
     """The initial disparity: softmax over D of the classifier's cost
     ``(B, H4, W4, D)`` and its expectation, float32 ``(B, H4, W4)``."""
-    prob = torch.softmax(cost.float(), dim=-1)
-    return prob @ torch.arange(cost.shape[-1], dtype=torch.float32, device=cost.device)
+    prob = torch.softmax(at_least_f32(cost), dim=-1)
+    return prob @ torch.arange(cost.shape[-1], dtype=prob.dtype, device=cost.device)
 
 
 def module_of(model) -> IGEVStereo:
@@ -318,6 +363,56 @@ def igev_forward(model, left: torch.Tensor, right: torch.Tensor, iters: int = 32
     ``iters`` GRU updates, then one upsampling → ``(B, H, W)``."""
     enc, pyramid = igev_encode(model, left, right)
     return igev_rollout(model, enc, pyramid, iters)
+
+
+@contextlib.contextmanager
+def frozen(module: nn.Module):
+    """``module`` in eval mode for the block (its BatchNorms on their running
+    statistics, flax's ``train=False`` for one call), then back."""
+    mode = module.training
+    module.eval()
+    try:
+        yield module
+    finally:
+        module.train(mode)
+
+
+def igev_train_rollout(model: IGEVStereo, enc: IGEVEncoding, pyramid: GeoPyramid, iters: int,
+                       noisy: torch.Tensor | None = None,
+                       t: torch.Tensor | None = None) -> torch.Tensor:
+    """The training GRU loop (``igev_rollout(train=True)``): every iterate
+    upsampled, the upsampling's BatchNorms frozen (the reference's
+    freeze_bn, train_stereo.py:142,198-201), gradients through the whole
+    loop; with ``noisy``/``t`` the latent's training transform
+    (``embed_noise_train``) multiplies the GEV once.  Returns ``(iters, B,
+    H, W)`` float32."""
+    b, h4, w4 = enc.init_disp.shape
+    coords = torch.arange(w4, dtype=torch.float32,
+                          device=enc.init_disp.device).expand(b, h4, w4)
+    if noisy is not None:
+        pyramid = premultiply(pyramid, model.embed_noise_train(noisy, t))
+    disp, net_list, ups = enc.init_disp, enc.net_list, []
+    with frozen(model.spx_2_gru):
+        for _ in range(iters):
+            geo = geo_lookup(pyramid, disp, coords, model.corr_radius)
+            net_list, mask_feat, delta = model.update(net_list, enc.inp_list, geo, disp)
+            disp = disp + delta
+            ups.append(model.upsample(disp, mask_feat, enc.stem_2x))
+    return torch.stack(ups)
+
+
+def igev_train_forward(model: IGEVStereo, left: torch.Tensor, right: torch.Tensor,
+                       iters: int = 22, noisy: torch.Tensor | None = None,
+                       t: torch.Tensor | None = None):
+    """The training forward (``igev_forward(train=True)``): ``(init_up (B,
+    H, W), disp_ups (iters, B, H, W))``, float32.  ``model`` is in training
+    mode; the encode's BatchNorms run on batch statistics, the rollout's
+    frozen."""
+    enc, spx_pred = model.train_encode(left, right)
+    pyramid = build_geo_pyramid(enc.match_l, enc.match_r, enc.gev, model.corr_levels,
+                                corr_mode="volume")
+    disp_ups = igev_train_rollout(model, enc, pyramid, iters, noisy, t)
+    return context_upsample(enc.init_disp * 4.0, spx_pred), disp_ups
 
 
 class DisparityTrack:

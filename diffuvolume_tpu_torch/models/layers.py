@@ -6,7 +6,9 @@ The modules are built from ``nn.Sequential`` containers with the reference's
 indices (``convbn`` = ``Sequential(conv, bn)``, activations as their own
 entries), so a reference state dict loads by name.  ``ACTS`` names the
 activation modules (``"relu"`` for ACVNet, ``"mish"`` for PCWNet).  Tensors
-are NCHW / NCDHW inside the network.
+are NCHW / NCDHW inside the network.  ``BatchNorm2d`` / ``BatchNorm3d`` keep
+PyTorch's state-dict names and update their running statistics in training
+as ``flax.linen.BatchNorm`` does (the biased batch variance).
 """
 
 from __future__ import annotations
@@ -31,6 +33,36 @@ class Mish(nn.Module):
 
     def forward(self, x):
         return mish(x)
+
+
+class _FlaxRunningStats:
+    """Training-mode running statistics as ``flax.linen.BatchNorm(momentum
+    0.9, epsilon 1e-5)`` keeps them: ``r ← 0.9·r + 0.1·s`` with the batch
+    mean and the *biased* batch variance (PyTorch's own update takes the
+    unbiased one, ``n/(n−1)`` larger).  Normalisation uses the batch
+    statistics in training and the running ones in eval, as PyTorch's."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        old = self.running_var.detach().clone()
+        y = super().forward(x)
+        # PyTorch set r = (1−m)·old + m·s·n/(n−1); the biased update is
+        # ((n−1)·r + (1−m)·old) / n.  Written through ``.data``: the batch
+        # norm's backward keeps the buffer (it reads it only in eval mode),
+        # and PyTorch's own update does not count as a change of it either.
+        with torch.no_grad():
+            self.running_var.data.mul_(n - 1).add_(old, alpha=1.0 - self.momentum).div_(n)
+        return y
+
+
+class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxRunningStats, nn.BatchNorm3d):
+    pass
 
 
 # Activation name → module factory, the counterpart of the JAX package's
@@ -64,7 +96,7 @@ class ConvBN(nn.Sequential):
             in_ch, out_ch, k, stride=stride, padding=padding, dilation=dil,
             groups=groups, bias=False,
         )
-        bn = (nn.BatchNorm2d if dims == 2 else nn.BatchNorm3d)(out_ch)
+        bn = (BatchNorm2d if dims == 2 else BatchNorm3d)(out_ch)
         super().__init__(conv, bn)
 
 
@@ -90,7 +122,7 @@ class ConvTransposeBN(nn.Sequential):
             nn.ConvTranspose3d(in_ch, out_ch, kernel_size, stride=stride,
                                padding=padding, output_padding=output_padding,
                                bias=False),
-            nn.BatchNorm3d(out_ch),
+            BatchNorm3d(out_ch),
         )
 
 

@@ -1,7 +1,8 @@
-"""PCWNet backbone and its DiffuVolume variant, eval only.
+"""PCWNet backbone and its DiffuVolume variant.
 
 Counterpart of ``diffuvolume_tpu/models/pcw.py`` (``PCWNet``:
-``build_cost_volume``, ``refine``, ``denoise``, the baseline eval forward):
+``build_cost_volume``, ``refine``, ``denoise``, the baseline eval forward,
+the training forward):
 Mish activations, a feature pyramid to 1/32 with a group-wise + concat
 volume at each of 1/4 … 1/32, a multi-scale ``HourglassUp`` that fuses them,
 three Mish hourglasses, and a full-resolution warp-correlation refinement.
@@ -18,7 +19,8 @@ The 2-D and 3-D convolutions are PyTorch convolutions; ``models/pcw_fold.py``
 runs the 3-D ones on the port's kernels, and with ``refine_flat=True`` the
 refinement net's too; ``layers.route_conv3d`` runs this path's eligible
 3×3×3 convs on ``conv3d_packed``.  Eval runs one 2B trunk pass for
-both views.
+both views.  ``train_forward`` runs the differentiable plain ops (the
+kernels have no backward) and one trunk pass a view.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import NamedTuple
 import torch
 import torch.nn as nn
 
+from diffuvolume_tpu_torch.diffusion import encode_disparity_volume, make_schedule, q_sample
 from diffuvolume_tpu_torch.models.layers import (
     ACTS,
     BasicBlock,
@@ -38,14 +41,18 @@ from diffuvolume_tpu_torch.models.layers import (
     convbn_3d,
     init_weights,
 )
-from diffuvolume_tpu_torch.ops.cost_volume import build_signed_correlation_volume
+from diffuvolume_tpu_torch.ops.cost_volume import (
+    build_concat_volume,
+    build_gwc_volume,
+    build_signed_correlation_volume,
+)
 from diffuvolume_tpu_torch.ops.kernels.concat_volume import dhw_mul
 from diffuvolume_tpu_torch.ops.kernels.fused_head import (
     fused_uncertainty_at,
     fused_upsample_softargmin,
 )
 from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume_packed
-from diffuvolume_tpu_torch.ops.regression import resize_bilinear
+from diffuvolume_tpu_torch.ops.regression import at_least_f32, regress_head, resize_bilinear
 from diffuvolume_tpu_torch.ops.sampling import warp_right_to_left
 
 # The refinement's signed correlation reaches ±24 px (pwcnet_ddim.py:486-502).
@@ -205,7 +212,7 @@ class RefineNetV3(nn.Module):
     def forward(self, x, disp):
         for i in range(1, 9):
             x = getattr(self, f"conv{i}")(x)
-        return disp + x[:, 0].float()
+        return disp + at_least_f32(x[:, 0])
 
 
 def _classif(act) -> nn.Sequential:
@@ -300,8 +307,8 @@ class PCWNet(nn.Module):
         ``pred3`` and the signed correlation: ``(B, 146, H, W)`` in the
         model's dtype.  The resize, warp and correlation run in float32."""
         dt = self.dtype
-        rl = resize_bilinear(fl["refine"].float(), out_hw, 2, 3, align_corners=True)
-        rr = resize_bilinear(fr["refine"].float(), out_hw, 2, 3, align_corners=True)
+        rl = resize_bilinear(at_least_f32(fl["refine"]), out_hw, 2, 3, align_corners=True)
+        rr = resize_bilinear(at_least_f32(fr["refine"]), out_hw, 2, 3, align_corners=True)
         rr_warp = warp_right_to_left(rr, pred3)
         corr = build_signed_correlation_volume(rl, rr_warp, REFINE_MAX_OFFSET)
         p = pred3[:, None].to(dt)
@@ -313,7 +320,7 @@ class PCWNet(nn.Module):
         (pwcnet_ddim.py:486-502, 712-734): ``refine_input``, then the
         refinement convs in the model's dtype.  Returns the refined
         disparity ``(B, H, W)`` float32."""
-        return self.refinenet3(self.refine_input(pred3, fl, fr, out_hw), pred3.float())
+        return self.refinenet3(self.refine_input(pred3, fl, fr, out_hw), at_least_f32(pred3))
 
     def embed_noise(self, latent: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """The time-embedded latent clamped to ±scale and rescaled to [0, 1]."""
@@ -342,6 +349,45 @@ class PCWNet(nn.Module):
         vol = dhw_mul(entry.volume, noise.to(entry.volume.dtype).contiguous(), None)
         disp, unc = self._aggregate(vol, entry.fl, entry.fr, out_hw, want_unc=True)
         return disp, unc, noise.float()
+
+    # ---- training forward (pwcnet_ddim.py:604-758) ----
+
+    def train_forward(self, left: torch.Tensor, right: torch.Tensor,
+                      disp_gt_q: torch.Tensor | None = None, t: torch.Tensor | None = None,
+                      noise: torch.Tensor | None = None) -> list[torch.Tensor]:
+        """The JAX package's ``PCWNet.__call__(..., train=True)``: the six
+        heads ``[pred0, comb_pred, pred1, pred2, pred3, disp_finetune]``
+        (``(B, H, W)`` float32, KITTI12's loss weights in this order).  The
+        diffusion model's inputs are ``ACVNet.train_forward``'s; the latent's
+        transform multiplies the combine volume."""
+        out_hw = (left.shape[1], left.shape[2])
+        dt = self.dtype
+        fl = self.feature_extraction(left.to(dt).permute(0, 3, 1, 2).contiguous())
+        fr = self.feature_extraction(right.to(dt).permute(0, 3, 1, 2).contiguous())
+        v1, v2, v3, v4 = (
+            torch.cat([build_gwc_volume(fl[f"gw{i}"], fr[f"gw{i}"], d, self.num_groups),
+                       build_concat_volume(fl[f"concat{i}"], fr[f"concat{i}"], d,
+                                           mask_ref=True)], dim=1)
+            for i, d in zip((1, 2, 3, 4), (self.max_disp // (4 << k) for k in range(4))))
+        cost0 = self.dres0(v1)
+        cost0 = self.dres1(cost0) + cost0
+        combine = self.combine1(cost0, v2, v3, v4)
+        combine_in = combine
+        if self.diffusion:
+            x_start = encode_disparity_volume(disp_gt_q, self.max_disp // 4, self.scale)
+            noisy = q_sample(make_schedule(1000, device=x_start.device), x_start, t, noise)
+            combine_in = combine * self.embed_noise(noisy, t)[:, None]
+
+        def head(classif, x):
+            return regress_head(classif(x)[:, 0], self.max_disp, out_hw, align_corners=True)
+
+        out1 = self.dres2(combine_in)
+        out2 = self.dres3(out1)
+        out3 = self.dres4(out2)
+        pred3 = head(self.classif3, out3)
+        disp_finetune = self.refine(pred3, fl, fr, out_hw)
+        return [head(self.classif0, cost0), head(self.classif4, combine), head(self.classif1, out1),
+                head(self.classif2, out2), pred3, disp_finetune]
 
     # ---- baseline eval forward ----
 

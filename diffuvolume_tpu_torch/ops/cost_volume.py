@@ -28,12 +28,14 @@ import torch
 def groupwise_correlation(
     fea1: torch.Tensor, fea2: torch.Tensor, num_groups: int
 ) -> torch.Tensor:
-    """Per-group mean of ``fea1·fea2``: ``(B, C, H, W)`` → ``(B, G, H, W)``."""
+    """Per-group mean of ``fea1·fea2``: ``(B, C, H, W)`` → ``(B, G, H, W)``,
+    taken in float32 (float64 for float64 features)."""
     b, c, h, w = fea1.shape
     if c % num_groups:
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
     cpg = c // num_groups
-    prod = fea1.float() * fea2.float()
+    ft = torch.promote_types(fea1.dtype, torch.float32)
+    prod = fea1.to(ft) * fea2.to(ft)
     return prod.view(b, num_groups, cpg, h, w).mean(dim=2).to(fea1.dtype)
 
 

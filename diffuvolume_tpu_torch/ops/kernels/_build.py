@@ -275,10 +275,20 @@ def plan(name: str, device, *args, keys: tuple = PLAN_KEYS) -> Plan:
 
 
 def check_cuda(*tensors) -> None:
-    """Every tensor on one CUDA device and contiguous; raise otherwise."""
+    """Every tensor on one CUDA device and contiguous, and none that autograd
+    tracks; raise otherwise.  The kernels have no backward: a tensor that
+    requires grad in grad mode would leave the kernel's output without a
+    gradient path, silently."""
+    import torch
+
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"the kernels run on CUDA tensors, got one on {dev}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "the port's kernels have no backward: call them under torch.no_grad() (the "
+            "evaluation entry points do), or train through the models' train_forward, "
+            "which runs the differentiable plain ops")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"tensors on {t.device} and {dev}")

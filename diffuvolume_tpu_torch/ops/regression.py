@@ -15,6 +15,12 @@ import numpy as np
 import torch
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or float64 if it is (the training tests run both
+    packages in float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def disparity_regression(prob: torch.Tensor, max_disp: int) -> torch.Tensor:
     """Soft-argmin: ``Σ_d d·prob[:, d]`` for ``(B, D, H, W)`` probabilities."""
     d = torch.arange(max_disp, dtype=prob.dtype, device=prob.device)
@@ -106,3 +112,12 @@ def upsample_cost_and_regress(
     )
     prob = torch.softmax(up, dim=1)
     return disparity_regression(prob, max_disp), prob
+
+
+def regress_head(cost: torch.Tensor, max_disp: int, out_hw: tuple[int, int],
+                 align_corners: bool = False) -> torch.Tensor:
+    """A training head's regression: ``upsample_cost_and_regress`` of the
+    ``(B, D4, H4, W4)`` logits in float32 (float64 stays), autocast off (the
+    JAX package casts the cost to float32 first) → ``(B, H, W)``."""
+    with torch.autocast(cost.device.type, enabled=False):
+        return upsample_cost_and_regress(at_least_f32(cost), max_disp, out_hw, align_corners)[0]

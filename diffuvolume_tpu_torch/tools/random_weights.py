@@ -108,6 +108,17 @@ def calibrate_heads(model: ACVNet, left: torch.Tensor, right: torch.Tensor,
 PCW_RESIDUAL_BN_SCALE = 0.1
 
 
+@torch.no_grad()
+def tame_residual_branches(model: nn.Module) -> nn.Module:
+    """Each 2-D residual block's ``conv2`` BatchNorm weight times
+    ``PCW_RESIDUAL_BN_SCALE``, in place (``random_pcw``'s rule, for any
+    model built of ``BasicBlock``s); returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, BasicBlock):
+            m.conv2[1].weight.mul_(PCW_RESIDUAL_BN_SCALE)
+    return model
+
+
 def random_pcw(max_disp: int, diffusion: bool, generator: torch.Generator) -> PCWNet:
     """An eval-mode ``PCWNet`` on the CPU in float32, every weight and
     BatchNorm statistic drawn from ``generator``: the JAX package's
@@ -115,11 +126,7 @@ def random_pcw(max_disp: int, diffusion: bool, generator: torch.Generator) -> PC
     ``conv2`` BatchNorm weight times ``PCW_RESIDUAL_BN_SCALE``."""
     model = PCWNet(max_disp=max_disp, diffusion=diffusion).init_weights(generator)
     _draw_batchnorm(model, generator)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, BasicBlock):
-                m.conv2[1].weight.mul_(PCW_RESIDUAL_BN_SCALE)
-    return model.eval()
+    return tame_residual_branches(model).eval()
 
 
 @torch.no_grad()

@@ -1541,3 +1541,85 @@ def test_metrics_on_the_card_match_the_cpu(dev):
     card = metrics_batch(est.to(dev), gt.to(dev), mask.to(dev))
     for k, v in cpu.items():
         assert torch.allclose(card[k].cpu(), v, rtol=0, atol=1e-5), k
+
+
+# -- training: the kernels refuse what they cannot differentiate -----------------
+
+def _refusal_calls(dev):
+    """Every counted wrapper on float32 CUDA inputs of a shape it takes;
+    ``call(track)`` passes its first tensor through ``track``."""
+    from diffuvolume_tpu_torch.ops.kernels import conv2d as k2
+
+    def r(*shape):
+        return _randn(dev, *shape, seed=sum(shape)) * 0.1
+
+    def conv(fn, cin, cout, k=3, dhw=(4, 4, 8)):
+        return lambda g: fn(g(r(1, *dhw, cin)), r(k, k, k, cin, cout), r(cout))
+
+    dil = (1,) * 16
+    return {
+        "fused_upsample_softargmin": lambda g: kf.fused_upsample_softargmin(
+            g(r(1, 4, 2, 3)), 8, (4, 6)),
+        "fused_uncertainty_at": lambda g: kf.fused_uncertainty_at(g(r(1, 4, 2, 3)),
+                                                                  r(1, 4, 6), 8, (4, 6)),
+        "gwc_volume": lambda g: kg.gwc_volume(g(r(1, 8, 2, 8)), r(1, 8, 2, 8), 4, 4),
+        "gwc_volume_packed": lambda g: kg.gwc_volume_packed(g(r(1, 80, 3, 37)),
+                                                            r(1, 80, 3, 37), 12, 40, 48),
+        "concat_volume": lambda g: kc.concat_volume(g(r(1, 4, 2, 8)), r(1, 4, 2, 8), 4),
+        "dhw_mul": lambda g: kc.dhw_mul(g(r(1, 4, 4, 2, 8)), r(1, 4, 2, 8), r(1, 4, 2, 8)),
+        "conv3d_fold_p": conv(kconv.conv3d_fold_p, 32, 32),
+        "conv3d_fold_x2": conv(kconv.conv3d_fold_x2, 64, 32),
+        "conv3d_fold_s2": conv(kconv.conv3d_fold_s2, 32, 64),
+        "conv1x1_fold_p": conv(kconv.conv1x1_fold_p, 32, 32, k=1),
+        "conv3d_fold_small": conv(kconv.conv3d_fold_small, 8, 8),
+        "conv3d_packed": conv(kconv.conv3d_packed, 32, 32),
+        "conv3d_fold_up": conv(kup.conv3d_fold_up, 32, 32, dhw=(2, 2, 4)),
+        "pack": lambda g: kl.pack(g(r(1, 32, 4, 4, 8))),
+        "unpack": lambda g: kl.unpack(g(r(1, 4, 4, 8, 32))),
+        "unpack_hwdc": lambda g: kl.unpack_hwdc(g(r(1, 4, 4, 8, 16)), 8),
+        "depthwise_hw_p": lambda g: kd.depthwise_hw_p(g(r(1, 4, 5, 7, 16)), r(3, 3, 16), dil),
+        "depthwise_hw_p2": lambda g: kd.depthwise_hw_p2(g(r(1, 4, 5, 7, 16)), r(3, 3, 16), dil,
+                                                        r(3, 3, 16), (2,) * 16),
+        "conv2d_flat": lambda g: k2.conv2d_flat(g(r(1, 7, 9, 32)), r(3, 3, 32, 32), r(32)),
+    }
+
+
+def test_wrappers_refuse_inputs_that_require_grad(dev):
+    """Each wrapper raises on a CUDA input that requires grad in grad mode,
+    before it launches; under ``torch.no_grad`` the same call launches."""
+    for name, call in _refusal_calls(dev).items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(lambda t: t.requires_grad_())
+        with torch.no_grad():
+            call(lambda t: t.requires_grad_())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("model_name", ["acvnet_ddim", "pcwnet_ddim", "igev_ddim"])
+def test_train_step_on_the_card_reaches_every_parameter(dev, model_name):
+    """One training step of each recipe on the card: a finite loss, every
+    trainable parameter with a finite gradient, no kernel launched."""
+    from diffuvolume_tpu_torch.models import build_model
+    from diffuvolume_tpu_torch.train.loop import (TrainState, make_igev_train_step,
+                                                  make_optimizer, make_train_step)
+    from diffuvolume_tpu_torch.train.lr import milestone_lr_schedule
+
+    gen = torch.Generator().manual_seed(0)
+    model = build_model(model_name, max_disp=64).init_weights(gen).to(dev).train()
+    h, w = (64, 96) if model_name == "igev_ddim" else (64, 64)
+    scale = 255.0 if model_name == "igev_ddim" else 0.3
+    left = (torch.rand(1, h, w, 3, generator=gen) * scale).to(dev)
+    batch = {"left": left, "right": torch.roll(left, -3, dims=2),
+             "disp_gt": (torch.rand(1, h, w, generator=gen) * 60 + 1).to(dev)}
+    step = (make_igev_train_step(model, iters=2) if model_name == "igev_ddim"
+            else make_train_step(model, (0.5, 0.5, 0.5, 0.7, 1.0, 1.3) if model_name ==
+                                 "pcwnet_ddim" else (0.5, 0.5, 0.7, 1.0)))
+    counters = [f for f in (kf.fused_upsample_softargmin, kg.gwc_volume, kc.dhw_mul,
+                            kconv.conv3d_fold_small, kg.gwc_volume_packed)]
+    before = [f.launches for f in counters]
+    state = TrainState(model, make_optimizer(model), milestone_lr_schedule(1e-3, "10:2", 1))
+    out = step(state, batch, torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out["loss"]) and [f.launches for f in counters] == before
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name

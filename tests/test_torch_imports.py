@@ -67,3 +67,20 @@ def test_row_15_and_18_modules_are_checked(module):
     """The modules of the refinement's and the packed conv's slice are among
     the files checked above."""
     assert ROOT / "diffuvolume_tpu_torch" / module in FILES
+
+
+@pytest.mark.parametrize("module", [
+    "config.py", "train/__init__.py", "train/loss.py", "train/lr.py", "train/loop.py",
+    "train/checkpoint.py", "cli/train.py", "utils/logger.py", "utils/visualization.py",
+])
+def test_training_slice_modules_are_checked(module):
+    """The training slice's modules are among the files checked above."""
+    assert ROOT / "diffuvolume_tpu_torch" / module in FILES
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_orbax_imports(path):
+    """Nor orbax, the JAX package's checkpoint library: the port's
+    checkpoints are ``torch.save`` files."""
+    names = list(_imported(ast.parse(path.read_text(), str(path))))
+    assert not [n for n in names if n.split(".")[0] == "orbax"], path
