@@ -89,7 +89,22 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      KITTI15 recipe (IGEV-Stereo, 320×736, ``--bf16``, 22 GRU iterations,
      ``--init_from`` a calibrated random IGEV), batch 1, 3 steps each over
      a synthetic KITTI set;
- 11. one ``kernels`` JSON line, the card line, and the result line.
+ 11. IGEV's reference-faithful evaluation, data parallelism and the
+     training step's profile: (a) ``igev_ddim_inference(quirk=True)`` on
+     the folded path at 384×1248, 32 GRU iterations a rollout, bfloat16,
+     one warm-up pair and 3 timed pairs (pairs/s, prep ms, ms a DDIM step,
+     peak memory), its launches a pair asserted equal to phase 8's folded
+     path's, a finite output; (b) the quirk path on the card against the
+     CPU, float32, 64×192, 32 GRU iterations, under phase 4's flip rule;
+     (c) one ACV train step through ``parallel/ddp.py`` at world size 1
+     over NCCL against the plain step on the card (float64, and float32
+     without TF32, phase 10 (b)'s shapes and tolerances; the float32
+     gradients recorded; every BatchNorm of the step through
+     ``_GlobalBatchNorm`` in float32 against float64; the collectives
+     counted); (d) ``tools/bench_train.py --profile``: the ACV SceneFlow
+     step at 256×512, batch 4, float32, by kernel group, plain and through
+     ``parallel/ddp.py`` at world size 1 (``--ddp``);
+ 12. one ``kernels`` JSON line, the card line, and the result line.
 Each path's launch counts are set to 0 just before it is driven and read
 just after.  Everything printed is also written to
 ``chiprun_out/chip_smoke.json``.  Run from a directory without the
@@ -1575,10 +1590,11 @@ def agree(name: str, cpu_run, card_run) -> dict:
 
 def sampled(prep, fold, bm, dm, left, right, cfg, dev, ns, packed: bool, **prep_kw):
     """A two-pass pipeline as its entry point runs it (the prep, then the
-    DDIM loop on the DDIM model's ``denoise``), with the sampler's decisions:
-    ``(final, baseline, decisions)``."""
+    DDIM loop on the DDIM model's ``denoise``; with ``quirk=True`` among
+    ``prep_kw``, IGEV's reference-faithful ``denoise_ref`` and re-encode),
+    with the sampler's decisions: ``(final, baseline, decisions)``."""
     from diffuvolume_tpu_torch.diffusion import ddim_sample, make_schedule
-    from diffuvolume_tpu_torch.eval.pipeline import float32_exact
+    from diffuvolume_tpu_torch.eval.pipeline import float32_exact, sampler_args
 
     if packed:
         bm, dm = fold(bm), fold(dm)
@@ -1589,9 +1605,9 @@ def sampled(prep, fold, bm, dm, left, right, cfg, dev, ns, packed: bool, **prep_
     with torch.no_grad(), float32_exact(bm, dm):
         base, latent, entry = prep(bm, dm, lt, rt, cfg, packed, **prep_kw)
         final, _, dec = ddim_sample(
-            make_schedule(1000, device=dev), cfg,
-            lambda lat, t: dm.denoise(entry, lat, t, (lt.shape[1], lt.shape[2])), base, latent,
-            noise_source=ns, return_masks=True)
+            make_schedule(1000, device=dev), cfg, baseline_disp=base, baseline_latent=latent,
+            noise_source=ns, return_masks=True,
+            **sampler_args(dm, entry, (lt.shape[1], lt.shape[2]), prep_kw.get("quirk", False)))
     return final, base.float(), dec
 
 
@@ -2018,13 +2034,19 @@ def pcw_path(dev, counters, packed: bool, pairs: int, refine_flat: bool = False,
     return res
 
 
-def igev_path(dev, counters, packed: bool, pairs: int, routed: bool = False) -> dict:
+def igev_path(dev, counters, packed: bool, pairs: int, routed: bool = False,
+              quirk: bool = False) -> dict:
     """Phase 8: IGEV-Stereo two-pass KITTI15 DDIM-2 at 384×1248, 32 GRU
     iterations a rollout, bfloat16 model; the module path after
-    ``route_conv3d`` when ``routed``."""
+    ``route_conv3d`` when ``routed``.  Phase 11 (a): ``quirk=True``, the
+    reference-faithful evaluation, with the same launch counts."""
     from diffuvolume_tpu_torch.diffusion import ddim_sample, make_schedule
     from diffuvolume_tpu_torch.diffusion.ddim import KITTI15_DDIM as cfg
-    from diffuvolume_tpu_torch.eval.pipeline import igev_ddim_inference, igev_prep
+    from diffuvolume_tpu_torch.eval.pipeline import (
+        igev_ddim_inference,
+        igev_prep,
+        sampler_args,
+    )
     from diffuvolume_tpu_torch.models.igev.gev_fold import fold_igev
     from diffuvolume_tpu_torch.models.layers import route_conv3d
     from diffuvolume_tpu_torch.tools.random_weights import seeded_igev_path
@@ -2038,16 +2060,16 @@ def igev_path(dev, counters, packed: bool, pairs: int, routed: bool = False) -> 
     def pair(i):
         gen = torch.Generator(device=dev).manual_seed(i)
         return igev_ddim_inference(bm, dm, left, right, cfg, device=dev, generator=gen,
-                                   packed=packed, iters=IGEV_ITERS)
+                                   packed=packed, iters=IGEV_ITERS, quirk=quirk)
 
     def stages():
         t0 = time.perf_counter()
-        b_disp, b_lat, entry = igev_prep(bm, dm, left, right, cfg, packed, IGEV_ITERS)
+        b_disp, b_lat, entry = igev_prep(bm, dm, left, right, cfg, packed, IGEV_ITERS, quirk)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        ddim_sample(make_schedule(1000, device=dev), cfg,
-                    lambda lat, t: dm.denoise(entry, lat, t, (IGEV_H, IGEV_W)),
-                    b_disp, b_lat, generator=torch.Generator(device=dev).manual_seed(7))
+        ddim_sample(make_schedule(1000, device=dev), cfg, baseline_disp=b_disp,
+                    baseline_latent=b_lat, generator=torch.Generator(device=dev).manual_seed(7),
+                    **sampler_args(dm, entry, (IGEV_H, IGEV_W), quirk))
         torch.cuda.synchronize()
         return t0, t1, time.perf_counter()
 
@@ -2546,6 +2568,334 @@ def training_phase(dev, counters: dict, card: str) -> dict:
     return out
 
 
+# Phase 11: IGEV's reference-faithful evaluation, data parallelism, the
+# training step's profile.
+QUIRK_TIMED_PAIRS = 3
+BENCH_TRAIN_STEPS = 5
+# Phase 11 (c)'s float32 layer check: each BatchNorm's output, statistics and
+# gradients through _GlobalBatchNorm against float64, worst relative L2 over
+# the layers: some 80 float32 ulps (both forms read 4e-8–4e-7 on the CPU);
+# the variance divided by n − 1, or the input rounded to bfloat16, reads
+# 1.6e-2 or 2.6e-3 there.
+BN_LAYER_TOL = 1e-5
+
+
+def igev_quirk_agreement(dev) -> dict:
+    """Phase 11 (b): IGEV's folded path with ``quirk=True`` at 64×192,
+    ``max_disp`` 64, 32 GRU iterations a rollout, the port on the card
+    against the port on the CPU, float32, with ``agree``'s bounds and flip
+    rule; the models from ``calibrate_igev_drift`` as phase 4's IGEV
+    check's."""
+    import dataclasses
+
+    from diffuvolume_tpu_torch.diffusion.ddim import KITTI15_DDIM
+    from diffuvolume_tpu_torch.eval.pipeline import igev_prep
+    from diffuvolume_tpu_torch.models.igev.gev_fold import fold_igev
+    from diffuvolume_tpu_torch.tools.random_weights import calibrate_igev_drift, random_igev_pair
+
+    (h, w), md = IGEV_ITERS_HW, IGEV_ITERS_DISP
+    rng = np.random.default_rng(4)
+    left = rng.uniform(0, 255, (1, h, w, 3)).astype(np.float32)
+    right = np.roll(left, -3, axis=2)
+    lt, rt = torch.from_numpy(left), torch.from_numpy(right)
+    gen = torch.Generator().manual_seed(1)
+    bm, _ = random_igev_pair(md, gen)
+    _, dm = random_igev_pair(md, gen)
+    for m in (bm, dm):
+        calibrate_igev_drift(m, lt, rt, iters=IGEV_ITERS)
+    cfg = dataclasses.replace(KITTI15_DDIM, max_disp=md, num_bins=md // 4)
+    shape = (1, md // 4, h // 4, w // 4)
+    steps = (cfg.sampling_steps, *shape)
+    ns = {"init": rng.standard_normal(shape).astype(np.float32),
+          "z": rng.standard_normal(steps).astype(np.float32),
+          "replace": rng.standard_normal(steps).astype(np.float32)}
+    bg, dg = copy.deepcopy(bm).to(dev), copy.deepcopy(dm).to(dev)
+    name = "igev folded path, quirk=True, 32 GRU iterations"
+    return agree(name,
+                 lambda: sampled(igev_prep, fold_igev, bm, dm, left, right, cfg,
+                                 torch.device("cpu"), ns, True, iters=IGEV_ITERS, quirk=True),
+                 lambda: sampled(igev_prep, fold_igev, bg, dg, left, right, cfg, dev, ns, True,
+                                 iters=IGEV_ITERS, quirk=True))
+
+
+def decoder_sum_hooks(model, seen: dict) -> list:
+    """Forward hooks that keep, into ``seen``, the two terms of each
+    ``HourglassACV`` decoder sum (``relu(conv5(c4) + redir2(c2))``,
+    ``relu(conv6(c5) + redir1(x))``) and the gradient of the first."""
+    from diffuvolume_tpu_torch.models.layers import HourglassACV
+
+    def keep(key, o):
+        seen[key] = o.detach().double().cpu()
+        if key[1] in ("conv5", "conv6") and o.requires_grad:
+            o.register_hook(lambda g: seen.__setitem__(key + ("grad",), g.double().cpu()))
+
+    return [getattr(m, part).register_forward_hook(lambda mod, i, o, k=(name, part): keep(k, o))
+            for name, m in model.named_modules() if isinstance(m, HourglassACV)
+            for part in ("conv5", "redir2", "conv6", "redir1")]
+
+
+def relu_flips(sums: dict) -> list:
+    """The elements of the hourglasses' decoder sums whose ReLU takes the
+    other branch in the DDP float32 step than in the plain one, with both
+    pre-activations, the float64 step's, and the gradient there over the
+    gradient's RMS."""
+    a, d, r = (sums[k] for k in (("plain", torch.float32), ("ddp", torch.float32),
+                                 ("plain", torch.float64)))
+    flips = []
+    for hg in sorted({k[0] for k in a}):
+        for first, second in (("conv5", "redir2"), ("conv6", "redir1")):
+            pa, pd, pr = (x[hg, first] + x[hg, second] for x in (a, d, r))
+            grad = a[hg, first, "grad"]
+            rms = float(grad.pow(2).mean().sqrt())
+            for ix in ((pa > 0) != (pd > 0)).nonzero().tolist():
+                ix = tuple(ix)
+                flips.append({"sum": f"{hg} {first}+{second}", "at": ix, "plain": float(pa[ix]),
+                              "ddp": float(pd[ix]), "float64": float(pr[ix]),
+                              "grad_over_rms": max(abs(float(grad[ix])),
+                                                   abs(float(d[hg, first, "grad"][ix]))) / rms})
+    return flips
+
+
+def batch_norm_layer_agreement(bn_inputs: dict, dp) -> dict:
+    """Phase 11 (c)'s float32 layer check: each BatchNorm of the step, on the
+    input it saw in the plain float32 step and a seeded output gradient,
+    through ``_GlobalBatchNorm`` over the group ``dp`` and through PyTorch's
+    training BatchNorm (cuDNN), each against the float64 BatchNorm of the
+    same input.  The output, the batch mean and biased variance and the
+    gradients of the input, weight and bias: ``_GlobalBatchNorm``'s worst
+    relative L2 over the layers is held to ``BN_LAYER_TOL``, PyTorch's is
+    recorded beside it."""
+    import torch.nn.functional as F
+
+    from diffuvolume_tpu_torch.models.layers import _GlobalBatchNorm
+
+    gen = torch.Generator(device=next(iter(bn_inputs.values()))[1].device).manual_seed(9)
+    keys = ("y", "mean", "var", "gx", "gw", "gb")
+    worst = {"global": dict.fromkeys(keys, 0.0), "torch": dict.fromkeys(keys, 0.0)}
+    for name, (m, x) in bn_inputs.items():
+        dims = [0, *range(2, x.dim())]
+        gy = torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
+        outs = {}
+        for form, dtype in (("global", torch.float32), ("torch", torch.float32),
+                            ("float64", torch.float64)):
+            xi = x.to(dtype).clone().requires_grad_()
+            w = m.weight.detach().to(dtype).requires_grad_()
+            b = m.bias.detach().to(dtype).requires_grad_()
+            if form == "global":
+                y, mean, var = _GlobalBatchNorm.apply(xi, w, b, m.eps, dp.sum)
+            else:
+                y = F.batch_norm(xi, None, None, w, b, True, 0.0, m.eps)
+                var, mean = torch.var_mean(xi.detach(), dims, unbiased=False)
+            y.backward(gy.to(dtype))
+            outs[form] = dict(y=y.detach(), mean=mean.detach(), var=var.detach(), gx=xi.grad,
+                              gw=w.grad, gb=b.grad)
+        for form in ("global", "torch"):
+            for k in keys:
+                worst[form][k] = max(worst[form][k], rel_l2(outs[form][k], outs["float64"][k]))
+    log(f"  float32 BatchNorm layers ({len(bn_inputs)}, the plain float32 step's inputs) against "
+        f"float64, worst relative L2, _GlobalBatchNorm over NCCL / PyTorch's: " + ", ".join(
+            f"{k} {worst['global'][k]:.2e} / {worst['torch'][k]:.2e}" for k in keys)
+        + f" (tol {BN_LAYER_TOL:g})")
+    bad = [k for k in keys if worst["global"][k] > BN_LAYER_TOL]
+    if bad:
+        raise AssertionError(f"_GlobalBatchNorm in float32 disagrees with float64: {bad}")
+    return worst
+
+
+def ddp_step_agreement(dev) -> dict:
+    """Phase 11 (c): one ACV SceneFlow step through ``parallel/ddp.py`` at
+    world size 1 over NCCL (BatchNorm over the global batch, the loss's
+    count and the gradients summed over the ranks) against the plain step,
+    both on the card, at phase 10 (b)'s shapes, weights and draws (the
+    ground truth's valid counts unequal by row), without TF32, in float64
+    and float32 with phase 10 (b)'s tolerances.  Float64: every quantity of
+    the two steps.  Float32: the loss, the statistics and the parameters
+    after Adam; the gradients are recorded (worst and median leaf, each
+    step's against the float64 step's beside them): a ReLU whose input lies
+    within rounding of 0 takes the other branch in one step (one element of
+    the 32768 in an ACV hourglass's decoder sum at these weights and draws,
+    PERF.md §6, PR 13) and moves every gradient behind it in the backward
+    by up to 4.4e-2.  ``_GlobalBatchNorm``'s float32 numerics are held by
+    ``batch_norm_layer_agreement`` on every BatchNorm's input of the step.
+    The collectives are counted: BatchNorm's sums, the loss's count, the
+    gradients."""
+    import torch.distributed as dist
+
+    from diffuvolume_tpu_torch.eval.pipeline import float32_exact
+    from diffuvolume_tpu_torch.models.acv import ACVNet
+    from diffuvolume_tpu_torch.models.layers import _FlaxRunningStats
+    from diffuvolume_tpu_torch.parallel import ddp
+    from diffuvolume_tpu_torch.tools.random_weights import (calibrate_heads, random_acv,
+                                                            tame_residual_branches)
+    from diffuvolume_tpu_torch.train.loop import TrainState, make_optimizer, make_train_step
+    from diffuvolume_tpu_torch.train.lr import milestone_lr_schedule
+
+    b, h, w, md = TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_DISP
+    g = torch.Generator().manual_seed(5)
+    left = torch.randn((b, h, w, 3), generator=g) * 0.3
+    right = torch.roll(left, -3, dims=2)
+    gt = torch.rand((b, h, w), generator=g) * (md + 8) + 0.5
+    gt[:, :, :3] = 0.0
+    gt[1, :, :11] = 0.0  # unequal valid counts by row
+    t = torch.randint(0, 1000, (1,), generator=g).expand(b)
+    noise = torch.randn((b, md // 4, h // 4, w // 4), generator=g)
+    src = tame_residual_branches(random_acv(md, True, torch.Generator().manual_seed(11)))
+    calibrate_heads(src, left, right)
+    calls = {"all_reduce": 0}
+    real = dist.all_reduce
+
+    def counted(*a, **k):
+        calls["all_reduce"] += 1
+        return real(*a, **k)
+
+    dp = ddp.init(0, 1, dev, f"tcp://localhost:{ddp.free_port()}")
+    runs, bn_inputs, sums = {}, {}, {}
+    try:
+        for dtype in (torch.float64, torch.float32):
+            for label in ("plain", "ddp"):
+                model = ACVNet(md, True)
+                model.load_state_dict(src.state_dict())
+                model = model.to(dev, dtype).train()
+                hooks = decoder_sum_hooks(model, sums.setdefault((label, dtype), {}))
+                if label == "ddp":
+                    ddp.sync_batch_norm(model, dp)
+                    dp.broadcast_parameters(model)
+                    dist.all_reduce = counted
+                elif dtype == torch.float32:  # each BatchNorm's input, for the layer check
+                    hooks += [m.register_forward_pre_hook(
+                        lambda m, i, k=k: bn_inputs.__setitem__(k, (m, i[0].detach().clone())))
+                        for k, m in model.named_modules() if isinstance(m, _FlaxRunningStats)]
+                state = TrainState(model, make_optimizer(model),
+                                   milestone_lr_schedule(1e-3, "10:2", 1))
+                batch = {"left": left.to(dev, dtype), "right": right.to(dev, dtype),
+                         "disp_gt": gt.to(dev, dtype)}
+                try:
+                    with float32_exact(model):
+                        res = make_train_step(model, dp=dp if label == "ddp" else None)(
+                            state, batch, t=t.to(dev), noise=noise.to(dev, dtype))
+                finally:
+                    dist.all_reduce = real
+                    for hk in hooks:
+                        hk.remove()
+                runs[label, dtype] = (model, float(res["loss"]))
+        layers = batch_norm_layer_agreement(bn_inputs, dp)
+    finally:
+        ddp.shutdown()
+
+    def gaps(par, plain, ref) -> dict:
+        (q, q_loss), (p, p_loss), (r, _) = par, plain, ref
+        qp, pp, rp = dict(q.named_parameters()), dict(p.named_parameters()), dict(
+            r.named_parameters())
+        tiny = VANISH * max(float(x.grad.norm()) for x in rp.values())
+        out = dict(loss=abs(q_loss / p_loss - 1), stat=0.0, param=0.0, grad_ddp_vs_float64=0.0,
+                   grad_plain_vs_float64=0.0)
+        per_leaf = {}
+        for k, x in rp.items():
+            if float(x.grad.norm()) <= tiny:
+                if float(qp[k].grad.norm()) > tiny * 1e3:
+                    raise AssertionError(f"{k}: vanishing in the plain step, not through DDP")
+                continue
+            per_leaf[k] = rel_l2(qp[k].grad, pp[k].grad)
+            out["grad_ddp_vs_float64"] = max(out["grad_ddp_vs_float64"], rel_l2(qp[k].grad, x.grad))
+            out["grad_plain_vs_float64"] = max(out["grad_plain_vs_float64"],
+                                               rel_l2(pp[k].grad, x.grad))
+            resolved = pp[k].grad.abs() > RESOLVE * pp[k].grad.pow(2).mean().sqrt()
+            out["param"] = max(out["param"], rel_l2(qp[k].detach()[resolved],
+                                                    pp[k].detach()[resolved]))
+        out["grad_leaf"] = max(per_leaf, key=per_leaf.get)
+        out["grad"] = per_leaf[out["grad_leaf"]]
+        out["grad_median"] = float(np.median(list(per_leaf.values())))
+        qs, ps = q.state_dict(), p.state_dict()
+        for k, v in ps.items():
+            if k.endswith(("running_mean", "running_var")):
+                out["stat"] = max(out["stat"], rel_l2(qs[k], v))
+        return out
+
+    ref = runs["plain", torch.float64]
+    out = {"float64": gaps(runs["ddp", torch.float64], ref, ref),
+           "float32": gaps(runs["ddp", torch.float32], runs["plain", torch.float32], ref)}
+    n_bn = sum(isinstance(m, _FlaxRunningStats) for m in runs["ddp", torch.float64][0].modules())
+    for tag, worst in out.items():
+        tol = TRAIN_TOL[tag]
+        held = ("loss", "stat", "param") + (("grad",) if tag == "float64" else ())
+        log(f"  ACV train step through parallel/ddp.py at world size 1 (NCCL) against the "
+            f"plain step, {tag}: loss {worst['loss']:.2e} (tol {tol['loss']:g}), gradients "
+            f"worst leaf {worst['grad']:.2e} ({worst['grad_leaf']}), median leaf "
+            f"{worst['grad_median']:.2e} (" + (f"tol {tol['grad']:g}" if tag == "float64" else
+                                                "recorded: a ReLU's mask") + "; against the "
+            f"float64 plain step: DDP {worst['grad_ddp_vs_float64']:.2e}, plain "
+            f"{worst['grad_plain_vs_float64']:.2e}), BatchNorm statistics {worst['stat']:.2e} "
+            f"(tol {tol['stat']:g}), parameters after Adam {worst['param']:.2e} "
+            f"(tol {tol['param']:g})")
+        bad = [k for k in held if worst[k] > tol[k]]
+        if bad:
+            raise AssertionError(f"the {tag} data-parallel step at world size 1 disagrees with "
+                                 f"the plain one: {bad}")
+    out["batch_norm_layers"] = layers
+    out["float32"]["relu_flips"] = flips = relu_flips(sums)
+    log(f"  ReLU flips between the two float32 steps in the hourglasses' decoder sums: "
+        f"{len(flips)}" + "".join(
+            f"; {f['sum']} at {f['at']}: plain {f['plain']:.3e}, DDP {f['ddp']:.3e}, float64 "
+            f"{f['float64']:.3e}, its gradient {f['grad_over_rms']:.1f}× the sum's gradient's RMS"
+            for f in flips[:4]))
+    out["all_reduce_calls"], out["batch_norms"] = calls["all_reduce"], n_bn
+    log(f"  {calls['all_reduce']} all-reduces in the two data-parallel steps over {n_bn} "
+        f"BatchNorms")
+    if calls["all_reduce"] < 2 * (3 * n_bn + 2):
+        raise AssertionError(f"{calls['all_reduce']} all-reduces: the data-parallel step skipped "
+                             f"collectives ({n_bn} BatchNorms)")
+    return out
+
+
+def train_profile() -> dict:
+    """Phase 11 (d): ``tools/bench_train.py --profile``, the ACV SceneFlow
+    step at 256×512, batch 4, float32, by kernel group: the plain step, then
+    the same step through ``parallel/ddp.py`` at world size 1 (``--ddp``)."""
+    from diffuvolume_tpu_torch.tools import bench_train
+
+    out = {}
+    for label, extra in (("plain", []), ("ddp", ["--ddp"])):
+        rec = out[label] = bench_train.main(["--steps", str(BENCH_TRAIN_STEPS), "--profile",
+                                            *extra])
+        if not (rec["profile"]["device_ms"] > 0 and math.isfinite(rec["last_loss"])):
+            raise AssertionError(f"bench_train {label}: {rec}")
+    plain, dp = out["plain"], out["ddp"]
+    log(f"  the training step through parallel/ddp.py at world size 1 against the plain step: "
+        f"{dp['step_ms_median']:.2f} / {plain['step_ms_median']:.2f} ms (median), peak memory "
+        f"{dp['peak_mem_bytes'] / 2**30:.3f} / {plain['peak_mem_bytes'] / 2**30:.3f} GiB, "
+        f"device busy {dp['profile']['device_ms']:.2f} / {plain['profile']['device_ms']:.2f} ms "
+        f"a step; by group (ddp / plain ms):")
+    groups = dict.fromkeys([*plain["profile"]["groups_ms"], *dp["profile"]["groups_ms"]])
+    for g in groups:
+        log(f"    {dp['profile']['groups_ms'].get(g, 0.0):10.3f} "
+            f"{plain['profile']['groups_ms'].get(g, 0.0):10.3f}  {g}")
+    return out
+
+
+def phase_11(dev, counters: dict, runs: dict, card: str) -> dict:
+    """Phase 11: (a) the quirk path at full width (into ``runs``; its
+    launches a pair asserted equal to phase 8's folded path's), (b) card
+    against CPU, (c) DDP at world size 1, (d) the training step's
+    profile."""
+    t0 = time.perf_counter()
+    log(f"   (a) IGEV quirk=True at {IGEV_H}×{IGEV_W}, {IGEV_ITERS} GRU iterations, folded, "
+        f"bfloat16; {card}")
+    quirk = runs["igev_quirk_folded"] = igev_path(dev, counters, packed=True,
+                                                  pairs=QUIRK_TIMED_PAIRS, quirk=True)
+    if quirk["launches_per_pair"] != runs["igev_folded"]["launches_per_pair"]:
+        raise AssertionError(f"quirk launches {quirk['launches_per_pair']} != phase 8's "
+                             f"{runs['igev_folded']['launches_per_pair']}")
+    log("   (b) IGEV quirk=True on the card against the CPU")
+    out = {"quirk_agreement": igev_quirk_agreement(dev)}
+    log("   (c) one ACV train step through parallel/ddp.py at world size 1 (NCCL)")
+    out["ddp"] = ddp_step_agreement(dev)
+    log("   (d) tools/bench_train.py --profile, plain and --ddp")
+    out["bench_train"] = train_profile()
+    out["elapsed_s"] = time.perf_counter() - t0
+    log(f"  phase 11: {out['elapsed_s']:.1f} s")
+    return out
+
+
 KERNEL_META = {  # name → (source, TPU kernel file:line, its function)
     "fused_head": ("diffuvolume_tpu_torch/csrc/fused_head.cu",
                    "diffuvolume_tpu/ops/pallas/fused_head.py:83", "fused_upsample_softargmin"),
@@ -2732,6 +3082,9 @@ def main() -> int:
     acv_train = training["recipes"]["acv_sceneflow"]
     runs["acv_train_cli"] = dict(launches=acv_train["launches"], launches_per_pair={
         k: v / 1 for k, v in acv_train["launches"].items()})
+    log("== 11. IGEV's reference-faithful evaluation (quirk=True), data parallelism, the "
+        "training step's profile")
+    later = phase_11(dev, counters, runs, card)
 
     kernels = []
     for name, (source, replaces, tpu_fn) in KERNEL_META.items():
@@ -2760,7 +3113,8 @@ def main() -> int:
                    "build_s": build_s, "kernels": kernels, "kernel_checks": checks,
                    "ncdhw_volume_checks": {k: ncdhw[k] for k in ("concat_volume", "dhw_mul")},
                    "agreement": agreement, "runs": runs, "census_against": census,
-                   "training": training, "elapsed_s": elapsed}, f, indent=1)
+                   "training": training, "phase_11": later, "elapsed_s": elapsed}, f,
+                  indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

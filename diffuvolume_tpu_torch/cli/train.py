@@ -17,6 +17,17 @@ a checkpoint (``train/checkpoint.py``) that ``cli/evaluate.py`` loads as it
 loads a reference checkpoint, and, with ``--eval_freq``, the two-model DDIM
 evaluation on the port's kernels.  Volume sharding (``--volume_axis`` above
 1) is not ported.
+
+Under ``torchrun --nproc_per_node N`` it trains on the JAX CLI's ``data``
+axis (``parallel/ddp.py``): ``--batch_size`` is the global batch, each rank
+takes its contiguous rows of every batch the single-process loader yields,
+BatchNorm and the loss's means are taken over the global batch, the
+gradients are summed over the ranks before the clip and the optimiser, and
+only rank 0 prints, logs and writes checkpoints; the step equals the
+single-process step at the same global batch.  ``--eval_freq``'s
+evaluation splits the test images over the ranks and sums their D1 and
+EPE.  Each rank runs on
+``cuda:LOCAL_RANK`` (NCCL), or with ``--device cpu`` on the CPU (gloo).
 """
 
 from __future__ import annotations
@@ -25,7 +36,6 @@ import argparse
 import dataclasses
 import time
 
-import numpy as np
 import torch
 
 from diffuvolume_tpu_torch.config import (
@@ -38,6 +48,7 @@ from diffuvolume_tpu_torch.config import (
 from diffuvolume_tpu_torch.data.loader import DataLoader, prefetch_to_device
 from diffuvolume_tpu_torch.data.zoo import fetch_dataset
 from diffuvolume_tpu_torch.models import build_model
+from diffuvolume_tpu_torch.parallel import ddp
 from diffuvolume_tpu_torch.train.checkpoint import (
     load_checkpoint,
     partial_warm_start,
@@ -148,9 +159,13 @@ def build_experiment_config(args):
     )
 
 
-def _epoch_eval(args, recipe, model, baseline, dataset_cls, dev):
+def _epoch_eval(args, recipe, model, baseline, dataset_cls, dev, dp=None):
     """The two-model DDIM evaluation with the in-training weights (eval
-    mode, the port's kernels); returns mean ``(D1, EPE)``."""
+    mode, the port's kernels); returns mean ``(D1, EPE)`` over the test
+    images.  Image ``i`` draws from a generator seeded with ``i``.  With
+    ``dp`` each rank evaluates images ``rank, rank + world_size, …`` and the
+    sums are taken over the ranks: every rank returns the single-process
+    means."""
     from diffuvolume_tpu_torch.cli.evaluate import BACKBONES
     from diffuvolume_tpu_torch.eval.metrics import metrics_batch
 
@@ -159,28 +174,33 @@ def _epoch_eval(args, recipe, model, baseline, dataset_cls, dev):
     test_ds = dataset_cls(args.datapath, list_filename=args.testlist, training=False)
     n = len(test_ds) if args.eval_max_images == 0 else min(args.eval_max_images, len(test_ds))
     kw = {"iters": args.iters} if recipe == "kitti15" else {}
-    generator = torch.Generator(device=dev).manual_seed(0)
-    d1s, epes = [], []
+    first, stride = (0, 1) if dp is None else (dp.rank, dp.world_size)
+    sums = torch.zeros(3, dtype=torch.float64, device=dev)  # D1, EPE, images
     model.eval()
     try:
-        for i in range(n):
+        for i in range(first, n, stride):
             s = test_ds[i]
             left = torch.from_numpy(s["left"])[None].to(dev)
             right = torch.from_numpy(s["right"])[None].to(dev)
             final, _ = infer(baseline, model, left, right, cfg, device=dev,
-                             generator=generator, **kw)
+                             generator=torch.Generator(device=dev).manual_seed(i), **kw)
             gt = torch.from_numpy(s["disp_gt"])[None].to(dev)
             m = metrics_batch(final, gt, (gt > 0) & (gt < model.max_disp))
-            d1s.append(float(m["D1"][0]))
-            epes.append(float(m["EPE"][0]))
+            sums += torch.stack([m["D1"][0].double(), m["EPE"][0].double(), sums.new_ones(())])
     finally:
         model.train()
-    return float(np.mean(d1s)), float(np.mean(epes))
+    if dp is not None:
+        sums = dp.sum(sums)
+    d1, epe, count = sums.tolist()
+    return d1 / count, epe / count
 
 
-def build_state(args, recipe: str, cfg: ExperimentConfig, steps_per_epoch: int, dev):
+def build_state(args, recipe: str, cfg: ExperimentConfig, steps_per_epoch: int, dev,
+                dp: ddp.DataParallel | None = None):
     """The model (the JAX package's initialisation drawn with ``--seed``,
-    then ``--init_from``), its optimiser and schedule, and the train step."""
+    then ``--init_from``), its optimiser and schedule, and the train step;
+    with ``dp``, BatchNorm over the global batch and rank 0's parameters on
+    every rank."""
     model_kw = {"max_disp": cfg.model.max_disp}
     if args.stage != "full":
         if recipe != "sceneflow":
@@ -194,13 +214,17 @@ def build_state(args, recipe: str, cfg: ExperimentConfig, steps_per_epoch: int, 
         if donor is None:
             raise FileNotFoundError(f"no checkpoint in {cfg.loadckpt}")
         model.load_state_dict(partial_warm_start(model.state_dict(), donor["model"]))
-        print(f"warm-started from {cfg.loadckpt}")
+        if dp is None or dp.is_main:
+            print(f"warm-started from {cfg.loadckpt}")
     model = model.to(dev).train()
+    if dp is not None:
+        ddp.sync_batch_norm(model, dp)
+        dp.broadcast_parameters(model)
 
     total = cfg.optim.epochs * steps_per_epoch
     if recipe == "kitti15":
         schedule = one_cycle_schedule(cfg.optim.lr, total)
-        step = make_igev_train_step(model, iters=args.iters, bf16=cfg.optim.bf16)
+        step = make_igev_train_step(model, iters=args.iters, bf16=cfg.optim.bf16, dp=dp)
     else:
         schedule = milestone_lr_schedule(cfg.optim.lr, cfg.optim.lrepochs, steps_per_epoch)
         weights = (
@@ -209,7 +233,7 @@ def build_state(args, recipe: str, cfg: ExperimentConfig, steps_per_epoch: int, 
             else SCENEFLOW_WEIGHTS_FREEZE_ATTN if args.stage == "freeze_attn"
             else SCENEFLOW_WEIGHTS
         )
-        step = make_train_step(model, weights, bf16=cfg.optim.bf16)
+        step = make_train_step(model, weights, bf16=cfg.optim.bf16, dp=dp)
     optimizer = make_optimizer(model, cfg.optim.optimizer, cfg.optim.weight_decay)
     return TrainState(model, optimizer, schedule, cfg.optim.grad_clip), step
 
@@ -217,18 +241,36 @@ def build_state(args, recipe: str, cfg: ExperimentConfig, steps_per_epoch: int, 
 def run(args, on_start=None, on_step=None) -> dict:
     """Train as ``main`` does.  ``on_start(state)`` is called before the
     first step, ``on_step(state, metrics)`` after each.  Returns ``{"state",
-    "best_d1", "losses"}``."""
+    "best_d1", "losses", "evals"}`` (``evals``: each evaluation's ``(D1,
+    EPE)``).  Started by ``torchrun``, the process joins its
+    data-parallel group here and leaves it on return."""
     recipe, cfg = build_experiment_config(args)
     if cfg.parallel.volume_axis != 1:
         raise NotImplementedError(
             "--volume_axis > 1 (cost-volume sharding, parallel/ in the JAX package) is not "
-            "ported; the port trains on one card")
-    dev = resolve_device(args.device)
+            "ported; the port splits only the batch over ranks")
+    dp = ddp.from_env(args.device)
+    try:
+        return _train(args, recipe, cfg, dp, on_start, on_step)
+    finally:
+        if dp is not None:
+            ddp.shutdown()
+
+
+def _train(args, recipe, cfg, dp, on_start, on_step) -> dict:
+    main_rank = dp is None or dp.is_main
+    say = print if main_rank else (lambda *a, **k: None)
+    dev = resolve_device(args.device) if dp is None else dp.device
+    if dp is not None and cfg.data.batch_size % dp.world_size:
+        raise ValueError(f"--batch_size {cfg.data.batch_size} does not split over "
+                         f"{dp.world_size} ranks")
     dataset = fetch_dataset(cfg.data.dataset, cfg.data.datapath, training=True,
                             list_filename=cfg.data.trainlist, seed=cfg.seed)
     steps_per_epoch = max(len(dataset) // cfg.data.batch_size, 1)
-    print(f"dataset: {len(dataset)} samples, {steps_per_epoch} steps/epoch")
-    state, train_step = build_state(args, recipe, cfg, steps_per_epoch, dev)
+    say(f"dataset: {len(dataset)} samples, {steps_per_epoch} steps/epoch"
+        + ("" if dp is None else f", {dp.world_size} ranks of "
+           f"{cfg.data.batch_size // dp.world_size}"))
+    state, train_step = build_state(args, recipe, cfg, steps_per_epoch, dev, dp)
 
     start_epoch = 0
     if cfg.resume:
@@ -236,7 +278,7 @@ def run(args, on_start=None, on_step=None) -> dict:
         if restored is not None:
             state.step = restored
             start_epoch = restored // steps_per_epoch
-            print(f"resumed at epoch {start_epoch}")
+            say(f"resumed at epoch {start_epoch}")
 
     baseline = None
     if args.eval_freq > 0:
@@ -244,11 +286,11 @@ def run(args, on_start=None, on_step=None) -> dict:
 
         baseline = load_model(args.eval_baseline_ckpt, _EVAL_WIRING[recipe], False,
                               args.maxdisp, 0, dev)
-    best_d1 = float("inf")
+    best_d1, evals = float("inf"), []
 
     loader = DataLoader(dataset, args.batch_size, shuffle=args.shuffle,
                         num_workers=args.num_workers, drop_last=True, seed=args.seed)
-    logger = Logger(cfg.logdir, print_freq=args.summary_freq)
+    logger = Logger(cfg.logdir, print_freq=args.summary_freq) if main_rank else None
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     losses = []
     if on_start is not None:
@@ -258,6 +300,8 @@ def run(args, on_start=None, on_step=None) -> dict:
         t0 = time.time()
         batches = ({k: v for k, v in b.items() if k not in ("filename", "filenames")}
                    for b in loader)
+        if dp is not None:
+            batches = (dp.shard(b) for b in batches)
         # Batches land on the card 2 ahead of compute.
         for i, batch in enumerate(prefetch_to_device(batches, dev, size=2)):
             metrics = train_step(state, batch, generator)
@@ -266,7 +310,7 @@ def run(args, on_start=None, on_step=None) -> dict:
             losses.append(loss)
             if on_step is not None:
                 on_step(state, metrics)
-            if i % args.summary_freq == 0:
+            if i % args.summary_freq == 0 and main_rank:
                 print(f"epoch {epoch} step {i}/{steps_per_epoch} loss {loss:.3f} "
                       f"EPE {float(metrics['epe']):.3f} ({(time.time() - t0) / (i + 1):.2f}s/it)")
                 logger.write_dict({"train/loss": loss, "train/epe": metrics["epe"]},
@@ -278,17 +322,22 @@ def run(args, on_start=None, on_step=None) -> dict:
                 logger.write_images({"train/disp_est": est, "train/disp_gt": gt,
                                      "train/errormap": disp_error_image(est, gt)},
                                     step=state.step)
-        print(f"epoch {epoch} done: mean loss {meter.mean():.4f}")
-        save_checkpoint(cfg.logdir, state.step, state.model, state.optimizer)
+        say(f"epoch {epoch} done: mean loss {meter.mean():.4f}")
+        if main_rank:
+            save_checkpoint(cfg.logdir, state.step, state.model, state.optimizer)
         if baseline is not None and (epoch + 1) % args.eval_freq == 0:
-            d1, epe = _epoch_eval(args, recipe, state.model, baseline, type(dataset), dev)
+            d1, epe = _epoch_eval(args, recipe, state.model, baseline, type(dataset), dev, dp)
+            evals.append((d1, epe))
             tag = ""
             if d1 < best_d1:
                 best_d1 = d1
                 tag = "  (best)"
-            print(f"epoch {epoch} eval: D1 {d1:.4f} EPE {epe:.4f}{tag}")
-    logger.close()
-    return {"state": state, "best_d1": best_d1, "losses": losses}
+            say(f"epoch {epoch} eval: D1 {d1:.4f} EPE {epe:.4f}{tag}")
+        if dp is not None:
+            dp.barrier()
+    if logger is not None:
+        logger.close()
+    return {"state": state, "best_d1": best_d1, "losses": losses, "evals": evals}
 
 
 def main(argv=None) -> dict:

@@ -231,4 +231,9 @@ KITTI15_DDIM = DDIMConfig(
     hard_clamp_tau=3.0,
     replace_mode="qsample",
     ensemble_weights=(0.6, 0.1, 0.3),
+    # The reference clips its re-encode input to 47 full-res px
+    # (igev_stereo_ddim.py:268) because its eval loop tracks a residual
+    # disparity; igev_ddim_inference(quirk=True) passes that re-encode
+    # (eval/pipeline.py sampler_args).  The default absolute rollout
+    # takes the clamp → ↓4 → /4 re-encode.
 )

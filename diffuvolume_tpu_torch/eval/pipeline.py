@@ -117,16 +117,37 @@ def _inputs(models, folded: type, packed: bool, left, right, device):
     return dev, models, left, right
 
 
-def _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
-            noise_source, out_hw):
-    sched = make_schedule(1000, device=dev)
-
-    def denoise_fn(latent, t):
-        return ddim_model.denoise(entry, latent, t, out_hw)
-
-    final, _ = ddim_sample(sched, cfg, denoise_fn, baseline_disp, baseline_latent,
-                           generator=generator, noise_source=noise_source)
+def _sample(sampling: dict, baseline_disp, baseline_latent, cfg, dev, generator,
+            noise_source):
+    final, _ = ddim_sample(make_schedule(1000, device=dev), cfg, baseline_disp=baseline_disp,
+                           baseline_latent=baseline_latent, generator=generator,
+                           noise_source=noise_source, **sampling)
     return final, baseline_disp.float()
+
+
+# The reference-faithful IGEV eval clamps its re-encode to [0, 47] whatever
+# max_disp is (the reference's igev_stereo_ddim.py:266-276 hard-codes it).
+REF_REENCODE_MAX = 47.0
+
+
+def sampler_args(ddim_model, entry, out_hw: tuple[int, int], quirk: bool = False) -> dict:
+    """``ddim_sample``'s model arguments for a pipeline's DDIM model and
+    entry: ``denoise_fn``, the model's ``denoise`` at ``out_hw``; with
+    ``quirk`` (IGEV's reference-faithful eval, an ``IGEVEntry``) the call
+    ``denoise_ref`` carrying ``coords1`` from ``init_disp``, and the
+    reference's re-encode of the residual (clamp to ``[0, 47]`` px, bilinear
+    ↓4, ÷4, plus ``init_disp``, clamp to ``[0, 47]`` again)."""
+    if not quirk:
+        return dict(denoise_fn=lambda latent, t: ddim_model.denoise(entry, latent, t, out_hw))
+    init_disp = entry.enc.init_disp
+    h4, w4 = init_disp.shape[1:]
+
+    def reencode_fn(disp):
+        dq = resize_bilinear(disp.clamp(0.0, REF_REENCODE_MAX), (h4, w4), 1, 2) / 4.0
+        return (dq + init_disp).clamp(0.0, REF_REENCODE_MAX)
+
+    return dict(denoise_fn=lambda latent, t, c1: ddim_model.denoise_ref(entry, latent, t, c1),
+                reencode_fn=reencode_fn, denoise_aux_init=init_disp)
 
 
 @torch.no_grad()
@@ -182,8 +203,8 @@ def acv_ddim_inference(
     with float32_exact(baseline_model, ddim_model):
         baseline_disp, baseline_latent, entry = acv_prep(
             baseline_model, ddim_model, left, right, cfg, packed)
-        return _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
-                       noise_source, (left.shape[1], left.shape[2]))
+        return _sample(sampler_args(ddim_model, entry, (left.shape[1], left.shape[2])),
+                       baseline_disp, baseline_latent, cfg, dev, generator, noise_source)
 
 
 @torch.no_grad()
@@ -233,22 +254,23 @@ def pcw_ddim_inference(
     with float32_exact(baseline_model, ddim_model):
         baseline_disp, baseline_latent, entry = pcw_prep(
             baseline_model, ddim_model, left, right, cfg, packed)
-        return _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
-                       noise_source, (left.shape[1], left.shape[2]))
+        return _sample(sampler_args(ddim_model, entry, (left.shape[1], left.shape[2])),
+                       baseline_disp, baseline_latent, cfg, dev, generator, noise_source)
 
 
 @torch.no_grad()
 def igev_prep(baseline_model: IGEVStereo | FoldedIGEV, ddim_model: IGEVStereo | FoldedIGEV,
               left: torch.Tensor, right: torch.Tensor, cfg: DDIMConfig = KITTI15_DDIM,
-              packed: bool = True, iters: int = 32):
+              packed: bool = True, iters: int = 32, quirk: bool = False):
     """Pass 1 and the sampler's inputs (``_igev_stages``): the baseline's
     encode, ``iters`` GRU updates and upsampling; the DDIM model's encode
-    (once) and lookup pyramid (band mode).  Returns ``(baseline_disp
-    (B,H,W), baseline_latent (B,D,H4,W4), IGEVEntry)``."""
+    (once) and lookup pyramid (band mode; with ``quirk`` the low band the
+    reference-faithful rollout samples).  Returns ``(baseline_disp (B,H,W),
+    baseline_latent (B,D,H4,W4), IGEVEntry)``."""
     baseline_model, ddim_model = (_on_path(m, packed, FoldedIGEV)
                                   for m in (baseline_model, ddim_model))
     baseline_disp = igev_forward(baseline_model, left, right, iters)
-    enc, pyramid = igev_encode(ddim_model, left, right)
+    enc, pyramid = igev_encode(ddim_model, left, right, "lowband" if quirk else "band")
     baseline_latent = _baseline_latent(baseline_disp, cfg, left.shape[1] // 4,
                                        left.shape[2] // 4)
     return baseline_disp, baseline_latent, IGEVEntry(enc, pyramid, iters)
@@ -267,6 +289,7 @@ def igev_ddim_inference(
     noise_source: dict | None = None,
     packed: bool = True,
     iters: int = 32,
+    quirk: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two-pass DiffuVolume inference for the IGEV-Stereo backbone (the
     reference's KITTI15 contract, ``evaluate_stereo.py:88-99``: the frozen
@@ -277,7 +300,12 @@ def igev_ddim_inference(
     Arguments as ``acv_ddim_inference``'s, with ``IGEVStereo``s
     (``diffusion`` off / on) or their ``fold_igev`` results, and RAW images
     in [0, 255].  The folded path needs H, W and ``max_disp`` to be multiples
-    of 32; it raises on any other shape.
+    of 32; it raises on any other shape.  ``quirk=True`` evaluates with the
+    reference's own semantics, for the released checkpoints: the residual
+    rollout carrying ``coords1`` across the DDIM steps
+    (``igev_rollout_ref_eval``, the ``lowband`` correlation), the noise's
+    reshape scramble, the re-encode offset by ``init_disp``
+    (``sampler_args``); the baseline pass is the same.
 
     Returns ``(final_disp (B,H,W), baseline_disp (B,H,W))``, float32.
     """
@@ -285,9 +313,9 @@ def igev_ddim_inference(
         (baseline_model, ddim_model), FoldedIGEV, packed, left, right, device)
     with float32_exact(baseline_model, ddim_model):
         baseline_disp, baseline_latent, entry = igev_prep(
-            baseline_model, ddim_model, left, right, cfg, packed, iters)
-        return _sample(ddim_model, entry, baseline_disp, baseline_latent, cfg, dev, generator,
-                       noise_source, (left.shape[1], left.shape[2]))
+            baseline_model, ddim_model, left, right, cfg, packed, iters, quirk)
+        return _sample(sampler_args(ddim_model, entry, (left.shape[1], left.shape[2]), quirk),
+                       baseline_disp, baseline_latent, cfg, dev, generator, noise_source)
 
 
 @torch.no_grad()

@@ -204,6 +204,9 @@ class FoldedIGEV:
     def denoise(self, entry, latent: torch.Tensor, t: torch.Tensor, out_hw: tuple[int, int]):
         return self.model.denoise(entry, latent, t, out_hw)
 
+    def denoise_ref(self, entry, latent: torch.Tensor, t: torch.Tensor, coords1: torch.Tensor):
+        return self.model.denoise_ref(entry, latent, t, coords1)
+
 
 def fold_igev(model: IGEVStereo) -> FoldedIGEV:
     """Fold ``model`` (eval) into a ``FoldedIGEV``."""

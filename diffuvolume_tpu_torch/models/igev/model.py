@@ -2,8 +2,9 @@
 
 Counterpart of ``diffuvolume_tpu/models/igev/model.py`` (``FeatureAtt``,
 ``HourglassGEV``, ``IGEVStereo``, ``igev_encode``, ``igev_rollout`` with
-``test_mode=True`` and ``noise_mode="pixel"``, the eval ``igev_forward``;
-and the training forward, ``igev_forward(..., train=True)``, as
+``test_mode=True`` in both noise modes, ``igev_rollout_ref_eval`` (the
+reference-faithful eval's rollout), the eval ``igev_forward``; and the
+training forward, ``igev_forward(..., train=True)``, as
 ``igev_train_forward``):
 a MobileNetV2 trunk, an 8-group correlation volume aggregated by a
 feature-attended 3-D hourglass into the Geometry Encoding Volume (GEV), a
@@ -49,6 +50,7 @@ from diffuvolume_tpu_torch.models.igev.extractor import (
 from diffuvolume_tpu_torch.models.igev.geometry import (
     GeoPyramid,
     build_geo_pyramid,
+    fold_reference_noise,
     geo_lookup,
     premultiply,
 )
@@ -317,6 +319,16 @@ class IGEVStereo(nn.Module):
         disp = igev_rollout(self, entry.enc, entry.pyramid, entry.iters, latent, t)
         return disp, torch.zeros_like(disp), self.embed_noise(latent, t)
 
+    def denoise_ref(self, entry: IGEVEntry, latent: torch.Tensor, t: torch.Tensor,
+                    coords1: torch.Tensor):
+        """The reference-faithful eval's model call (``quirk=True``):
+        ``igev_rollout_ref_eval`` from the carried ``coords1 (B, H4, W4)``.
+        Returns ``(residual (B, H, W), zeros, transformed (B, D, H4, W4),
+        coords1)``, float32, the sampler's ``denoise_aux_init`` form."""
+        resid_up, coords1 = igev_rollout_ref_eval(self, entry.enc, entry.pyramid, entry.iters,
+                                                  coords1, latent, t)
+        return resid_up, torch.zeros_like(resid_up), self.embed_noise(latent, t), coords1
+
 
 def regress(cost: torch.Tensor) -> torch.Tensor:
     """The initial disparity: softmax over D of the classifier's cost
@@ -330,39 +342,89 @@ def module_of(model) -> IGEVStereo:
     return model if isinstance(model, IGEVStereo) else model.model
 
 
-def igev_encode(model, left: torch.Tensor, right: torch.Tensor) -> tuple[IGEVEncoding, GeoPyramid]:
-    """The encode and the band lookup pyramid (``igev_encode``); ``model`` is
-    an ``IGEVStereo`` (module path) or a ``FoldedIGEV``."""
+def igev_encode(model, left: torch.Tensor, right: torch.Tensor,
+                corr_mode: str = "band") -> tuple[IGEVEncoding, GeoPyramid]:
+    """The encode and the lookup pyramid (``igev_encode``) in ``corr_mode``
+    (``geometry.CORR_MODES``); ``model`` is an ``IGEVStereo`` (module path)
+    or a ``FoldedIGEV``."""
     enc = model.encode(left, right)
-    return enc, build_geo_pyramid(enc.match_l, enc.match_r, enc.gev, module_of(model).corr_levels)
+    return enc, build_geo_pyramid(enc.match_l, enc.match_r, enc.gev,
+                                  module_of(model).corr_levels, corr_mode=corr_mode)
+
+
+def _coords(enc: IGEVEncoding) -> torch.Tensor:
+    b, h4, w4 = enc.init_disp.shape
+    return torch.arange(w4, dtype=torch.float32, device=enc.init_disp.device).expand(b, h4, w4)
 
 
 def igev_rollout(model, enc: IGEVEncoding, pyramid: GeoPyramid, iters: int,
-                 noisy: torch.Tensor | None = None, t: torch.Tensor | None = None) -> torch.Tensor:
-    """The eval GRU loop (``igev_rollout``, ``test_mode=True``, the
-    per-pixel noise mode): ``iters`` updates from the initial disparity,
-    only the last upsampled.  With ``noisy (B, D, H4, W4)`` and ``t (B,)``
-    the latent's transform multiplies the GEV once, before the loop.
-    Returns ``(B, H, W)`` float32."""
+                 noisy: torch.Tensor | None = None, t: torch.Tensor | None = None,
+                 noise_mode: str = "pixel") -> torch.Tensor:
+    """The eval GRU loop (``igev_rollout``, ``test_mode=True``): ``iters``
+    updates from the initial disparity, only the last upsampled.  With
+    ``noisy (B, D, H4, W4)`` and ``t (B,)`` the latent's transform enters
+    the lookups, once per call: ``noise_mode="pixel"`` multiplies it into
+    the GEV per pixel and bin; ``"ref"`` folds it as the reference does
+    (``fold_reference_noise``: the reshape scramble, the noise pooled apart
+    from the GEV) into the lookup's weights.  Returns ``(B, H, W)``
+    float32."""
     m = module_of(model)
-    b, h4, w4 = enc.init_disp.shape
-    coords = torch.arange(w4, dtype=torch.float32,
-                          device=enc.init_disp.device).expand(b, h4, w4)
+    coords = _coords(enc)
+    noise_eff = None
     if noisy is not None:
-        pyramid = premultiply(pyramid, m.embed_noise(noisy, t))
+        noise_mod = m.embed_noise(noisy, t)
+        if noise_mode == "ref":
+            noise_eff = fold_reference_noise(noise_mod, m.corr_levels)
+        elif noise_mode == "pixel":
+            pyramid = premultiply(pyramid, noise_mod)
+        else:
+            raise ValueError(f"noise_mode must be 'pixel' or 'ref', got {noise_mode!r}")
     disp, net_list, mask_feat = enc.init_disp, enc.net_list, None
     for _ in range(iters):
-        geo = geo_lookup(pyramid, disp, coords, m.corr_radius)
+        geo = geo_lookup(pyramid, disp, coords, m.corr_radius, noise_eff)
         net_list, mask_feat, delta = m.update(net_list, enc.inp_list, geo, disp)
         disp = disp + delta
     return m.upsample(disp, mask_feat, enc.stem_2x)
 
 
-def igev_forward(model, left: torch.Tensor, right: torch.Tensor, iters: int = 32) -> torch.Tensor:
+def igev_rollout_ref_eval(model, enc: IGEVEncoding, pyramid: GeoPyramid, iters: int,
+                          coords1: torch.Tensor, noisy: torch.Tensor,
+                          t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference-faithful KITTI15 eval rollout (``igev_rollout_ref_eval``).
+
+    The reference's sampler seeds ``coords0 = coords1 = init_disp``
+    (``igev_stereo_ddim.py:425,313``) and its model iterates on ``flow =
+    coords1 − coords0``: the GEV is sampled at the accumulated residual, the
+    correlation at ``coords1 − flow = init_disp`` (constant), the update
+    block takes the residual, and the step's output is the upsampled
+    residual (``model_predictions:226-265``); ``coords1`` carries over to
+    the next DDIM step.  The noise enters as ``noise_mode="ref"``.
+
+    Args:
+      coords1: ``(B, H4, W4)`` carried state (``init_disp`` at the start).
+      noisy: ``(B, D, H4, W4)`` latent; t: ``(B,)`` timestep.
+
+    Returns ``(resid_up (B, H, W), coords1 (B, H4, W4))``, float32.
+    """
+    m = module_of(model)
+    coords0 = enc.init_disp
+    noise_eff = fold_reference_noise(m.embed_noise(noisy, t), m.corr_levels)
+    c1, net_list, mask_feat = coords1, enc.net_list, None
+    for _ in range(iters):
+        flow = c1 - coords0
+        geo = geo_lookup(pyramid, flow, c1, m.corr_radius, noise_eff)
+        net_list, mask_feat, delta = m.update(net_list, enc.inp_list, geo, flow)
+        c1 = c1 + delta
+    return m.upsample(c1 - coords0, mask_feat, enc.stem_2x), c1
+
+
+def igev_forward(model, left: torch.Tensor, right: torch.Tensor, iters: int = 32,
+                 noisy: torch.Tensor | None = None, t: torch.Tensor | None = None,
+                 noise_mode: str = "pixel", corr_mode: str = "band") -> torch.Tensor:
     """The eval forward (``igev_forward``, ``test_mode=True``): encode, then
     ``iters`` GRU updates, then one upsampling → ``(B, H, W)``."""
-    enc, pyramid = igev_encode(model, left, right)
-    return igev_rollout(model, enc, pyramid, iters)
+    enc, pyramid = igev_encode(model, left, right, corr_mode)
+    return igev_rollout(model, enc, pyramid, iters, noisy, t, noise_mode)
 
 
 @contextlib.contextmanager
@@ -386,9 +448,7 @@ def igev_train_rollout(model: IGEVStereo, enc: IGEVEncoding, pyramid: GeoPyramid
     loop; with ``noisy``/``t`` the latent's training transform
     (``embed_noise_train``) multiplies the GEV once.  Returns ``(iters, B,
     H, W)`` float32."""
-    b, h4, w4 = enc.init_disp.shape
-    coords = torch.arange(w4, dtype=torch.float32,
-                          device=enc.init_disp.device).expand(b, h4, w4)
+    coords = _coords(enc)
     if noisy is not None:
         pyramid = premultiply(pyramid, model.embed_noise_train(noisy, t))
     disp, net_list, ups = enc.init_disp, enc.net_list, []

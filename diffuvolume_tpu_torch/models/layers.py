@@ -1,7 +1,9 @@
 """Building blocks of ACVNet and PCWNet in the reference's layout and module
 names.
 
-Counterpart of the ACV and PCW subset of ``diffuvolume_tpu/models/layers.py``.
+Counterpart of the ACV and PCW subset of ``diffuvolume_tpu/models/layers.py``,
+and of its two factorised 3-D convs no path calls (``SeparableConvBN3d``,
+``DepthwiseConvBN3d``).
 The modules are built from ``nn.Sequential`` containers with the reference's
 indices (``convbn`` = ``Sequential(conv, bn)``, activations as their own
 entries), so a reference state dict loads by name.  ``ACTS`` names the
@@ -42,9 +44,16 @@ class _FlaxRunningStats:
     unbiased one, ``n/(n−1)`` larger).  Normalisation uses the batch
     statistics in training and the running ones in eval, as PyTorch's."""
 
+    # Set by ``parallel/ddp.py:sync_batch_norm``: a sum over the
+    # data-parallel ranks; the training statistics are then the global
+    # batch's.
+    reduce_stats = None
+
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if self.reduce_stats is not None:
+            return self._global_forward(x)
         n = x.numel() // x.shape[1]
         old = self.running_var.detach().clone()
         y = super().forward(x)
@@ -55,6 +64,66 @@ class _FlaxRunningStats:
         with torch.no_grad():
             self.running_var.data.mul_(n - 1).add_(old, alpha=1.0 - self.momentum).div_(n)
         return y
+
+
+    def _global_forward(self, x):
+        """Training BatchNorm over the global batch (``_GlobalBatchNorm``);
+        flax's running update from the global mean and biased variance."""
+        weight = self.weight if self.affine else None
+        bias = self.bias if self.affine else None
+        y, mean, var = _GlobalBatchNorm.apply(x, weight, bias, self.eps, self.reduce_stats)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """BatchNorm's training forward and backward with every batch sum
+    taken across the data-parallel ranks by ``reduce`` (a sum over the
+    ranks, outside autograd), as ``nn.SyncBatchNorm`` takes them: the count
+    and the channel sums, then the sums of squares around the global mean;
+    in the backward the sums of ``dy`` and ``dy·x̂``, so that the input's
+    gradient is the single-process formula over the global batch.  The
+    affine parameters' gradients stay local (the ranks' gradients are
+    summed after the backward).  Float32 (float64 stays).  Returns ``(y,
+    mean, biased variance)``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, reduce):
+        dims = [0, *range(2, x.dim())]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        local = torch.cat([xf.sum(dims), xf.new_full((1,), x.numel() // x.shape[1])])
+        total = reduce(local)
+        n = total[-1]
+        mean = total[:-1] / n
+        xc = xf - mean.view(shape)
+        var = reduce((xc * xc).sum(dims)) / n
+        invstd = torch.rsqrt(var + eps)
+        xhat = xc * invstd.view(shape)
+        y = xhat if weight is None else xhat * weight.view(shape) + bias.view(shape)
+        ctx.save_for_backward(xhat, invstd, weight)
+        ctx.n, ctx.reduce, ctx.dtype = n, reduce, x.dtype
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        xhat, invstd, weight = ctx.saved_tensors
+        dims = [0, *range(2, xhat.dim())]
+        shape = [1, -1] + [1] * (xhat.dim() - 2)
+        g = gy.to(xhat.dtype)
+        sum_dy, sum_dy_xhat = g.sum(dims), (g * xhat).sum(dims)
+        total = ctx.reduce(torch.cat([sum_dy, sum_dy_xhat]))
+        c = sum_dy.shape[0]
+        mean_dy, mean_dy_xhat = total[:c] / ctx.n, total[c:] / ctx.n
+        scale = invstd if weight is None else invstd * weight
+        gx = (g - mean_dy.view(shape) - xhat * mean_dy_xhat.view(shape)) * scale.view(shape)
+        gw = None if weight is None else sum_dy_xhat.to(weight.dtype)
+        gb = None if weight is None else sum_dy.to(weight.dtype)
+        return gx.to(ctx.dtype), gw, gb, None, None
 
 
 class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):
@@ -70,6 +139,7 @@ class BatchNorm3d(_FlaxRunningStats, nn.BatchNorm3d):
 ACTS = {
     "relu": lambda: nn.ReLU(inplace=True),
     "mish": Mish,
+    "leaky_relu": lambda: nn.LeakyReLU(0.01),
 }
 
 
@@ -124,6 +194,45 @@ class ConvTransposeBN(nn.Sequential):
                                bias=False),
             BatchNorm3d(out_ch),
         )
+
+
+class SeparableConvBN3d(nn.Sequential):
+    """The axis-factorised 3-D conv of the reference's ``convbn_3d_new`` /
+    ``conv_3d_new`` (SceneFlow ``submodule.py:133-152``): ``(k,1,1)``, then
+    ``(1,k,1)``, then ``(1,1,k)`` convs without bias, each carrying its
+    axis's stride and padding, then BatchNorm (``use_bn``) and ``act``
+    (an ``ACTS`` name).  Children ``0``–``2`` the convs, ``3`` the
+    BatchNorm.  Counterpart of the JAX package's ``SeparableConvBN3d``; no
+    path calls it."""
+
+    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=1, use_bn=True,
+                 act=None):
+        k, st, p = kernel_size, stride, padding
+        convs = [nn.Conv3d(in_ch if i == 0 else out_ch, out_ch,
+                           tuple(k if a == i else 1 for a in range(3)),
+                           stride=tuple(st if a == i else 1 for a in range(3)),
+                           padding=tuple(p if a == i else 0 for a in range(3)), bias=False)
+                 for i in range(3)]
+        super().__init__(*convs, *([BatchNorm3d(out_ch)] if use_bn else []),
+                         *([ACTS[act]()] if act else []))
+
+
+class DepthwiseConvBN3d(nn.Sequential):
+    """The reference's ``convbn_3d_dw`` / ``conv_3d_dw`` (SceneFlow
+    ``submodule.py:154-163``): a depthwise ``k³`` conv without bias, a
+    pointwise 1×1×1 conv with bias, BatchNorm (``use_bn``) and ``act``.
+    Children ``0`` depthwise, ``1`` pointwise, ``2`` the BatchNorm.
+    Counterpart of the JAX package's ``DepthwiseConvBN3d``; no path calls
+    it."""
+
+    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=1, use_bn=True,
+                 act=None):
+        super().__init__(
+            nn.Conv3d(in_ch, in_ch, kernel_size, stride=stride, padding=padding, groups=in_ch,
+                      bias=False),
+            nn.Conv3d(in_ch, out_ch, 1),
+            *([BatchNorm3d(out_ch)] if use_bn else []),
+            *([ACTS[act]()] if act else []))
 
 
 class BasicBlock(nn.Module):

@@ -13,7 +13,12 @@ version of a kernel in ``ops/kernels/``:
 The last three also come channels-last (``(B, D, H, W, C)``), the layout of
 the folded path's conv kernels (``gwc_volume_slot`` only so).
 ``build_signed_correlation_volume`` (the PCW refinement's 49-shift
-correlation) has no kernel.
+correlation) has no kernel.  The rest of the JAX module's builders, which
+no path of either package calls (``build_gwc_volume_norm``,
+``groupwise_correlation_4d``, ``build_gwc_volume_unfold``,
+``build_gwc_volume_v1``, ``build_correlation_volume_ones``,
+``patch_aggregation``), keep its channels-last signatures: features ``(B,
+H, W, C)``, volumes ``(B, D, H, W, G)``.
 
 The multiplies are taken in float32 and rounded once to the volume's dtype,
 in the order the kernels take them, so a kernel and its plain version agree
@@ -151,3 +156,86 @@ def volume_dhw_mul(vol: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor | None,
     m = m1.float() if m2 is None else m1.float() * m2.float()
     m = m[..., None] if channels_last else m[:, None]
     return (vol.float() * m).to(vol.dtype)
+
+
+def _gwc_cl(left: torch.Tensor, right: torch.Tensor, max_disp: int, num_groups: int,
+            stride: int = 1) -> torch.Tensor:
+    """``(B, H, W, C)`` features → the channels-last group-wise volume
+    ``(B, D, H, W, G)``, plane ``d`` at shift ``stride·d``."""
+    lf, rf = left.permute(0, 3, 1, 2), right.permute(0, 3, 1, 2)
+    if stride == 1:
+        return build_gwc_volume(lf, rf, max_disp, num_groups).permute(0, 2, 3, 4, 1)
+    b, _, h, w = lf.shape
+    vol = left.new_zeros((b, num_groups, max_disp, h, w))
+    for d in range(max_disp):
+        s = stride * d
+        if s >= w:
+            break
+        vol[:, :, d, :, s:] = groupwise_correlation(lf[..., s:], rf[..., :w - s], num_groups)
+    return vol.permute(0, 2, 3, 4, 1)
+
+
+def build_gwc_volume_norm(left: torch.Tensor, right: torch.Tensor, max_disp: int,
+                          num_groups: int, cosine: bool = False) -> torch.Tensor:
+    """The group-wise volume of L2-normalised features, channels-last:
+    each group's channels divided by their norm + 1e-5
+    (``groupwise_correlation_norm``, SceneFlow ``submodule.py:240-250``), or
+    with ``cosine`` the whole feature vector (``build_gwc_volume_cos``,
+    ``:194-206``)."""
+    def norm(f):
+        if cosine:
+            return f / (f.pow(2).sum(-1, keepdim=True).sqrt() + 1e-5)
+        g = f.reshape(*f.shape[:-1], num_groups, f.shape[-1] // num_groups)
+        return (g / (torch.linalg.vector_norm(g, dim=-1, keepdim=True) + 1e-5)).reshape(f.shape)
+
+    return _gwc_cl(norm(left), norm(right), max_disp, num_groups)
+
+
+def groupwise_correlation_4d(fea1: torch.Tensor, fea2: torch.Tensor,
+                             num_groups: int) -> torch.Tensor:
+    """Per-group mean of ``fea1·fea2`` over two channels-last volumes ``(B,
+    D, H, W, C)`` → ``(B, D, H, W, G)`` (``groupwise_correlation_4D``,
+    SceneFlow ``submodule.py:534-540``)."""
+    *lead, c = fea1.shape
+    if c % num_groups:
+        raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    prod = (fea1 * fea2).reshape(*lead, num_groups, c // num_groups)
+    return prod.mean(dim=-1)
+
+
+def build_gwc_volume_unfold(left: torch.Tensor, right: torch.Tensor, max_disp: int,
+                            num_groups: int) -> torch.Tensor:
+    """The unfold form's group-wise volume (``Build_gwc_volume_unfold``,
+    ``submodule.py:262-277``): the group's channel **sum**, ``C/G`` times
+    the channels-last ``build_gwc_volume``."""
+    return _gwc_cl(left, right, max_disp, num_groups) * (left.shape[-1] // num_groups)
+
+
+def build_gwc_volume_v1(left: torch.Tensor, right: torch.Tensor, max_disp: int,
+                        num_groups: int) -> torch.Tensor:
+    """The double-stride group-wise volume (``build_gwc_volume_v1``,
+    ``submodule.py:281-293``): plane ``d`` correlates at shift ``2d``, zero
+    where ``w < 2d``; channels-last."""
+    return _gwc_cl(left, right, max_disp, num_groups, stride=2)
+
+
+def build_correlation_volume_ones(left: torch.Tensor, right: torch.Tensor, max_disp: int,
+                                  num_groups: int) -> torch.Tensor:
+    """The channels-last group-wise volume with ones where ``w < d``
+    (``build_correlation_volume``, ``submodule.py:494-505``, a buffer of
+    ``new_ones``)."""
+    vol = _gwc_cl(left, right, max_disp, num_groups)
+    w = left.shape[2]
+    background = (torch.arange(w, device=left.device)[None, :]
+                  < torch.arange(max_disp, device=left.device)[:, None])
+    return torch.where(background[None, :, None, :, None], torch.ones_like(vol), vol)
+
+
+def patch_aggregation(volume: torch.Tensor, patch_weight: torch.Tensor) -> torch.Tensor:
+    """``patch_weight · boxsum₃ₓ₃(volume)`` over (H, W), zero padded, for
+    channels-last ``(B, D, H, W, G)`` volumes (``patch_aggregation``,
+    ``submodule.py:252-259``)."""
+    h, w = volume.shape[2:4]
+    padded = torch.nn.functional.pad(volume, (0, 0, 1, 1, 1, 1))
+    box = sum(padded[:, :, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3))
+    return patch_weight * box

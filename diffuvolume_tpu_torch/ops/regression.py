@@ -1,6 +1,6 @@
 """Disparity regression, uncertainty and linear resampling.
 
-Counterpart of ``diffuvolume_tpu/ops/regression.py``.  Linear resizes are
+Counterpart of ``diffuvolume_tpu/ops/regression.py``, all of it.  Linear resizes are
 contractions with dense interpolation matrices (two non-zero taps per row),
 the same formulation as the JAX package, so the two agree to float32
 rounding.  ``upsample_cost_and_regress`` + ``disparity_uncertainty`` are the
@@ -34,6 +34,34 @@ def disparity_uncertainty(
     d = torch.arange(max_disp, dtype=prob.dtype, device=prob.device)
     diff = (disp[:, None] - d[None, :, None, None]).abs()
     return (diff * prob).sum(dim=1)
+
+
+def disparity_regression_nearby(similarity: torch.Tensor, disp_step: float = 1.0,
+                                half_support_window: int = 2) -> torch.Tensor:
+    """Soft-argmin over the ``±half_support_window`` bins around each
+    pixel's most similar bin (KITTI12 ``submodule.py:40-84``): the bin
+    indices clamped to ``[0, D − 1]`` (so an edge bin can count twice),
+    softmax over the window, the expectation times ``disp_step``.
+    ``(B, D, H, W)`` → ``(B, H, W)``."""
+    idx_max = similarity.argmax(dim=1, keepdim=True)
+    shifts = torch.arange(-half_support_window, half_support_window + 1,
+                          device=similarity.device)[None, :, None, None]
+    idx = (idx_max + shifts).clamp(0, similarity.shape[1] - 1)
+    prob = torch.softmax(torch.gather(similarity, 1, idx), dim=1)
+    return (prob * idx.to(similarity.dtype) * disp_step).sum(dim=1)
+
+
+def disparity_variance_confidence(prob: torch.Tensor, disparity_samples: torch.Tensor,
+                                  disp: torch.Tensor) -> torch.Tensor:
+    """``Σ_s prob[:, s]·(disp − samples[:, s])²`` over explicit disparity
+    samples ``(B, S, H, W)`` (``submodule.py:440-444``) → ``(B, H, W)``."""
+    return (prob * (disp[:, None] - disparity_samples) ** 2).sum(dim=1)
+
+
+def disparity_variance(prob: torch.Tensor, disp: torch.Tensor, max_disp: int) -> torch.Tensor:
+    """``Σ_d prob[:, d]·(disp − d)²`` (``submodule.py:432-438``) → ``(B, H, W)``."""
+    d = torch.arange(max_disp, dtype=prob.dtype, device=prob.device)
+    return ((disp[:, None] - d[None, :, None, None]) ** 2 * prob).sum(dim=1)
 
 
 @functools.lru_cache(maxsize=64)

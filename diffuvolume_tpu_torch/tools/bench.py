@@ -101,13 +101,12 @@ def busy_ms(run, generator) -> float:
     """The card's time in the kernels of one pair (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from diffuvolume_tpu_torch.tools.profiling import device_time_by_group
+
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run(generator)
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages() if e.self_device_time_total > 0)
-    if us <= 0:
-        raise RuntimeError("torch.profiler saw no device time")
-    return us / 1e3
+    return device_time_by_group(prof)["device_ms"]
 
 
 def main(argv=None) -> dict:

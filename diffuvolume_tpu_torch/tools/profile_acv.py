@@ -27,7 +27,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import subprocess
 import time
 
@@ -44,51 +43,13 @@ from diffuvolume_tpu_torch.models.acv_fold import fold_acv
 from diffuvolume_tpu_torch.models.igev.gev_fold import fold_igev
 from diffuvolume_tpu_torch.models.layers import route_conv3d
 from diffuvolume_tpu_torch.models.pcw_fold import fold_pcw
+from diffuvolume_tpu_torch.tools.profiling import device_time_by_group
 from diffuvolume_tpu_torch.tools.random_weights import (
     seeded_igev_path,
     seeded_main_path,
     seeded_pcw_path,
 )
 from diffuvolume_tpu_torch.utils.device import resolve_device
-
-# Kernel name → group, first match wins.  BatchNorm comes before the cuDNN
-# group: cuDNN's own BatchNorm kernels (``cudnn::bn_fw_inf_…``) carry its name.
-GROUPS = [
-    # head_kernel<T, bins a lane, at a query>: rows 1 and 17
-    ("port: fused head", r"head_kernel<[^>]*false>"),
-    ("port: uncertainty at query", r"head_kernel<[^>]*true>"),
-    ("port: gwc volume", r"gwc_ncdhw_kernel"),
-    ("port: gwc volume in the slot", r"gwc_slot_kernel"),
-    ("port: patch stencils", r"depthwise_hw_kernel"),
-    ("port: concat volume", r"concat_kernel|concat_cl_kernel"),
-    ("port: dhw multiply", r"dhw_mul_kernel|dhw_mul_cl"),
-    # conv_s1<BN, MT, wgmma, plane, 2-D> and conv_s1_head<2-D>: the last
-    # template argument tells the 3-D conv from row 18
-    ("port: 3-D conv, folded (conv3d_fold.cu)",
-     r"conv_k1<|direct_f32<false|conv_bf16<false|splitk_finish|conv_s1(_head)?<[^>]*false>"),
-    ("port: transposed conv, folded (conv3d_up.cu)", r"direct_f32<true|conv_bf16<true"),
-    ("port: dilated 2-D conv (conv2d_flat.cu)", r"conv2d_f32|conv_s1(_head)?<[^>]*true>"),
-    ("port: layout pack / unpack", r"transpose_vec_kernel|transpose_tile_kernel|hwdc"),
-    # On the folded path every BatchNorm left is a 2-D one (the feature
-    # trunk's; PCW's refinement net's unless it is flat): chip_smoke.py's op
-    # census shows no 3-D one.
-    ("batch norm", r"batch_norm|bn_fw|bn_bw"),
-    ("conv / deconv (cuDNN, CUTLASS)", r"conv|cudnn|xmma|implicit|wgrad|dgrad|fprop|winograd|sm90_"),
-    ("matmul (attention, resizes)", r"gemm|cublas|cutlass"),
-    ("grid sample (PCW refinement warp)", r"grid_sampler"),
-    ("instance norm (IGEV trunk)", r"instance_norm|welford"),
-    ("softmax", r"softmax"),
-    ("copies / layout", r"copy|transpose|permute|cat|pad|Memcpy|Memset"),
-    ("elementwise / reduce", r"elementwise|reduce|vectorized|unrolled"),
-]
-
-
-def group_of(name: str) -> str:
-    for group, pattern in GROUPS:
-        if re.search(pattern, name, re.IGNORECASE):
-            return group
-    return "other"
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -146,15 +107,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.pairs
 
-    kernels = {}
-    for evt in prof.key_averages():
-        us = evt.self_device_time_total
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / args.pairs
-    device_ms = sum(kernels.values())
-    groups = {}
-    for name, ms in kernels.items():
-        groups[group_of(name)] = groups.get(group_of(name), 0.0) + ms
+    split = device_time_by_group(prof, args.pairs)
+    device_ms, groups, kernels = split["device_ms"], split["groups_ms"], split["kernels_ms"]
     card = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
@@ -162,10 +116,10 @@ def main(argv=None) -> int:
     print(f"{card}, {args.model} {args.path}{variant} path: wall {plain_wall_ms:.2f} ms/pair "
           f"({wall_ms:.2f} under the profiler), device busy {device_ms:.2f} ms/pair, "
           f"idle share {idle:.3f}")
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+    for g, ms in groups.items():
         print(f"  {ms:10.3f} ms  {ms / device_ms:6.1%}  {g}")
     print("top kernels:")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    top = list(kernels.items())[:15]
     for name, ms in top:
         print(f"  {ms:10.3f} ms  {name[:110]}")
     os.makedirs("chiprun_out", exist_ok=True)

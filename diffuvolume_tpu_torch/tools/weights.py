@@ -60,6 +60,20 @@ def _convbn(tp: str, fn: str) -> list[Rule]:
         f"{tp}.1", f"{fn}/bn")
 
 
+def separable_convbn_3d_rules(tp: str, fn: str, use_bn: bool = True) -> list[Rule]:
+    """``SeparableConvBN3d`` at ``tp`` ↔ the JAX module at ``fn``."""
+    rules = [(f"{tp}.{i}.weight", "params", f"{fn}/conv{i}/kernel", _conv) for i in range(3)]
+    return rules + (_bn(f"{tp}.3", f"{fn}/bn") if use_bn else [])
+
+
+def depthwise_convbn_3d_rules(tp: str, fn: str, use_bn: bool = True) -> list[Rule]:
+    """``DepthwiseConvBN3d`` at ``tp`` ↔ the JAX module at ``fn``."""
+    rules = [(f"{tp}.0.weight", "params", f"{fn}/dw/kernel", _conv),
+             (f"{tp}.1.weight", "params", f"{fn}/pw/kernel", _conv),
+             (f"{tp}.1.bias", "params", f"{fn}/pw/bias", None)]
+    return rules + (_bn(f"{tp}.2", f"{fn}/bn") if use_bn else [])
+
+
 def _deconvbn(tp: str, fn: str) -> list[Rule]:
     return [(f"{tp}.0.weight", "params", f"{fn}/kernel", _deconv)] + _bn(f"{tp}.1", f"{fn}/bn")
 

@@ -10,7 +10,12 @@ the model and the optimiser in place.  The step draws one timestep for the
 whole batch and the noise from an explicit ``torch.Generator``; both can be
 passed in instead (the tests feed the JAX step's draws).  Gradients run
 through the differentiable plain ops, never the kernels (which have no
-backward), as the JAX package's training runs XLA's.
+backward), as the JAX package's training runs XLA's.  Given a
+``parallel.DataParallel``, a step takes this rank's rows of the global
+batch: it draws the global batch's timestep and noise and keeps its rows,
+divides its loss by the global count of valid pixels, sums the gradients
+over the ranks before the clip and the optimiser, and reports the global
+loss and EPE (``parallel/ddp.py``).
 """
 
 from __future__ import annotations
@@ -102,17 +107,45 @@ def draw_t(b: int, device, generator: torch.Generator | None) -> torch.Tensor:
     return torch.randint(0, TIMESTEPS, (1,), generator=generator, device=device).expand(b)
 
 
-def _epe(pred: torch.Tensor, disp_gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _epe(pred: torch.Tensor, disp_gt: torch.Tensor, mask: torch.Tensor, dp=None) -> torch.Tensor:
     m = mask.float()
-    return ((pred.detach().float() - disp_gt).abs() * m).sum() / m.sum().clamp_min(1.0)
+    num, den = ((pred.detach().float() - disp_gt).abs() * m).sum(), m.sum()
+    if dp is not None:
+        num, den = dp.sum(num), dp.sum(den)
+    return num / den.clamp_min(1.0)
 
 
-def make_train_step(model, weights=SCENEFLOW_WEIGHTS, bf16: bool = False) -> Callable:
+def _draws(b: int, shape, dev, generator, t, noise, dp):
+    """The step's timestep ``(b,)`` and noise ``(b, *shape)``: drawn for the
+    global batch (``b × world_size`` rows) when not given, in the order
+    timestep then noise, and this rank's rows kept."""
+    n = b if dp is None else b * dp.world_size
+    if t is None:
+        t = draw_t(n, dev, generator)
+        t = t if dp is None else dp.rows(t)
+    if noise is None:
+        noise = torch.randn((n, *shape), generator=generator, device=dev)
+        noise = noise if dp is None else dp.rows(noise)
+    return t, noise
+
+
+def _update(state: TrainState, loss: torch.Tensor, dp) -> None:
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    if dp is not None:
+        dp.all_reduce_gradients(p for g in state.optimizer.param_groups for p in g["params"])
+    apply_gradients(state)
+
+
+def make_train_step(model, weights=SCENEFLOW_WEIGHTS, bf16: bool = False,
+                    dp=None) -> Callable:
     """The ACV / PCW step: ``step(state, batch, generator=None, t=None,
     noise=None) → {"loss", "epe", "pred"}`` (detached; ``pred`` the last
     head).  Batch: ``left``/``right`` ``(B, H, W, 3)``, ``disp_gt`` ``(B, H,
-    W)`` on the model's device.  ``bf16``: autocast to bfloat16 over float32
-    master weights (the JAX package's ``dtype`` with float32 params)."""
+    W)`` on the model's device (with ``dp``, this rank's rows).  ``bf16``:
+    autocast to bfloat16 over float32 master weights (the JAX package's
+    ``dtype`` with float32 params)."""
+    reduce = None if dp is None else dp.sum
 
     def step(state: TrainState, batch, generator=None, t=None, noise=None) -> dict:
         left, right, disp_gt = batch["left"], batch["right"], batch["disp_gt"]
@@ -121,25 +154,20 @@ def make_train_step(model, weights=SCENEFLOW_WEIGHTS, bf16: bool = False) -> Cal
         dev = disp_gt.device
         mask = (disp_gt < max_disp) & (disp_gt > 0)
         disp_q = _quarter_gt(disp_gt, max_disp - 1)
-        if t is None:
-            t = draw_t(b, dev, generator)
-        if noise is None:
-            noise = torch.randn((b, max_disp // 4, h // 4, w // 4), generator=generator,
-                                device=dev)
+        t, noise = _draws(b, (max_disp // 4, h // 4, w // 4), dev, generator, t, noise, dp)
         model.train()
         with _autocast(dev, bf16):
             preds = model.train_forward(left, right, disp_q, t, noise)
-        loss = multi_scale_loss(preds, disp_gt, mask, weights)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        apply_gradients(state)
-        return {"loss": loss.detach(), "epe": _epe(preds[-1], disp_gt, mask),
-                "pred": preds[-1].detach()}
+        loss = multi_scale_loss(preds, disp_gt, mask, weights, reduce)
+        _update(state, loss, dp)
+        loss = loss.detach()
+        return {"loss": loss if dp is None else dp.sum(loss),
+                "epe": _epe(preds[-1], disp_gt, mask, dp), "pred": preds[-1].detach()}
 
     return step
 
 
-def make_igev_train_step(model, iters: int = 22, bf16: bool = False) -> Callable:
+def make_igev_train_step(model, iters: int = 22, bf16: bool = False, dp=None) -> Callable:
     """The KITTI15 step (train_stereo.py:150-174): the diffusion-conditioned
     GRU rollout, the sequence loss over its iterates; the state's optimiser
     carries the clip.  Batch: ``left``/``right`` ``(B, H, W, 3)`` (RAW
@@ -148,6 +176,7 @@ def make_igev_train_step(model, iters: int = 22, bf16: bool = False) -> Callable
     from diffuvolume_tpu_torch.models.igev.model import igev_train_forward
 
     num_bins = model.max_disp // 4
+    reduce = None if dp is None else dp.sum
 
     def step(state: TrainState, batch, generator=None, t=None, noise=None) -> dict:
         left, right, disp_gt = batch["left"], batch["right"], batch["disp_gt"]
@@ -157,21 +186,18 @@ def make_igev_train_step(model, iters: int = 22, bf16: bool = False) -> Callable
         b, h, w = disp_gt.shape
         dev = disp_gt.device
         disp_q = _quarter_gt(disp_gt, 4.0 * (num_bins - 1))
-        if t is None:
-            t = draw_t(b, dev, generator)
-        if noise is None:
-            noise = torch.randn((b, num_bins, h // 4, w // 4), generator=generator, device=dev)
+        t, noise = _draws(b, (num_bins, h // 4, w // 4), dev, generator, t, noise, dp)
         x_start = encode_disparity_volume(disp_q, num_bins, model.scale)
         noisy = q_sample(make_schedule(TIMESTEPS, device=dev), x_start, t, noise)
         model.train()
         with _autocast(dev, bf16):
             init_up, disp_ups = igev_train_forward(model, left, right, iters, noisy, t)
-        loss = sequence_loss(disp_ups, init_up, disp_gt, valid, max_disp=model.max_disp)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        apply_gradients(state)
+        loss = sequence_loss(disp_ups, init_up, disp_gt, valid, max_disp=model.max_disp,
+                             reduce=reduce)
+        _update(state, loss, dp)
         mask = (valid >= 0.5) & (disp_gt < model.max_disp)
-        return {"loss": loss.detach(), "epe": _epe(disp_ups[-1], disp_gt, mask),
-                "pred": disp_ups[-1].detach()}
+        loss = loss.detach()
+        return {"loss": loss if dp is None else dp.sum(loss),
+                "epe": _epe(disp_ups[-1], disp_gt, mask, dp), "pred": disp_ups[-1].detach()}
 
     return step
