@@ -48,21 +48,21 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      one warm-up pair, 30 timed pairs (pairs/s with median and spread),
      per-pair kernel launch counts (asserted), an op census of one pair (no
      3-D BatchNorm, no 3-D conv), output finite in [0, 191];
-  6. the ACV module path (``packed=False``) the same way, 3 timed pairs, and
+  6. the ACV module path (``packed=False``) the same way, 2 timed pairs, and
      after ``route_conv3d`` (row 15 launches asserted, the census's cuDNN
-     3-D convs fewer by exactly as many), 3 timed pairs;
+     3-D convs fewer by exactly as many), 2 timed pairs;
   7. the PCW path: PCWNet two-pass KITTI12 DDIM-3 at 384×1248, batch 1,
      bfloat16 model, folded path; one warm-up pair, 10 timed pairs, launch
      counts (asserted), a census with no 3-D BatchNorm and no 3-D conv, a
      finite (1, 384, 1248) output; then with the flat refinement (row 18,
      44 launches a pair asserted, the census's 2-D BatchNorms and cuDNN 2-D
      convs fewer by the refinement's, derived from the model), 5 timed pairs;
-     its module path, 2 timed pairs, and routed, 2 timed pairs;
+     its module path, 1 timed pair, and routed, 1 timed pair;
   8. the IGEV path: IGEV-Stereo two-pass KITTI15 DDIM-2 at 384×1248, 32 GRU
      iterations a rollout, batch 1, bfloat16 model, folded path; one warm-up
      pair, 5 timed pairs, launch counts (asserted), the same census, a finite
-     (1, 384, 1248) output; then its module path, 2 timed pairs, and
-     routed, 2 timed pairs;
+     (1, 384, 1248) output; then its module path, 1 timed pair, and
+     routed, 1 timed pair;
   9. the evaluation entry point: ``cli/evaluate`` on the card over a
      synthetic SceneFlow-layout set written to a temporary directory (3
      pairs at 540×960 with PFM ground truth, cropped to 512×960 by
@@ -104,7 +104,17 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      counted); (d) ``tools/bench_train.py --profile``: the ACV SceneFlow
      step at 256×512, batch 4, float32, by kernel group, plain and through
      ``parallel/ddp.py`` at world size 1 (``--ddp``);
- 12. one ``kernels`` JSON line, the card line, and the result line.
+ 12. the cost volume's rows split over 2 processes on cuda:0 over gloo
+     (``parallel/volume_sharding.py``; NCCL takes one rank a device), against
+     the unsplit runs on the card: (a) ACV's routed module path forward at
+     512×960, tamed seeded weights, float32 and bfloat16, each rank's
+     launches (rows 2, 3, 15 and 1) equal to the unsplit forward's, the
+     backend and the staging printed; (b) the ACV SceneFlow step on a 1 × 2
+     grid in float64 at 32×64 against one process (phase 11 (c)'s
+     tolerances), and the float32 step at 256×512, batch 4, timed (median,
+     p10, p90, peak memory a process) beside the plain step: a one-card
+     figure over gloo, not a scaling one;
+ 13. one ``kernels`` JSON line, the card line, and the result line.
 Each path's launch counts are set to 0 just before it is driven and read
 just after.  Everything printed is also written to
 ``chiprun_out/chip_smoke.json``.  Run from a directory without the
@@ -140,7 +150,7 @@ D4, H4, W4 = MAIN_DISP // 4, MAIN_H // 4, MAIN_W // 4
 FEAT_C, GROUPS, CAT_C = 320, 40, 32
 STEPS = 5
 TIMED_PAIRS = 30
-MODULE_TIMED_PAIRS = 3
+MODULE_TIMED_PAIRS = 2
 FULL, HALF, QUARTER = (D4, H4, W4), (D4 // 2, H4 // 2, W4 // 2), (D4 // 4, H4 // 4, W4 // 4)
 ATT_SLOT = 48
 
@@ -150,7 +160,7 @@ PCW_D4, PCW_H4, PCW_W4 = MAIN_DISP // 4, PCW_H // 4, PCW_W // 4
 PCW_CC, PCW_SLOT, PCW_STEPS = 12, 64, 3
 PCW_TIMED_PAIRS = 10
 PCW_FLAT_TIMED_PAIRS = 5
-PCW_MODULE_TIMED_PAIRS = 2
+PCW_MODULE_TIMED_PAIRS = 1
 P1, P2, P3, P4 = ((PCW_D4 >> k, PCW_H4 >> k, PCW_W4 >> k) for k in range(4))
 # The PCW volumes: (scale, D, H, W), each 40 groups + 12 + 12 in a 64 slot.
 PCW_VOLUMES = [(f"1/{4 << k}", *dhw) for k, dhw in enumerate((P1, P2, P3, P4))]
@@ -161,9 +171,9 @@ IGEV_H, IGEV_W, IGEV_STEPS, IGEV_ITERS = 384, 1248, 2, 32
 IGEV_C, IGEV_GROUPS, IGEV_SLOT = 96, 8, 16
 G1, G2, G3, G4 = ((D4 >> k, (IGEV_H // 4) >> k, (IGEV_W // 4) >> k) for k in range(4))
 IGEV_TIMED_PAIRS = 5
-IGEV_MODULE_TIMED_PAIRS = 2
+IGEV_MODULE_TIMED_PAIRS = 1
 # The module paths after route_conv3d (row 15).
-ROUTED_TIMED_PAIRS = {"acv": 3, "pcw": 2, "igev": 2}
+ROUTED_TIMED_PAIRS = {"acv": 2, "pcw": 1, "igev": 1}
 
 
 def log(*args):
@@ -2896,6 +2906,386 @@ def phase_11(dev, counters: dict, runs: dict, card: str) -> dict:
     return out
 
 
+# Phase 12: the cost volume's rows split over SPLIT_RANKS processes on
+# cuda:0 (gloo: NCCL takes one rank a device), against the unsplit run on
+# the card.  The split sums each conv in another order than the unsplit
+# run (other shapes, other algorithms and tile plans), so in float32 the
+# two meet at the float32 floor, not bit for bit: at 512×960 the unsplit
+# float32 forward is itself 3.6e-3 px (max) and 1.4e-4 px (mean) from the
+# float64 forward on the same card, and 1.2e-3 px from itself run twice
+# (PERF.md §6), above the 1e-3 px the split was first held to.  So the
+# float32 split is held to that floor, measured in the same run: its
+# distance to the float64 forward within SPLIT_FLOOR_MARGIN of the unsplit
+# float32 forward's, in max and in mean (measured: max 0.80–1.09×, mean
+# 1.00×), and its distance to the unsplit forward within SPLIT_F32_PX or
+# (1 + SPLIT_FLOOR_MARGIN["max"]) × the floor's max, whichever is larger:
+# the triangle inequality's bound through the float64 forward, since
+# nothing ties the two float32 forwards' roundings to each other.
+# bfloat16 takes phase 4's flip rule against the unsplit forward: a pixel
+# may move past SPLIT_BF16_PX on at most FLIP_SHARE of the pixels, the
+# rest within SPLIT_BF16_MEAN_PX on average.
+SPLIT_RANKS = 2
+SPLIT_F32_PX = 1e-3
+SPLIT_FLOOR_MARGIN = {"max": 1.5, "mean": 1.1}
+SPLIT_BF16_PX, SPLIT_BF16_MEAN_PX = 0.1, 5e-3
+SPLIT_STEPS = 5
+SPLIT_TRAIN_H, SPLIT_TRAIN_W = 256, 512  # the ACV SceneFlow recipe's crop
+SPLIT_TIMEOUT_S = 300
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper by the name the ``kernels`` line gives it; each
+    carries its launch count."""
+    from diffuvolume_tpu_torch.ops.kernels import concat_volume as kc
+    from diffuvolume_tpu_torch.ops.kernels import conv2d as k2
+    from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
+    from diffuvolume_tpu_torch.ops.kernels import conv3d_up as kup
+    from diffuvolume_tpu_torch.ops.kernels import depthwise as kd
+    from diffuvolume_tpu_torch.ops.kernels import fused_head as kf
+    from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
+    from diffuvolume_tpu_torch.ops.kernels import layout as kl
+
+    return {"fused_head": kf.fused_upsample_softargmin, "gwc_volume": kg.gwc_volume,
+            "concat_volume": kc.concat_volume, "dhw_mul": kc.dhw_mul,
+            "conv3d_fold_p": kconv.conv3d_fold_p, "conv3d_fold_x2": kconv.conv3d_fold_x2,
+            "conv3d_fold_s2": kconv.conv3d_fold_s2, "conv3d_fold_up": kup.conv3d_fold_up,
+            "conv1x1_fold_p": kconv.conv1x1_fold_p, "pack": kl.pack, "unpack": kl.unpack,
+            "gwc_volume_packed": kg.gwc_volume_packed, "depthwise_hw_p": kd.depthwise_hw_p,
+            "depthwise_hw_p2": kd.depthwise_hw_p2,
+            "fused_uncertainty_at": kf.fused_uncertainty_at, "unpack_hwdc": kl.unpack_hwdc,
+            "conv3d_fold_small": kconv.conv3d_fold_small,
+            "conv3d_packed": kconv.conv3d_packed, "conv2d_flat": k2.conv2d_flat}
+
+
+def split_inputs(dev) -> dict:
+    """Phase 12's inputs, made once and handed to every process: (a) the
+    ACV baseline at 512×960 with tamed seeded weights, heads calibrated
+    to logit std 3 on the images (seed 0; ``tests/test_torch_parallel.py``'s
+    taming and calibration); (b) phase 10
+    (b)'s step at 32×64 (weights, images, ground truth with valid counts
+    unequal by row and by band, timestep, noise) and the full-width step's
+    batch (256×512, batch 4, images from seed 1)."""
+    from diffuvolume_tpu_torch.tools.random_weights import (calibrate_heads, random_acv,
+                                                            tame_residual_branches)
+
+    g = torch.Generator().manual_seed(0)
+    left = torch.randn((1, MAIN_H, MAIN_W, 3), generator=g) * 0.3
+    model = tame_residual_branches(random_acv(MAIN_DISP, False, g)).to(dev)
+    with torch.no_grad():
+        calibrate_heads(model, left.to(dev), torch.roll(left, -3, dims=2).to(dev))
+    b, h, w, md = TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_DISP
+    g = torch.Generator().manual_seed(5)
+    s_left = torch.randn((b, h, w, 3), generator=g) * 0.3
+    gt = torch.rand((b, h, w), generator=g) * (md + 8) + 0.5
+    gt[:, :, :3] = 0.0
+    gt[1, :, :11] = 0.0
+    gt[:, h // 2:, :7] = 0.0  # and unequal by band
+    t = torch.randint(0, 1000, (1,), generator=g).expand(b)
+    noise = torch.randn((b, md // 4, h // 4, w // 4), generator=g)
+    src = tame_residual_branches(random_acv(md, True, torch.Generator().manual_seed(11)))
+    calibrate_heads(src, s_left, torch.roll(s_left, -3, dims=2))
+    g = torch.Generator().manual_seed(1)
+    big = torch.randn((ACV_TRAIN_BATCH, SPLIT_TRAIN_H, SPLIT_TRAIN_W, 3), generator=g) * 0.3
+    return {"forward_state": {k: v.cpu() for k, v in model.state_dict().items()},
+            "left": left, "step_state": src.state_dict(), "step_left": s_left, "step_gt": gt,
+            "t": t, "noise": noise, "big_left": big,
+            "big_gt": torch.rand((ACV_TRAIN_BATCH, SPLIT_TRAIN_H, SPLIT_TRAIN_W), generator=g)
+            * 149.0 + 1.0}
+
+
+def split_forward(inputs: dict, dtype, dev, counters: dict, mesh=None, routed: bool = True):
+    """ACV's module path eval forward at 512×960 in ``dtype``, routed
+    (``route_conv3d``) unless ``routed`` is false, inside
+    ``volume_sharding(mesh)`` when given: one warm-up, then one forward
+    with the launch counts set to 0 just before and read just after.  In
+    float64 (the reference) the three kernels of the path, which take
+    float32 and bfloat16, run their plain versions on the card.  Returns
+    ``(disp on the CPU, launches)``."""
+    import diffuvolume_tpu_torch.models.acv as acv_module
+    from diffuvolume_tpu_torch.eval.pipeline import float32_exact
+    from diffuvolume_tpu_torch.models.acv import ACVNet
+    from diffuvolume_tpu_torch.models.layers import route_conv3d
+    from diffuvolume_tpu_torch.ops.cost_volume import build_gwc_volume, concat_volume_mul
+    from diffuvolume_tpu_torch.ops.kernels.fused_head import fused_upsample_softargmin_plain
+    from diffuvolume_tpu_torch.parallel.volume_sharding import volume_sharding
+
+    model = ACVNet(MAIN_DISP, False)
+    model.load_state_dict(inputs["forward_state"])
+    if routed:
+        model = route_conv3d(model)
+    model = model.to(dev, dtype).eval()
+    left = inputs["left"].to(dev, torch.float64 if dtype == torch.float64 else torch.float32)
+    right = torch.roll(left, -3, dims=2)
+    kernels = {k: getattr(acv_module, k)
+               for k in ("gwc_volume", "concat_volume", "fused_upsample_softargmin")}
+    if dtype == torch.float64:
+        acv_module.gwc_volume = build_gwc_volume
+        acv_module.concat_volume = concat_volume_mul
+        acv_module.fused_upsample_softargmin = fused_upsample_softargmin_plain
+    try:
+        with torch.no_grad(), float32_exact(model), volume_sharding(mesh):
+            model(left, right)
+            torch.cuda.synchronize()
+            for f in counters.values():
+                f.launches = 0
+            disp = model(left, right)[0]
+            torch.cuda.synchronize()
+            launches = {k: f.launches for k, f in counters.items()}
+    finally:
+        for k, f in kernels.items():
+            setattr(acv_module, k, f)
+    return disp.double().cpu(), launches
+
+
+def px_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    err = (got - want).abs()
+    return dict(max=float(err.max()), mean=float(err.mean()))
+
+
+def split_step(inputs: dict, dev, mesh=None) -> dict:
+    """Phase 10 (b)'s ACV step in float64 at 32×64 (split over ``mesh``'s
+    volume axis when given): the loss, gradients, statistics and
+    parameters after Adam, on the CPU."""
+    from diffuvolume_tpu_torch.models.acv import ACVNet
+    from diffuvolume_tpu_torch.parallel import ddp
+    from diffuvolume_tpu_torch.train.loop import TrainState, make_optimizer, make_train_step
+    from diffuvolume_tpu_torch.train.lr import milestone_lr_schedule
+
+    dt = torch.float64
+    model = ACVNet(TRAIN_DISP, True)
+    model.load_state_dict(inputs["step_state"])
+    model = model.to(dev, dt).train()
+    if mesh is not None:
+        ddp.sync_batch_norm(model, mesh)
+        mesh.broadcast_parameters(model)
+    state = TrainState(model, make_optimizer(model), milestone_lr_schedule(1e-3, "10:2", 1))
+    left = inputs["step_left"].to(dev, dt)
+    batch = {"left": left, "right": torch.roll(left, -3, dims=2),
+             "disp_gt": inputs["step_gt"].to(dev, dt)}
+    res = make_train_step(model, dp=mesh)(state, batch, t=inputs["t"].to(dev),
+                                          noise=inputs["noise"].to(dev, dt))
+    return {"loss": float(res["loss"]),
+            "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
+            "stats": {k: v.cpu() for k, v in model.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))},
+            "params": {k: p.detach().cpu() for k, p in model.named_parameters()}}
+
+
+def split_step_times(inputs: dict, dev, mesh=None) -> dict:
+    """The ACV SceneFlow step at 256×512, batch 4, float32 (``SPLIT_TRAIN_*``;
+    the JAX
+    package's initialisation from seed 0, PyTorch's default precision as
+    the CLI runs): one warm-up step, then ``SPLIT_STEPS`` steps each ended
+    by a synchronise; ms a step and this process's peak memory."""
+    from diffuvolume_tpu_torch.models import build_model
+    from diffuvolume_tpu_torch.parallel import ddp
+    from diffuvolume_tpu_torch.train.loop import TrainState, make_optimizer, make_train_step
+    from diffuvolume_tpu_torch.train.lr import milestone_lr_schedule
+
+    model = build_model("acvnet_ddim", max_disp=MAIN_DISP)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model = model.to(dev).train()
+    if mesh is not None:
+        ddp.sync_batch_norm(model, mesh)
+        mesh.broadcast_parameters(model)
+    state = TrainState(model, make_optimizer(model), milestone_lr_schedule(1e-3, "10:2", 1))
+    left = inputs["big_left"].to(dev)
+    batch = {"left": left, "right": torch.roll(left, -3, dims=2),
+             "disp_gt": inputs["big_gt"].to(dev)}
+    step = make_train_step(model, dp=mesh)
+    draws = torch.Generator(device=dev).manual_seed(2)
+    times = []
+    for i in range(1 + SPLIT_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = step(state, batch, draws)["loss"]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"a non-finite split-step loss: {float(loss)}")
+    ms = times[1:]
+    return dict(step_ms=ms, step_ms_median=float(np.median(ms)),
+                step_ms_p10=float(np.percentile(ms, 10)),
+                step_ms_p90=float(np.percentile(ms, 90)),
+                peak_mem_bytes=torch.cuda.max_memory_allocated(), last_loss=float(loss))
+
+
+def split_rank(rank: int, port: int, tmp: str) -> None:
+    """One process of phase 12's 1 × ``SPLIT_RANKS`` grid on cuda:0 over
+    gloo: (a) the split forward in float32 and bfloat16, (b) the split
+    step in float64 and the full-width float32 step's times; its results
+    to ``tmp``."""
+    sys.path.insert(0, HERE)
+    from diffuvolume_tpu_torch.parallel import ddp
+
+    dev = torch.device("cuda:0")
+    mesh = ddp.init(rank, SPLIT_RANKS, dev, f"tcp://localhost:{port}", backend="gloo",
+                    n_volume=SPLIT_RANKS)
+    try:
+        inputs = torch.load(os.path.join(tmp, "inputs.pt"))
+        counters = kernel_counters()
+        out = {"backend": mesh.backend, "host_staging": mesh.host_staging}
+        for dtype in (torch.float32, torch.bfloat16):
+            out["forward", dtype_tag(dtype)] = split_forward(inputs, dtype, dev, counters, mesh)
+        out["step_float64"] = split_step(inputs, dev, mesh)
+        out["step_float32_times"] = split_step_times(inputs, dev, mesh)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        ddp.shutdown()
+
+
+def spawn_split_ranks(tmp: str) -> list:
+    """``split_rank`` in ``SPLIT_RANKS`` spawned processes, joined within
+    ``SPLIT_TIMEOUT_S`` (killed past it); each must exit 0."""
+    import multiprocessing
+
+    from diffuvolume_tpu_torch.parallel import ddp
+
+    port = ddp.free_port()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=split_rank, args=(r, port, tmp)) for r in range(SPLIT_RANKS)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(SPLIT_TIMEOUT_S)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    if alive or any(p.exitcode for p in procs):
+        raise AssertionError(f"phase 12's ranks failed: exit codes {[p.exitcode for p in procs]}")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(SPLIT_RANKS)]
+
+
+def split_step_gaps(got: dict, want: dict) -> dict:
+    """Phase 11 (c)'s measures of a step against another: the loss, the
+    worst leaf's gradient (a vanishing one held to its bound), the
+    statistics and the parameters over the resolved elements."""
+    tiny = VANISH * max(float(g.norm()) for g in want["grads"].values())
+    out = dict(loss=abs(got["loss"] / want["loss"] - 1), grad=0.0, stat=0.0, param=0.0)
+    for k, g in want["grads"].items():
+        if float(g.norm()) <= tiny:
+            if float(got["grads"][k].norm()) > tiny * 1e3:
+                raise AssertionError(f"{k}: vanishing in the plain step, not when split")
+            continue
+        out["grad"] = max(out["grad"], rel_l2(got["grads"][k], g))
+        resolved = g.abs() > RESOLVE * g.pow(2).mean().sqrt()
+        out["param"] = max(out["param"], rel_l2(got["params"][k][resolved],
+                                                want["params"][k][resolved]))
+    for k, v in want["stats"].items():
+        out["stat"] = max(out["stat"], rel_l2(got["stats"][k], v))
+    return out
+
+
+def phase_12(dev, counters: dict, runs: dict, card: str) -> dict:
+    """Phase 12: the split over 2 processes on cuda:0 against the unsplit
+    runs on the card, (a) the routed module path's forward at 512×960 in
+    float32 and bfloat16, each rank's launches equal to the unsplit
+    forward's; (b) the ACV step in float64 at 32×64, and the full-width
+    float32 step's times beside the plain step's."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = split_inputs(dev)
+        torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+        whole = {dtype_tag(dt): split_forward(inputs, dt, dev, counters)
+                 for dt in (torch.float32, torch.bfloat16)}
+        again, _ = split_forward(inputs, torch.float32, dev, counters)
+        exact, _ = split_forward(inputs, torch.float64, dev, counters, routed=False)
+        plain_step = split_step(inputs, dev)
+        plain_times = split_step_times(inputs, dev)
+        torch.cuda.empty_cache()
+        ranks = spawn_split_ranks(tmp)
+    log(f"  {SPLIT_RANKS} processes on cuda:0, backend {ranks[0]['backend']}, halo rows "
+        f"staged in {'host' if ranks[0]['host_staging'] else 'device'} memory; {card}")
+    launches = {k: sum(r["forward", t][1][k] for r in ranks for t in whole) for k in counters}
+    runs["acv_module_split"] = dict(launches=launches,
+                                    launches_per_pair=ranks[0]["forward", "float32"][1])
+    faults = []
+    for tag, (want, want_launches) in whole.items():
+        used = {k: v for k, v in want_launches.items() if v}
+        if not all(used.get(k) for k in ("gwc_volume", "concat_volume", "conv3d_packed",
+                                         "fused_head")):
+            faults.append(f"the unsplit {tag} forward skipped a kernel of rows 2, 3, 15, 1: {used}")
+        for r, rank in enumerate(ranks):
+            if rank["forward", tag][1] != want_launches:
+                faults.append(f"rank {r}'s {tag} launches {rank['forward', tag][1]} != the "
+                              f"unsplit forward's {want_launches}")
+        got = torch.cat([r["forward", tag][0] for r in ranks], dim=1)
+        rec = out[f"forward_{tag}"] = dict(split_vs_unsplit=px_gap(got, want),
+                                           split_vs_float64=px_gap(got, exact),
+                                           unsplit_vs_float64=px_gap(want, exact),
+                                           launches_a_rank=used)
+        if tag == "float32":
+            floor = rec["unsplit_vs_float64"]
+            rec["unsplit_run_to_run"] = px_gap(again, want)
+            bound = max(SPLIT_F32_PX, (1 + SPLIT_FLOOR_MARGIN["max"]) * floor["max"])
+            log(f"  (a) split forward, float32: against the unsplit forward max |Δ| "
+                f"{rec['split_vs_unsplit']['max']:.3e} px (bound {bound:.3e}: {SPLIT_F32_PX:g} or "
+                f"{1 + SPLIT_FLOOR_MARGIN['max']:g}× the float32 floor's max), mean "
+                f"{rec['split_vs_unsplit']['mean']:.3e}; against the float64 forward max / mean: "
+                f"split {rec['split_vs_float64']['max']:.3e} / "
+                f"{rec['split_vs_float64']['mean']:.3e}, unsplit (the floor) "
+                f"{floor['max']:.3e} / {floor['mean']:.3e} (margin {SPLIT_FLOOR_MARGIN}); the "
+                f"unsplit forward run twice: max {rec['unsplit_run_to_run']['max']:.3e}")
+            if rec["split_vs_unsplit"]["max"] > bound:
+                faults.append(f"the split float32 forward is {rec['split_vs_unsplit']['max']:.3e} "
+                              f"px from the unsplit one (bound {bound:.3e})")
+            for k, m in SPLIT_FLOOR_MARGIN.items():
+                if rec["split_vs_float64"][k] > m * floor[k]:
+                    faults.append(f"the split float32 forward's {k} distance to float64 "
+                                  f"{rec['split_vs_float64'][k]:.3e} is past {m}× the floor's "
+                                  f"{floor[k]:.3e}")
+        else:
+            err = (got - want).abs()
+            moved = err > SPLIT_BF16_PX
+            rec.update(moved_share=float(moved.double().mean()),
+                       rest_mean_px=float(err[~moved].mean()))
+            log(f"  (a) split forward, bfloat16: {rec['moved_share']:.4%} of pixels past "
+                f"{SPLIT_BF16_PX:g} px from the unsplit forward (at most {FLIP_SHARE:.1%}), the "
+                f"rest mean |Δ| {rec['rest_mean_px']:.3e} px (tol {SPLIT_BF16_MEAN_PX:g}), max "
+                f"{rec['split_vs_unsplit']['max']:.3e}; against the float64 forward max / mean: "
+                f"split {rec['split_vs_float64']['max']:.3e} / "
+                f"{rec['split_vs_float64']['mean']:.3e}, unsplit "
+                f"{rec['unsplit_vs_float64']['max']:.3e} / {rec['unsplit_vs_float64']['mean']:.3e}")
+            if rec["moved_share"] > FLIP_SHARE or rec["rest_mean_px"] > SPLIT_BF16_MEAN_PX:
+                faults.append(f"the split bfloat16 forward departs from the unsplit one past "
+                              f"phase 4's flip rule: {rec}")
+        log(f"      each rank's launches a forward: {used}, as the unsplit forward's")
+    for r in ranks[1:]:
+        for k, v in ranks[0]["step_float64"]["params"].items():
+            if not torch.equal(r["step_float64"]["params"][k], v):
+                faults.append(f"the ranks' parameters differ after the split step: {k}")
+    gaps = out["step_float64"] = split_step_gaps(ranks[0]["step_float64"], plain_step)
+    tol = TRAIN_TOL["float64"]
+    log(f"  (b) split ACV step, float64, {TRAIN_H}×{TRAIN_W}, 1 × {SPLIT_RANKS} grid, against "
+        f"one process: loss {gaps['loss']:.2e} (tol {tol['loss']:g}), gradients "
+        f"{gaps['grad']:.2e} ({tol['grad']:g}), statistics {gaps['stat']:.2e} "
+        f"({tol['stat']:g}), parameters after Adam {gaps['param']:.2e} ({tol['param']:g})")
+    bad = [k for k in tol if gaps[k] > tol[k]]
+    if bad:
+        faults.append(f"the split float64 step disagrees with one process: {bad}")
+    times = out["step_float32"] = {"plain": plain_times,
+                                   "split": [r["step_float32_times"] for r in ranks]}
+    log(f"  (b) the float32 step at {SPLIT_TRAIN_H}×{SPLIT_TRAIN_W}, batch {ACV_TRAIN_BATCH}, "
+        f"{SPLIT_STEPS} steps "
+        f"(one card shared by {SPLIT_RANKS} gloo processes: not a scaling figure): split "
+        + "; ".join(f"rank {r} {t['step_ms_median']:.2f} ms (p10 {t['step_ms_p10']:.2f}, p90 "
+                    f"{t['step_ms_p90']:.2f}), peak {t['peak_mem_bytes'] / 2**30:.3f} GiB"
+                    for r, t in enumerate(times["split"]))
+        + f"; plain {plain_times['step_ms_median']:.2f} ms (p10 {plain_times['step_ms_p10']:.2f}"
+        f", p90 {plain_times['step_ms_p90']:.2f}), peak "
+        f"{plain_times['peak_mem_bytes'] / 2**30:.3f} GiB")
+    out["elapsed_s"] = time.perf_counter() - t0
+    log(f"  phase 12: {out['elapsed_s']:.1f} s")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return out
+
+
 KERNEL_META = {  # name → (source, TPU kernel file:line, its function)
     "fused_head": ("diffuvolume_tpu_torch/csrc/fused_head.cu",
                    "diffuvolume_tpu/ops/pallas/fused_head.py:83", "fused_upsample_softargmin"),
@@ -2964,14 +3354,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     from diffuvolume_tpu_torch.ops.kernels import _build
-    from diffuvolume_tpu_torch.ops.kernels import concat_volume as kc
-    from diffuvolume_tpu_torch.ops.kernels import conv2d as k2
-    from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
-    from diffuvolume_tpu_torch.ops.kernels import conv3d_up as kup
-    from diffuvolume_tpu_torch.ops.kernels import depthwise as kd
-    from diffuvolume_tpu_torch.ops.kernels import fused_head as kf
-    from diffuvolume_tpu_torch.ops.kernels import gwc_volume as kg
-    from diffuvolume_tpu_torch.ops.kernels import layout as kl
 
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
@@ -3023,16 +3405,7 @@ def main() -> int:
     log("== 4. small input: each pipeline on the card against the CPU (float32)")
     agreement = small_agreement(dev)
 
-    counters = {"fused_head": kf.fused_upsample_softargmin, "gwc_volume": kg.gwc_volume,
-                "concat_volume": kc.concat_volume, "dhw_mul": kc.dhw_mul,
-                "conv3d_fold_p": kconv.conv3d_fold_p, "conv3d_fold_x2": kconv.conv3d_fold_x2,
-                "conv3d_fold_s2": kconv.conv3d_fold_s2, "conv3d_fold_up": kup.conv3d_fold_up,
-                "conv1x1_fold_p": kconv.conv1x1_fold_p, "pack": kl.pack, "unpack": kl.unpack,
-                "gwc_volume_packed": kg.gwc_volume_packed, "depthwise_hw_p": kd.depthwise_hw_p,
-                "depthwise_hw_p2": kd.depthwise_hw_p2,
-                "fused_uncertainty_at": kf.fused_uncertainty_at, "unpack_hwdc": kl.unpack_hwdc,
-                "conv3d_fold_small": kconv.conv3d_fold_small,
-                "conv3d_packed": kconv.conv3d_packed, "conv2d_flat": k2.conv2d_flat}
+    counters = kernel_counters()
     runs = {}
     log("== 5. ACV main path: two-pass DDIM-5, 512×960, B=1, bfloat16, folded (packed=True)")
     runs["acv_folded"] = main_path(dev, counters, packed=True, pairs=TIMED_PAIRS)
@@ -3085,6 +3458,9 @@ def main() -> int:
     log("== 11. IGEV's reference-faithful evaluation (quirk=True), data parallelism, the "
         "training step's profile")
     later = phase_11(dev, counters, runs, card)
+    log("== 12. the cost volume's rows split over 2 processes on cuda:0 (gloo): ACV's module "
+        "path forward at 512×960 and its training step, against the unsplit runs")
+    split = phase_12(dev, counters, runs, card)
 
     kernels = []
     for name, (source, replaces, tpu_fn) in KERNEL_META.items():
@@ -3113,7 +3489,8 @@ def main() -> int:
                    "build_s": build_s, "kernels": kernels, "kernel_checks": checks,
                    "ncdhw_volume_checks": {k: ncdhw[k] for k in ("concat_volume", "dhw_mul")},
                    "agreement": agreement, "runs": runs, "census_against": census,
-                   "training": training, "phase_11": later, "elapsed_s": elapsed}, f,
+                   "training": training, "phase_11": later, "phase_12": split,
+                   "elapsed_s": elapsed}, f,
                   indent=1)
 
     print(json.dumps({"kernels": kernels}))

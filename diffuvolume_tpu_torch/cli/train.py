@@ -15,8 +15,7 @@ dicts hold at one shape), ``--resume`` continues this run's.  ``--bf16``
 autocasts the forward to bfloat16 over float32 weights.  An epoch ends with
 a checkpoint (``train/checkpoint.py``) that ``cli/evaluate.py`` loads as it
 loads a reference checkpoint, and, with ``--eval_freq``, the two-model DDIM
-evaluation on the port's kernels.  Volume sharding (``--volume_axis`` above
-1) is not ported.
+evaluation on the port's kernels.
 
 Under ``torchrun --nproc_per_node N`` it trains on the JAX CLI's ``data``
 axis (``parallel/ddp.py``): ``--batch_size`` is the global batch, each rank
@@ -28,12 +27,24 @@ single-process step at the same global batch.  ``--eval_freq``'s
 evaluation splits the test images over the ranks and sums their D1 and
 EPE.  Each rank runs on
 ``cuda:LOCAL_RANK`` (NCCL), or with ``--device cpu`` on the CPU (gloo).
+
+``--volume_axis V`` (the ACV SceneFlow recipe) also splits the cost
+volume's rows over ``V`` ranks: a world of ``n_data × V`` ranks under
+``torchrun`` forms the ``(data, volume)`` grid (``parallel/mesh.py``),
+``--batch_size`` splits over ``n_data``, and each step runs inside
+``volume_sharding`` (``parallel/volume_sharding.py``, opened by the step of
+``train/loop.py``), its band of the
+quarter-resolution rows a rank; the step equals the single-process step.
+The JAX CLI builds the same mesh but never enters its ``volume_sharding``;
+the port follows the flag's help.  A world that ``V`` does not divide, a
+run without ``torchrun``, and PCW or IGEV with ``V`` above 1 raise.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
@@ -94,8 +105,9 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="autocast the forward to bfloat16 over float32 weights")
     p.add_argument("--volume_axis", type=int, default=1,
-                   help="cost-volume sharding axis (ParallelConfig.volume_axis); only 1 "
-                   "is ported")
+                   help="mesh size of the cost-volume sharding axis "
+                   "(ParallelConfig.volume_axis): ranks a band of the volume's rows, "
+                   "under torchrun, ACV only")
     p.add_argument(
         "--recipe", choices=["sceneflow", "kitti12", "kitti15"], default=None,
         help="training recipe (loss weights / optimizer / schedule); "
@@ -196,7 +208,7 @@ def _epoch_eval(args, recipe, model, baseline, dataset_cls, dev, dp=None):
 
 
 def build_state(args, recipe: str, cfg: ExperimentConfig, steps_per_epoch: int, dev,
-                dp: ddp.DataParallel | None = None):
+                dp: ddp.Mesh | None = None):
     """The model (the JAX package's initialisation drawn with ``--seed``,
     then ``--init_from``), its optimiser and schedule, and the train step;
     with ``dp``, BatchNorm over the global batch and rank 0's parameters on
@@ -245,11 +257,8 @@ def run(args, on_start=None, on_step=None) -> dict:
     EPE)``).  Started by ``torchrun``, the process joins its
     data-parallel group here and leaves it on return."""
     recipe, cfg = build_experiment_config(args)
-    if cfg.parallel.volume_axis != 1:
-        raise NotImplementedError(
-            "--volume_axis > 1 (cost-volume sharding, parallel/ in the JAX package) is not "
-            "ported; the port splits only the batch over ranks")
-    dp = ddp.from_env(args.device)
+    _check_volume_axis(cfg.parallel.volume_axis, recipe)
+    dp = ddp.from_env(args.device, n_volume=cfg.parallel.volume_axis)
     try:
         return _train(args, recipe, cfg, dp, on_start, on_step)
     finally:
@@ -257,19 +266,36 @@ def run(args, on_start=None, on_step=None) -> dict:
             ddp.shutdown()
 
 
+def _check_volume_axis(v: int, recipe: str) -> None:
+    """``--volume_axis V``: at least 1; above 1 ACV's recipe only, under a
+    ``torchrun`` world that ``V`` divides."""
+    if v < 1:
+        raise ValueError(f"--volume_axis must be at least 1, got {v}")
+    if v == 1:
+        return
+    if recipe != "sceneflow":
+        raise NotImplementedError(
+            f"--volume_axis {v}: the cost-volume split is ported for ACVNet (the SceneFlow "
+            f"recipe); {recipe}'s model under it is open work (ROADMAP)")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if "WORLD_SIZE" not in os.environ or world % v:
+        raise ValueError(f"--volume_axis {v} needs a torchrun world size that it divides; "
+                         f"the world size is {world}")
+
+
 def _train(args, recipe, cfg, dp, on_start, on_step) -> dict:
     main_rank = dp is None or dp.is_main
     say = print if main_rank else (lambda *a, **k: None)
     dev = resolve_device(args.device) if dp is None else dp.device
-    if dp is not None and cfg.data.batch_size % dp.world_size:
+    if dp is not None and cfg.data.batch_size % dp.n_data:
         raise ValueError(f"--batch_size {cfg.data.batch_size} does not split over "
-                         f"{dp.world_size} ranks")
+                         f"{dp.n_data} data ranks")
     dataset = fetch_dataset(cfg.data.dataset, cfg.data.datapath, training=True,
                             list_filename=cfg.data.trainlist, seed=cfg.seed)
     steps_per_epoch = max(len(dataset) // cfg.data.batch_size, 1)
     say(f"dataset: {len(dataset)} samples, {steps_per_epoch} steps/epoch"
-        + ("" if dp is None else f", {dp.world_size} ranks of "
-           f"{cfg.data.batch_size // dp.world_size}"))
+        + ("" if dp is None else f", {dp.world_size} ranks ({dp.n_data} data × "
+           f"{dp.n_volume} volume) of {cfg.data.batch_size // dp.n_data}"))
     state, train_step = build_state(args, recipe, cfg, steps_per_epoch, dev, dp)
 
     start_epoch = 0
@@ -311,17 +337,7 @@ def _train(args, recipe, cfg, dp, on_start, on_step) -> dict:
             if on_step is not None:
                 on_step(state, metrics)
             if i % args.summary_freq == 0 and main_rank:
-                print(f"epoch {epoch} step {i}/{steps_per_epoch} loss {loss:.3f} "
-                      f"EPE {float(metrics['epe']):.3f} ({(time.time() - t0) / (i + 1):.2f}s/it)")
-                logger.write_dict({"train/loss": loss, "train/epe": metrics["epe"]},
-                                  step=state.step)
-                # Image summaries (SceneFlow/main.py via experiment.py:72-88
-                # save_images): est / GT / KITTI error map, sample 0.
-                est = metrics["pred"][0].float().cpu().numpy()
-                gt = batch["disp_gt"][0].float().cpu().numpy()
-                logger.write_images({"train/disp_est": est, "train/disp_gt": gt,
-                                     "train/errormap": disp_error_image(est, gt)},
-                                    step=state.step)
+                _summary(logger, state, metrics, batch, epoch, i, steps_per_epoch, loss, t0, dp)
         say(f"epoch {epoch} done: mean loss {meter.mean():.4f}")
         if main_rank:
             save_checkpoint(cfg.logdir, state.step, state.model, state.optimizer)
@@ -338,6 +354,20 @@ def _train(args, recipe, cfg, dp, on_start, on_step) -> dict:
     if logger is not None:
         logger.close()
     return {"state": state, "best_d1": best_d1, "losses": losses, "evals": evals}
+
+
+def _summary(logger, state, metrics, batch, epoch, i, steps_per_epoch, loss, t0, dp) -> None:
+    print(f"epoch {epoch} step {i}/{steps_per_epoch} loss {loss:.3f} "
+          f"EPE {float(metrics['epe']):.3f} ({(time.time() - t0) / (i + 1):.2f}s/it)")
+    logger.write_dict({"train/loss": loss, "train/epe": metrics["epe"]}, step=state.step)
+    # Image summaries (SceneFlow/main.py via experiment.py:72-88
+    # save_images): est / GT / KITTI error map, sample 0 (its band of rows
+    # under the volume split).
+    est = metrics["pred"][0].float().cpu().numpy()
+    first = 0 if dp is None else dp.volume_index * est.shape[0]
+    gt = batch["disp_gt"][0, first:first + est.shape[0]].float().cpu().numpy()
+    logger.write_images({"train/disp_est": est, "train/disp_gt": gt,
+                         "train/errormap": disp_error_image(est, gt)}, step=state.step)
 
 
 def main(argv=None) -> dict:

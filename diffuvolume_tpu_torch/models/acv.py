@@ -15,6 +15,13 @@ attention × noise multiply (``dhw_mul``) and the fused regression head
 convolutions.  The kernels have no backward, so ``train_forward`` runs the
 differentiable plain ops instead (``ops/cost_volume.py``,
 ``ops/regression.py``), as the JAX package's training runs XLA's.
+
+Under ``parallel/volume_sharding.py`` ``forward`` and ``train_forward``
+work on this rank's band of the quarter-resolution rows: the trunk runs
+whole, the volume builders keep the band, the 3-D layers exchange halos
+(``models/layers.py``), and every head returns the band's full-resolution
+rows.  The band must be a multiple of 4 rows at H/4 (the hourglasses' two
+stride-2 levels); a shape that breaks the rule raises.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from diffuvolume_tpu_torch.models.layers import (
     DynamicHead,
     HeadConv3D,
     HourglassACV,
+    conv3d_rows,
     convbn_3d,
     init_weights,
 )
@@ -38,7 +46,27 @@ from diffuvolume_tpu_torch.ops.cost_volume import build_concat_volume, build_gwc
 from diffuvolume_tpu_torch.ops.kernels.concat_volume import concat_volume, dhw_mul
 from diffuvolume_tpu_torch.ops.kernels.fused_head import fused_upsample_softargmin
 from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume
-from diffuvolume_tpu_torch.ops.regression import regress_head
+from diffuvolume_tpu_torch.ops.regression import regress_head, upsample_halo
+from diffuvolume_tpu_torch.parallel.volume_sharding import (
+    band,
+    constrain_volume,
+    current_volume_spec,
+)
+
+# The rows a band must hold at H/4 under the volume split: two stride-2
+# levels below it.
+BAND_MULTIPLE = 4
+
+
+def fused_head_rows(cost: torch.Tensor, max_disp: int, out_hw: tuple[int, int]):
+    """``fused_upsample_softargmin`` of ``(B, D4, H4, W4)`` logits; under the
+    volume split on this rank's band with a replicated row a side
+    (``upsample_halo``), keeping the band's full-resolution rows."""
+    if current_volume_spec() is None:
+        return fused_upsample_softargmin(cost.contiguous(), max_disp, out_hw)
+    cost, h, rows = upsample_halo(cost, out_hw[0])
+    disp, unc = fused_upsample_softargmin(cost.contiguous(), max_disp, (h, out_hw[1]))
+    return disp[:, rows], unc[:, rows]
 
 
 class ConcatEntry(NamedTuple):
@@ -118,12 +146,15 @@ class ACVNet(nn.Module):
 
     def trunk(self, left: torch.Tensor, right: torch.Tensor):
         """``(B, H, W, 3)`` images → the trunk features ``(B, 320, H4, W4)``
-        of both views, in the model's dtype."""
+        of both views, in the model's dtype (whole; under the volume split
+        the band rule is checked here)."""
         dt = self.dtype
         left = left.to(dt).permute(0, 3, 1, 2).contiguous()
         right = right.to(dt).permute(0, 3, 1, 2).contiguous()
-        return (self.feature_extraction(left).contiguous(),
-                self.feature_extraction(right).contiguous())
+        feat_l = self.feature_extraction(left).contiguous()
+        if current_volume_spec() is not None:
+            band(feat_l.shape[2], BAND_MULTIPLE)
+        return feat_l, self.feature_extraction(right).contiguous()
 
     def features(self, left: torch.Tensor, right: torch.Tensor):
         """``(B, H, W, 3)`` images → ``(feat_l, feat_r, patch_volume)``: the
@@ -131,13 +162,15 @@ class ACVNet(nn.Module):
         patch convs ``(B, G, D, H4, W4)``, in the model's dtype."""
         feat_l, feat_r = self.trunk(left, right)
         gwc = gwc_volume(feat_l, feat_r, self.max_disp // 4, self.num_groups)
-        gwc = self.patch(gwc)
-        patch_volume = torch.cat([
-            self.patch_l1(gwc[:, :8]),
-            self.patch_l2(gwc[:, 8:24]),
-            self.patch_l3(gwc[:, 24:40]),
+        return feat_l, feat_r, self._patch(gwc)
+
+    def _patch(self, gwc):
+        gwc = conv3d_rows(self.patch, gwc)
+        return torch.cat([
+            conv3d_rows(self.patch_l1, gwc[:, :8]),
+            conv3d_rows(self.patch_l2, gwc[:, 8:24]),
+            conv3d_rows(self.patch_l3, gwc[:, 24:40]),
         ], dim=1)
-        return feat_l, feat_r, patch_volume
 
     def concat_and_attention(self, feat_l, feat_r, att_weights):
         """``(cl, cr, att)`` from the trunk features and the attention
@@ -164,8 +197,7 @@ class ACVNet(nn.Module):
         cost0 = self.dres0(volume)
         cost0 = self.dres1(cost0) + cost0
         out2 = self.dres3(self.dres2(cost0))
-        cost = self.classif2(out2)[:, 0]
-        return fused_upsample_softargmin(cost.float().contiguous(), self.max_disp, out_hw)
+        return fused_head_rows(self.classif2(out2)[:, 0].float(), self.max_disp, out_hw)
 
     # ---- diffusion-conditioned single pass ----
 
@@ -192,12 +224,8 @@ class ACVNet(nn.Module):
         """``(ac_volume (B, 2C, D, H4, W4), att_weights (B, D, H4, W4))`` on
         the differentiable ops, the trunk run once a view."""
         feat_l, feat_r = self.trunk(left, right)
-        gwc = self.patch(build_gwc_volume(feat_l, feat_r, self.max_disp // 4, self.num_groups))
-        patch_volume = torch.cat([
-            self.patch_l1(gwc[:, :8]),
-            self.patch_l2(gwc[:, 8:24]),
-            self.patch_l3(gwc[:, 24:40]),
-        ], dim=1)
+        patch_volume = self._patch(
+            build_gwc_volume(feat_l, feat_r, self.max_disp // 4, self.num_groups))
         att_weights = self.classif_att_(self.dres2_att_(self.dres1_att_(patch_volume)))[:, 0]
         volume = build_concat_volume(self.concatconv(feat_l), self.concatconv(feat_r),
                                      self.max_disp // 4)
@@ -214,7 +242,8 @@ class ACVNet(nn.Module):
         quarter-res ground truth in bin units ``disp_gt_q (B, H4, W4)``, one
         timestep a sample ``t (B,)`` and the noise ``(B, D4, H4, W4)``:
         ``q_sample`` of the encoded ground truth, time-embedded, clamped and
-        mapped to [0, 1], multiplies the volume.  With
+        mapped to [0, 1], multiplies the volume (whole inputs; under the
+        volume split the heads are this rank's rows).  With
         ``freeze_attn_weights`` no gradient reaches the cost volume's
         branch, but its BatchNorm statistics are updated, as under the JAX
         package's ``stop_gradient``."""
@@ -228,9 +257,12 @@ class ACVNet(nn.Module):
         if self.attn_weights_only:
             return [pred_att()]
         if self.diffusion:
-            x_start = encode_disparity_volume(disp_gt_q, self.max_disp // 4, self.scale,
-                                              valid_mask=mask_gt)
-            noisy = q_sample(make_schedule(1000, device=x_start.device), x_start, t, noise)
+            if mask_gt is not None:
+                mask_gt = constrain_volume(mask_gt)
+            x_start = encode_disparity_volume(constrain_volume(disp_gt_q), self.max_disp // 4,
+                                              self.scale, valid_mask=mask_gt)
+            noisy = q_sample(make_schedule(1000, device=x_start.device), x_start, t,
+                             constrain_volume(noise))
             ac_volume = ac_volume * self.embed_noise(noisy, t)[:, None]
 
         cost0 = self.dres0(ac_volume)

@@ -11,6 +11,16 @@ activation modules (``"relu"`` for ACVNet, ``"mish"`` for PCWNet).  Tensors
 are NCHW / NCDHW inside the network.  ``BatchNorm2d`` / ``BatchNorm3d`` keep
 PyTorch's state-dict names and update their running statistics in training
 as ``flax.linen.BatchNorm`` does (the biased batch variance).
+
+Under ``parallel/volume_sharding.py`` the 3-D layers of ACVNet work on this
+rank's band of rows (H, dim 3 of NCDHW): each conv takes the halo its
+kernel reads across the band's edges (``conv3d_rows``:
+3×3×3 stride 1 one row a side; stride 2 one above; the ``(1, 3, 3)``
+patch convs their dilation a side; 1×1×1 none) and runs with no padding
+over H; a transposed conv (k3 s2 p1 op1) takes one row below and crops;
+``AttentionBlock3D``, whose windows cross bands, gathers its input's rows,
+attends, and keeps this rank's.  BatchNorm, ReLU and the other pointwise
+ops need no halo.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch.nn.functional as F
 
 from diffuvolume_tpu_torch.ops.kernels.conv3d_fold import conv3d_packed
 from diffuvolume_tpu_torch.ops.regression import resize_linear
+from diffuvolume_tpu_torch.parallel.volume_sharding import current_volume_spec, gather_rows, halo
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -147,6 +158,42 @@ def _ntuple(x, n):
     return tuple(x) if isinstance(x, (tuple, list)) else (x,) * n
 
 
+def conv3d_rows(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)``; under ``volume_sharding``, a 3-D conv on this rank's
+    band of rows: the band with the halo the kernel reads past its edges
+    (``padding`` rows above, ``(k − 1)·dilation − padding − stride + 1``
+    below, zeros at the global edges), convolved with no padding over H,
+    gives the global output rows of the band (``stride`` must divide the
+    band's first row).  ``PackedConv3d``'s kernel has a fixed padding: it
+    runs on the band with one row a side and drops the two rows next to the
+    halo."""
+    if current_volume_spec() is None or not isinstance(conv, nn.Conv3d):
+        return conv(x)
+    k, s, p, d = (a[1] for a in (conv.kernel_size, conv.stride, conv.padding, conv.dilation))
+    xh = halo(x, p, (k - 1) * d - p - s + 1)
+    if isinstance(conv, PackedConv3d):  # stride 1, pad 1
+        return conv(xh).narrow(3, 1, x.shape[3])
+    return F.conv3d(xh, conv.weight, conv.bias, conv.stride,
+                    (conv.padding[0], 0, conv.padding[2]), conv.dilation, conv.groups)
+
+
+def conv_transpose3d_rows(deconv: nn.ConvTranspose3d, x: torch.Tensor) -> torch.Tensor:
+    """``deconv(x)``; under ``volume_sharding``, the hourglasses' transposed
+    conv (k3 s2 p1, output padding 1) on this rank's band: output row ``o``
+    reads input rows ``⌊o/2⌋`` and ``⌊o/2⌋ + 1``, so the band takes one row
+    of the band below (zeros past the last) and the output's first ``2n``
+    rows are the band's."""
+    if current_volume_spec() is None:
+        return deconv(x)
+    if (deconv.kernel_size[1], deconv.stride[1], deconv.padding[1],
+            deconv.output_padding[1]) != (3, 2, 1, 1):
+        raise ValueError("the split transposed conv is the k3 s2 p1 op1 form over H")
+    op = deconv.output_padding
+    y = F.conv_transpose3d(halo(x, 0, 1), deconv.weight, deconv.bias, deconv.stride,
+                           deconv.padding, (op[0], 0, op[2]), deconv.groups, deconv.dilation)
+    return y.narrow(3, 0, 2 * x.shape[3])
+
+
 class ConvBN(nn.Sequential):
     """Conv (2-D or 3-D) without bias, then BatchNorm: the reference's
     ``convbn`` / ``convbn_3d`` (children ``0`` conv, ``1`` bn).
@@ -169,6 +216,9 @@ class ConvBN(nn.Sequential):
         bn = (BatchNorm2d if dims == 2 else BatchNorm3d)(out_ch)
         super().__init__(conv, bn)
 
+    def forward(self, x):
+        return self[1](conv3d_rows(self[0], x))
+
 
 def convbn_3d(in_ch, out_ch, kernel_size, stride, pad) -> ConvBN:
     return ConvBN(in_ch, out_ch, kernel_size, stride, pad, dims=3)
@@ -179,6 +229,11 @@ class HeadConv3D(nn.Conv3d):
 
     def __init__(self, in_ch: int = 32):
         super().__init__(in_ch, 1, 3, stride=1, padding=1, bias=False)
+
+    def forward(self, x):
+        if current_volume_spec() is None:
+            return super().forward(x)
+        return conv3d_rows(self, x)
 
 
 class ConvTransposeBN(nn.Sequential):
@@ -194,6 +249,9 @@ class ConvTransposeBN(nn.Sequential):
                                bias=False),
             BatchNorm3d(out_ch),
         )
+
+    def forward(self, x):
+        return self[1](conv_transpose3d_rows(self[0], x))
 
 
 class SeparableConvBN3d(nn.Sequential):
@@ -273,6 +331,15 @@ class AttentionBlock3D(nn.Module):
         self.final1x1 = nn.Conv3d(channels, channels, 1, bias=True)
 
     def forward(self, x):
+        if current_volume_spec() is not None:
+            # The windows cross bands: attend over every row (small at H/16),
+            # keep this rank's.
+            n = x.shape[3]
+            first = n * current_volume_spec().volume_index
+            return self._attend(gather_rows(x)).narrow(3, first, n)
+        return self._attend(x)
+
+    def _attend(self, x):
         b, c, d0, h0, w0 = x.shape
         b0, b1, b2 = self.block
         if d0 % b0:

@@ -23,11 +23,19 @@ H, W, C)``, volumes ``(B, D, H, W, G)``.
 The multiplies are taken in float32 and rounded once to the volume's dtype,
 in the order the kernels take them, so a kernel and its plain version agree
 exactly on the same inputs.
+
+Under ``parallel/volume_sharding.py`` ``build_gwc_volume`` and
+``build_concat_volume`` (and the kernels, ``ops/kernels/``) build only this
+rank's band of rows: a volume row depends only on the same feature row, so
+they slice the features' rows first (the JAX package constrains the whole
+volume's, ``cost_volume.py:68`` and ``:108``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from diffuvolume_tpu_torch.parallel.volume_sharding import constrain_volume
 
 
 def groupwise_correlation(
@@ -50,8 +58,9 @@ def build_gwc_volume(
     """Group-wise correlation volume ``(B, G, D, H, W)``.
 
     ``vol[b, g, d, h, w] = mean_{c∈g} left[b,c,h,w]·right[b,c,h,w-d]`` for
-    ``w ≥ d``, zero elsewhere.
+    ``w ≥ d``, zero elsewhere; this rank's rows under ``volume_sharding``.
     """
+    left, right = constrain_volume(left), constrain_volume(right)
     b, c, h, w = left.shape
     vol = left.new_zeros((b, num_groups, max_disp, h, w))
     for d in range(min(max_disp, w)):
@@ -71,8 +80,10 @@ def build_concat_volume(
 
     ``vol[:, :C, d, h, w] = left[:, :, h, w]`` at every ``d`` (with
     ``mask_ref=True`` only where ``w ≥ d``); ``vol[:, C:, d, h, w] =
-    right[:, :, h, w-d]`` where ``w ≥ d``, zero elsewhere.
+    right[:, :, h, w-d]`` where ``w ≥ d``, zero elsewhere; this rank's rows
+    under ``volume_sharding``.
     """
+    left, right = constrain_volume(left), constrain_volume(right)
     b, c, h, w = left.shape
     vol = left.new_zeros((b, 2 * c, max_disp, h, w))
     if not mask_ref:

@@ -24,6 +24,7 @@ import torch
 
 from diffuvolume_tpu_torch.ops.cost_volume import concat_volume_mul, volume_dhw_mul
 from diffuvolume_tpu_torch.ops.kernels import _build
+from diffuvolume_tpu_torch.parallel.volume_sharding import constrain_volume
 
 
 def _check_map(m: torch.Tensor, like: torch.Tensor, shape) -> None:
@@ -58,6 +59,8 @@ def concat_volume(
     """``(B, C, H, W)`` features → ``(B, 2C, D, H, W)`` concat volume: the left
     features at every ``d``, the right shifted by ``d`` (0 for ``w < d``),
     times ``att`` (``(B, D, H, W)`` in the features' dtype) when it is given.
+    Under ``parallel/volume_sharding.py`` this rank's rows: the features
+    whole, ``att`` this rank's band.
     ``channels_last`` writes it as ``(B, D, H, W, 2C)``, the folded path's
     layout; on a CUDA tensor it takes C in whole 16-byte vectors (8 bf16 or
     4 float32 channels).
@@ -78,6 +81,7 @@ def concat_volume_cl_on(force: tuple, cl: torch.Tensor, cr: torch.Tensor, max_di
 def _concat(cl, cr, max_disp, att, channels_last, force):
     if cl.device.type == "cpu":
         return concat_volume_mul(cl, cr, max_disp, att, channels_last)
+    cl, cr = constrain_volume(cl), constrain_volume(cr)
     if cl.shape != cr.shape or cl.dtype != cr.dtype or cl.dim() != 4:
         raise ValueError("cl/cr must be (B, C, H, W) of one shape and dtype")
     b, c, h, w = cl.shape

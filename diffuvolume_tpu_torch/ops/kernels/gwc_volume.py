@@ -32,6 +32,7 @@ import torch
 
 from diffuvolume_tpu_torch.ops.cost_volume import build_gwc_volume, gwc_volume_slot, slot_width
 from diffuvolume_tpu_torch.ops.kernels import _build
+from diffuvolume_tpu_torch.parallel.volume_sharding import constrain_volume
 
 # cpg values the row-16 kernel is compiled for (csrc/gwc_volume.cu launch_slot).
 SLOT_CPG = (1, 2, 3, 4, 6, 8, 12, 16)
@@ -66,7 +67,8 @@ def gwc_volume(
 ) -> torch.Tensor:
     """``(B, C, H, W)`` features → ``(B, G, D, H, W)`` volume,
     ``vol[b,g,d,h,w] = mean_{c∈g} left[b,c,h,w]·right[b,c,h,w-d]`` (0 for
-    ``w < d``), accumulated in float32, in the features' dtype.
+    ``w < d``), accumulated in float32, in the features' dtype; this rank's
+    rows under ``parallel/volume_sharding.py``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
@@ -84,6 +86,7 @@ def gwc_volume_on(tile: tuple[int, int], left: torch.Tensor, right: torch.Tensor
 def _ncdhw(left, right, max_disp, num_groups, tile):
     if left.device.type == "cpu":
         return build_gwc_volume(left, right, max_disp, num_groups)
+    left, right = constrain_volume(left), constrain_volume(right)
     if left.shape != right.shape or left.dtype != right.dtype or left.dim() != 4:
         raise ValueError("left/right must be (B, C, H, W) of one shape and dtype")
     b, c, h, w = left.shape

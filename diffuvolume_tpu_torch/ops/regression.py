@@ -5,6 +5,10 @@ contractions with dense interpolation matrices (two non-zero taps per row),
 the same formulation as the JAX package, so the two agree to float32
 rounding.  ``upsample_cost_and_regress`` + ``disparity_uncertainty`` are the
 plain version of the fused head kernel (``ops/kernels/fused_head.py``).
+Under ``parallel/volume_sharding.py`` ``regress_head`` takes this rank's
+band of the logits' rows and gives its band of full-resolution rows
+(``upsample_halo``, which ACV's eval head applies around the fused kernel
+too).
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ import functools
 
 import numpy as np
 import torch
+
+from diffuvolume_tpu_torch.parallel.volume_sharding import current_volume_spec, halo
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -127,6 +133,23 @@ def resize_volume_trilinear(
     return resize_linear(cost, out_dhw[2], 3, align_corners)
 
 
+def upsample_halo(cost: torch.Tensor, out_h: int,
+                  align_corners: bool = False) -> tuple[torch.Tensor, int, slice]:
+    """Under ``volume_sharding``: a resize of this rank's band ``[h0, h1)`` of
+    ``(B, D4, H4, W4)`` logits' rows to its ``[f·h0, f·h1)`` rows of an
+    ``out_h = f·H4`` output.  Returns ``(cost with one row a side, the
+    resize's height for it, the output rows to keep)``: output row ``o``
+    reads rows ``⌊(o + ½)/f − ½⌋`` and the next, one past the band at its
+    ends, and the global resize clamps at the image's edges, which the
+    halo's replicated edge rows reproduce."""
+    n = cost.shape[2]
+    f, rem = divmod(out_h, n * current_volume_spec().n_volume)
+    if rem or align_corners:
+        raise ValueError(f"the split upsample takes a whole factor from H4 to {out_h} with "
+                         f"half-pixel centres")
+    return halo(cost, 1, 1, "replicate"), f * (n + 2), slice(f, f * (n + 1))
+
+
 def upsample_cost_and_regress(
     cost: torch.Tensor,
     max_disp: int,
@@ -146,6 +169,11 @@ def regress_head(cost: torch.Tensor, max_disp: int, out_hw: tuple[int, int],
                  align_corners: bool = False) -> torch.Tensor:
     """A training head's regression: ``upsample_cost_and_regress`` of the
     ``(B, D4, H4, W4)`` logits in float32 (float64 stays), autocast off (the
-    JAX package casts the cost to float32 first) → ``(B, H, W)``."""
+    JAX package casts the cost to float32 first) → ``(B, H, W)``; this
+    rank's rows under ``volume_sharding``."""
     with torch.autocast(cost.device.type, enabled=False):
-        return upsample_cost_and_regress(at_least_f32(cost), max_disp, out_hw, align_corners)[0]
+        cost = at_least_f32(cost)
+        if current_volume_spec() is None:
+            return upsample_cost_and_regress(cost, max_disp, out_hw, align_corners)[0]
+        cost, h, rows = upsample_halo(cost, out_hw[0], align_corners)
+        return upsample_cost_and_regress(cost, max_disp, (h, out_hw[1]), align_corners)[0][:, rows]

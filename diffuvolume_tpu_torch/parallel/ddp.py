@@ -1,9 +1,11 @@
 """Data parallelism over processes: the JAX package's ``data`` mesh axis.
 
-Counterpart of ``diffuvolume_tpu/parallel/mesh.py`` (``make_mesh``,
-``batch_sharding``, ``shard_batch``) for the one semantics the JAX training
-CLI uses it for: the global batch split over devices, parameters
-replicated, one update from the whole batch's gradient.  Under the JAX mesh
+Joins the process group and places the process in the ``(data, volume)``
+grid of ``parallel/mesh.py``; with ``n_volume = 1`` that grid is the one
+semantics the JAX training CLI uses its mesh for: the global batch split
+over devices, parameters replicated, one update from the whole batch's
+gradient (with ``n_volume`` above 1, ``parallel/volume_sharding.py`` also
+splits the cost volume's rows).  Under the JAX mesh
 every reduction in the step is global, and so it is here:
 
 * **BatchNorm** normalises with the global batch's mean and biased
@@ -35,93 +37,42 @@ out here.  At world size 1 every collective still runs.
 
 Processes come from ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``; ``from_env``) or from the caller
-(``init``): NCCL on the card, gloo on the CPU.
+(``init``): NCCL on the card and gloo on the CPU by default; gloo on the
+card when the caller asks for it (several ranks on one device).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import socket
 
 import torch
 import torch.distributed as dist
 
+from diffuvolume_tpu_torch.parallel.mesh import Mesh, make_mesh
 from diffuvolume_tpu_torch.utils.device import resolve_device
 
 
-@dataclasses.dataclass
-class DataParallel:
-    """One rank of a data-parallel group: ``rank`` of ``world_size``, its
-    device."""
-
-    rank: int
-    world_size: int
-    device: torch.device
-
-    @property
-    def is_main(self) -> bool:
-        return self.rank == 0
-
-    def rows(self, x):
-        """This rank's contiguous rows of a global-batch tensor or array
-        (the leading axis split in ``world_size`` equal parts)."""
-        b = x.shape[0]
-        if b % self.world_size:
-            raise ValueError(f"a batch of {b} does not split over {self.world_size} ranks")
-        n = b // self.world_size
-        return x[self.rank * n:(self.rank + 1) * n]
-
-    def shard(self, batch: dict) -> dict:
-        """``rows`` of every array of a collated batch."""
-        return {k: self.rows(v) for k, v in batch.items()}
-
-    def sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the ranks, outside autograd (BatchNorm's
-        batch sums, counts, metrics)."""
-        out = x.detach().clone()
-        dist.all_reduce(out)
-        return out
-
-    def broadcast_parameters(self, model: torch.nn.Module) -> None:
-        """Rank 0's parameters and buffers on every rank."""
-        with torch.no_grad():
-            for t in list(model.parameters()) + list(model.buffers()):
-                dist.broadcast(t.data, 0)
-
-    def all_reduce_gradients(self, params) -> None:
-        """Every parameter's gradient summed over the ranks, in one
-        flattened all-reduce; a parameter no rank's loss reached gets zeros
-        (optax updates every leaf)."""
-        params = list(params)
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        flat = torch.cat([p.grad.reshape(-1) for p in params])
-        dist.all_reduce(flat)
-        offset = 0
-        for p in params:
-            n = p.numel()
-            p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
-            offset += n
-
-    def barrier(self) -> None:
-        dist.barrier()
-
-
 def init(rank: int, world_size: int, device: str | torch.device | None = None,
-         init_method: str = "env://") -> DataParallel:
+         init_method: str = "env://", backend: str | None = None,
+         n_volume: int = 1) -> Mesh:
     """Join the process group as ``rank`` of ``world_size`` at
     ``init_method`` (``tcp://localhost:PORT``, or ``env://`` for
-    ``MASTER_ADDR`` / ``MASTER_PORT``): NCCL for a CUDA ``device`` (default
-    ``cuda:0``), gloo for the CPU."""
+    ``MASTER_ADDR`` / ``MASTER_PORT``) and return this rank's place in the
+    ``(world_size / n_volume, n_volume)`` grid (``parallel/mesh.py``).
+    ``backend`` defaults to NCCL for a CUDA ``device`` (default ``cuda:0``)
+    and gloo for the CPU; gloo on a card runs several ranks on one device,
+    which NCCL refuses."""
     dev = resolve_device(device)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method=init_method,
-                            rank=rank, world_size=world_size,
-                            device_id=dev if dev.type == "cuda" else None)
-    return DataParallel(rank, world_size, dev)
+    if world_size % n_volume:
+        raise ValueError(f"a volume axis of {n_volume} does not divide a world of "
+                         f"{world_size} ranks")
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size,
+                            device_id=dev if backend == "nccl" else None)
+    return make_mesh(world_size // n_volume, n_volume, dev)
 
 
 def free_port() -> int:
@@ -132,16 +83,17 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def from_env(device: str | torch.device | None = None) -> DataParallel | None:
-    """The group ``torchrun`` describes in the environment, or None when the
-    process was not started by it (no ``WORLD_SIZE``).  The device defaults
-    to ``cuda:LOCAL_RANK``; pass ``"cpu"`` for gloo on the CPU."""
+def from_env(device: str | torch.device | None = None, n_volume: int = 1) -> Mesh | None:
+    """The group ``torchrun`` describes in the environment as a grid of
+    ``n_volume`` ranks a band, or None when the process was not started by
+    it (no ``WORLD_SIZE``).  The device defaults to ``cuda:LOCAL_RANK``;
+    pass ``"cpu"`` for gloo on the CPU."""
     if "WORLD_SIZE" not in os.environ:
         return None
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     if device is None:
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
-    return init(rank, world, device)
+    return init(rank, world, device, n_volume=n_volume)
 
 
 def shutdown() -> None:
@@ -149,13 +101,15 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
-def sync_batch_norm(model: torch.nn.Module, dp: DataParallel) -> torch.nn.Module:
+def sync_batch_norm(model: torch.nn.Module, dp: Mesh) -> torch.nn.Module:
     """Every ``models/layers.py`` BatchNorm of ``model`` normalises with the
-    statistics of the global batch in training (``reduce_stats``); the
+    statistics of the global batch in training (``reduce_stats``): the 3-D
+    ones with sums over the world, the 2-D ones over the data group (the
+    world when ``n_volume`` is 1; see ``parallel/mesh.py``).  The
     state-dict names stay.  Returns ``model``."""
-    from diffuvolume_tpu_torch.models.layers import _FlaxRunningStats
+    from diffuvolume_tpu_torch.models.layers import BatchNorm3d, _FlaxRunningStats
 
     for m in model.modules():
         if isinstance(m, _FlaxRunningStats):
-            m.reduce_stats = dp.sum
+            m.reduce_stats = dp.sum if isinstance(m, BatchNorm3d) else dp.data_sum
     return model

@@ -59,8 +59,8 @@ def parse_args(argv=None):
 
 def make_step(args, dev, dp=None):
     """``step()``: one training step on ``dev`` (with ``dp``, a
-    ``parallel.DataParallel``, through it); returns its loss (a tensor on
-    the card)."""
+    ``parallel.Mesh``, through it); returns its loss (a tensor on the
+    card)."""
     from diffuvolume_tpu_torch.models import build_model
     from diffuvolume_tpu_torch.parallel import sync_batch_norm
     from diffuvolume_tpu_torch.train.loop import TrainState, make_optimizer, make_train_step

@@ -38,6 +38,10 @@ PEAKS = {
         "flops": {"bfloat16": 989e12, "float16": 989e12, "tf32": 495e12, "float32": 67e12,
                   "float64": 34e12},
         "hbm_bytes_per_s": 3.35e12,
+        # NVLink 4 between the cards of one host: 18 links, 900 GB/s both
+        # ways together, 450 GB/s each way (the same data sheet); a ring
+        # all-reduce sends and receives at once (tools/scaling_model.py).
+        "nvlink_bytes_per_s_each_way": 450e9,
     },
 }
 

@@ -11,11 +11,16 @@ whole batch and the noise from an explicit ``torch.Generator``; both can be
 passed in instead (the tests feed the JAX step's draws).  Gradients run
 through the differentiable plain ops, never the kernels (which have no
 backward), as the JAX package's training runs XLA's.  Given a
-``parallel.DataParallel``, a step takes this rank's rows of the global
-batch: it draws the global batch's timestep and noise and keeps its rows,
+``parallel.Mesh``, a step takes this rank's rows of the global batch: it
+draws the global batch's timestep and noise and keeps its data rows,
 divides its loss by the global count of valid pixels, sums the gradients
 over the ranks before the clip and the optimiser, and reports the global
-loss and EPE (``parallel/ddp.py``).
+loss and EPE (``parallel/ddp.py``).  A grid with a volume axis
+(``parallel/volume_sharding.py``, ACV's step only) makes the step run
+inside ``volume_sharding(mesh)``: the model keeps its band of the volume's
+rows (and of the noise), the loss and the EPE take the band's
+full-resolution rows of the ground truth, and the sums over the world add
+the bands' shares (the trunk's gradient is linear in each band's share).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from diffuvolume_tpu_torch.diffusion import encode_disparity_volume, make_schedule, q_sample
 from diffuvolume_tpu_torch.ops.regression import resize_bilinear
+from diffuvolume_tpu_torch.parallel.volume_sharding import constrain_volume, volume_sharding
 from diffuvolume_tpu_torch.train.loss import SCENEFLOW_WEIGHTS, multi_scale_loss, sequence_loss
 from diffuvolume_tpu_torch.train.lr import Schedule
 
@@ -117,9 +123,9 @@ def _epe(pred: torch.Tensor, disp_gt: torch.Tensor, mask: torch.Tensor, dp=None)
 
 def _draws(b: int, shape, dev, generator, t, noise, dp):
     """The step's timestep ``(b,)`` and noise ``(b, *shape)``: drawn for the
-    global batch (``b × world_size`` rows) when not given, in the order
-    timestep then noise, and this rank's rows kept."""
-    n = b if dp is None else b * dp.world_size
+    global batch (``b × n_data`` rows) when not given, in the order
+    timestep then noise, and this rank's data rows kept."""
+    n = b if dp is None else b * dp.n_data
     if t is None:
         t = draw_t(n, dev, generator)
         t = t if dp is None else dp.rows(t)
@@ -144,10 +150,22 @@ def make_train_step(model, weights=SCENEFLOW_WEIGHTS, bf16: bool = False,
     head).  Batch: ``left``/``right`` ``(B, H, W, 3)``, ``disp_gt`` ``(B, H,
     W)`` on the model's device (with ``dp``, this rank's rows).  ``bf16``:
     autocast to bfloat16 over float32 master weights (the JAX package's
-    ``dtype`` with float32 params)."""
+    ``dtype`` with float32 params).  With a volume axis in ``dp`` (ACVNet
+    only), the step runs inside ``volume_sharding(dp)`` and ``pred`` is
+    this rank's rows."""
     reduce = None if dp is None else dp.sum
+    if dp is not None and dp.n_volume > 1:
+        from diffuvolume_tpu_torch.models.acv import ACVNet
+
+        if not isinstance(model, ACVNet):
+            raise NotImplementedError("the volume split is ACVNet's (ROADMAP): "
+                                      f"{type(model).__name__} trains on the data axis only")
 
     def step(state: TrainState, batch, generator=None, t=None, noise=None) -> dict:
+        with volume_sharding(dp):
+            return split_step(state, batch, generator, t, noise)
+
+    def split_step(state, batch, generator, t, noise) -> dict:
         left, right, disp_gt = batch["left"], batch["right"], batch["disp_gt"]
         b, h, w = disp_gt.shape
         max_disp = model.max_disp
@@ -158,6 +176,8 @@ def make_train_step(model, weights=SCENEFLOW_WEIGHTS, bf16: bool = False,
         model.train()
         with _autocast(dev, bf16):
             preds = model.train_forward(left, right, disp_q, t, noise)
+        # The heads' rows (this rank's band under the volume split).
+        disp_gt, mask = constrain_volume(disp_gt), constrain_volume(mask)
         loss = multi_scale_loss(preds, disp_gt, mask, weights, reduce)
         _update(state, loss, dp)
         loss = loss.detach()
@@ -177,6 +197,9 @@ def make_igev_train_step(model, iters: int = 22, bf16: bool = False, dp=None) ->
 
     num_bins = model.max_disp // 4
     reduce = None if dp is None else dp.sum
+    if dp is not None and dp.n_volume > 1:
+        raise NotImplementedError("the volume split is ACVNet's (ROADMAP): IGEV trains on "
+                                  "the data axis only")
 
     def step(state: TrainState, batch, generator=None, t=None, noise=None) -> dict:
         left, right, disp_gt = batch["left"], batch["right"], batch["disp_gt"]

@@ -151,7 +151,7 @@ def test_refuses_without_a_card(sceneflow, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--datapath", sceneflow])
-    with pytest.raises(NotImplementedError, match="volume_axis"):
+    with pytest.raises(ValueError, match="world size"):
         train_cli.main(["--datapath", sceneflow, "--volume_axis", "2"])
 
 
