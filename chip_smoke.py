@@ -48,9 +48,9 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      one warm-up pair, 30 timed pairs (pairs/s with median and spread),
      per-pair kernel launch counts (asserted), an op census of one pair (no
      3-D BatchNorm, no 3-D conv), output finite in [0, 191];
-  6. the ACV module path (``packed=False``) the same way, 2 timed pairs, and
+  6. the ACV module path (``packed=False``) the same way, 1 timed pair, and
      after ``route_conv3d`` (row 15 launches asserted, the census's cuDNN
-     3-D convs fewer by exactly as many), 2 timed pairs;
+     3-D convs fewer by exactly as many), 1 timed pair;
   7. the PCW path: PCWNet two-pass KITTI12 DDIM-3 at 384×1248, batch 1,
      bfloat16 model, folded path; one warm-up pair, 10 timed pairs, launch
      counts (asserted), a census with no 3-D BatchNorm and no 3-D conv, a
@@ -106,14 +106,20 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      ``parallel/ddp.py`` at world size 1 (``--ddp``);
  12. the cost volume's rows split over 2 processes on cuda:0 over gloo
      (``parallel/volume_sharding.py``; NCCL takes one rank a device), against
-     the unsplit runs on the card: (a) ACV's routed module path forward at
-     512×960, tamed seeded weights, float32 and bfloat16, each rank's
-     launches (rows 2, 3, 15 and 1) equal to the unsplit forward's, the
-     backend and the staging printed; (b) the ACV SceneFlow step on a 1 × 2
-     grid in float64 at 32×64 against one process (phase 11 (c)'s
-     tolerances), and the float32 step at 256×512, batch 4, timed (median,
-     p10, p90, peak memory a process) beside the plain step: a one-card
-     figure over gloo, not a scaling one;
+     the unsplit runs on the card: (a) the module path forwards, seeded
+     weights, float32 (held to the float32 floor measured in the run) and
+     bfloat16 (phase 4's flip rule), each rank's launches equal to the
+     unsplit forward's, the backend and the staging printed: ACV routed at
+     512×960 (rows 2, 3, 15 and 1), PCW routed at 384×1248 (rows 16, 15 and
+     1; 48 of the 96 rows at H/4 a rank), IGEV at 384×1248 with 32 GRU
+     iterations (rows 2 and 14); (b) the ACV SceneFlow step on a 1 × 2 grid
+     in float64 at 32×64 against one process (phase 11 (c)'s tolerances),
+     and the float32 step at 256×512, batch 4, timed (median, p10, p90, peak
+     memory a process) beside the plain step: a one-card figure over gloo,
+     not a scaling one; the PCW KITTI12 and IGEV KITTI15 steps (3 GRU
+     iterations) in float64 at 64×64 on the same grid, the same
+     tolerances; (c) IGEV's step at 160×64 with uneven bands (40 rows at
+     H/4 cut 24 / 16);
  13. one ``kernels`` JSON line, the card line, and the result line.
 Each path's launch counts are set to 0 just before it is driven and read
 just after.  Everything printed is also written to
@@ -150,7 +156,7 @@ D4, H4, W4 = MAIN_DISP // 4, MAIN_H // 4, MAIN_W // 4
 FEAT_C, GROUPS, CAT_C = 320, 40, 32
 STEPS = 5
 TIMED_PAIRS = 30
-MODULE_TIMED_PAIRS = 2
+MODULE_TIMED_PAIRS = 1
 FULL, HALF, QUARTER = (D4, H4, W4), (D4 // 2, H4 // 2, W4 // 2), (D4 // 4, H4 // 4, W4 // 4)
 ATT_SLOT = 48
 
@@ -173,7 +179,7 @@ G1, G2, G3, G4 = ((D4 >> k, (IGEV_H // 4) >> k, (IGEV_W // 4) >> k) for k in ran
 IGEV_TIMED_PAIRS = 5
 IGEV_MODULE_TIMED_PAIRS = 1
 # The module paths after route_conv3d (row 15).
-ROUTED_TIMED_PAIRS = {"acv": 2, "pcw": 1, "igev": 1}
+ROUTED_TIMED_PAIRS = {"acv": 1, "pcw": 1, "igev": 1}
 
 
 def log(*args):
@@ -2925,10 +2931,24 @@ def phase_11(dev, counters: dict, runs: dict, card: str) -> dict:
 # may move past SPLIT_BF16_PX on at most FLIP_SHARE of the pixels, the
 # rest within SPLIT_BF16_MEAN_PX on average.
 SPLIT_RANKS = 2
+# Each module path's kernels under the split (phase 12 (a)): each rank
+# launches each as often as the unsplit forward does.
+SPLIT_FORWARD_KERNELS = {"acv": ("gwc_volume", "concat_volume", "conv3d_packed", "fused_head"),
+                         "pcw": ("gwc_volume_packed", "conv3d_packed", "fused_head"),
+                         "igev": ("gwc_volume", "conv3d_fold_small")}
+SPLIT_FORWARD_ROWS = {"acv": "rows 2, 3, 15, 1", "pcw": "rows 16, 15, 1", "igev": "rows 2, 14"}
+SPLIT_FORWARD_HW = {"acv": (MAIN_H, MAIN_W), "pcw": (PCW_H, PCW_W), "igev": (IGEV_H, IGEV_W)}
+# Phase 12 (b)-(c): the PCW and IGEV steps in float64 on the 1 × 2 grid,
+# case → (model, H, W, the bands' rows at H/4, seed); IGEV's uneven case
+# cuts its 40 rows 24 / 16 (edges on multiples of 8).
+SPLIT_MODEL_STEPS = {"pcw": ("pcw", 64, 64, (8, 8), 21),
+                     "igev": ("igev", 64, 64, (8, 8), 22),
+                     "igev_uneven": ("igev", 160, 64, (24, 16), 23)}
+SPLIT_IGEV_ITERS = 3
 SPLIT_F32_PX = 1e-3
 SPLIT_FLOOR_MARGIN = {"max": 1.5, "mean": 1.1}
 SPLIT_BF16_PX, SPLIT_BF16_MEAN_PX = 0.1, 5e-3
-SPLIT_STEPS = 5
+SPLIT_STEPS = 2
 SPLIT_TRAIN_H, SPLIT_TRAIN_W = 256, 512  # the ACV SceneFlow recipe's crop
 SPLIT_TIMEOUT_S = 300
 
@@ -2958,21 +2978,42 @@ def kernel_counters() -> dict:
 
 
 def split_inputs(dev) -> dict:
-    """Phase 12's inputs, made once and handed to every process: (a) the
-    ACV baseline at 512×960 with tamed seeded weights, heads calibrated
-    to logit std 3 on the images (seed 0; ``tests/test_torch_parallel.py``'s
-    taming and calibration); (b) phase 10
-    (b)'s step at 32×64 (weights, images, ground truth with valid counts
-    unequal by row and by band, timestep, noise) and the full-width step's
-    batch (256×512, batch 4, images from seed 1)."""
-    from diffuvolume_tpu_torch.tools.random_weights import (calibrate_heads, random_acv,
+    """Phase 12's inputs, made once and handed to every process: (a) each
+    module path's baseline with seeded weights and its images: ACV at
+    512×960 (tamed, heads calibrated to logit std 3, seed 0;
+    ``tests/test_torch_parallel.py``'s taming and calibration), PCW at
+    384×1248 (``calibrate_pcw``, seed 0), IGEV at 384×1248 with RAW images
+    (``calibrate_igev_drift`` over its 32 GRU iterations, seed 0); (b)
+    phase 10 (b)'s ACV step at 32×64 (weights, images, ground truth with
+    valid counts unequal by row and by band, timestep, noise) and the
+    full-width step's batch (256×512, batch 4, images from seed 1); the PCW
+    and IGEV steps' weights and batches (``SPLIT_MODEL_STEPS``)."""
+    from diffuvolume_tpu_torch.tools.random_weights import (calibrate_heads, calibrate_igev_drift,
+                                                            calibrate_pcw, random_acv,
+                                                            random_igev, random_pcw,
                                                             tame_residual_branches)
 
     g = torch.Generator().manual_seed(0)
     left = torch.randn((1, MAIN_H, MAIN_W, 3), generator=g) * 0.3
     model = tame_residual_branches(random_acv(MAIN_DISP, False, g)).to(dev)
+    forward = {}
     with torch.no_grad():
         calibrate_heads(model, left.to(dev), torch.roll(left, -3, dims=2).to(dev))
+        forward["acv"] = {"state": {k: v.cpu() for k, v in model.state_dict().items()},
+                          "left": left}
+        g = torch.Generator().manual_seed(0)
+        left = torch.randn((1, PCW_H, PCW_W, 3), generator=g) * 0.3
+        model = random_pcw(MAIN_DISP, False, g).to(dev)
+        calibrate_pcw(model, left.to(dev), torch.roll(left, -3, dims=2).to(dev))
+        forward["pcw"] = {"state": {k: v.cpu() for k, v in model.state_dict().items()},
+                          "left": left}
+        g = torch.Generator().manual_seed(0)
+        left = torch.rand((1, IGEV_H, IGEV_W, 3), generator=g) * 255.0
+        model = random_igev(MAIN_DISP, False, g).to(dev)
+        calibrate_igev_drift(model, left.to(dev), torch.roll(left, -3, dims=2).to(dev),
+                             iters=IGEV_ITERS)
+        forward["igev"] = {"state": {k: v.cpu() for k, v in model.state_dict().items()},
+                           "left": left}
     b, h, w, md = TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_DISP
     g = torch.Generator().manual_seed(5)
     s_left = torch.randn((b, h, w, 3), generator=g) * 0.3
@@ -2986,54 +3027,111 @@ def split_inputs(dev) -> dict:
     calibrate_heads(src, s_left, torch.roll(s_left, -3, dims=2))
     g = torch.Generator().manual_seed(1)
     big = torch.randn((ACV_TRAIN_BATCH, SPLIT_TRAIN_H, SPLIT_TRAIN_W, 3), generator=g) * 0.3
-    return {"forward_state": {k: v.cpu() for k, v in model.state_dict().items()},
-            "left": left, "step_state": src.state_dict(), "step_left": s_left, "step_gt": gt,
+    return {"forward": forward,
+            "step_state": src.state_dict(), "step_left": s_left, "step_gt": gt,
             "t": t, "noise": noise, "big_left": big,
             "big_gt": torch.rand((ACV_TRAIN_BATCH, SPLIT_TRAIN_H, SPLIT_TRAIN_W), generator=g)
-            * 149.0 + 1.0}
+            * 149.0 + 1.0,
+            "model_steps": {case: model_step_inputs(case) for case in SPLIT_MODEL_STEPS}}
 
 
-def split_forward(inputs: dict, dtype, dev, counters: dict, mesh=None, routed: bool = True):
-    """ACV's module path eval forward at 512×960 in ``dtype``, routed
-    (``route_conv3d``) unless ``routed`` is false, inside
-    ``volume_sharding(mesh)`` when given: one warm-up, then one forward
-    with the launch counts set to 0 just before and read just after.  In
-    float64 (the reference) the three kernels of the path, which take
-    float32 and bfloat16, run their plain versions on the card.  Returns
-    ``(disp on the CPU, launches)``."""
+def model_step_inputs(case: str) -> dict:
+    """``SPLIT_MODEL_STEPS[case]``'s inputs from its seed: the DDIM model's
+    weights (PCW: ``random_pcw`` and ``calibrate_pcw``; IGEV:
+    ``random_igev`` and ``calibrate_igev``, RAW images), the batch with
+    ground truth whose valid counts differ by band, the timestep and the
+    noise; float64, on the CPU."""
+    from diffuvolume_tpu_torch.tools.random_weights import (calibrate_igev, calibrate_pcw,
+                                                            random_igev, random_pcw)
+
+    kind, h, w, _, seed = SPLIT_MODEL_STEPS[case]
+    g = torch.Generator().manual_seed(seed)
+    if kind == "pcw":
+        left = torch.randn((1, h, w, 3), generator=g, dtype=torch.float64) * 0.3
+        model = random_pcw(TRAIN_DISP, True, g)
+    else:
+        left = torch.rand((1, h, w, 3), generator=g, dtype=torch.float64) * 255.0
+        model = random_igev(TRAIN_DISP, True, g)
+    right = torch.roll(left, -3, dims=2)
+    with torch.no_grad():
+        (calibrate_pcw if kind == "pcw" else calibrate_igev)(model, left.float(), right.float())
+    gt = torch.rand((1, h, w), generator=g, dtype=torch.float64) * (TRAIN_DISP + 8) + 0.5
+    gt[:, :h // 3, :5] = 0.0
+    gt[:, h // 3:, :9] = 0.0
+    t = torch.randint(0, 1000, (1,), generator=g)
+    noise = torch.randn((1, TRAIN_DISP // 4, h // 4, w // 4), generator=g, dtype=torch.float64)
+    return {"state": model.state_dict(), "batch": {"left": left, "right": right, "disp_gt": gt},
+            "t": t, "noise": noise}
+
+
+def split_forward(inputs: dict, kind: str, dtype, dev, counters: dict, mesh=None,
+                  warm: bool = True):
+    """``kind``'s module path eval forward in ``dtype`` (ACV at 512×960, PCW
+    at 384×1248 and IGEV at 384×1248 with ``IGEV_ITERS`` GRU iterations;
+    ACV's and PCW's 3-D convs routed by ``route_conv3d``), inside
+    ``volume_sharding(mesh)`` when given: one warm-up (unless ``warm`` is
+    false), then one forward with the launch counts set to 0 just before
+    and read just after.  In
+    float64 (the reference) the path runs unrouted, and its kernels, which
+    take float32 and bfloat16, run their plain versions on the card.
+    Returns ``(disp on the CPU, launches)``."""
+    import torch.nn.functional as F
+
     import diffuvolume_tpu_torch.models.acv as acv_module
+    import diffuvolume_tpu_torch.models.igev.extractor as igev_extractor
+    import diffuvolume_tpu_torch.models.igev.model as igev_module
+    import diffuvolume_tpu_torch.models.pcw as pcw_module
     from diffuvolume_tpu_torch.eval.pipeline import float32_exact
-    from diffuvolume_tpu_torch.models.acv import ACVNet
     from diffuvolume_tpu_torch.models.layers import route_conv3d
-    from diffuvolume_tpu_torch.ops.cost_volume import build_gwc_volume, concat_volume_mul
+    from diffuvolume_tpu_torch.ops.cost_volume import (build_gwc_volume, concat_volume_mul,
+                                                       gwc_volume_slot)
     from diffuvolume_tpu_torch.ops.kernels.fused_head import fused_upsample_softargmin_plain
     from diffuvolume_tpu_torch.parallel.volume_sharding import volume_sharding
 
-    model = ACVNet(MAIN_DISP, False)
-    model.load_state_dict(inputs["forward_state"])
-    if routed:
+    exact = dtype == torch.float64
+    model = {"acv": acv_module.ACVNet, "pcw": pcw_module.PCWNet,
+             "igev": igev_module.IGEVStereo}[kind](MAIN_DISP, False)
+    model.load_state_dict(inputs["forward"][kind]["state"])
+    if kind != "igev" and not exact:
         model = route_conv3d(model)
     model = model.to(dev, dtype).eval()
-    left = inputs["left"].to(dev, torch.float64 if dtype == torch.float64 else torch.float32)
+    left = inputs["forward"][kind]["left"].to(dev, torch.float64 if exact else torch.float32)
     right = torch.roll(left, -3, dims=2)
-    kernels = {k: getattr(acv_module, k)
-               for k in ("gwc_volume", "concat_volume", "fused_upsample_softargmin")}
-    if dtype == torch.float64:
-        acv_module.gwc_volume = build_gwc_volume
-        acv_module.concat_volume = concat_volume_mul
-        acv_module.fused_upsample_softargmin = fused_upsample_softargmin_plain
+
+    def small_f64(x, w):
+        return F.conv3d(x, w, padding=1)
+
+    plain = {} if not exact else {
+        "acv": {acv_module: {"gwc_volume": build_gwc_volume, "concat_volume": concat_volume_mul,
+                             "fused_upsample_softargmin": fused_upsample_softargmin_plain}},
+        "pcw": {pcw_module: {"gwc_volume_packed": gwc_volume_slot,
+                             "fused_upsample_softargmin": fused_upsample_softargmin_plain}},
+        "igev": {igev_module: {"gwc_volume": build_gwc_volume, "conv3x3x3_small": small_f64},
+                 igev_extractor: {"conv3x3x3_small": small_f64}},
+    }[kind]
+    kept = [(mod, k, getattr(mod, k)) for mod, fs in plain.items() for k in fs]
+    for mod, fs in plain.items():
+        for k, f in fs.items():
+            setattr(mod, k, f)
+
+    def run():
+        if kind == "igev":
+            return igev_module.igev_forward(model, left, right, iters=IGEV_ITERS)
+        return model(left, right)[0]
+
     try:
         with torch.no_grad(), float32_exact(model), volume_sharding(mesh):
-            model(left, right)
-            torch.cuda.synchronize()
+            if warm:
+                run()
+                torch.cuda.synchronize()
             for f in counters.values():
                 f.launches = 0
-            disp = model(left, right)[0]
+            disp = run()
             torch.cuda.synchronize()
             launches = {k: f.launches for k, f in counters.items()}
     finally:
-        for k, f in kernels.items():
-            setattr(acv_module, k, f)
+        for mod, k, f in kept:
+            setattr(mod, k, f)
     return disp.double().cpu(), launches
 
 
@@ -3069,6 +3167,46 @@ def split_step(inputs: dict, dev, mesh=None) -> dict:
             "stats": {k: v.cpu() for k, v in model.state_dict().items()
                       if k.endswith(("running_mean", "running_var"))},
             "params": {k: p.detach().cpu() for k, p in model.named_parameters()}}
+
+
+def model_split_step(inputs: dict, case: str, dev, mesh=None) -> dict:
+    """``SPLIT_MODEL_STEPS[case]``: the KITTI12 step (PCW, Adam) or the
+    KITTI15 step (IGEV, ``SPLIT_IGEV_ITERS`` GRU iterations, clip + AdamW)
+    in float64 on the card (split over ``mesh``'s volume axis when given):
+    the loss, gradients, statistics and parameters after the step, on the
+    CPU."""
+    from diffuvolume_tpu_torch.models.igev.model import IGEVStereo
+    from diffuvolume_tpu_torch.models.pcw import PCWNet
+    from diffuvolume_tpu_torch.parallel import ddp
+    from diffuvolume_tpu_torch.train.loop import (TrainState, make_igev_train_step,
+                                                  make_optimizer, make_train_step)
+    from diffuvolume_tpu_torch.train.loss import KITTI12_WEIGHTS
+    from diffuvolume_tpu_torch.train.lr import milestone_lr_schedule, one_cycle_schedule
+
+    kind = SPLIT_MODEL_STEPS[case][0]
+    x = inputs["model_steps"][case]
+    dt = torch.float64
+    model = (PCWNet if kind == "pcw" else IGEVStereo)(TRAIN_DISP, True)
+    model.load_state_dict(x["state"])
+    model = model.to(dev, dt).train()
+    if mesh is not None:
+        ddp.sync_batch_norm(model, mesh)
+        mesh.broadcast_parameters(model)
+    if kind == "pcw":
+        state = TrainState(model, make_optimizer(model), milestone_lr_schedule(1e-3, "10:2", 1))
+        step = make_train_step(model, KITTI12_WEIGHTS, dp=mesh)
+    else:
+        state = TrainState(model, make_optimizer(model, "adamw", 1e-5),
+                           one_cycle_schedule(2e-4, 50), grad_clip=1.0)
+        step = make_igev_train_step(model, iters=SPLIT_IGEV_ITERS, dp=mesh)
+    batch = {k: v.to(dev) for k, v in x["batch"].items()}
+    res = step(state, batch, t=x["t"].to(dev), noise=x["noise"].to(dev))
+    return {"loss": float(res["loss"]),
+            "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
+            "stats": {k: v.cpu() for k, v in model.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))},
+            "params": {k: p.detach().cpu() for k, p in model.named_parameters()},
+            "rows": int(res["pred"].shape[1])}
 
 
 def split_step_times(inputs: dict, dev, mesh=None) -> dict:
@@ -3113,9 +3251,10 @@ def split_step_times(inputs: dict, dev, mesh=None) -> dict:
 
 def split_rank(rank: int, port: int, tmp: str) -> None:
     """One process of phase 12's 1 × ``SPLIT_RANKS`` grid on cuda:0 over
-    gloo: (a) the split forward in float32 and bfloat16, (b) the split
-    step in float64 and the full-width float32 step's times; its results
-    to ``tmp``."""
+    gloo: (a) each module path's split forward in float32 and bfloat16,
+    (b) the ACV split step in float64 and the full-width float32 step's
+    times, the PCW and IGEV split steps in float64, (c) IGEV's uneven one;
+    its results to ``tmp``."""
     sys.path.insert(0, HERE)
     from diffuvolume_tpu_torch.parallel import ddp
 
@@ -3126,13 +3265,35 @@ def split_rank(rank: int, port: int, tmp: str) -> None:
         inputs = torch.load(os.path.join(tmp, "inputs.pt"))
         counters = kernel_counters()
         out = {"backend": mesh.backend, "host_staging": mesh.host_staging}
-        for dtype in (torch.float32, torch.bfloat16):
-            out["forward", dtype_tag(dtype)] = split_forward(inputs, dtype, dev, counters, mesh)
+        clock = Clock(out)
+        for kind in SPLIT_FORWARD_KERNELS:
+            for dtype in (torch.float32, torch.bfloat16):
+                out["forward", kind, dtype_tag(dtype)] = split_forward(
+                    inputs, kind, dtype, dev, counters, mesh)
+            torch.cuda.empty_cache()
+            clock(f"forwards_{kind}")
         out["step_float64"] = split_step(inputs, dev, mesh)
         out["step_float32_times"] = split_step_times(inputs, dev, mesh)
+        clock("acv_steps")
+        for case in SPLIT_MODEL_STEPS:
+            out["model_step", case] = model_split_step(inputs, case, dev, mesh)
+        clock("model_steps")
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         ddp.shutdown()
+
+
+class Clock:
+    """Seconds since the last reading, by label, into ``out["times_s"]``."""
+
+    def __init__(self, out: dict):
+        self.times = out.setdefault("times_s", {})
+        self.t = time.perf_counter()
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        self.times[label] = round(now - self.t, 2)
+        self.t = now
 
 
 def spawn_split_ranks(tmp: str) -> list:
@@ -3178,52 +3339,33 @@ def split_step_gaps(got: dict, want: dict) -> dict:
     return out
 
 
-def phase_12(dev, counters: dict, runs: dict, card: str) -> dict:
-    """Phase 12: the split over 2 processes on cuda:0 against the unsplit
-    runs on the card, (a) the routed module path's forward at 512×960 in
-    float32 and bfloat16, each rank's launches equal to the unsplit
-    forward's; (b) the ACV step in float64 at 32×64, and the full-width
-    float32 step's times beside the plain step's."""
-    import tempfile
-
-    t0 = time.perf_counter()
+def check_split_forward(kind: str, whole: dict, again: torch.Tensor, exact: torch.Tensor,
+                        ranks: list, faults: list) -> dict:
+    """Phase 12 (a) for ``kind``: each rank's launches against the unsplit
+    forward's, the float32 split against the float32 floor measured in the
+    run, the bfloat16 split under phase 4's flip rule; faults appended to
+    ``faults``.  Returns the records by dtype."""
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        inputs = split_inputs(dev)
-        torch.save(inputs, os.path.join(tmp, "inputs.pt"))
-        whole = {dtype_tag(dt): split_forward(inputs, dt, dev, counters)
-                 for dt in (torch.float32, torch.bfloat16)}
-        again, _ = split_forward(inputs, torch.float32, dev, counters)
-        exact, _ = split_forward(inputs, torch.float64, dev, counters, routed=False)
-        plain_step = split_step(inputs, dev)
-        plain_times = split_step_times(inputs, dev)
-        torch.cuda.empty_cache()
-        ranks = spawn_split_ranks(tmp)
-    log(f"  {SPLIT_RANKS} processes on cuda:0, backend {ranks[0]['backend']}, halo rows "
-        f"staged in {'host' if ranks[0]['host_staging'] else 'device'} memory; {card}")
-    launches = {k: sum(r["forward", t][1][k] for r in ranks for t in whole) for k in counters}
-    runs["acv_module_split"] = dict(launches=launches,
-                                    launches_per_pair=ranks[0]["forward", "float32"][1])
-    faults = []
     for tag, (want, want_launches) in whole.items():
         used = {k: v for k, v in want_launches.items() if v}
-        if not all(used.get(k) for k in ("gwc_volume", "concat_volume", "conv3d_packed",
-                                         "fused_head")):
-            faults.append(f"the unsplit {tag} forward skipped a kernel of rows 2, 3, 15, 1: {used}")
+        if not all(used.get(k) for k in SPLIT_FORWARD_KERNELS[kind]):
+            faults.append(f"the unsplit {kind} {tag} forward skipped a kernel of "
+                          f"{SPLIT_FORWARD_ROWS[kind]}: {used}")
         for r, rank in enumerate(ranks):
-            if rank["forward", tag][1] != want_launches:
-                faults.append(f"rank {r}'s {tag} launches {rank['forward', tag][1]} != the "
-                              f"unsplit forward's {want_launches}")
-        got = torch.cat([r["forward", tag][0] for r in ranks], dim=1)
-        rec = out[f"forward_{tag}"] = dict(split_vs_unsplit=px_gap(got, want),
-                                           split_vs_float64=px_gap(got, exact),
-                                           unsplit_vs_float64=px_gap(want, exact),
-                                           launches_a_rank=used)
+            if rank["forward", kind, tag][1] != want_launches:
+                faults.append(f"rank {r}'s {kind} {tag} launches {rank['forward', kind, tag][1]} "
+                              f"!= the unsplit forward's {want_launches}")
+        got = torch.cat([r["forward", kind, tag][0] for r in ranks], dim=1)
+        rec = out[tag] = dict(split_vs_unsplit=px_gap(got, want),
+                              split_vs_float64=px_gap(got, exact),
+                              unsplit_vs_float64=px_gap(want, exact),
+                              rows_a_rank=[r["forward", kind, tag][0].shape[1] for r in ranks],
+                              launches_a_rank=used)
         if tag == "float32":
             floor = rec["unsplit_vs_float64"]
             rec["unsplit_run_to_run"] = px_gap(again, want)
             bound = max(SPLIT_F32_PX, (1 + SPLIT_FLOOR_MARGIN["max"]) * floor["max"])
-            log(f"  (a) split forward, float32: against the unsplit forward max |Δ| "
+            log(f"  (a) {kind} split forward, float32: against the unsplit forward max |Δ| "
                 f"{rec['split_vs_unsplit']['max']:.3e} px (bound {bound:.3e}: {SPLIT_F32_PX:g} or "
                 f"{1 + SPLIT_FLOOR_MARGIN['max']:g}× the float32 floor's max), mean "
                 f"{rec['split_vs_unsplit']['mean']:.3e}; against the float64 forward max / mean: "
@@ -3232,11 +3374,12 @@ def phase_12(dev, counters: dict, runs: dict, card: str) -> dict:
                 f"{floor['max']:.3e} / {floor['mean']:.3e} (margin {SPLIT_FLOOR_MARGIN}); the "
                 f"unsplit forward run twice: max {rec['unsplit_run_to_run']['max']:.3e}")
             if rec["split_vs_unsplit"]["max"] > bound:
-                faults.append(f"the split float32 forward is {rec['split_vs_unsplit']['max']:.3e} "
-                              f"px from the unsplit one (bound {bound:.3e})")
+                faults.append(f"the {kind} split float32 forward is "
+                              f"{rec['split_vs_unsplit']['max']:.3e} px from the unsplit one "
+                              f"(bound {bound:.3e})")
             for k, m in SPLIT_FLOOR_MARGIN.items():
                 if rec["split_vs_float64"][k] > m * floor[k]:
-                    faults.append(f"the split float32 forward's {k} distance to float64 "
+                    faults.append(f"the {kind} split float32 forward's {k} distance to float64 "
                                   f"{rec['split_vs_float64'][k]:.3e} is past {m}× the floor's "
                                   f"{floor[k]:.3e}")
         else:
@@ -3244,7 +3387,7 @@ def phase_12(dev, counters: dict, runs: dict, card: str) -> dict:
             moved = err > SPLIT_BF16_PX
             rec.update(moved_share=float(moved.double().mean()),
                        rest_mean_px=float(err[~moved].mean()))
-            log(f"  (a) split forward, bfloat16: {rec['moved_share']:.4%} of pixels past "
+            log(f"  (a) {kind} split forward, bfloat16: {rec['moved_share']:.4%} of pixels past "
                 f"{SPLIT_BF16_PX:g} px from the unsplit forward (at most {FLIP_SHARE:.1%}), the "
                 f"rest mean |Δ| {rec['rest_mean_px']:.3e} px (tol {SPLIT_BF16_MEAN_PX:g}), max "
                 f"{rec['split_vs_unsplit']['max']:.3e}; against the float64 forward max / mean: "
@@ -3252,22 +3395,83 @@ def phase_12(dev, counters: dict, runs: dict, card: str) -> dict:
                 f"{rec['split_vs_float64']['mean']:.3e}, unsplit "
                 f"{rec['unsplit_vs_float64']['max']:.3e} / {rec['unsplit_vs_float64']['mean']:.3e}")
             if rec["moved_share"] > FLIP_SHARE or rec["rest_mean_px"] > SPLIT_BF16_MEAN_PX:
-                faults.append(f"the split bfloat16 forward departs from the unsplit one past "
-                              f"phase 4's flip rule: {rec}")
-        log(f"      each rank's launches a forward: {used}, as the unsplit forward's")
-    for r in ranks[1:]:
-        for k, v in ranks[0]["step_float64"]["params"].items():
-            if not torch.equal(r["step_float64"]["params"][k], v):
-                faults.append(f"the ranks' parameters differ after the split step: {k}")
-    gaps = out["step_float64"] = split_step_gaps(ranks[0]["step_float64"], plain_step)
+                faults.append(f"the {kind} split bfloat16 forward departs from the unsplit one "
+                              f"past phase 4's flip rule: {rec}")
+        log(f"      each rank's launches a forward: {used}, as the unsplit forward's; rows a "
+            f"rank {rec['rows_a_rank']}")
+    return out
+
+
+def check_split_step(name: str, got: list, want: dict, faults: list) -> dict:
+    """A float64 split step (each rank's ``got``) against one process's
+    ``want``, phase 11 (c)'s tolerances; every rank's parameters equal."""
+    for r in got[1:]:
+        for k, v in got[0]["params"].items():
+            if not torch.equal(r["params"][k], v):
+                faults.append(f"the ranks' parameters differ after the {name}: {k}")
+                break
+    gaps = split_step_gaps(got[0], want)
     tol = TRAIN_TOL["float64"]
-    log(f"  (b) split ACV step, float64, {TRAIN_H}×{TRAIN_W}, 1 × {SPLIT_RANKS} grid, against "
-        f"one process: loss {gaps['loss']:.2e} (tol {tol['loss']:g}), gradients "
-        f"{gaps['grad']:.2e} ({tol['grad']:g}), statistics {gaps['stat']:.2e} "
-        f"({tol['stat']:g}), parameters after Adam {gaps['param']:.2e} ({tol['param']:g})")
+    log(f"  {name}, float64, against one process: loss {gaps['loss']:.2e} (tol "
+        f"{tol['loss']:g}), gradients {gaps['grad']:.2e} ({tol['grad']:g}), statistics "
+        f"{gaps['stat']:.2e} ({tol['stat']:g}), parameters after the step {gaps['param']:.2e} "
+        f"({tol['param']:g})")
     bad = [k for k in tol if gaps[k] > tol[k]]
     if bad:
-        faults.append(f"the split float64 step disagrees with one process: {bad}")
+        faults.append(f"the {name} in float64 disagrees with one process: {bad}")
+    return gaps
+
+
+def phase_12(dev, counters: dict, runs: dict, card: str) -> dict:
+    """Phase 12: the split over 2 processes on cuda:0 against the unsplit
+    runs on the card, (a) ACV's, PCW's and IGEV's module path forwards
+    (ACV's and PCW's routed) in float32 and bfloat16, each rank's launches
+    equal to the unsplit forward's; (b) the ACV, PCW and IGEV steps in
+    float64 at a small size, and ACV's full-width float32 step's times
+    beside the plain step's; (c) IGEV's step with uneven bands."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    clock = Clock(out)
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = split_inputs(dev)
+        torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+        clock("inputs")
+        whole, again, exact = {}, {}, {}
+        for kind in SPLIT_FORWARD_KERNELS:
+            whole[kind] = {dtype_tag(dt): split_forward(inputs, kind, dt, dev, counters)
+                           for dt in (torch.float32, torch.bfloat16)}
+            again[kind], _ = split_forward(inputs, kind, torch.float32, dev, counters,
+                                           warm=False)
+            exact[kind], _ = split_forward(inputs, kind, torch.float64, dev, counters,
+                                           warm=False)
+            torch.cuda.empty_cache()
+            clock(f"forwards_{kind}")
+        plain_step = split_step(inputs, dev)
+        plain_times = split_step_times(inputs, dev)
+        clock("acv_steps")
+        plain_models = {case: model_split_step(inputs, case, dev) for case in SPLIT_MODEL_STEPS}
+        torch.cuda.empty_cache()
+        clock("model_steps")
+        ranks = spawn_split_ranks(tmp)
+        clock("ranks")
+    log(f"  {SPLIT_RANKS} processes on cuda:0, backend {ranks[0]['backend']}, halo rows "
+        f"staged in {'host' if ranks[0]['host_staging'] else 'device'} memory; {card}; "
+        f"seconds: {out['times_s']}, rank 0's {ranks[0]['times_s']}")
+    faults = []
+    for kind in SPLIT_FORWARD_KERNELS:
+        launches = {k: sum(r["forward", kind, t][1][k] for r in ranks for t in whole[kind])
+                    for k in counters}
+        runs[f"{kind}_module_split"] = dict(
+            launches=launches, launches_per_pair=ranks[0]["forward", kind, "float32"][1])
+        h, w = SPLIT_FORWARD_HW[kind]
+        log(f"  (a) {kind} module path, {h}×{w}, {h // 4} rows at H/4")
+        out[f"forward_{kind}"] = check_split_forward(kind, whole[kind], again[kind], exact[kind],
+                                                     ranks, faults)
+    out["step_float64"] = check_split_step(
+        f"(b) split ACV step ({TRAIN_H}×{TRAIN_W}, 1 × {SPLIT_RANKS} grid)",
+        [r["step_float64"] for r in ranks], plain_step, faults)
     times = out["step_float32"] = {"plain": plain_times,
                                    "split": [r["step_float32_times"] for r in ranks]}
     log(f"  (b) the float32 step at {SPLIT_TRAIN_H}×{SPLIT_TRAIN_W}, batch {ACV_TRAIN_BATCH}, "
@@ -3279,6 +3483,15 @@ def phase_12(dev, counters: dict, runs: dict, card: str) -> dict:
         + f"; plain {plain_times['step_ms_median']:.2f} ms (p10 {plain_times['step_ms_p10']:.2f}"
         f", p90 {plain_times['step_ms_p90']:.2f}), peak "
         f"{plain_times['peak_mem_bytes'] / 2**30:.3f} GiB")
+    for case, (kind, h, w, bands, _) in SPLIT_MODEL_STEPS.items():
+        got = [r["model_step", case] for r in ranks]
+        rows = [g["rows"] for g in got]
+        if rows != [4 * b for b in bands]:
+            faults.append(f"the {case} step's ranks hold {rows} rows, not {bands} at H/4")
+        label = "(c) uneven" if case.endswith("uneven") else "(b)"
+        out[f"step_{case}"] = check_split_step(
+            f"{label} split {kind.upper()} step ({h}×{w}, {h // 4} rows at H/4 cut "
+            f"{' / '.join(map(str, bands))})", got, plain_models[case], faults)
     out["elapsed_s"] = time.perf_counter() - t0
     log(f"  phase 12: {out['elapsed_s']:.1f} s")
     if faults:
@@ -3458,8 +3671,8 @@ def main() -> int:
     log("== 11. IGEV's reference-faithful evaluation (quirk=True), data parallelism, the "
         "training step's profile")
     later = phase_11(dev, counters, runs, card)
-    log("== 12. the cost volume's rows split over 2 processes on cuda:0 (gloo): ACV's module "
-        "path forward at 512×960 and its training step, against the unsplit runs")
+    log("== 12. the cost volume's rows split over 2 processes on cuda:0 (gloo): the ACV, PCW "
+        "and IGEV module path forwards and training steps, against the unsplit runs")
     split = phase_12(dev, counters, runs, card)
 
     kernels = []

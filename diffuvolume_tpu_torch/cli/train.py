@@ -28,16 +28,16 @@ evaluation splits the test images over the ranks and sums their D1 and
 EPE.  Each rank runs on
 ``cuda:LOCAL_RANK`` (NCCL), or with ``--device cpu`` on the CPU (gloo).
 
-``--volume_axis V`` (the ACV SceneFlow recipe) also splits the cost
-volume's rows over ``V`` ranks: a world of ``n_data × V`` ranks under
+``--volume_axis V`` (every recipe) also splits the cost volume's rows
+over ``V`` ranks: a world of ``n_data × V`` ranks under
 ``torchrun`` forms the ``(data, volume)`` grid (``parallel/mesh.py``),
 ``--batch_size`` splits over ``n_data``, and each step runs inside
 ``volume_sharding`` (``parallel/volume_sharding.py``, opened by the step of
 ``train/loop.py``), its band of the
 quarter-resolution rows a rank; the step equals the single-process step.
 The JAX CLI builds the same mesh but never enters its ``volume_sharding``;
-the port follows the flag's help.  A world that ``V`` does not divide, a
-run without ``torchrun``, and PCW or IGEV with ``V`` above 1 raise.
+the port follows the flag's help.  A world that ``V`` does not divide and
+a run without ``torchrun`` raise; no recipe falls back to an unsplit run.
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ def parse_args(argv=None):
     p.add_argument("--volume_axis", type=int, default=1,
                    help="mesh size of the cost-volume sharding axis "
                    "(ParallelConfig.volume_axis): ranks a band of the volume's rows, "
-                   "under torchrun, ACV only")
+                   "under torchrun")
     p.add_argument(
         "--recipe", choices=["sceneflow", "kitti12", "kitti15"], default=None,
         help="training recipe (loss weights / optimizer / schedule); "
@@ -257,7 +257,7 @@ def run(args, on_start=None, on_step=None) -> dict:
     EPE)``).  Started by ``torchrun``, the process joins its
     data-parallel group here and leaves it on return."""
     recipe, cfg = build_experiment_config(args)
-    _check_volume_axis(cfg.parallel.volume_axis, recipe)
+    _check_volume_axis(cfg.parallel.volume_axis)
     dp = ddp.from_env(args.device, n_volume=cfg.parallel.volume_axis)
     try:
         return _train(args, recipe, cfg, dp, on_start, on_step)
@@ -266,17 +266,13 @@ def run(args, on_start=None, on_step=None) -> dict:
             ddp.shutdown()
 
 
-def _check_volume_axis(v: int, recipe: str) -> None:
-    """``--volume_axis V``: at least 1; above 1 ACV's recipe only, under a
-    ``torchrun`` world that ``V`` divides."""
+def _check_volume_axis(v: int) -> None:
+    """``--volume_axis V``: at least 1; above 1 under a ``torchrun`` world
+    that ``V`` divides."""
     if v < 1:
         raise ValueError(f"--volume_axis must be at least 1, got {v}")
     if v == 1:
         return
-    if recipe != "sceneflow":
-        raise NotImplementedError(
-            f"--volume_axis {v}: the cost-volume split is ported for ACVNet (the SceneFlow "
-            f"recipe); {recipe}'s model under it is open work (ROADMAP)")
     world = int(os.environ.get("WORLD_SIZE", 1))
     if "WORLD_SIZE" not in os.environ or world % v:
         raise ValueError(f"--volume_axis {v} needs a torchrun world size that it divides; "
@@ -337,7 +333,7 @@ def _train(args, recipe, cfg, dp, on_start, on_step) -> dict:
             if on_step is not None:
                 on_step(state, metrics)
             if i % args.summary_freq == 0 and main_rank:
-                _summary(logger, state, metrics, batch, epoch, i, steps_per_epoch, loss, t0, dp)
+                _summary(logger, state, metrics, epoch, i, steps_per_epoch, loss, t0)
         say(f"epoch {epoch} done: mean loss {meter.mean():.4f}")
         if main_rank:
             save_checkpoint(cfg.logdir, state.step, state.model, state.optimizer)
@@ -356,7 +352,7 @@ def _train(args, recipe, cfg, dp, on_start, on_step) -> dict:
     return {"state": state, "best_d1": best_d1, "losses": losses, "evals": evals}
 
 
-def _summary(logger, state, metrics, batch, epoch, i, steps_per_epoch, loss, t0, dp) -> None:
+def _summary(logger, state, metrics, epoch, i, steps_per_epoch, loss, t0) -> None:
     print(f"epoch {epoch} step {i}/{steps_per_epoch} loss {loss:.3f} "
           f"EPE {float(metrics['epe']):.3f} ({(time.time() - t0) / (i + 1):.2f}s/it)")
     logger.write_dict({"train/loss": loss, "train/epe": metrics["epe"]}, step=state.step)
@@ -364,8 +360,7 @@ def _summary(logger, state, metrics, batch, epoch, i, steps_per_epoch, loss, t0,
     # save_images): est / GT / KITTI error map, sample 0 (its band of rows
     # under the volume split).
     est = metrics["pred"][0].float().cpu().numpy()
-    first = 0 if dp is None else dp.volume_index * est.shape[0]
-    gt = batch["disp_gt"][0, first:first + est.shape[0]].float().cpu().numpy()
+    gt = metrics["gt"][0].float().cpu().numpy()
     logger.write_images({"train/disp_est": est, "train/disp_gt": gt,
                          "train/errormap": disp_error_image(est, gt)}, step=state.step)
 

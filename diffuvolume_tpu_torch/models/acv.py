@@ -20,8 +20,10 @@ Under ``parallel/volume_sharding.py`` ``forward`` and ``train_forward``
 work on this rank's band of the quarter-resolution rows: the trunk runs
 whole, the volume builders keep the band, the 3-D layers exchange halos
 (``models/layers.py``), and every head returns the band's full-resolution
-rows.  The band must be a multiple of 4 rows at H/4 (the hourglasses' two
-stride-2 levels); a shape that breaks the rule raises.
+rows.  The bands' edges fall on multiples of 4 rows at H/4 (the
+hourglasses' two stride-2 levels; ``parallel/volume_sharding.py:edges``),
+so a volume axis of at most H/16 splits every shape the unsplit model
+takes.
 """
 
 from __future__ import annotations
@@ -48,13 +50,13 @@ from diffuvolume_tpu_torch.ops.kernels.fused_head import fused_upsample_softargm
 from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume
 from diffuvolume_tpu_torch.ops.regression import regress_head, upsample_halo
 from diffuvolume_tpu_torch.parallel.volume_sharding import (
-    band,
     constrain_volume,
     current_volume_spec,
+    cut_rows,
 )
 
-# The rows a band must hold at H/4 under the volume split: two stride-2
-# levels below it.
+# The multiple of rows a band's edges fall on at H/4 under the volume
+# split: two stride-2 levels below it.
 BAND_MULTIPLE = 4
 
 
@@ -147,13 +149,13 @@ class ACVNet(nn.Module):
     def trunk(self, left: torch.Tensor, right: torch.Tensor):
         """``(B, H, W, 3)`` images → the trunk features ``(B, 320, H4, W4)``
         of both views, in the model's dtype (whole; under the volume split
-        the band rule is checked here)."""
+        the H/4 rows are cut into bands here)."""
         dt = self.dtype
         left = left.to(dt).permute(0, 3, 1, 2).contiguous()
         right = right.to(dt).permute(0, 3, 1, 2).contiguous()
         feat_l = self.feature_extraction(left).contiguous()
         if current_volume_spec() is not None:
-            band(feat_l.shape[2], BAND_MULTIPLE)
+            cut_rows(feat_l.shape[2], BAND_MULTIPLE)
         return feat_l, self.feature_extraction(right).contiguous()
 
     def features(self, left: torch.Tensor, right: torch.Tensor):

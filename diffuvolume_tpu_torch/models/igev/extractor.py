@@ -20,9 +20,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffuvolume_tpu_torch.models.layers import BatchNorm2d, BatchNorm3d
+from diffuvolume_tpu_torch.models.layers import (
+    BatchNorm2d,
+    BatchNorm3d,
+    conv3d_rows,
+    conv_transpose3d_rows,
+)
 from diffuvolume_tpu_torch.ops.kernels.conv3d_fold import LEAKY_SLOPE, conv3d_fold_small
 from diffuvolume_tpu_torch.ops.regression import at_least_f32
+from diffuvolume_tpu_torch.parallel.volume_sharding import current_volume_spec, halo
 
 # The mobilenetv2_100 stages of the reference's Feature split
 # (extractor.py:332-341): (expansion, channels, repeats, first stride), and
@@ -76,7 +82,10 @@ class BasicConv(nn.Module):
     mode a 3-D 3×3×3 stride-1 conv at 8 or 16 input channels runs on
     ``conv3d_fold_small``, as the JAX package's TPU dispatch runs it; in
     training mode PyTorch's conv (the kernel has no backward), as the JAX
-    dispatch keeps XLA's in training."""
+    dispatch keeps XLA's in training.  Under ``parallel/volume_sharding.py``
+    a 3-D one works on this rank's band of rows: the conv takes its halo
+    (``models/layers.py``), the kernel's fixed padding one row a side and
+    a crop."""
 
     def __init__(self, in_ch, out_ch, deconv=False, is_3d=False, bn=True, relu=True,
                  kernel_size=3, stride=1, padding=1):
@@ -89,11 +98,22 @@ class BasicConv(nn.Module):
                       and padding == 1 and in_ch <= 16)
 
     def forward(self, x):
-        x = (conv3x3x3_small(x, self.conv.weight) if self.small and not self.training
-             else self.conv(x))
+        if x.dim() == 5 and current_volume_spec() is not None:
+            x = self._conv_rows(x)
+        else:
+            x = (conv3x3x3_small(x, self.conv.weight) if self.small and not self.training
+                 else self.conv(x))
         if self.bn is not None:
             x = self.bn(x)
         return leaky_relu(x) if self.relu else x
+
+
+    def _conv_rows(self, x):
+        if isinstance(self.conv, nn.ConvTranspose3d):
+            return conv_transpose3d_rows(self.conv, x)
+        if self.small and not self.training:
+            return conv3x3x3_small(halo(x, 1, 1), self.conv.weight).narrow(3, 1, x.shape[3])
+        return conv3d_rows(self.conv, x)
 
 
 class BasicConvIN(nn.Module):

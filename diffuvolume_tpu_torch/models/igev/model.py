@@ -25,6 +25,18 @@ upsampling are plain PyTorch on both paths.  The training forward runs
 every op plain (the kernels have no backward): the volume on
 ``ops/cost_volume.py``, the convs on PyTorch's, the lookup on the dense
 correlation (``corr_mode="volume"``, the JAX package's default).
+
+Under ``parallel/volume_sharding.py`` the module path's encode and the
+training encode build the GEV on this rank's band of the quarter-resolution
+rows: the trunk runs whole, the 8-group volume, ``corr_stem``, its feature
+attention and the hourglass work on the band (each level's band the H/4
+band scaled; the attention's 2-D convs run on the whole trunk feature, then
+the level's band is kept), with halos (``models/layers.py``).  The bands'
+edges fall on multiples of 8 rows at H/4 (``HourglassGEV``'s three stride-2
+levels).  The GEV (8 channels) is then gathered and everything after it
+runs whole on every rank: the classifier, the initial disparity, the
+lookup pyramid, the rollout and the upsampling; the forwards return this
+rank's full-resolution rows.
 """
 
 from __future__ import annotations
@@ -60,8 +72,17 @@ from diffuvolume_tpu_torch.ops.cost_volume import build_gwc_volume
 from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume
 from diffuvolume_tpu_torch.ops.regression import at_least_f32
 from diffuvolume_tpu_torch.ops.sampling import context_upsample
+from diffuvolume_tpu_torch.parallel.volume_sharding import (
+    constrain_volume,
+    current_volume_spec,
+    cut_rows,
+    gather_rows,
+)
 
 GEV_GROUPS = 8
+# The multiple of rows a band's edges fall on at H/4 under the volume
+# split: HourglassGEV's three stride-2 levels below it.
+BAND_MULTIPLE = 8
 
 
 class IGEVEncoding(NamedTuple):
@@ -91,7 +112,8 @@ class IGEVEntry(NamedTuple):
 
 class FeatureAtt(nn.Module):
     """Sigmoid feature attention over a cost volume, broadcast over D
-    (``submodule.py:226-239``)."""
+    (``submodule.py:226-239``); under the volume split the attention of the
+    whole feature, then the volume's band of it."""
 
     def __init__(self, cv_chan: int, feat_chan: int):
         super().__init__()
@@ -100,7 +122,8 @@ class FeatureAtt(nn.Module):
             nn.Conv2d(feat_chan // 2, cv_chan, 1))
 
     def forward(self, cv, feat):
-        return channels_last(torch.sigmoid(self.feat_att(feat)).unsqueeze(2) * cv)
+        att = constrain_volume(torch.sigmoid(self.feat_att(feat)).unsqueeze(2))
+        return channels_last(att * cv)
 
 
 def _conv3d(cin, cout, stride):
@@ -230,13 +253,22 @@ class IGEVStereo(nn.Module):
                     for conv, (_, ctx) in zip(self.context_zqr_convs, cnet)]
         return net_list, inp_list
 
+    def _gev(self, volume, match_l, feat_l):
+        """The GEV ``(B, 8, D, H4, W4)`` from ``volume()``, the 8-group
+        volume; under the volume split built on this rank's band, then
+        gathered."""
+        split = current_volume_spec() is not None
+        if split:
+            cut_rows(match_l.shape[2], BAND_MULTIPLE)
+        gev = self.cost_agg(self.corr_feature_att(self.corr_stem(volume()), feat_l[0]), feat_l)
+        return channels_last(gather_rows(gev)) if split else gev
+
     def gev_tower(self, match_l, match_r, feat_l):
         """The module path's GEV tower: the 8-group volume (``gwc_volume``),
         ``corr_stem`` with its feature attention, the hourglass, the
         classifier.  Returns ``(gev (B, H4, W4, D, 8), cost (B, H4, W4, D))``."""
-        gwc = channels_last(gwc_volume(match_l, match_r, self.max_disp // 4, GEV_GROUPS))
-        gwc = self.corr_feature_att(self.corr_stem(gwc), feat_l[0])
-        gev = self.cost_agg(gwc, feat_l)
+        gev = self._gev(lambda: channels_last(
+            gwc_volume(match_l, match_r, self.max_disp // 4, GEV_GROUPS)), match_l, feat_l)
         cost = conv3x3x3_small(gev, self.classifier.weight)[:, 0]
         return gev.permute(0, 3, 4, 2, 1).contiguous(), cost.permute(0, 2, 3, 1)
 
@@ -266,8 +298,8 @@ class IGEVStereo(nn.Module):
         feat_r[0] = torch.cat([feat_r[0], stem_4y], dim=1)
         match_l, match_r = self.desc(self.conv(feat_l[0])), self.desc(self.conv(feat_r[0]))
 
-        gwc = channels_last(build_gwc_volume(match_l, match_r, self.max_disp // 4, GEV_GROUPS))
-        gev = self.cost_agg(self.corr_feature_att(self.corr_stem(gwc), feat_l[0]), feat_l)
+        gev = self._gev(lambda: channels_last(
+            build_gwc_volume(match_l, match_r, self.max_disp // 4, GEV_GROUPS)), match_l, feat_l)
         cost = F.conv3d(gev, self.classifier.weight, padding=1)[:, 0]
         init_disp = regress(cost.permute(0, 2, 3, 1))
         net_list, inp_list = self.context(left_n)
@@ -422,9 +454,10 @@ def igev_forward(model, left: torch.Tensor, right: torch.Tensor, iters: int = 32
                  noisy: torch.Tensor | None = None, t: torch.Tensor | None = None,
                  noise_mode: str = "pixel", corr_mode: str = "band") -> torch.Tensor:
     """The eval forward (``igev_forward``, ``test_mode=True``): encode, then
-    ``iters`` GRU updates, then one upsampling → ``(B, H, W)``."""
+    ``iters`` GRU updates, then one upsampling → ``(B, H, W)``; this rank's
+    rows under the volume split (the module path's)."""
     enc, pyramid = igev_encode(model, left, right, corr_mode)
-    return igev_rollout(model, enc, pyramid, iters, noisy, t, noise_mode)
+    return constrain_volume(igev_rollout(model, enc, pyramid, iters, noisy, t, noise_mode))
 
 
 @contextlib.contextmanager
@@ -467,12 +500,14 @@ def igev_train_forward(model: IGEVStereo, left: torch.Tensor, right: torch.Tenso
     """The training forward (``igev_forward(train=True)``): ``(init_up (B,
     H, W), disp_ups (iters, B, H, W))``, float32.  ``model`` is in training
     mode; the encode's BatchNorms run on batch statistics, the rollout's
-    frozen."""
+    frozen.  Under the volume split both are this rank's rows (the noise
+    whole: it multiplies the gathered GEV)."""
     enc, spx_pred = model.train_encode(left, right)
     pyramid = build_geo_pyramid(enc.match_l, enc.match_r, enc.gev, model.corr_levels,
                                 corr_mode="volume")
     disp_ups = igev_train_rollout(model, enc, pyramid, iters, noisy, t)
-    return context_upsample(enc.init_disp * 4.0, spx_pred), disp_ups
+    return (constrain_volume(context_upsample(enc.init_disp * 4.0, spx_pred)),
+            constrain_volume(disp_ups))
 
 
 class DisparityTrack:

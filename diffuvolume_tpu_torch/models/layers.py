@@ -12,15 +12,18 @@ are NCHW / NCDHW inside the network.  ``BatchNorm2d`` / ``BatchNorm3d`` keep
 PyTorch's state-dict names and update their running statistics in training
 as ``flax.linen.BatchNorm`` does (the biased batch variance).
 
-Under ``parallel/volume_sharding.py`` the 3-D layers of ACVNet work on this
-rank's band of rows (H, dim 3 of NCDHW): each conv takes the halo its
-kernel reads across the band's edges (``conv3d_rows``:
-3×3×3 stride 1 one row a side; stride 2 one above; the ``(1, 3, 3)``
-patch convs their dilation a side; 1×1×1 none) and runs with no padding
-over H; a transposed conv (k3 s2 p1 op1) takes one row below and crops;
-``AttentionBlock3D``, whose windows cross bands, gathers its input's rows,
-attends, and keeps this rank's.  BatchNorm, ReLU and the other pointwise
-ops need no halo.
+Under ``parallel/volume_sharding.py`` the 3-D layers of ACVNet, PCWNet and
+IGEV's GEV tower work on this rank's band of rows (H, dim 3 of NCDHW): each
+conv takes the halo its kernel reads across the band's edges
+(``conv3d_rows``: 3×3×3 stride 1 one row a side; stride 2 one above; the
+``(1, 3, 3)`` patch convs their dilation a side; 1×1×1 none) and runs with
+no padding over H; a transposed conv takes the rows its taps reach and
+crops (``conv_transpose3d_rows``: k3 s2 p1 op1 one row below, IGEV's k4 s2
+p1 one a side); a kernel with a fixed padding (``PackedConv3d``, IGEV's
+``conv3x3x3_small``) runs on the band with one row a side and drops the two
+rows next to the halo; ``AttentionBlock3D``, whose windows cross bands,
+gathers its input's rows, attends, and keeps this rank's.  BatchNorm,
+ReLU, Mish, LeakyReLU and the other pointwise ops need no halo.
 """
 
 from __future__ import annotations
@@ -33,7 +36,12 @@ import torch.nn.functional as F
 
 from diffuvolume_tpu_torch.ops.kernels.conv3d_fold import conv3d_packed
 from diffuvolume_tpu_torch.ops.regression import resize_linear
-from diffuvolume_tpu_torch.parallel.volume_sharding import current_volume_spec, gather_rows, halo
+from diffuvolume_tpu_torch.parallel.volume_sharding import (
+    band_of,
+    current_volume_spec,
+    gather_rows,
+    halo,
+)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -166,32 +174,34 @@ def conv3d_rows(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     gives the global output rows of the band (``stride`` must divide the
     band's first row).  ``PackedConv3d``'s kernel has a fixed padding: it
     runs on the band with one row a side and drops the two rows next to the
-    halo."""
+    halo, on the whole volume's K splits (``conv3d_packed``'s
+    ``plan_shape``)."""
     if current_volume_spec() is None or not isinstance(conv, nn.Conv3d):
         return conv(x)
     k, s, p, d = (a[1] for a in (conv.kernel_size, conv.stride, conv.padding, conv.dilation))
     xh = halo(x, p, (k - 1) * d - p - s + 1)
     if isinstance(conv, PackedConv3d):  # stride 1, pad 1
-        return conv(xh).narrow(3, 1, x.shape[3])
+        return conv(xh, whole_rows=band_of(x)[2]).narrow(3, 1, x.shape[3])
     return F.conv3d(xh, conv.weight, conv.bias, conv.stride,
                     (conv.padding[0], 0, conv.padding[2]), conv.dilation, conv.groups)
 
 
 def conv_transpose3d_rows(deconv: nn.ConvTranspose3d, x: torch.Tensor) -> torch.Tensor:
-    """``deconv(x)``; under ``volume_sharding``, the hourglasses' transposed
-    conv (k3 s2 p1, output padding 1) on this rank's band: output row ``o``
-    reads input rows ``⌊o/2⌋`` and ``⌊o/2⌋ + 1``, so the band takes one row
-    of the band below (zeros past the last) and the output's first ``2n``
-    rows are the band's."""
+    """``deconv(x)``; under ``volume_sharding``, a transposed conv on this
+    rank's band ``[h0, h1)``, whose output band is ``[s·h0, s·h1)``: output
+    row ``o`` reads input rows ``(o + p − t)/s`` over the taps ``t``, so the
+    band takes ``⌊(k − 1 − p)/s⌋`` rows above and ``⌊(p − 1)/s⌋ + 1`` below
+    (zeros past the edges) and keeps ``s·n`` output rows after the first
+    ``s·top``: the hourglasses' k3 s2 p1 op1 form takes one row below, IGEV's
+    k4 s2 p1 one a side."""
     if current_volume_spec() is None:
         return deconv(x)
-    if (deconv.kernel_size[1], deconv.stride[1], deconv.padding[1],
-            deconv.output_padding[1]) != (3, 2, 1, 1):
-        raise ValueError("the split transposed conv is the k3 s2 p1 op1 form over H")
+    k, s, p = deconv.kernel_size[1], deconv.stride[1], deconv.padding[1]
+    top, bottom = (k - 1 - p) // s, (p - 1) // s + 1
     op = deconv.output_padding
-    y = F.conv_transpose3d(halo(x, 0, 1), deconv.weight, deconv.bias, deconv.stride,
+    y = F.conv_transpose3d(halo(x, top, bottom), deconv.weight, deconv.bias, deconv.stride,
                            deconv.padding, (op[0], 0, op[2]), deconv.groups, deconv.dilation)
-    return y.narrow(3, 0, 2 * x.shape[3])
+    return y.narrow(3, s * top, s * x.shape[3])
 
 
 class ConvBN(nn.Sequential):
@@ -334,8 +344,7 @@ class AttentionBlock3D(nn.Module):
         if current_volume_spec() is not None:
             # The windows cross bands: attend over every row (small at H/16),
             # keep this rank's.
-            n = x.shape[3]
-            first = n * current_volume_spec().volume_index
+            first, n, _ = band_of(x)
             return self._attend(gather_rows(x)).narrow(3, first, n)
         return self._attend(x)
 
@@ -529,12 +538,18 @@ class PackedConv3d(nn.Conv3d):
             self._packed_weight = cached
         return cached[1]
 
-    def forward(self, x):
+    def forward(self, x, whole_rows: int | None = None):
+        """``whole_rows``: ``x`` is a band (with its halo) of a volume of that
+        many rows, whose plan's K splits the kernel keeps."""
         if self.training or x.shape[2] % (128 // self.in_channels):
             return super().forward(x)
         # (B, C, D, H, W) → NDHWC: a view of a channels_last_3d volume, a
         # copy of an NCDHW one.
-        y = conv3d_packed(x.permute(0, 2, 3, 4, 1).contiguous(), self._kernel_weight())
+        args = (x.permute(0, 2, 3, 4, 1).contiguous(), self._kernel_weight())
+        if whole_rows is None:
+            return conv3d_packed(*args).permute(0, 4, 1, 2, 3)
+        b, c, d, _, w = x.shape
+        y = conv3d_packed(*args, plan_shape=(b, d, whole_rows, w, c))
         return y.permute(0, 4, 1, 2, 3)
 
 

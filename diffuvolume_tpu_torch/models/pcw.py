@@ -21,6 +21,18 @@ refinement net's too; ``layers.route_conv3d`` runs this path's eligible
 3×3×3 convs on ``conv3d_packed``.  Eval runs one 2B trunk pass for
 both views.  ``train_forward`` runs the differentiable plain ops (the
 kernels have no backward) and one trunk pass a view.
+
+Under ``parallel/volume_sharding.py`` ``forward`` and ``train_forward``
+work on this rank's band of the quarter-resolution rows, as ACVNet's do:
+the trunk runs whole, each scale's volume is built on that scale's band
+(the H/4 band scaled, ``volume_sharding.level_band``), the 3-D layers
+exchange halos (``models/layers.py``), and the heads return the band's
+full-resolution rows.  The bands' edges fall on multiples of 8 rows at H/4
+(``HourglassUp``'s three stride-2 levels).  The refinement is
+full-resolution 2-D work over dilated convs: it runs whole on every rank
+from the gathered ``pred3`` and keeps this rank's rows of its output.  The
+eval head's resize maps corners to corners, which no halo and crop of a
+band reproduces, so under the split it runs on the gathered logits.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ from diffuvolume_tpu_torch.models.layers import (
     ConvTransposeBN,
     DynamicHead,
     HeadConv3D,
+    conv3d_rows,
     convbn_3d,
     init_weights,
 )
@@ -54,9 +67,18 @@ from diffuvolume_tpu_torch.ops.kernels.fused_head import (
 from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume_packed
 from diffuvolume_tpu_torch.ops.regression import at_least_f32, regress_head, resize_bilinear
 from diffuvolume_tpu_torch.ops.sampling import warp_right_to_left
+from diffuvolume_tpu_torch.parallel.volume_sharding import (
+    constrain_volume,
+    current_volume_spec,
+    cut_rows,
+    gather_rows,
+)
 
 # The refinement's signed correlation reaches ±24 px (pwcnet_ddim.py:486-502).
 REFINE_MAX_OFFSET = 24
+# The multiple of rows a band's edges fall on at H/4 under the volume
+# split: HourglassUp's three stride-2 levels below it.
+BAND_MULTIPLE = 8
 
 
 class PCWEntry(NamedTuple):
@@ -160,11 +182,11 @@ class HourglassUp(nn.Module):
         self.redir3 = convbn_3d(4 * ch, 4 * ch, 1, 1, 0)
 
     def forward(self, x, feature4, feature5, feature6):
-        conv1 = self.combine1(torch.cat([self.conv1(x), feature4], dim=1))
+        conv1 = self.combine1(torch.cat([conv3d_rows(self.conv1, x), feature4], dim=1))
         conv2 = self.conv2(conv1)
-        conv3 = self.combine2(torch.cat([self.conv3(conv2), feature5], dim=1))
+        conv3 = self.combine2(torch.cat([conv3d_rows(self.conv3, conv2), feature5], dim=1))
         conv4 = self.conv4(conv3)
-        conv5 = self.combine3(torch.cat([self.conv5(conv4), feature6], dim=1))
+        conv5 = self.combine3(torch.cat([conv3d_rows(self.conv5, conv4), feature6], dim=1))
         conv6 = self.conv6(conv5)
         conv7 = self.act(self.conv7(conv6) + self.redir3(conv4))
         conv8 = self.act(self.conv8(conv7) + self.redir2(conv2))
@@ -279,11 +301,19 @@ class PCWNet(nn.Module):
                                   mask_ref=True)
                 for i in (1, 2, 3, 4)]
 
+    @staticmethod
+    def _cut(fl: dict) -> None:
+        """Under the volume split, cut the H/4 rows into this forward's
+        bands (every scale's band is that cut scaled)."""
+        if current_volume_spec() is not None:
+            cut_rows(fl["gw1"].shape[2], BAND_MULTIPLE)
+
     def build_cost_volume(self, left: torch.Tensor, right: torch.Tensor):
         """``(B, H, W, 3)`` images → ``(combine (B, 32, D, H4, W4), cost0, fl,
         fr)``: the fused multi-scale volume that the diffusion latent
-        multiplies."""
+        multiplies (this rank's band under the volume split)."""
         fl, fr = self.features(left, right)
+        self._cut(fl)
         c = self.num_groups + 2 * self.concat_channels
         v1, v2, v3, v4 = (v[..., :c].permute(0, 4, 1, 2, 3).contiguous()
                           for v in self.volumes(fl, fr))
@@ -331,11 +361,13 @@ class PCWNet(nn.Module):
     def _aggregate(self, volume: torch.Tensor, fl: dict, fr: dict, out_hw, want_unc: bool):
         out = self.dres4(self.dres3(self.dres2(volume)))
         cost3 = self._head_cost(out)
+        if current_volume_spec() is not None:
+            cost3 = gather_rows(cost3)
         pred3, _ = fused_upsample_softargmin(cost3, self.max_disp, out_hw, align_corners=True)
         disp = self.refine(pred3, fl, fr, out_hw)
         unc = (fused_uncertainty_at(cost3, disp, self.max_disp, out_hw, align_corners=True)
                if want_unc else None)
-        return disp, unc
+        return constrain_volume(disp), None if unc is None else constrain_volume(unc)
 
     # ---- diffusion-conditioned single pass (pwcnet_ddim.py:467-530) ----
 
@@ -359,11 +391,13 @@ class PCWNet(nn.Module):
         heads ``[pred0, comb_pred, pred1, pred2, pred3, disp_finetune]``
         (``(B, H, W)`` float32, KITTI12's loss weights in this order).  The
         diffusion model's inputs are ``ACVNet.train_forward``'s; the latent's
-        transform multiplies the combine volume."""
+        transform multiplies the combine volume (whole inputs; under the
+        volume split the heads are this rank's rows)."""
         out_hw = (left.shape[1], left.shape[2])
         dt = self.dtype
         fl = self.feature_extraction(left.to(dt).permute(0, 3, 1, 2).contiguous())
         fr = self.feature_extraction(right.to(dt).permute(0, 3, 1, 2).contiguous())
+        self._cut(fl)
         v1, v2, v3, v4 = (
             torch.cat([build_gwc_volume(fl[f"gw{i}"], fr[f"gw{i}"], d, self.num_groups),
                        build_concat_volume(fl[f"concat{i}"], fr[f"concat{i}"], d,
@@ -374,8 +408,10 @@ class PCWNet(nn.Module):
         combine = self.combine1(cost0, v2, v3, v4)
         combine_in = combine
         if self.diffusion:
-            x_start = encode_disparity_volume(disp_gt_q, self.max_disp // 4, self.scale)
-            noisy = q_sample(make_schedule(1000, device=x_start.device), x_start, t, noise)
+            x_start = encode_disparity_volume(constrain_volume(disp_gt_q), self.max_disp // 4,
+                                              self.scale)
+            noisy = q_sample(make_schedule(1000, device=x_start.device), x_start, t,
+                             constrain_volume(noise))
             combine_in = combine * self.embed_noise(noisy, t)[:, None]
 
         def head(classif, x):
@@ -385,7 +421,8 @@ class PCWNet(nn.Module):
         out2 = self.dres3(out1)
         out3 = self.dres4(out2)
         pred3 = head(self.classif3, out3)
-        disp_finetune = self.refine(pred3, fl, fr, out_hw)
+        whole = gather_rows(pred3) if current_volume_spec() is not None else pred3
+        disp_finetune = constrain_volume(self.refine(whole, fl, fr, out_hw))
         return [head(self.classif0, cost0), head(self.classif4, combine), head(self.classif1, out1),
                 head(self.classif2, out2), pred3, disp_finetune]
 

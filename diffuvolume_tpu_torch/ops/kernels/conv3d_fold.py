@@ -129,7 +129,7 @@ def act_code(act: str | None) -> int:
 
 
 def _fold(x, w, bias, stride, residual, act, ks, wrapper, post_mul=None, cin_step=16,
-          tc=TC_AUTO):
+          tc=TC_AUTO, plan_shape=None):
     if w.shape[:3] != (ks, ks, ks):
         raise ValueError(f"{wrapper.__name__} takes a {ks}×{ks}×{ks} kernel, got "
                          f"{tuple(w.shape[:3])}")
@@ -145,7 +145,9 @@ def _fold(x, w, bias, stride, residual, act, ks, wrapper, post_mul=None, cin_ste
     if stride == 1:
         plan, ws = None, None
         if ks == 3 and x.dtype == torch.bfloat16:
-            plan = s1_plan(x.shape, w.shape[4], x.device, tc)
+            splits = 0 if plan_shape is None else s1_plan(
+                tuple(plan_shape), w.shape[4], x.device, tc)["splits"]
+            plan = s1_plan(tuple(x.shape), w.shape[4], x.device, tc, splits)
             if plan["splits"] > 1:
                 ws = torch.empty((plan["splits"], *out_shape), dtype=torch.float32,
                                  device=x.device)
@@ -173,14 +175,20 @@ def _fold(x, w, bias, stride, residual, act, ks, wrapper, post_mul=None, cin_ste
 
 
 @functools.lru_cache(maxsize=256)
-def s1_plan(x_shape: tuple, cout: int, device: torch.device, tc: int = TC_AUTO) -> _build.Plan:
+def s1_plan(x_shape: tuple, cout: int, device: torch.device, tc: int = TC_AUTO,
+            splits: int = 0) -> _build.Plan:
     """The tile plan the bf16 stride-1 3×3×3 kernel (rows 5, 6, 14, 15)
     takes for ``x (B, D, H, W, C) → C_out`` on ``device``
     (``_build.PLAN_KEYS``: the tile, the grid's blocks, the K splits, shared
     memory, blocks per SM, the tensor-core form), made once a shape and
-    handed to every launch."""
+    handed to every launch.  ``splits`` > 0 keeps the tile and sets the K
+    splits (the planner weighs 1 … 8 for every tile; an output element's
+    sum depends on the splits alone, not on the tile)."""
     b, d, h, w, cin = x_shape
-    return _build.plan("dv_conv3d_s1_plan", device, b, d, h, w, cin, cout, tc)
+    pl = _build.plan("dv_conv3d_s1_plan", device, b, d, h, w, cin, cout, tc)
+    if splits and splits != pl["splits"]:
+        pl["splits"] = pl.ints[_build.PLAN_KEYS.index("splits")] = splits
+    return pl
 
 
 @functools.lru_cache(maxsize=256)
@@ -269,15 +277,18 @@ PACKED_CIN = (8, 16, 32, 64, 128)
 
 
 def conv3d_packed(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
-                  act: str | None = None) -> torch.Tensor:
+                  act: str | None = None, plan_shape: tuple | None = None) -> torch.Tensor:
     """3×3×3 stride-1 pad-1 conv + bias, then ReLU (``act="relu"``) or
     nothing, ``(B, D, H, W, C) → (B, D, H, W, Co)`` at C ∈ ``PACKED_CIN``;
-    the same kernel as ``conv3d_fold_p``, counted apart."""
+    the same kernel as ``conv3d_fold_p``, counted apart.  ``plan_shape``:
+    take the K splits of that input shape's plan (a band of a volume split
+    over ranks passes the whole volume's shape, so that its bfloat16 sums
+    round as the whole's)."""
     if x.shape[-1] not in PACKED_CIN:
         raise ValueError(f"conv3d_packed takes {PACKED_CIN} input channels, got {x.shape[-1]}")
     if act not in (None, "relu"):
         raise ValueError(f"conv3d_packed: act must be None or 'relu', got {act!r}")
-    return _fold(x, w, bias, 1, None, act, 3, conv3d_packed, cin_step=8)
+    return _fold(x, w, bias, 1, None, act, 3, conv3d_packed, cin_step=8, plan_shape=plan_shape)
 
 
 conv3d_fold_p.launches = 0

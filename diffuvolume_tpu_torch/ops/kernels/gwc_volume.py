@@ -115,6 +115,8 @@ def gwc_volume_packed(
     ``left·right(w − d)`` (0 for ``w < d``), then ``cat_l`` (0 for ``w < d``
     when ``mask_ref``), then ``cat_r(w − d)`` (0 for ``w < d``), then zeros.
     ``slot`` defaults to the smallest multiple of 16 that holds ``G + 2cc``.
+    This rank's rows under ``parallel/volume_sharding.py`` (at the
+    features' level: PCW's four scales each take their scale's band).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
     """
@@ -139,6 +141,9 @@ def _slot(left, right, max_disp, num_groups, slot, cat_l, cat_r, mask_ref, tile)
     slot = slot_width(num_groups + 2 * cc) if slot is None else slot
     if left.device.type == "cpu":
         return gwc_volume_slot(left, right, max_disp, num_groups, slot, cat_l, cat_r, mask_ref)
+    left, right = constrain_volume(left), constrain_volume(right)
+    if cc:
+        cat_l, cat_r = constrain_volume(cat_l), constrain_volume(cat_r)
     if left.shape != right.shape or left.dtype != right.dtype or left.dim() != 4:
         raise ValueError("left/right must be (B, C, H, W) of one shape and dtype")
     b, c, h, w = left.shape

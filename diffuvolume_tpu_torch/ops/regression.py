@@ -6,9 +6,11 @@ the same formulation as the JAX package, so the two agree to float32
 rounding.  ``upsample_cost_and_regress`` + ``disparity_uncertainty`` are the
 plain version of the fused head kernel (``ops/kernels/fused_head.py``).
 Under ``parallel/volume_sharding.py`` ``regress_head`` takes this rank's
-band of the logits' rows and gives its band of full-resolution rows
-(``upsample_halo``, which ACV's eval head applies around the fused kernel
-too).
+band of the logits' rows and gives its band of full-resolution rows, in
+both pixel conventions (``band_rows_matrix``: the global resize's rows of
+the band, over the band and one row a side); ACV's eval head applies
+``upsample_halo`` around the fused kernel, whose resize takes a whole
+factor with half-pixel centres.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from diffuvolume_tpu_torch.parallel.volume_sharding import current_volume_spec, halo
+from diffuvolume_tpu_torch.parallel.volume_sharding import band_of, current_volume_spec, halo
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -142,12 +144,32 @@ def upsample_halo(cost: torch.Tensor, out_h: int,
     reads rows ``⌊(o + ½)/f − ½⌋`` and the next, one past the band at its
     ends, and the global resize clamps at the image's edges, which the
     halo's replicated edge rows reproduce."""
-    n = cost.shape[2]
-    f, rem = divmod(out_h, n * current_volume_spec().n_volume)
+    _, n, rows = band_of(cost)
+    f, rem = divmod(out_h, rows)
     if rem or align_corners:
         raise ValueError(f"the split upsample takes a whole factor from H4 to {out_h} with "
                          f"half-pixel centres")
     return halo(cost, 1, 1, "replicate"), f * (n + 2), slice(f, f * (n + 1))
+
+
+@functools.lru_cache(maxsize=64)
+def band_rows_matrix(first: int, n: int, rows: int, out_h: int,
+                     align_corners: bool) -> np.ndarray:
+    """The rows ``[f·first, f·(first + n))`` of the ``(out_h, rows)`` resize
+    matrix (``out_h = f·rows``) over the input rows ``[first − 1, first + n
+    + 1)``, zero columns past the image: a band's output rows read its own
+    rows and at most one a side in both conventions (with
+    ``align_corners``, ``o·(rows − 1)/(out_h − 1)`` lies in ``(first − 1,
+    first + n)`` there)."""
+    f, rem = divmod(out_h, rows)
+    if rem:
+        raise ValueError(f"the split resize takes a whole factor from {rows} rows to {out_h}")
+    m = np.pad(_interp_matrix(rows, out_h, align_corners), ((0, 0), (1, 1)))
+    band_rows = m[f * first:f * (first + n)]
+    out = band_rows[:, first:first + n + 2]
+    if np.abs(out).sum() != np.abs(band_rows).sum():
+        raise ValueError("a band's resized rows read past one row a side")
+    return out
 
 
 def upsample_cost_and_regress(
@@ -170,10 +192,16 @@ def regress_head(cost: torch.Tensor, max_disp: int, out_hw: tuple[int, int],
     """A training head's regression: ``upsample_cost_and_regress`` of the
     ``(B, D4, H4, W4)`` logits in float32 (float64 stays), autocast off (the
     JAX package casts the cost to float32 first) → ``(B, H, W)``; this
-    rank's rows under ``volume_sharding``."""
+    rank's rows under ``volume_sharding``, resized over H by the global
+    resize's rows of the band (``band_rows_matrix``)."""
     with torch.autocast(cost.device.type, enabled=False):
         cost = at_least_f32(cost)
         if current_volume_spec() is None:
             return upsample_cost_and_regress(cost, max_disp, out_hw, align_corners)[0]
-        cost, h, rows = upsample_halo(cost, out_hw[0], align_corners)
-        return upsample_cost_and_regress(cost, max_disp, (h, out_hw[1]), align_corners)[0][:, rows]
+        first, n, rows = band_of(cost)
+        m = torch.as_tensor(band_rows_matrix(first, n, rows, out_hw[0], align_corners),
+                            device=cost.device).to(cost.dtype)
+        up = resize_linear(halo(cost, 1, 1), max_disp, 1, align_corners)
+        up = torch.matmul(up.movedim(2, -1), m.t()).movedim(-1, 2)
+        prob = torch.softmax(resize_linear(up, out_hw[1], 3, align_corners), dim=1)
+        return disparity_regression(prob, max_disp)

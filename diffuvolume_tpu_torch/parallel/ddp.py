@@ -103,9 +103,16 @@ def shutdown() -> None:
 
 def sync_batch_norm(model: torch.nn.Module, dp: Mesh) -> torch.nn.Module:
     """Every ``models/layers.py`` BatchNorm of ``model`` normalises with the
-    statistics of the global batch in training (``reduce_stats``): the 3-D
-    ones with sums over the world, the 2-D ones over the data group (the
-    world when ``n_volume`` is 1; see ``parallel/mesh.py``).  The
+    statistics of the global batch in training (``reduce_stats``).  A norm
+    whose input is a band of rows under the volume split sums over the
+    world; one whose input is whole on every rank of a volume group sums
+    over the data group (the world when ``n_volume`` is 1; see
+    ``parallel/mesh.py``).  On the three models' split paths the bands are
+    the 3-D ones, every ``BatchNorm3d`` (the hourglasses, PCW's heads,
+    IGEV's ``corr_stem`` and GEV tower), and every ``BatchNorm2d`` is whole
+    (the trunks, ACV's ``concatconv``, PCW's refinement and
+    ``dispupsample``, IGEV's feature attention convs, which run on the whole
+    trunk feature, its context net and its frozen upsampling).  The
     state-dict names stay.  Returns ``model``."""
     from diffuvolume_tpu_torch.models.layers import BatchNorm3d, _FlaxRunningStats
 

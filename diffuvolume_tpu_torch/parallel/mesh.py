@@ -13,10 +13,11 @@ order.
 
 Under the JAX mesh every reduction in the step is global, and so it is
 here: ``sum`` takes a tensor's sum over the world, ``data_sum`` over the
-data group.  The 2-D trunk runs whole on every rank of a volume group, so
-its BatchNorm sums are the data group's (a world sum would count each image
-``n_volume`` times in the backward's share); the 3-D layers hold one band
-of rows a rank and take the world's (``parallel/ddp.py:sync_batch_norm``).
+data group.  What runs whole on every rank of a volume group (the 2-D
+trunk, PCW's refinement, IGEV's context net) takes the data group's
+BatchNorm sums (a world sum would count each image ``n_volume`` times in
+the backward's share); the 3-D layers hold one band of rows a rank and
+take the world's (``parallel/ddp.py:sync_batch_norm``).
 A grid of ``n_volume = 1`` is data parallelism (``parallel/ddp.py``): its
 data group is the world, and it makes no group of its own.
 """

@@ -7,10 +7,22 @@ builders constrain their outputs, and GSPMD propagates the split through
 the 3-D aggregation, inserting the halo exchanges for the convs and making
 every reduction global.  PyTorch has no GSPMD, so the port writes the split
 out by hand, with the same semantics: under ``volume_sharding(mesh)`` each
-rank of a volume group (``parallel/mesh.py``) holds one band of rows,
-``[i·n, (i+1)·n)`` for volume index ``i``, of every tensor on the split
-path, and an op that reads across rows first takes a halo of its
-neighbours' rows:
+rank of a volume group (``parallel/mesh.py``) holds one band of rows of
+every tensor on the split path, and an op that reads across rows first
+takes a halo of its neighbours' rows.
+
+The bands are cut once a forward, at the quarter-resolution (H/4) rows,
+by ``cut_rows(rows, multiple)`` (the model calls it with its
+``BAND_MULTIPLE``: the stride-2 levels below H/4 need every band edge on a
+multiple of ``2^levels`` rows): edges at multiples of ``multiple``, the
+bands' sizes at most one ``multiple`` apart, the first ranks taking the
+larger ones (``band``; 80 rows in multiples of 8 over 4 ranks: 24, 24, 16,
+16), so every shape the unsplit model takes splits while ``V`` is at most
+``rows / multiple``.  Every other level's band is that cut scaled: the
+H/4 band ``[h0, h1)`` is ``[h0/2^k, h1/2^k)`` at H/4/2^k (``level_band``)
+and ``[4·h0, 4·h1)`` at full resolution, never a cut of the level's own
+row count.  A tensor's level is read from its rows: a whole tensor's
+against the H/4 rows, a band's against this rank's H/4 band.
 
 * ``constrain_volume(x)``: this rank's band of a whole tensor (the volume
   builders slice their features with it: a volume row depends only on
@@ -34,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from fractions import Fraction
 
 import torch
 import torch.distributed as dist
@@ -56,26 +69,91 @@ def volume_sharding(mesh: Mesh | None):
     """Split the cost volume's rows over ``mesh``'s volume groups while the
     context is open; a grid without a volume axis (``n_volume`` 1), or
     None, splits nothing."""
-    prev = current_volume_spec()
+    prev = current_volume_spec(), getattr(_STATE, "cut", None)
     _STATE.mesh = mesh if mesh is not None and mesh.n_volume > 1 else None
+    _STATE.cut = None
     try:
         yield
     finally:
-        _STATE.mesh = prev
+        _STATE.mesh, _STATE.cut = prev
+
+
+def edges(rows: int, multiple: int, n_volume: int) -> list[int]:
+    """The ``n_volume + 1`` edges of the bands of ``rows`` rows: at multiples
+    of ``multiple``, the bands' sizes at most one ``multiple`` apart, the
+    first ones the larger (the last also takes ``rows % multiple``).  Raises
+    when ``n_volume`` exceeds ``rows / multiple`` (the band rule)."""
+    units = rows // multiple
+    if n_volume > units:
+        raise ValueError(f"{rows} rows do not split over a volume axis of {n_volume} in bands "
+                         f"of a multiple of {multiple} rows (the band rule: at most "
+                         f"{units} bands)")
+    q, r = divmod(units, n_volume)
+    out = [0]
+    for i in range(n_volume):
+        out.append(out[-1] + (q + (i < r)) * multiple)
+    out[-1] = rows
+    return out
+
+
+def _own(e: list[int]) -> tuple[int, int]:
+    """``(first row, rows)`` of this rank's band between the edges ``e``."""
+    i = current_volume_spec().volume_index
+    return e[i], e[i + 1] - e[i]
 
 
 def band(rows: int, multiple: int = 1) -> tuple[int, int]:
-    """``(first row, rows)`` of this rank's band of ``rows`` global rows.
-    The band must be a whole multiple of ``multiple`` rows (ACV's: 4 at
-    H/4, for its two stride-2 levels); a shape that breaks the rule
-    raises."""
-    mesh = current_volume_spec()
-    v = mesh.n_volume
-    if rows % v or (rows // v) % multiple:
-        raise ValueError(f"{rows} rows do not split over a volume axis of {v} in bands of a "
-                         f"multiple of {multiple} rows (the band rule)")
-    n = rows // v
-    return mesh.volume_index * n, n
+    """``(first row, rows)`` of this rank's band of ``rows`` global rows
+    under ``volume_sharding``, cut by ``edges``."""
+    return _own(edges(rows, multiple, current_volume_spec().n_volume))
+
+
+def cut_rows(rows: int, multiple: int) -> tuple[int, int]:
+    """Cut the ``rows`` quarter-resolution rows into bands of multiples of
+    ``multiple`` (``edges``) for the rest of this ``volume_sharding``
+    block: every level's band is this cut scaled.  Returns this rank's
+    ``band``."""
+    _STATE.cut = edges(rows, multiple, current_volume_spec().n_volume)
+    return _own(_STATE.cut)
+
+
+def _scaled(scale: Fraction) -> list[int]:
+    """The cut's edges at ``scale`` times the H/4 rows; raises where an edge
+    falls between rows."""
+    out = [e * scale for e in _STATE.cut]
+    if any(x.denominator != 1 for x in out):
+        raise ValueError(f"the bands' edges {_STATE.cut} at H/4 fall between rows at "
+                         f"{scale} of that resolution (the band rule)")
+    return [int(x) for x in out]
+
+
+def _edges_of_whole(rows: int) -> list[int]:
+    """The edges of a whole tensor of ``rows`` rows: the cut scaled from the
+    H/4 rows (a cut of ``rows`` into single rows first, when none was
+    made)."""
+    if _STATE.cut is None:
+        _STATE.cut = edges(rows, 1, current_volume_spec().n_volume)
+    return _scaled(Fraction(rows, _STATE.cut[-1]))
+
+
+def _edges_of_band(n: int) -> list[int]:
+    """The edges of the level whose band on this rank holds ``n`` rows."""
+    if _STATE.cut is None:
+        raise ValueError("no band was cut in this volume_sharding block (cut_rows)")
+    return _scaled(Fraction(n, _own(_STATE.cut)[1]))
+
+
+def band_of(x: torch.Tensor) -> tuple[int, int, int]:
+    """``(first row, rows, global rows)`` of this rank's band ``x`` at its
+    level."""
+    e = _edges_of_band(x.shape[ROWS])
+    return *_own(e), e[-1]
+
+
+def level_band(k: int) -> tuple[int, int]:
+    """``(first row, rows)`` of this rank's band at H/4/2^k: the H/4 band's
+    ``[h0, h1)`` divided by ``2^k``."""
+    return _own(_scaled(Fraction(1, 2 ** k)))
 
 
 def constrain_volume(x: torch.Tensor) -> torch.Tensor:
@@ -83,8 +161,7 @@ def constrain_volume(x: torch.Tensor) -> torch.Tensor:
     ``volume_sharding``; ``x`` itself outside it."""
     if current_volume_spec() is None:
         return x
-    first, n = band(x.shape[ROWS])
-    return x.narrow(ROWS, first, n).contiguous()
+    return x.narrow(ROWS, *_own(_edges_of_whole(x.shape[ROWS]))).contiguous()
 
 
 def _exchange(mesh: Mesh, sends: list, recvs: list) -> list:
@@ -125,8 +202,11 @@ class _Halo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, top, bottom, edge, mesh):
         n = x.shape[ROWS]
-        if max(top, bottom) > n:
-            raise ValueError(f"a halo of {top} / {bottom} rows is deeper than a band of {n}")
+        e = _edges_of_band(n)
+        least = min(b - a for a, b in zip(e, e[1:]))
+        if max(top, bottom) > least:
+            raise ValueError(f"a halo of {top} / {bottom} rows is deeper than the smallest "
+                             f"band, {least} rows")
         up, down = _neighbours(mesh)
         sends, recvs = [], []
         if up is not None and bottom:  # the band above reads my first rows
@@ -197,25 +277,26 @@ def halo(x: torch.Tensor, top: int, bottom: int, edge: str = "zero") -> torch.Te
 class _GatherRows(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, mesh):
+    def forward(ctx, x, first, rows, mesh):
         n = x.shape[ROWS]
-        full = x.new_zeros(_rows_shape(x, n * mesh.n_volume))
-        full.narrow(ROWS, mesh.volume_index * n, n).copy_(x)
+        full = x.new_zeros(_rows_shape(x, rows))
+        full.narrow(ROWS, first, n).copy_(x)
         # A sum of one band and zeros: each row exactly its owner's.
         dist.all_reduce(full, group=mesh.volume_group)
-        ctx.meta = (n, mesh)
+        ctx.meta = (first, n, mesh)
         return full
 
     @staticmethod
     def backward(ctx, g):
-        n, mesh = ctx.meta
+        first, n, mesh = ctx.meta
         g = g.contiguous().clone()
         dist.all_reduce(g, group=mesh.volume_group)
-        return g.narrow(ROWS, mesh.volume_index * n, n).contiguous(), None
+        return g.narrow(ROWS, first, n).contiguous(), None, None, None
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
     """Every band of the volume group, in order, on every rank of it.
     Differentiable: the gradient of this rank's band is its rows of the
     gradient summed over the group."""
-    return _GatherRows.apply(x, current_volume_spec())
+    first, _, rows = band_of(x)
+    return _GatherRows.apply(x, first, rows, current_volume_spec())

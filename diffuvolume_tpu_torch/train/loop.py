@@ -16,11 +16,14 @@ draws the global batch's timestep and noise and keeps its data rows,
 divides its loss by the global count of valid pixels, sums the gradients
 over the ranks before the clip and the optimiser, and reports the global
 loss and EPE (``parallel/ddp.py``).  A grid with a volume axis
-(``parallel/volume_sharding.py``, ACV's step only) makes the step run
-inside ``volume_sharding(mesh)``: the model keeps its band of the volume's
-rows (and of the noise), the loss and the EPE take the band's
-full-resolution rows of the ground truth, and the sums over the world add
-the bands' shares (the trunk's gradient is linear in each band's share).
+(``parallel/volume_sharding.py``) makes every step run inside
+``volume_sharding(mesh)``: the model keeps its band of the volume's rows
+(ACV and PCW also of the noise; IGEV's noise multiplies the gathered GEV
+whole), its heads return the band's full-resolution rows, the loss and the
+EPE take the same rows of the ground truth (and of ``valid``), and the sums
+over the world add the bands' shares (the gradient of whatever runs whole
+on every rank, the trunk, PCW's refinement, IGEV's rollout, is linear in
+each band's share).
 """
 
 from __future__ import annotations
@@ -150,16 +153,10 @@ def make_train_step(model, weights=SCENEFLOW_WEIGHTS, bf16: bool = False,
     head).  Batch: ``left``/``right`` ``(B, H, W, 3)``, ``disp_gt`` ``(B, H,
     W)`` on the model's device (with ``dp``, this rank's rows).  ``bf16``:
     autocast to bfloat16 over float32 master weights (the JAX package's
-    ``dtype`` with float32 params).  With a volume axis in ``dp`` (ACVNet
-    only), the step runs inside ``volume_sharding(dp)`` and ``pred`` is
-    this rank's rows."""
+    ``dtype`` with float32 params).  With a volume axis in ``dp``, the step
+    runs inside ``volume_sharding(dp)`` and ``pred`` and ``gt`` are this
+    rank's rows."""
     reduce = None if dp is None else dp.sum
-    if dp is not None and dp.n_volume > 1:
-        from diffuvolume_tpu_torch.models.acv import ACVNet
-
-        if not isinstance(model, ACVNet):
-            raise NotImplementedError("the volume split is ACVNet's (ROADMAP): "
-                                      f"{type(model).__name__} trains on the data axis only")
 
     def step(state: TrainState, batch, generator=None, t=None, noise=None) -> dict:
         with volume_sharding(dp):
@@ -182,7 +179,8 @@ def make_train_step(model, weights=SCENEFLOW_WEIGHTS, bf16: bool = False,
         _update(state, loss, dp)
         loss = loss.detach()
         return {"loss": loss if dp is None else dp.sum(loss),
-                "epe": _epe(preds[-1], disp_gt, mask, dp), "pred": preds[-1].detach()}
+                "epe": _epe(preds[-1], disp_gt, mask, dp), "pred": preds[-1].detach(),
+                "gt": disp_gt}
 
     return step
 
@@ -197,11 +195,12 @@ def make_igev_train_step(model, iters: int = 22, bf16: bool = False, dp=None) ->
 
     num_bins = model.max_disp // 4
     reduce = None if dp is None else dp.sum
-    if dp is not None and dp.n_volume > 1:
-        raise NotImplementedError("the volume split is ACVNet's (ROADMAP): IGEV trains on "
-                                  "the data axis only")
 
     def step(state: TrainState, batch, generator=None, t=None, noise=None) -> dict:
+        with volume_sharding(dp):
+            return split_step(state, batch, generator, t, noise)
+
+    def split_step(state, batch, generator, t, noise) -> dict:
         left, right, disp_gt = batch["left"], batch["right"], batch["disp_gt"]
         valid = batch.get("valid")
         if valid is None:
@@ -215,12 +214,15 @@ def make_igev_train_step(model, iters: int = 22, bf16: bool = False, dp=None) ->
         model.train()
         with _autocast(dev, bf16):
             init_up, disp_ups = igev_train_forward(model, left, right, iters, noisy, t)
+        # The iterates' rows (this rank's band under the volume split).
+        disp_gt, valid = constrain_volume(disp_gt), constrain_volume(valid)
         loss = sequence_loss(disp_ups, init_up, disp_gt, valid, max_disp=model.max_disp,
                              reduce=reduce)
         _update(state, loss, dp)
         mask = (valid >= 0.5) & (disp_gt < model.max_disp)
         loss = loss.detach()
         return {"loss": loss if dp is None else dp.sum(loss),
-                "epe": _epe(disp_ups[-1], disp_gt, mask, dp), "pred": disp_ups[-1].detach()}
+                "epe": _epe(disp_ups[-1], disp_gt, mask, dp), "pred": disp_ups[-1].detach(),
+                "gt": disp_gt}
 
     return step

@@ -743,6 +743,22 @@ def test_conv3d_packed(dev, dtype, cin, cout, shape, bias, act):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+def test_conv3d_packed_band_keeps_the_whole_plans_k_splits(dev):
+    """A band of rows with one halo row a side, on the whole volume's K
+    splits (``plan_shape``), gives the whole's rows bit for bit in
+    bfloat16: PCW's 128→128 conv at 1/32 of 384×1248, whose own plan splits
+    K five ways on the whole and six on a band."""
+    x, wt, _ = _conv_inputs(dev, torch.bfloat16, (1, 6, 12, 39), 128, 128, 3, seed=171)
+    whole = kconv.conv3d_packed(x, wt)
+    for lo, hi in ((0, 6), (6, 12)):
+        pad = torch.zeros_like(x[:, :, :1])
+        xb = torch.cat([x[:, :, lo - 1:lo] if lo else pad, x[:, :, lo:hi],
+                        x[:, :, hi:hi + 1] if hi < 12 else pad], 2).contiguous()
+        got = kconv.conv3d_packed(xb, wt, plan_shape=tuple(x.shape))[:, :, 1:1 + hi - lo]
+        torch.cuda.synchronize()
+        assert torch.equal(got, whole[:, :, lo:hi])
+
+
 def test_routed_conv_runs_the_packed_kernel(dev):
     """A routed ``ConvBN`` conv on the card: NCDHW and channels-last inputs
     both launch row 15 once and agree with cuDNN's float32 conv."""

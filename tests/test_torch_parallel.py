@@ -241,13 +241,13 @@ def write_sceneflow(root: str) -> None:
             write_pfm(os.path.join(root, "disparity/TRAIN", scene, "left", f"{frame}.pfm"), disp)
 
 
-def cli_run(argv: list) -> dict:
-    """The CLI's step losses and evaluations at ``CLI_CROP``, without
+def cli_run(argv: list, crop: tuple = CLI_CROP) -> dict:
+    """The CLI's step losses and evaluations at ``crop``, without
     TensorBoard (the logger's optional writer; importing it here takes some
     10 s a process)."""
     torch.set_num_threads(1)
     sys.modules["torch.utils.tensorboard"] = None
-    sf.SceneFlowDataset.TRAIN_CROP = sf.SceneFlowDataset.TEST_CROP = CLI_CROP
+    sf.SceneFlowDataset.TRAIN_CROP = sf.SceneFlowDataset.TEST_CROP = crop
     out = train_cli.main(argv)
     return {"losses": out["losses"], "evals": out["evals"]}
 

@@ -13,6 +13,11 @@ upsampled, the sequence loss over them and the initial disparity; the
 optimiser is the recipe's ``clip_by_global_norm(1)`` + AdamW on the
 one-cycle schedule.
 
+The same step with the GEV's rows split over 2 gloo ranks (a 1 × 2 grid;
+``tests/test_torch_volume_split.py``), run beside the JAX compile, holds
+the slice as a whole: its loss against the unsplit port step's and the
+JAX step's.
+
 Compared (measured worst in brackets): the initial and every iterate's
 upsampled disparity, max abs 1e-3 px [1.2e-10 and 4.8e-6]; the loss,
 relative 1e-5 [8.2e-10]; every gradient, relative L2 per tensor 1e-4
@@ -59,6 +64,7 @@ from test_torch_train_acv import (
     one_thread,  # noqa: F401 (autouse)
     sceneflow_gt,
 )
+from test_torch_volume_split import check_split, join_split, start_split
 from torch_parity import raw_pair, to_jax_variables
 
 B, H, W, MD, ITERS = 1, 64, 96, 64, 2
@@ -80,13 +86,17 @@ def _pieces_in_dtype(kernel, pieces, dt):
 
 
 @pytest.fixture(scope="module")
-def run():
+def run(tmp_path_factory):
     left, right = raw_pair(0, B, H, W)
     src = random_igev(MD, True, torch.Generator().manual_seed(4))
     calibrate_igev(src, torch.from_numpy(left), torch.from_numpy(right))
     gt = sceneflow_gt(3, B, H, W, MD)
     valid = (gt > 0).astype(np.float64)
     t, eps = jax_step_draws(jax.random.PRNGKey(8), B, H, W, MD)
+    batch = {"left": torch.from_numpy(left).double(), "right": torch.from_numpy(right).double(),
+             "disp_gt": torch.from_numpy(gt).double()}
+    tt, et = torch.from_numpy(t), torch.from_numpy(np.asarray(eps, np.float64))
+    procs, split_out = start_split(tmp_path_factory, "igev", MD, ITERS, src, batch, tt, et)
     jmodel = JIGEV(max_disp=MD, diffusion=True, dtype=jnp.float64)
     lj, rj, gtj, epsj = f64(left, right, gt, eps)
 
@@ -111,9 +121,6 @@ def run():
         m.load_state_dict(src.state_dict())
         return m.double().train()
 
-    batch = {"left": torch.from_numpy(left).double(), "right": torch.from_numpy(right).double(),
-             "disp_gt": torch.from_numpy(gt).double()}
-    tt, et = torch.from_numpy(t), torch.from_numpy(np.asarray(eps, np.float64))
     x_start = encode_disparity_volume(_quarter_gt(batch["disp_gt"], 4.0 * (BINS - 1)), BINS)
     noisy = q_sample(make_schedule(1000), x_start, tt, et)
     init_up, ups = igev_train_forward(port_model(), batch["left"], batch["right"], ITERS,
@@ -123,7 +130,7 @@ def run():
                        one_cycle_schedule(LR, TOTAL), grad_clip=1.0)
     out = make_igev_train_step(model, iters=ITERS)(state, batch, t=tt, noise=et)
     return dict(j=j, init_up=init_up.detach().numpy(), ups=ups.detach().numpy(), out=out,
-                model=model)
+                model=model, split=join_split(procs, split_out))
 
 
 def test_disparities_match(run):
@@ -146,3 +153,12 @@ def test_gradients_statistics_and_step_match(run):
     scale = min(1.0, 1.0 / norm)
     worst = check_step(run["model"], weights.igev_rules(True), run["j"], LR, grad_scale=scale)
     assert worst["vanishing"] > 0
+
+
+def test_split_step_matches_unsplit_and_jax(run):
+    """The same step with the GEV's rows split over a 1 × 2 grid (8 of the
+    16 rows at H/4 a rank), run beside the JAX step: its global loss
+    against the unsplit port step's (relative 1e-10) and the JAX package's
+    (``LOSS_RTOL``); its ranks' last iterates stacked against the unsplit
+    step's."""
+    check_split(run)

@@ -8,6 +8,11 @@ draws injected.  The six heads ``[pred0, comb_pred, pred1, pred2, pred3,
 disp_finetune]`` with KITTI12's weights, the refinement included; Adam at
 the milestone schedule's first rate.
 
+The same step with the cost volume's rows split over 2 gloo ranks (a 1 × 2
+grid; ``tests/test_torch_volume_split.py``), run beside the JAX compile,
+holds the slice as a whole: its loss against the unsplit port step's and
+the JAX step's.
+
 Compared (measured worst in brackets): the heads, max abs 1e-3 px
 [4.5e-5]; the loss, relative 1e-5 [5.4e-10]; every gradient, relative L2
 per tensor 1e-4 [2.1e-6]; the BatchNorm statistics after the step, 1e-6
@@ -45,6 +50,7 @@ from test_torch_train_acv import (
     one_thread,  # noqa: F401 (autouse)
     sceneflow_gt,
 )
+from test_torch_volume_split import check_split, join_split, start_split
 from torch_parity import stereo_pair, to_jax_variables
 
 B, H, W, MD = 1, 64, 64, 192
@@ -52,7 +58,7 @@ LR, LREPOCHS = 1e-3, "200:10"
 
 
 @pytest.fixture(scope="module")
-def run():
+def run(tmp_path_factory):
     left, right = stereo_pair(0, B, H, W)
     src = random_pcw(MD, True, torch.Generator().manual_seed(3))
     calibrate_pcw(src, torch.from_numpy(left), torch.from_numpy(right))
@@ -60,6 +66,10 @@ def run():
     mask = (gt < MD) & (gt > 0)
     t, noise = jax_step_draws(jax.random.PRNGKey(6), B, H, W, MD)
     disp_q = np.asarray(j_resize(jnp.clip(gt, 0.0, MD - 1), (H // 4, W // 4), 1, 2)) / 4.0
+    batch = {"left": torch.from_numpy(left).double(), "right": torch.from_numpy(right).double(),
+             "disp_gt": torch.from_numpy(gt).double()}
+    tt, nt = torch.from_numpy(t), torch.from_numpy(np.asarray(noise, np.float64))
+    procs, split_out = start_split(tmp_path_factory, "pcw", MD, None, src, batch, tt, nt)
     jmodel = JPCW(max_disp=MD, diffusion=True, dtype=jnp.float64)
     args = f64(left, right, disp_q) + [t, np.asarray(noise, np.float64)]
 
@@ -77,15 +87,13 @@ def run():
         m.load_state_dict(src.state_dict())
         return m.double().train()
 
-    batch = {"left": torch.from_numpy(left).double(), "right": torch.from_numpy(right).double(),
-             "disp_gt": torch.from_numpy(gt).double()}
-    tt, nt = torch.from_numpy(t), torch.from_numpy(np.asarray(noise, np.float64))
     heads = port_model().train_forward(batch["left"], batch["right"],
                                        _quarter_gt(batch["disp_gt"], MD - 1), tt, nt)
     model = port_model()
     state = TrainState(model, make_optimizer(model), milestone_lr_schedule(LR, LREPOCHS, 1))
     out = make_train_step(model, jloss.KITTI12_WEIGHTS)(state, batch, t=tt, noise=nt)
-    return dict(j=j, heads=[h.detach().numpy() for h in heads], out=out, model=model)
+    return dict(j=j, heads=[h.detach().numpy() for h in heads], out=out, model=model,
+                split=join_split(procs, split_out))
 
 
 def test_six_heads_match(run):
@@ -101,3 +109,11 @@ def test_loss_matches(run):
 
 def test_gradients_statistics_and_step_match(run):
     check_step(run["model"], weights.pcw_rules(True), run["j"], LR)
+
+
+def test_split_step_matches_unsplit_and_jax(run):
+    """The same step with the cost volume split over a 1 × 2 grid (8 of the
+    16 rows at H/4 a rank), run beside the JAX step: its global loss
+    against the unsplit port step's (relative 1e-10) and the JAX package's
+    (``LOSS_RTOL``); its ranks' heads stacked against the unsplit step's."""
+    check_split(run)

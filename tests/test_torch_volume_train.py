@@ -18,10 +18,11 @@ four ranks' states equal one another.  The same for the
 a synthetic SceneFlow set at a global batch of 4 (one step: after it,
 Adam's first update of elements whose gradient is rounding would set the
 next loss), against the CLI in one process: the step's global loss within
-1e-5 (float32).  The CLI refuses a volume axis for PCW and IGEV, for a
-world it does not divide and without ``torchrun``, and so do the PCW and
-IGEV steps.  The ranks run under a timeout of their own and PyTorch on
-one thread each.
+1e-5 (float32); then the same for the KITTI12 recipe (PCWNet) and the
+KITTI15 recipe (IGEV, 2 GRU iterations; relative 5e-4, its float32 floor)
+at a 64×64 crop (16 rows at H/4, 8 a band).  The CLI refuses a volume axis for a world it does not divide and
+without ``torchrun``.  The ranks run under a timeout of their own and
+PyTorch on one thread each.
 """
 
 import os
@@ -45,7 +46,7 @@ from diffuvolume_tpu_torch.train.loss import (
     SCENEFLOW_WEIGHTS_FREEZE_ATTN,
 )
 from diffuvolume_tpu_torch.train.lr import milestone_lr_schedule
-from test_torch_parallel import cli_run, rel_l2, write_sceneflow
+from test_torch_parallel import CLI_CROP, cli_run, rel_l2, write_sceneflow
 from test_torch_volume_sharding import free_ports, join, start
 
 N_DATA, N_VOLUME, B, H, W, MD = 2, 2, 2, 64, 64, 64
@@ -57,6 +58,21 @@ STAGES = {"full": SCENEFLOW_WEIGHTS, "freeze": SCENEFLOW_WEIGHTS_FREEZE_ATTN,
 CLI_ARGS = ["--model", "acvnet_ddim", "--epochs", "1", "--maxdisp", "64", "--batch_size",
             "4", "--lr", "1e-3", "--lrepochs", "10:2", "--num_workers", "0", "--device",
             "cpu"]
+# The PCW and IGEV recipes' CLI runs: a crop whose 16 rows at H/4 split in
+# bands of 8 (their hourglasses' three stride-2 levels).
+SPLIT_CLI_CROP = (64, 64)
+SPLIT_CLI_ARGS = {
+    "pcwnet_ddim": ["--model", "pcwnet_ddim", "--lr", "1e-3", "--lrepochs", "10:2"],
+    "igev_ddim": ["--model", "igev_ddim", "--lr", "2e-4", "--iters", "2"],
+}
+SPLIT_CLI_COMMON = ["--epochs", "1", "--maxdisp", "64", "--batch_size", "4", "--num_workers",
+                    "0", "--device", "cpu"]
+# The CLI's float32 loss, split against one process, relative.  IGEV's
+# random network (the CLI's own initialisation, no calibration) moves its
+# float32 loss by 1.08e-4 relative in one process between 1 and 4 intra-op
+# threads (129.94261 against 129.95660), so its split is held to 5e-4; its
+# float64 step is held to 1e-10 in tests/test_torch_volume_split.py.
+CLI_RTOL = {"acvnet_ddim": 1e-5, "pcwnet_ddim": 1e-5, "igev_ddim": 5e-4}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -100,11 +116,12 @@ def one_step(model, batch, weights, dp=None) -> dict:
             "params": {k: p.detach().clone() for k, p in model.named_parameters()}}
 
 
-def rank_main(rank: int, port: int, weights: str, out: str, cli_port: int, cli_argv: list,
-              cli_out: str) -> None:
+def rank_main(rank: int, port: int, weights: str, out: str, cli_ports: list, cli_argvs: list,
+              cli_outs: list) -> None:
     """One rank of the 2 × 2 grid: its row and band, each stage's step, its
     results to ``out``; then the training CLI as ``torchrun`` starts it with
-    ``--volume_axis 2``, its losses to ``cli_out``."""
+    ``--volume_axis 2``, once a model (ACV, PCW, IGEV), its losses to
+    ``cli_outs``."""
     torch.set_num_threads(1)
     mesh = ddp.init(rank, WORLD, "cpu", f"tcp://localhost:{port}", n_volume=N_VOLUME)
     try:
@@ -117,18 +134,23 @@ def rank_main(rank: int, port: int, weights: str, out: str, cli_port: int, cli_a
         torch.save(res, out)
     finally:
         ddp.shutdown()
-    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(WORLD),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(cli_port))
-    torch.save(cli_run(cli_argv), cli_out)
+    for cli_port, argv, cli_out in zip(cli_ports, cli_argvs, cli_outs):
+        os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(WORLD),
+                          MASTER_ADDR="localhost", MASTER_PORT=str(cli_port))
+        torch.save(cli_run(argv, cli_crop(argv)), cli_out)
 
 
-def cli_one_process(root: str, logdir: str) -> dict:
+def cli_crop(argv: list) -> tuple:
+    return SPLIT_CLI_CROP if any(m in argv for m in SPLIT_CLI_ARGS) else CLI_CROP
+
+
+def cli_one_process(argv: list) -> dict:
     """The training CLI in this process (``cli_run``), the dataset's crops
     and the TensorBoard module restored after it."""
     saved = (sf.SceneFlowDataset.TRAIN_CROP, sys.modules.get("torch.utils.tensorboard"),
              sf.SceneFlowDataset.TEST_CROP)
     try:
-        return cli_run(["--datapath", root, "--logdir", logdir] + CLI_ARGS)
+        return cli_run(argv, cli_crop(argv))
     finally:
         sf.SceneFlowDataset.TRAIN_CROP, sf.SceneFlowDataset.TEST_CROP = saved[0], saved[2]
         if saved[1] is None:
@@ -139,7 +161,7 @@ def cli_one_process(root: str, logdir: str) -> dict:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The single-process steps and CLI run, and each rank's; the ranks
+    """The single-process steps and CLI runs, and each rank's; the ranks
     start first and run beside this process's runs."""
     tmp = tmp_path_factory.mktemp("volume_train")
     batch = make_batch()
@@ -149,21 +171,29 @@ def runs(tmp_path_factory):
     torch.save(src.double().state_dict(), weights)
     root = str(tmp / "sceneflow")
     write_sceneflow(root)
-    (port, cli_port), logdir = free_ports(2), str(tmp / "ranks")
+    port, *cli_ports = free_ports(1 + 1 + len(SPLIT_CLI_ARGS))
+    models = ["acvnet_ddim", *SPLIT_CLI_ARGS]
+    logdirs = {m: str(tmp / f"ranks_{m}") for m in models}
+    argvs = {m: ["--datapath", root, "--logdir", logdirs[m]] + (
+        CLI_ARGS if m == "acvnet_ddim" else SPLIT_CLI_ARGS[m] + SPLIT_CLI_COMMON)
+        for m in models}
     outs = [str(tmp / f"rank{r}.pt") for r in range(WORLD)]
-    cli_outs = [str(tmp / f"cli{r}.pt") for r in range(WORLD)]
-    cli_argv = ["--datapath", root, "--logdir", logdir, "--volume_axis", str(N_VOLUME)] + CLI_ARGS
-    procs = start(rank_main,
-                  lambda r: (r, port, weights, outs[r], cli_port, cli_argv, cli_outs[r]), WORLD)
+    cli_outs = [[str(tmp / f"cli_{m}_{r}.pt") for m in models] for r in range(WORLD)]
+    procs = start(rank_main, lambda r: (
+        r, port, weights, outs[r], cli_ports,
+        [argvs[m] + ["--volume_axis", str(N_VOLUME)] for m in models], cli_outs[r]), WORLD)
     try:  # the single-process runs while the ranks run
-        cli_single = cli_one_process(root, str(tmp / "one"))
+        cli_single = {m: cli_one_process(argvs[m][:3] + [str(tmp / f"one_{m}")] + argvs[m][4:])
+                      for m in models}
         state = torch.load(weights)
         single = {stage: one_step(stage_model(stage, state), batch, w)
                   for stage, w in STAGES.items()}
     finally:
         join(procs)
+    cli_ranks = {m: [torch.load(cli_outs[r][i]) for r in range(WORLD)]
+                 for i, m in enumerate(models)}
     return dict(single=single, ranks=[torch.load(o) for o in outs], cli_single=cli_single,
-                cli_ranks=[torch.load(o) for o in cli_outs], cli_logdir=logdir)
+                cli_ranks=cli_ranks, cli_logdirs=logdirs)
 
 
 def test_valid_counts_differ_by_band():
@@ -214,26 +244,35 @@ def test_train_cli_volume_axis_equals_one_process(runs):
     on every rank, against the single-process run's (float32, relative
     1e-5: only the weights, the rows and the draws set it); only rank 0
     writes checkpoints."""
-    single = runs["cli_single"]["losses"]
+    check_cli(runs, "acvnet_ddim")
+
+
+@pytest.mark.parametrize("model", list(SPLIT_CLI_ARGS))
+def test_train_cli_volume_axis_splits_pcw_and_igev(runs, model):
+    """The KITTI12 (PCWNet) and KITTI15 (IGEV) recipes under ``--volume_axis
+    2`` on the same 4 ranks as ACV's: as ACV's, the global loss on every
+    rank against one process's (float32, relative ``CLI_RTOL``)."""
+    check_cli(runs, model)
+
+
+def check_cli(runs, model: str) -> None:
+    single = runs["cli_single"][model]["losses"]
     assert len(single) == 1
-    for r in runs["cli_ranks"]:
+    for r in runs["cli_ranks"][model]:
         assert len(r["losses"]) == 1
-        assert abs(r["losses"][0] / single[0] - 1) < 1e-5, (r["losses"], single)
-    assert sorted(f for f in os.listdir(runs["cli_logdir"]) if f.endswith(".ckpt")) == [
+        assert abs(r["losses"][0] / single[0] - 1) < CLI_RTOL[model], (r["losses"], single)
+    assert sorted(f for f in os.listdir(runs["cli_logdirs"][model]) if f.endswith(".ckpt")) == [
         "checkpoint_000001.ckpt"]
 
 
 @pytest.mark.parametrize("model, world, error, match", [
-    ("pcwnet_ddim", "4", NotImplementedError, "ROADMAP"),
-    ("igev_ddim", "4", NotImplementedError, "ROADMAP"),
     ("acvnet_ddim", "3", ValueError, "world size is 3"),
     ("acvnet_ddim", None, ValueError, "world size is 1"),
 ])
 def test_train_cli_refuses_a_volume_axis_it_cannot_split(monkeypatch, model, world, error,
                                                          match):
-    """``--volume_axis 2``: PCW and IGEV refuse it (their split is open
-    work), and so do a world it does not divide and a run without
-    ``torchrun``; nothing falls back to an unsplit run."""
+    """``--volume_axis 2``: a world it does not divide and a run without
+    ``torchrun`` refuse it; nothing falls back to an unsplit run."""
     from diffuvolume_tpu_torch.cli import train as train_cli
 
     if world is None:
@@ -243,18 +282,3 @@ def test_train_cli_refuses_a_volume_axis_it_cannot_split(monkeypatch, model, wor
     with pytest.raises(error, match=match):
         train_cli.main(["--datapath", "/nonexistent", "--model", model, "--volume_axis", "2",
                         "--device", "cpu"])
-
-
-@pytest.mark.parametrize("name", ["pcwnet_ddim", "igev_ddim"])
-def test_steps_refuse_the_split_for_pcw_and_igev(name):
-    """A grid with a volume axis: the PCW and IGEV steps raise rather than
-    run their layers, which take no halo, on bands of rows."""
-    from diffuvolume_tpu_torch.models import build_model
-    from diffuvolume_tpu_torch.parallel.mesh import Mesh
-    from diffuvolume_tpu_torch.train.loop import make_igev_train_step
-
-    mesh = Mesh(0, 2, torch.device("cpu"), n_volume=2)
-    model = build_model(name, max_disp=MD)
-    make = make_igev_train_step if name == "igev_ddim" else make_train_step
-    with pytest.raises(NotImplementedError, match="volume split"):
-        make(model, dp=mesh)
