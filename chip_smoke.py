@@ -18,11 +18,13 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      channels-last plan) and rows 11-13 (with rows 11-12's transpose plan)
      at every path's shape; rows 1 and 17 at the ACV and PCW shapes, both
      align-corners conventions, row 16 at every path's shape (ACV, PCW 1/4
-     … 1/32, IGEV) and row 10 (each stencil, and the fused pair the ACV
+     … 1/32, IGEV, and gwcnet-g's 40 groups alone in a 48 slot at PCW's
+     four scales) and row 10 (each stencil, and the fused pair the ACV
      attention chain runs, asserted equal to two single launches), timed
      on the card (torch.profiler's device time, as the convs); the convs (rows 5-9, 14, 15 with the epilogue
      — none, ReLU, Mish, LeakyReLU, × post_mul — each path gives each shape;
-     row 18 at the refinement's 11 convs) timed on the card (torch.profiler's
+     row 18 at the refinement's 11 convs; gwcnet-g's volume convs at C_in
+     48, rows 5 and 6) timed on the card (torch.profiler's
      device time; CUDA events and the host's time to issue a call beside
      it; row 9 beside ``F.linear`` on the (positions, C_in) view and
      ``F.conv3d``), and their total over one pair's launches, by row; for every
@@ -37,7 +39,9 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      versions), float32, same seeded weights and injected draws, on the
      folded path and on the module path, PCW's folded path with the flat
      refinement (``fold_pcw(..., refine_flat=True)``) and the three module
-     paths with their 3-D convs routed (``route_conv3d``); then IGEV's folded
+     paths with their 3-D convs routed (``route_conv3d``); gwcnet-g (PCWNet
+     without the concat volume) with its DDIM model as PCW, folded, module
+     and routed (its row-15 launches a pair asserted); then IGEV's folded
      path at 64×192 with 32 GRU iterations a rollout, every disparity of
      both runs inside the band lookup's exact domain (asserted); a sampler
      decision that flipped at its threshold is told apart from a fault
@@ -45,22 +49,29 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      the global TF32 switch is off in phase 3 only;
   5. the ACV main path: two-pass DDIM-5 at 512×960, batch 1, bfloat16 model,
      folded path (``packed=True``), weights and images from a fixed seed;
-     one warm-up pair, 30 timed pairs (pairs/s with median and spread),
+     one warm-up pair, 20 timed pairs (pairs/s with median and spread),
      per-pair kernel launch counts (asserted), an op census of one pair (no
      3-D BatchNorm, no 3-D conv), output finite in [0, 191];
   6. the ACV module path (``packed=False``) the same way, 1 timed pair, and
      after ``route_conv3d`` (row 15 launches asserted, the census's cuDNN
      3-D convs fewer by exactly as many), 1 timed pair;
   7. the PCW path: PCWNet two-pass KITTI12 DDIM-3 at 384×1248, batch 1,
-     bfloat16 model, folded path; one warm-up pair, 10 timed pairs, launch
+     bfloat16 model, folded path; one warm-up pair, 6 timed pairs, launch
      counts (asserted), a census with no 3-D BatchNorm and no 3-D conv, a
      finite (1, 384, 1248) output; then with the flat refinement (row 18,
      44 launches a pair asserted, the census's 2-D BatchNorms and cuDNN 2-D
-     convs fewer by the refinement's, derived from the model), 5 timed pairs;
-     its module path, 1 timed pair, and routed, 1 timed pair;
+     convs fewer by the refinement's, derived from the model), 3 timed pairs;
+     its module path, 1 timed pair, and routed, 1 timed pair; then gwcnet-g
+     and ``pcwnet_ddim(use_concat_volume=False)`` the same way, folded (3
+     timed pairs) and module (1), launches asserted from
+     ``pcw_expected_launches(..., concat=False)``; its folded pair against
+     its module pair in float32 at 384×1248 (the same models, images and
+     injected draws) by phase 4's bounds and flip rule
+     (``fold_vs_module``); the bfloat16 warm-up pairs' folded-against-module
+     gap recorded for gwcnet-g and PCW (``bf16_path_gap``);
   8. the IGEV path: IGEV-Stereo two-pass KITTI15 DDIM-2 at 384×1248, 32 GRU
      iterations a rollout, batch 1, bfloat16 model, folded path; one warm-up
-     pair, 5 timed pairs, launch counts (asserted), the same census, a finite
+     pair, 3 timed pairs, launch counts (asserted), the same census, a finite
      (1, 384, 1248) output; then its module path, 1 timed pair, and
      routed, 1 timed pair;
   9. the evaluation entry point: ``cli/evaluate`` on the card over a
@@ -77,7 +88,9 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      step on the card against the CPU at B=2, 32×64, max_disp 64 (tamed
      seeded weights, injected draws), float32 without TF32 and float64:
      the loss, every gradient, the BatchNorm statistics and the parameters
-     after Adam within the stated tolerances; then ``cli/train.py``: the
+     after Adam within the stated tolerances, the CPU step taking the
+     card's branch at a ReLU input within rounding of zero (each such flip
+     listed); then ``cli/train.py``: the
      ACV SceneFlow recipe (``acvnet_ddim``, stage ``full``) over a
      synthetic SceneFlow set of 540×960 pairs, the random 256×512 crop,
      batch 4, float32, 8 steps (each loss finite, step times, training
@@ -88,7 +101,8 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      by ``cli/evaluate``; the KITTI12 recipe (PCWNet, 256×512) and the
      KITTI15 recipe (IGEV-Stereo, 320×736, ``--bf16``, 22 GRU iterations,
      ``--init_from`` a calibrated random IGEV), batch 1, 3 steps each over
-     a synthetic KITTI set;
+     a synthetic KITTI set, and the KITTI12 recipe with ``--model
+     gwcnet-g``, 2 steps;
  11. IGEV's reference-faithful evaluation, data parallelism and the
      training step's profile: (a) ``igev_ddim_inference(quirk=True)`` on
      the folded path at 384×1248, 32 GRU iterations a rollout, bfloat16,
@@ -118,8 +132,8 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      memory a process) beside the plain step: a one-card figure over gloo,
      not a scaling one; the PCW KITTI12 and IGEV KITTI15 steps (3 GRU
      iterations) in float64 at 64×64 on the same grid, the same
-     tolerances; (c) IGEV's step at 160×64 with uneven bands (40 rows at
-     H/4 cut 24 / 16);
+     tolerances, and gwcnet-g's KITTI12 step beside PCW's; (c) IGEV's step at
+     160×64 with uneven bands (40 rows at H/4 cut 24 / 16);
  13. one ``kernels`` JSON line, the card line, and the result line.
 Each path's launch counts are set to 0 just before it is driven and read
 just after.  Everything printed is also written to
@@ -155,7 +169,7 @@ MAIN_H, MAIN_W, MAIN_DISP = 512, 960, 192
 D4, H4, W4 = MAIN_DISP // 4, MAIN_H // 4, MAIN_W // 4
 FEAT_C, GROUPS, CAT_C = 320, 40, 32
 STEPS = 5
-TIMED_PAIRS = 30
+TIMED_PAIRS = 20
 MODULE_TIMED_PAIRS = 1
 FULL, HALF, QUARTER = (D4, H4, W4), (D4 // 2, H4 // 2, W4 // 2), (D4 // 4, H4 // 4, W4 // 4)
 ATT_SLOT = 48
@@ -164,19 +178,23 @@ ATT_SLOT = 48
 PCW_H, PCW_W = 384, 1248
 PCW_D4, PCW_H4, PCW_W4 = MAIN_DISP // 4, PCW_H // 4, PCW_W // 4
 PCW_CC, PCW_SLOT, PCW_STEPS = 12, 64, 3
-PCW_TIMED_PAIRS = 10
-PCW_FLAT_TIMED_PAIRS = 5
+PCW_TIMED_PAIRS = 6
+PCW_FLAT_TIMED_PAIRS = 3
 PCW_MODULE_TIMED_PAIRS = 1
 P1, P2, P3, P4 = ((PCW_D4 >> k, PCW_H4 >> k, PCW_W4 >> k) for k in range(4))
-# The PCW volumes: (scale, D, H, W), each 40 groups + 12 + 12 in a 64 slot.
+# The PCW volumes: (scale, D, H, W), each 40 groups + 12 + 12 in a 64 slot;
+# gwcnet-g's (PCWNet without the concat volume) the 40 groups in a 48 slot.
 PCW_VOLUMES = [(f"1/{4 << k}", *dhw) for k, dhw in enumerate((P1, P2, P3, P4))]
+PCWG_SLOT = 48
+PCWG_TIMED_PAIRS = 3
+PCWG_MODULE_TIMED_PAIRS = 1
 
 # The IGEV path: IGEV-Stereo, KITTI 2015 at 384×1248 (tools/bench_igev.py of
 # the JAX package); the GEV tower's levels 1/4 … 1/32.
 IGEV_H, IGEV_W, IGEV_STEPS, IGEV_ITERS = 384, 1248, 2, 32
 IGEV_C, IGEV_GROUPS, IGEV_SLOT = 96, 8, 16
 G1, G2, G3, G4 = ((D4 >> k, (IGEV_H // 4) >> k, (IGEV_W // 4) >> k) for k in range(4))
-IGEV_TIMED_PAIRS = 5
+IGEV_TIMED_PAIRS = 3
 IGEV_MODULE_TIMED_PAIRS = 1
 # The module paths after route_conv3d (row 15).
 ROUTED_TIMED_PAIRS = {"acv": 1, "pcw": 1, "igev": 1}
@@ -499,7 +517,8 @@ def dtype_tag(dt) -> str:
 class VolumeCase(NamedTuple):
     """One shape of row 16 (the GWC volume in the conv slot): features (1,
     C, H, W) → (1, D, H, W, slot), G groups, cc concat channels, and the
-    launches a pair on each folded path."""
+    launches a pair on each folded path (``gwcnet_g``: PCWNet without the
+    concat volume)."""
     label: str
     c: int
     groups: int
@@ -510,6 +529,7 @@ class VolumeCase(NamedTuple):
     acv: int
     pcw: int
     igev: int
+    gwcnet_g: int = 0
 
 
 VOLUME_CASES = [
@@ -517,7 +537,10 @@ VOLUME_CASES = [
     *(VolumeCase(f"PCW {sc}", FEAT_C, GROUPS, (d, h, w), PCW_CC, PCW_SLOT, True, 0, 2, 0)
       for sc, d, h, w in PCW_VOLUMES),
     VolumeCase("IGEV 8 groups in 16", IGEV_C, IGEV_GROUPS, G1, 0, IGEV_SLOT, False, 0, 0, 2),
+    *(VolumeCase(f"gwcnet-g {sc}, 40 in 48", FEAT_C, GROUPS, (d, h, w), 0, PCWG_SLOT, True,
+                 0, 0, 0, 2) for sc, d, h, w in PCW_VOLUMES),
 ]
+VOLUME_PATHS = ("acv", "pcw", "igev", "gwcnet_g")
 # Row 10 at the ACV slot volume: the attention chain's two stencils alone and
 # the fused pair it runs; (label, dilations of the first, of the second).
 PATCH_DIL = (1,) * ATT_SLOT
@@ -562,8 +585,9 @@ def volume_checks(dev) -> dict:
                                                       mask_ref=vc.mask_ref, **cb), 20)
         plan = kg.slot_plan(1, vc.c, vc.cc, h, w, d, vc.slot, torch.bfloat16, dev)
         rec = dict(label=vc.label, c=vc.c, groups=vc.groups, dhw=[d, h, w], cc=vc.cc,
-                   slot=vc.slot, mask_ref=vc.mask_ref, per_pair=vc.acv + vc.pcw + vc.igev,
-                   per_pair_acv=vc.acv, per_pair_pcw=vc.pcw, per_pair_igev=vc.igev, errs=e,
+                   slot=vc.slot, mask_ref=vc.mask_ref,
+                   per_pair=sum(getattr(vc, k) for k in VOLUME_PATHS),
+                   **{f"per_pair_{k}": getattr(vc, k) for k in VOLUME_PATHS}, errs=e,
                    ms=t["ms"], events_ms=t["events_ms"], host_us=t["host_us"],
                    plain_ms=time_ms(lambda: plain.gwc_volume_slot(
                        lb, rb, d, vc.groups, vc.slot, mask_ref=vc.mask_ref, **cb), 2),
@@ -573,13 +597,14 @@ def volume_checks(dev) -> dict:
                                         f"{plan['blocks']} blocks of {plan['threads']}")
         log(f"  bf16 {rec['ms']:.4f} ms device (events {t['events_ms']:.4f}, host "
             f"{t['host_us']:.0f} µs; plain {rec['plain_ms']:.4f}, bound {b_ms:.4f} ms by "
-            f"{by}){tile}; a pair ACV {vc.acv} / PCW {vc.pcw} / IGEV {vc.igev}")
+            f"{by}){tile}; a pair ACV {vc.acv} / PCW {vc.pcw} / IGEV {vc.igev} / gwcnet-g "
+            f"{vc.gwcnet_g}")
         cases.append(rec)
         del l32, r32, lb, rb, cat32, cb
     # No one PyTorch call builds a group-wise correlation volume: library null.
     out = mixed(cases, errs)
     out["ms_by_path"] = {}
-    for path in ("acv", "pcw", "igev"):
+    for path in VOLUME_PATHS:
         sel = [c for c in cases if c[f"per_pair_{path}"]]
         n = sum(c[f"per_pair_{path}"] for c in sel)
         out["ms_by_path"][path] = dict(
@@ -866,35 +891,47 @@ CONV_CASES = [
 ]
 
 
+def pcw_volume_convs(slot: int, real_cin: int | None = None, tag: str = "") -> list:
+    """The PCW convs that read a scale's volume, 2 a pair each (one a volume
+    build): dres0_0 (the wide entry) at 1/4 and the volume's part of each
+    ``HourglassUp`` combine conv at 1/8, 1/16 and 1/32.  Their input is the
+    volume's ``slot`` (``real_cin`` of it carry data)."""
+    return [
+        ConvCase("conv3d_fold_x2", f"{tag}dres0_0 {slot}→32, Mish", "p", slot, 32, P1, 2,
+                 act="mish", real_cin=real_cin),
+        ConvCase("conv3d_fold_p", f"{tag}1/8 volume part of combine1, {slot}→64", "p", slot, 64,
+                 P2, 2, act=None, bias=False, real_cin=real_cin),
+        ConvCase("conv3d_fold_p", f"{tag}1/16 volume part of combine2, {slot}→128", "p", slot,
+                 128, P3, 2, act=None, bias=False, real_cin=real_cin),
+        ConvCase("conv3d_fold_p", f"{tag}1/32 volume part of combine3, {slot}→128", "p", slot,
+                 128, P4, 2, act=None, bias=False, real_cin=real_cin),
+    ]
+
+
 # The conv launches of one PCW pair: 2 volume builds (baseline + DDIM prep;
 # each: dres0_0 wide entry, dres0_1, dres1_0, dres1_1 + residual, and
 # HourglassUp: at each of 1/8, 1/16, 1/32 a bare stride-2 conv, the combine
 # conv as the volume's part then the rest + residual, a conv; back up the
 # transposed conv7/8/9, each + its 1×1 redir) and 4 aggregation passes
 # (baseline + 3 DDIM steps; each: 3 Mish hourglasses, classif3_0 and the
-# 32→1 head).  Mish wherever the reference applies one.
-PCW_CONV_CASES = [
+# 32→1 head).  Mish wherever the reference applies one.  gwcnet-g runs these
+# convs as they are and those that read a volume (``pcw_volume_convs``) on
+# its 48-channel slot (``GWCNET_G_CONV_CASES``).
+PCW_SHARED_CONV_CASES = [
     ConvCase("conv3d_fold_p", "32→32, Mish", "p", 32, 32, P1, 8, act="mish"),
     ConvCase("conv3d_fold_p", "32→32 + residual, no act", "p", 32, 32, P1, 2, residual=True,
              act=None),
     ConvCase("conv3d_fold_p", "32→1 head, no bias or act", "p", 32, 1, P1, 4, act=None,
              bias=False),
-    ConvCase("conv3d_fold_p", "1/8 volume part of combine1, 64→64", "p", 64, 64, P2, 2,
-             act=None, bias=False),
     ConvCase("conv3d_fold_p", "combine1 64→64 + residual, Mish", "p", 64, 64, P2, 2,
              residual=True, act="mish"),
     ConvCase("conv3d_fold_p", "64→64 half, Mish", "p", 64, 64, P2, 14, act="mish"),
-    ConvCase("conv3d_fold_p", "1/16 volume part of combine2, 64→128", "p", 64, 128, P3, 2,
-             act=None, bias=False),
     ConvCase("conv3d_fold_p", "combine2 128→128 + residual, Mish", "p", 128, 128, P3, 2,
              residual=True, act="mish"),
     ConvCase("conv3d_fold_p", "128→128 quarter, Mish", "p", 128, 128, P3, 14, act="mish"),
-    ConvCase("conv3d_fold_p", "1/32 volume part of combine3, 64→128", "p", 64, 128, P4, 2,
-             act=None, bias=False),
     ConvCase("conv3d_fold_p", "combine3 128→128 at 1/32 + residual, Mish", "p", 128, 128, P4,
              2, residual=True, act="mish"),
     ConvCase("conv3d_fold_p", "conv6 128→128 at 1/32, Mish", "p", 128, 128, P4, 2, act="mish"),
-    ConvCase("conv3d_fold_x2", "64→32, Mish", "p", 64, 32, P1, 2, act="mish"),
     ConvCase("conv3d_fold_s2", "32→64 full→half, no bias or act", "s2", 32, 64, P1, 2,
              act=None, bias=False),
     ConvCase("conv3d_fold_s2", "64→128 half→quarter, no bias or act", "s2", 64, 128, P2, 2,
@@ -914,6 +951,9 @@ PCW_CONV_CASES = [
     ConvCase("conv3d_fold_up", "64→32 half→full + residual, Mish", "up", 64, 32, P2, 14,
              residual=True, act="mish"),
 ]
+PCW_CONV_CASES = PCW_SHARED_CONV_CASES + pcw_volume_convs(PCW_SLOT)
+# gwcnet-g's new shapes: the volume convs at C_in 48, 40 of them data.
+GWCNET_G_CONV_CASES = pcw_volume_convs(PCWG_SLOT, GROUPS, "gwcnet-g ")
 
 
 # The IGEV path's conv launches of one pair, 2 encodes (baseline + DDIM
@@ -1010,6 +1050,11 @@ IGEV_PACKED_CASES = [
              act=None, bias=False),
 ]
 PACKED_CASES = {"acv": ACV_PACKED_CASES, "pcw": PCW_PACKED_CASES, "igev": IGEV_PACKED_CASES}
+# gwcnet-g routes PCW's convs but dres0_0 and combine1: without the concat
+# volume they take 40 and 104 channels, not among PACKED_CIN, and stay on
+# cuDNN (phase 4 asserts the count on its routed module path).
+GWCNET_G_PACKED_CASES = [c for c in PCW_PACKED_CASES
+                         if not c.label.startswith(("dres0_0", "combine1"))]
 
 
 class RefineCase(NamedTuple):
@@ -1632,10 +1677,12 @@ def small_agreement(dev) -> dict:
     paths: ACV DDIM-5 at 32×64, max_disp 64; PCW KITTI12 DDIM-3 at 64×64,
     max_disp 192; IGEV KITTI15 DDIM-2 at 64×96, max_disp 64, 2 GRU
     iterations (the sizes of tests/test_torch_pipeline.py,
-    tests/test_torch_pcw_pipeline.py and tests/test_torch_igev_pipeline.py).
-    Also PCW's folded path with the flat refinement and each module path
-    after ``route_conv3d``; on the card each of those must launch its
-    kernel (row 18, row 15)."""
+    tests/test_torch_pcw_pipeline.py and tests/test_torch_igev_pipeline.py);
+    gwcnet-g (PCWNet without the concat volume) as PCW.  Also PCW's folded
+    path with the flat refinement and each module path after
+    ``route_conv3d``; on the card each of those must launch its kernel (row
+    18, row 15; gwcnet-g's routed pair as often as
+    ``GWCNET_G_PACKED_CASES`` says)."""
     import dataclasses
 
     from diffuvolume_tpu_torch.models.layers import route_conv3d
@@ -1658,8 +1705,8 @@ def small_agreement(dev) -> dict:
     )
 
     out = {}
-    for seed, model in enumerate(("acv", "pcw", "igev")):
-        h, w, md = {"acv": (32, 64, 64), "pcw": (64, 64, MAIN_DISP), "igev": (64, 96, 64)}[model]
+    for seed, model in enumerate(("acv", "pcw", "igev", "gwcnet-g")):
+        h, w, md = {"acv": (32, 64, 64), "igev": (64, 96, 64)}.get(model, (64, 64, MAIN_DISP))
         rng = np.random.default_rng(seed)
         if model == "igev":  # RAW images in [0, 255)
             left = rng.uniform(0, 255, (1, h, w, 3)).astype(np.float32)
@@ -1674,9 +1721,9 @@ def small_agreement(dev) -> dict:
             bm, dm = random_pair(md, gen)
             calibrate_heads(bm, lt, rt, target_std=10.0)
             dm.load_state_dict(bm.state_dict(), strict=False)
-        elif model == "pcw":
+        elif model in ("pcw", "gwcnet-g"):
             cfg, prep, fold = KITTI12_DDIM, pcw_prep, fold_pcw
-            bm, dm = random_pcw_pair(md, gen)
+            bm, dm = random_pcw_pair(md, gen, use_concat_volume=model == "pcw")
             calibrate_pcw(bm, lt, rt)
             dm.load_state_dict(bm.state_dict(), strict=False)
         else:
@@ -1720,6 +1767,10 @@ def small_agreement(dev) -> dict:
                 out[name]["launches_on_the_card"] = kernel.launches - before
                 if kernel.launches == before:
                     raise AssertionError(f"{name}: {kernel.__name__} was not launched on the card")
+                want = routed_launches("gwcnet_g")["conv3d_packed"]
+                if routed and model == "gwcnet-g" and kernel.launches - before != want:
+                    raise AssertionError(f"{name}: {kernel.launches - before} row-15 launches "
+                                         f"a pair, not GWCNET_G_PACKED_CASES' {want}")
     out["igev folded path, 32 GRU iterations"] = igev_iters_agreement(dev)
     return out
 
@@ -1796,8 +1847,9 @@ def igev_iters_agreement(dev) -> dict:
 
 def routed_launches(model: str) -> dict:
     """Row 15's launches per pair on a module path after ``route_conv3d``:
-    ``PACKED_CASES[model]``."""
-    return {"conv3d_packed": sum(c.per_pair for c in PACKED_CASES[model])}
+    ``PACKED_CASES[model]`` (``"gwcnet_g"``: ``GWCNET_G_PACKED_CASES``)."""
+    cases = GWCNET_G_PACKED_CASES if model == "gwcnet_g" else PACKED_CASES[model]
+    return {"conv3d_packed": sum(c.per_pair for c in cases)}
 
 
 def expected_launches(packed: bool, routed: bool = False) -> dict:
@@ -1819,21 +1871,30 @@ def expected_launches(packed: bool, routed: bool = False) -> dict:
     return out
 
 
-def pcw_expected_launches(packed: bool, refine_flat: bool = False, routed: bool = False) -> dict:
+def pcw_conv_cases(concat: bool = True) -> list:
+    """One PCW pair's folded convs: ``PCW_CONV_CASES``; without the concat
+    volume (gwcnet-g) the same with its volume convs on the 48 slot
+    (``GWCNET_G_CONV_CASES``)."""
+    return PCW_CONV_CASES if concat else PCW_SHARED_CONV_CASES + GWCNET_G_CONV_CASES
+
+
+def pcw_expected_launches(packed: bool, refine_flat: bool = False, routed: bool = False,
+                          concat: bool = True) -> dict:
     """PCW launches per pair: 2 volume builds (4 scales each, on both paths),
     4 aggregation passes (one fused head each, and with the flat refinement
     the 11 convs of ``REFINE_CASES`` each), 3 DDIM steps (the noise
     multiply and the uncertainty at the refined disparity); the folded
-    path's convs are ``PCW_CONV_CASES``.  A routed module path adds
-    ``routed_launches``."""
+    path's convs are ``pcw_conv_cases(concat)``.  A routed module path adds
+    ``routed_launches``.  ``concat=False``: gwcnet-g and its DDIM model,
+    PCWNet without the concat volume."""
     out = {"gwc_volume_packed": 8, "fused_head": 4, "fused_uncertainty_at": PCW_STEPS,
            "dhw_mul": PCW_STEPS}
-    for case in PCW_CONV_CASES:
+    for case in pcw_conv_cases(concat):
         out[case.row] = out.get(case.row, 0) + (case.per_pair if packed else 0)
     if refine_flat:
         out["conv2d_flat"] = sum(c.per_pair for c in REFINE_CASES)
     if routed:
-        out.update(routed_launches("pcw"))
+        out.update(routed_launches("pcw" if concat else "gwcnet_g"))
     return out
 
 
@@ -1892,14 +1953,18 @@ def op_census(fn) -> dict:
 
 
 def drive(dev, counters, pairs: int, pair, stages, steps: int, expected: dict, packed: bool,
-          out_shape: tuple) -> dict:
+          out_shape: tuple, keep: dict | None = None) -> dict:
     """Drive one path: one warm-up pair, then ``pairs`` timed pairs (each
     ended by a synchronise) with the launch counts set to 0 just before and
     read just after; one more pair split into its prep and its ``steps``
     DDIM steps (``stages() -> (t0, t1, t2)``), and one under the op census.
     Asserts the per-pair launch counts, no 3-D BatchNorm or 3-D conv on the
-    folded path, and a finite output of ``out_shape``."""
-    pair(100)  # warm-up
+    folded path, and a finite output of ``out_shape``.  ``keep["final"]``
+    and ``keep["base"]`` take the warm-up pair's output and baseline (its
+    draws seeded 100) where given."""
+    warm = pair(100)  # warm-up
+    if keep is not None:
+        keep["final"], keep["base"] = (x.float() for x in warm)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for f in counters.values():
@@ -2002,11 +2067,13 @@ def refine_ops(net) -> dict:
 
 
 def pcw_path(dev, counters, packed: bool, pairs: int, refine_flat: bool = False,
-             routed: bool = False) -> dict:
+             routed: bool = False, concat: bool = True, keep: dict | None = None) -> dict:
     """Phase 7: PCWNet two-pass KITTI12 DDIM-3 at 384×1248, bfloat16 model;
     folded with the flat refinement when ``refine_flat`` (its convs checked
     against ``REFINE_CASES``), the module path after ``route_conv3d`` when
-    ``routed``."""
+    ``routed``; without ``concat``, gwcnet-g and its DDIM model (PCWNet
+    without the concat volume).  ``keep``: ``drive``'s, and ``keep["inputs"]``
+    the unfolded models and the images."""
     from diffuvolume_tpu_torch.diffusion import ddim_sample, make_schedule
     from diffuvolume_tpu_torch.diffusion.ddim import KITTI12_DDIM as cfg
     from diffuvolume_tpu_torch.eval.pipeline import pcw_ddim_inference, pcw_prep
@@ -2014,7 +2081,9 @@ def pcw_path(dev, counters, packed: bool, pairs: int, refine_flat: bool = False,
     from diffuvolume_tpu_torch.models.pcw_fold import fold_pcw
     from diffuvolume_tpu_torch.tools.random_weights import seeded_pcw_path
 
-    bm, dm, left, right = seeded_pcw_path(dev, PCW_H, PCW_W, MAIN_DISP)
+    bm, dm, left, right = seeded_pcw_path(dev, PCW_H, PCW_W, MAIN_DISP, use_concat_volume=concat)
+    if keep is not None:
+        keep["inputs"] = (bm, dm, left, right)
     ops = refine_ops(bm.refinenet3)
     if packed:  # folded once, as a caller running many pairs does
         bm, dm = fold_pcw(bm, refine_flat), fold_pcw(dm, refine_flat)
@@ -2045,9 +2114,63 @@ def pcw_path(dev, counters, packed: bool, pairs: int, refine_flat: bool = False,
         return t0, t1, time.perf_counter()
 
     res = drive(dev, counters, pairs, pair, stages, PCW_STEPS,
-                pcw_expected_launches(packed, refine_flat, routed), packed, (1, PCW_H, PCW_W))
+                pcw_expected_launches(packed, refine_flat, routed, concat), packed,
+                (1, PCW_H, PCW_W), keep)
     res["refine_ops"] = ops
     return res
+
+
+def bf16_path_gap(name: str, folded: dict, module: dict) -> dict:
+    """The bfloat16 folded and module paths' outputs and baselines of one
+    pair (``drive``'s ``keep``: the same models, images and draws), apart:
+    max and mean |Δ| px and the share past ``SPLIT_BF16_PX``.  Recorded, not
+    held: the two paths round every layer differently (BatchNorm folded
+    into bf16 weights against cuDNN's bf16 conv then BatchNorm), and the
+    random network amplifies it (``fold_vs_module`` holds the float32 pair)."""
+    rec = {}
+    for key in ("final", "base"):
+        err = (folded[key] - module[key]).abs()
+        rec[key] = dict(max_px=float(err.max()), mean_px=float(err.mean()),
+                        past_share=float((err > SPLIT_BF16_PX).double().mean()))
+    log(f"  {name}, bfloat16, folded against module (recorded): final max |Δ| "
+        f"{rec['final']['max_px']:.3e} px, mean {rec['final']['mean_px']:.3e}, "
+        f"{rec['final']['past_share']:.2%} past {SPLIT_BF16_PX:g} px; baseline max "
+        f"{rec['base']['max_px']:.3e}, mean {rec['base']['mean_px']:.3e}")
+    return rec
+
+
+def fold_vs_module(dev, keep: dict) -> dict:
+    """gwcnet-g's folded pair against its module pair at 384×1248 under
+    phase 4's flip rule (``agree``'s bounds: 1e-2 px on the baseline, 0.1
+    px max and 5e-3 px mean on the output over the pixels whose sampler
+    decisions agree, flips only at a threshold), both on the card in
+    float32 (the bfloat16 models of phase 7 in float32, the pipelines'
+    precision without TF32) with the same injected draws; then the
+    bfloat16 runs' gap, recorded (``bf16_path_gap``)."""
+    from diffuvolume_tpu_torch.diffusion.ddim import KITTI12_DDIM as cfg
+    from diffuvolume_tpu_torch.eval.pipeline import pcw_prep
+    from diffuvolume_tpu_torch.models.pcw_fold import fold_pcw
+
+    bm, dm, left, right = keep["folded"]["inputs"]
+    bm, dm = copy.deepcopy(bm).float(), copy.deepcopy(dm).float()
+    rng = np.random.default_rng(16)
+    shape = (1, PCW_D4, PCW_H4, PCW_W4)
+    steps = (cfg.sampling_steps, *shape)
+    ns = {"z": rng.standard_normal(steps).astype(np.float32),
+          "replace": (rng.uniform(size=steps) if cfg.replace_mode == "uniform"
+                      else rng.standard_normal(steps)).astype(np.float32)}
+    if cfg.init_mode == "noise":
+        ns["init"] = rng.standard_normal(shape).astype(np.float32)
+
+    def run(packed: bool, on_cpu: bool):
+        final, base, dec = sampled(pcw_prep, fold_pcw, bm, dm, left, right, cfg, dev, ns,
+                                   packed)
+        return (final.cpu(), base.cpu(), dec) if on_cpu else (final, base, dec)
+
+    rec = agree("gwcnet-g 384×1248 float32, folded (as the CPU side) against module",
+                lambda: run(True, True), lambda: run(False, False))
+    rec["bfloat16"] = bf16_path_gap("gwcnet-g 384×1248", keep["folded"], keep["module"])
+    return rec
 
 
 def igev_path(dev, counters, packed: bool, pairs: int, routed: bool = False,
@@ -2208,12 +2331,25 @@ TRAIN_TOL = {"float32": dict(loss=1e-4, grad=3e-2, stat=1e-4, param=1e-2),
 # by ±lr at rounding's whim; the parameters after the step are compared
 # over the other elements.
 VANISH, RESOLVE = 1e-9, 1e-4
+# A ReLU whose pre-activation lies within rounding of zero takes its branch
+# at rounding's whim, and which float32 rounding the CPU gives depends on
+# the host (oneDNN's instruction set: at this step's inputs one element of
+# dres2_att_'s decoder sum reads +4.4e-6 under AVX2 and -2.0e-6 under
+# AVX-512, -1.3e-6 in float64).  Its gradient passes in one run only and
+# every leaf behind it moves (5.4e-2 relative under AVX2 against AVX-512).
+# So the CPU step takes the card's branch at an element whose sign differs
+# from the card's, if the two pre-activations are at most BRANCH_GAP of the
+# site's RMS apart (float32 rounding leaves them within 1.8e-4 at these
+# inputs) and at most BRANCH_SHARE of the step's pre-activations flip; any
+# other sign difference fails.  The gates above are unchanged.
+BRANCH_GAP, BRANCH_SHARE = 1e-3, 1e-5
 # The ACV SceneFlow recipe at full width: the training crop, the per-card
 # batch (the reference's 23 over 6 GPUs), at least 8 steps.
 ACV_TRAIN_BATCH, ACV_TRAIN_STEPS = 4, 8
 KITTI_H, KITTI_W = 375, 1242
 IGEV_TRAIN_CROP, IGEV_TRAIN_ITERS = (320, 736), 22
 OTHER_TRAIN_STEPS = 3
+PCWG_TRAIN_STEPS = 2
 
 
 def grad_refusal_calls(dev) -> dict:
@@ -2293,22 +2429,93 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-300))
 
 
-def train_step_agreement(dev) -> dict:
-    """Phase 10 (b): one ACV SceneFlow step (``make_train_step``, Adam) on
-    the card against the same step on the CPU, at the parity tests' size
-    (B=2, 32×64, max_disp 64): seeded weights tamed as the tests tame them,
-    one injected timestep and noise.  Float32 (no TF32: ``float32_exact``)
-    and float64.  Compared: the loss, every gradient (relative L2 a tensor;
-    a gradient that vanishes in exact arithmetic, under ``VANISH`` of the
-    largest on the CPU, must vanish on the card), the BatchNorm running
-    statistics and the parameters after Adam (over the elements whose
-    gradient ``RESOLVE`` resolves)."""
-    from diffuvolume_tpu_torch.eval.pipeline import float32_exact
-    from diffuvolume_tpu_torch.models.acv import ACVNet
+class ReluBranches:
+    """The step's ReLU pre-activations in call order: every ``nn.ReLU``
+    module's input and each ``HourglassACV`` decoder sum (``conv5(c4) +
+    redir2(c2)``, ``conv6(c5) + redir1(x)``).  Without ``card`` it records
+    them; given the card run's record it aligns the run to the card's
+    branches by the rule at ``BRANCH_GAP``: a flipped element takes the
+    card's value through an added constant, so the gradient's path is the
+    card's, and each flip is listed."""
+
+    def __init__(self, model, card: list | None = None):
+        from diffuvolume_tpu_torch.models.layers import HourglassACV
+
+        self.card, self.seen, self.flips, self.size, self.first = card, [], [], 0, {}
+        self.handles = [m.register_forward_pre_hook(functools.partial(self._relu, name))
+                        for name, m in model.named_modules() if isinstance(m, torch.nn.ReLU)]
+        for name, m in model.named_modules():
+            if isinstance(m, HourglassACV):
+                for a, b in (("conv5", "redir2"), ("conv6", "redir1")):
+                    key = f"{name}.{a}+{b}"
+                    self.handles += [
+                        getattr(m, a).register_forward_hook(
+                            lambda mod, i, o, k=key: self.first.__setitem__(k, o)),
+                        getattr(m, b).register_forward_hook(functools.partial(self._sum, key))]
+
+    def _relu(self, name, mod, args):
+        x = args[0]
+        flip = self._site(name, x)
+        if flip is None:
+            return None
+        ref = self.card[len(self.seen) - 1][1].to(x.device, x.dtype)
+        y = x + torch.where(flip, ref - x.detach(), 0.0)
+        self._took(name, y, flip)
+        return (y,) + args[1:]
+
+    def _sum(self, name, mod, args, o):
+        a = self.first.pop(name)
+        flip = self._site(name, a + o)
+        if flip is None:
+            return None
+        ref = self.card[len(self.seen) - 1][1].to(o.device, o.dtype)
+        o = o + torch.where(flip, (ref - a.detach()) - o.detach(), 0.0)
+        self._took(name, a + o, flip)
+        return o
+
+    def _site(self, name: str, x: torch.Tensor):
+        """Records ``x``, or returns the mask of elements whose sign differs
+        from the card's (None where none does)."""
+        cur = x.detach().double().cpu()
+        self.size += cur.numel()
+        if self.card is None:
+            self.seen.append((name, cur))
+            return None
+        seen, ref = self.card[len(self.seen)]
+        if seen != name:
+            raise AssertionError(f"the CPU step reached {name} where the card's reached {seen}")
+        self.seen.append((name, ref))
+        flip = (cur > 0) != (ref > 0)
+        if not flip.any():
+            return None
+        rms = float(ref.pow(2).mean().sqrt())
+        for ix in flip.nonzero().tolist():
+            ix = tuple(ix)
+            gap = abs(float(cur[ix] - ref[ix])) / rms
+            self.flips.append({"site": name, "at": ix, "card": float(ref[ix]),
+                               "cpu": float(cur[ix]), "gap_over_rms": gap})
+            if gap > BRANCH_GAP:
+                raise AssertionError(f"{name} at {ix}: ReLU input {float(cur[ix])!r} on the CPU, "
+                                     f"{float(ref[ix])!r} on the card, {gap:.2e} of its RMS apart")
+        return flip.to(x.device)
+
+    def _took(self, name: str, y: torch.Tensor, flip: torch.Tensor) -> None:
+        """Asserts that the aligned input ``y`` takes the card's branch."""
+        ref = self.seen[-1][1].to(y.device)
+        if ((y.detach() > 0) != (ref > 0))[flip].any():
+            raise AssertionError(f"{name}: the CPU step could not take the card's ReLU branch")
+
+    def remove(self) -> None:
+        for h in self.handles:
+            h.remove()
+
+
+@functools.lru_cache(maxsize=1)
+def train_step_inputs():
+    """Phase 10 (b)'s seeded source weights (tamed and calibrated as the
+    parity tests do), images, ground truth, timestep and noise."""
     from diffuvolume_tpu_torch.tools.random_weights import (calibrate_heads, random_acv,
                                                             tame_residual_branches)
-    from diffuvolume_tpu_torch.train.loop import TrainState, make_optimizer, make_train_step
-    from diffuvolume_tpu_torch.train.lr import milestone_lr_schedule
 
     b, h, w, md = TRAIN_B, TRAIN_H, TRAIN_W, TRAIN_DISP
     g = torch.Generator().manual_seed(5)
@@ -2320,51 +2527,98 @@ def train_step_agreement(dev) -> dict:
     noise = torch.randn((b, md // 4, h // 4, w // 4), generator=g)
     src = tame_residual_branches(random_acv(md, True, torch.Generator().manual_seed(11)))
     calibrate_heads(src, left, right)
+    return src, left, right, gt, t, noise
+
+
+def train_step_run(where, dtype, card: list | None = None) -> dict:
+    """One ACV SceneFlow step (``make_train_step``, Adam) on ``where`` in
+    ``dtype`` (float32 without TF32: ``float32_exact``): the loss, the
+    gradients, the parameters after Adam, the BatchNorm running statistics
+    and the step's ``ReluBranches`` (recorded, or aligned to ``card``)."""
+    from diffuvolume_tpu_torch.eval.pipeline import float32_exact
+    from diffuvolume_tpu_torch.models.acv import ACVNet
+    from diffuvolume_tpu_torch.train.loop import TrainState, make_optimizer, make_train_step
+    from diffuvolume_tpu_torch.train.lr import milestone_lr_schedule
+
+    src, left, right, gt, t, noise = train_step_inputs()
+    model = ACVNet(TRAIN_DISP, True)
+    model.load_state_dict(src.state_dict())
+    model = model.to(where, dtype).train()
+    state = TrainState(model, make_optimizer(model), milestone_lr_schedule(1e-3, "10:2", 1))
+    batch = {"left": left.to(where, dtype), "right": right.to(where, dtype),
+             "disp_gt": gt.to(where, dtype)}
+    branches = ReluBranches(model, card)
+    with float32_exact(model):
+        res = make_train_step(model)(state, batch, t=t.to(where), noise=noise.to(where, dtype))
+    branches.remove()
+    return {"loss": float(res["loss"]), "branches": branches,
+            "grads": {k: p.grad for k, p in model.named_parameters()},
+            "params": {k: p.detach() for k, p in model.named_parameters()},
+            "stats": {k: v for k, v in model.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))}}
+
+
+def train_step_gaps(card: dict, cpu: dict) -> dict:
+    """``card``'s step against ``cpu``'s (``train_step_run``, the CPU's
+    aligned to the card's branches): the loss, every gradient (relative L2
+    a tensor; a gradient that vanishes in exact arithmetic, under
+    ``VANISH`` of the largest on the CPU, must vanish on the card), the
+    BatchNorm running statistics and the parameters after Adam (over the
+    elements whose gradient ``RESOLVE`` resolves), each the worst tensor's;
+    the branches both steps took checked by the rule at ``BRANCH_GAP``."""
+    branches = cpu["branches"]
+    if len(branches.seen) != len(branches.card):
+        raise AssertionError(f"the CPU step passed {len(branches.seen)} ReLU sites, the "
+                             f"card's {len(branches.card)}")
+    if len(branches.flips) > BRANCH_SHARE * branches.size:
+        raise AssertionError(f"{len(branches.flips)} ReLU inputs of {branches.size} take "
+                             f"another branch on the card than on the CPU")
+    cg, gg = cpu["grads"], card["grads"]
+    tiny = VANISH * max(float(g.norm()) for g in cg.values())
+    worst = dict(loss=abs(card["loss"] / cpu["loss"] - 1), grad=0.0, stat=0.0, param=0.0)
+    names, unresolved = {}, 0
+    for k, g in cg.items():
+        q = gg[k]
+        if not torch.isfinite(q).all():
+            raise AssertionError(f"card gradient of {k} is not finite")
+        if float(g.norm()) <= tiny:
+            if float(q.norm()) > tiny * 1e3:
+                raise AssertionError(f"{k}: vanishing on the CPU, {q.norm()} on the card")
+            continue
+        resolved = g.abs() > RESOLVE * g.pow(2).mean().sqrt()
+        unresolved += int((~resolved).sum())
+        for key, val in (("grad", rel_l2(q, g)),
+                         ("param", rel_l2(card["params"][k].cpu()[resolved],
+                                          cpu["params"][k][resolved]))):
+            if val > worst[key]:
+                worst[key], names[key] = val, k
+    for k, v in cpu["stats"].items():
+        worst["stat"] = max(worst["stat"], rel_l2(card["stats"][k], v))
+    worst["tensors"], worst["unresolved_elements"] = names, unresolved
+    worst["relu_inputs"], worst["branch_flips"] = branches.size, branches.flips
+    return worst
+
+
+def train_step_agreement(dev) -> dict:
+    """Phase 10 (b): one ACV SceneFlow step on the card against the same
+    step on the CPU, at the parity tests' size (B=2, 32×64, max_disp 64),
+    float32 and float64 (``train_step_run``, ``train_step_gaps``).  The
+    card runs first and records its ReLU branches; the CPU step takes them
+    where rounding alone decides (``ReluBranches``), and the flips are
+    listed."""
     out = {}
     for dtype in (torch.float32, torch.float64):
-        runs = {}
-        for where in ("cpu", dev):
-            model = ACVNet(md, True)
-            model.load_state_dict(src.state_dict())
-            model = model.to(where, dtype).train()
-            state = TrainState(model, make_optimizer(model), milestone_lr_schedule(1e-3, "10:2", 1))
-            batch = {"left": left.to(where, dtype), "right": right.to(where, dtype),
-                     "disp_gt": gt.to(where, dtype)}
-            with float32_exact(model):
-                res = make_train_step(model)(state, batch, t=t.to(where),
-                                             noise=noise.to(where, dtype))
-            runs[str(where)] = (model, float(res["loss"]))
-        (cpu, cpu_loss), (card, card_loss) = runs["cpu"], runs[str(dev)]
-        cp, gp = dict(cpu.named_parameters()), dict(card.named_parameters())
-        tiny = VANISH * max(float(p.grad.norm()) for p in cp.values())
-        worst = dict(loss=abs(card_loss / cpu_loss - 1), grad=0.0, stat=0.0, param=0.0)
-        names, unresolved = {}, 0
-        for k, p in cp.items():
-            q = gp[k]
-            if not torch.isfinite(q.grad).all():
-                raise AssertionError(f"card gradient of {k} is not finite")
-            if float(p.grad.norm()) <= tiny:
-                if float(q.grad.norm()) > tiny * 1e3:
-                    raise AssertionError(f"{k}: vanishing on the CPU, {q.grad.norm()} on the card")
-                continue
-            resolved = p.grad.abs() > RESOLVE * p.grad.pow(2).mean().sqrt()
-            unresolved += int((~resolved).sum())
-            for key, val in (("grad", rel_l2(q.grad, p.grad)),
-                             ("param", rel_l2(q.detach().cpu()[resolved], p.detach()[resolved]))):
-                if val > worst[key]:
-                    worst[key], names[key] = val, k
-        worst["tensors"], worst["unresolved_elements"] = names, unresolved
-        csd, gsd = cpu.state_dict(), card.state_dict()
-        for k, v in csd.items():
-            if k.endswith(("running_mean", "running_var")):
-                worst["stat"] = max(worst["stat"], rel_l2(gsd[k], v))
+        card = train_step_run(dev, dtype)
+        worst = train_step_gaps(card, train_step_run("cpu", dtype, card["branches"].seen))
         tag = "float32" if dtype == torch.float32 else "float64"
-        tol = TRAIN_TOL[tag]
+        tol, flips = TRAIN_TOL[tag], worst["branch_flips"]
         log(f"  ACV train step, card against CPU, {tag}: loss {worst['loss']:.2e} (tol "
             f"{tol['loss']:g}), gradients {worst['grad']:.2e} (tol {tol['grad']:g}), BatchNorm "
             f"statistics {worst['stat']:.2e} (tol {tol['stat']:g}), parameters after Adam "
-            f"{worst['param']:.2e} (tol {tol['param']:g}, {unresolved} unresolved elements "
-            f"left out); worst tensor, relative L2 ({names})")
+            f"{worst['param']:.2e} (tol {tol['param']:g}, {worst['unresolved_elements']} "
+            f"unresolved elements left out); worst tensor, relative L2 ({worst['tensors']}); "
+            f"{len(flips)} of {worst['relu_inputs']} ReLU inputs took the card's branch on the "
+            f"CPU ({[(f['site'], f['at'], f['card'], f['cpu']) for f in flips]})")
         if any(worst[k] > tol[k] for k in tol):
             raise AssertionError(f"the {tag} train step on the card disagrees with the CPU")
         out[tag] = worst
@@ -2505,8 +2759,9 @@ def training_phase(dev, counters: dict, card: str) -> dict:
     evaluated on the card; (d) the KITTI12 recipe (PCWNet, 256×512, batch
     1) and the KITTI15 recipe (IGEV-Stereo, 320×736, ``--bf16``, 22 GRU
     iterations, batch 1, warm-started from a calibrated random IGEV),
-    ``OTHER_TRAIN_STEPS`` steps each, over a
-    synthetic KITTI set."""
+    ``OTHER_TRAIN_STEPS`` steps each, and the KITTI12 recipe with
+    ``--model gwcnet-g`` (``PCWG_TRAIN_STEPS`` steps), over a synthetic
+    KITTI set."""
     import tempfile
 
     from diffuvolume_tpu_torch.cli import evaluate
@@ -2560,6 +2815,15 @@ def training_phase(dev, counters: dict, card: str) -> dict:
             "--dataset", "kitti12", "--model", "pcwnet_ddim",
             "--logdir", os.path.join(root, "pcw")], counters, 1, False,
             KITTIDataset.TRAIN_CROP, card)
+        g_list = os.path.join(kitti_root, "train_gwcnet_g.txt")
+        with open(trainlist) as f, open(g_list, "w") as g:
+            g.writelines(f.readlines()[:PCWG_TRAIN_STEPS])
+        runs["gwcnet_g_kitti12"] = recipe_run(
+            "gwcnet-g KITTI12 recipe (PCWNet without the concat volume, float32)",
+            [g_list if a == trainlist else a for a in common] + [
+                "--dataset", "kitti12", "--model", "gwcnet-g",
+                "--logdir", os.path.join(root, "gwcnet_g")], counters, 1, False,
+            KITTIDataset.TRAIN_CROP, card)
         saved = KITTIDataset.TRAIN_CROP
         KITTIDataset.TRAIN_CROP = IGEV_TRAIN_CROP
         try:
@@ -2577,7 +2841,7 @@ def training_phase(dev, counters: dict, card: str) -> dict:
                 IGEV_TRAIN_CROP, card)
         finally:
             KITTIDataset.TRAIN_CROP = saved
-        for key in ("pcw_kitti12", "igev_kitti15"):
+        for key in ("pcw_kitti12", "gwcnet_g_kitti12", "igev_kitti15"):
             if any(runs[key]["launches"].values()):
                 raise AssertionError(f"{key}'s steps launched kernels: {runs[key]['launches']}")
     out["recipes"] = runs
@@ -2942,6 +3206,7 @@ SPLIT_FORWARD_HW = {"acv": (MAIN_H, MAIN_W), "pcw": (PCW_H, PCW_W), "igev": (IGE
 # case → (model, H, W, the bands' rows at H/4, seed); IGEV's uneven case
 # cuts its 40 rows 24 / 16 (edges on multiples of 8).
 SPLIT_MODEL_STEPS = {"pcw": ("pcw", 64, 64, (8, 8), 21),
+                     "gwcnet_g": ("gwcnet-g", 64, 64, (8, 8), 24),
                      "igev": ("igev", 64, 64, (8, 8), 22),
                      "igev_uneven": ("igev", 160, 64, (24, 16), 23)}
 SPLIT_IGEV_ITERS = 3
@@ -3037,24 +3302,26 @@ def split_inputs(dev) -> dict:
 
 def model_step_inputs(case: str) -> dict:
     """``SPLIT_MODEL_STEPS[case]``'s inputs from its seed: the DDIM model's
-    weights (PCW: ``random_pcw`` and ``calibrate_pcw``; IGEV:
-    ``random_igev`` and ``calibrate_igev``, RAW images), the batch with
-    ground truth whose valid counts differ by band, the timestep and the
-    noise; float64, on the CPU."""
+    weights (PCW: ``random_pcw`` and ``calibrate_pcw``; gwcnet-g the same
+    without diffusion or the concat volume; IGEV: ``random_igev`` and
+    ``calibrate_igev``, RAW images), the batch with ground truth whose valid
+    counts differ by band, the timestep and the noise; float64, on the
+    CPU."""
     from diffuvolume_tpu_torch.tools.random_weights import (calibrate_igev, calibrate_pcw,
                                                             random_igev, random_pcw)
 
     kind, h, w, _, seed = SPLIT_MODEL_STEPS[case]
     g = torch.Generator().manual_seed(seed)
-    if kind == "pcw":
+    pcw = kind in ("pcw", "gwcnet-g")
+    if pcw:
         left = torch.randn((1, h, w, 3), generator=g, dtype=torch.float64) * 0.3
-        model = random_pcw(TRAIN_DISP, True, g)
+        model = random_pcw(TRAIN_DISP, kind == "pcw", g, use_concat_volume=kind == "pcw")
     else:
         left = torch.rand((1, h, w, 3), generator=g, dtype=torch.float64) * 255.0
         model = random_igev(TRAIN_DISP, True, g)
     right = torch.roll(left, -3, dims=2)
     with torch.no_grad():
-        (calibrate_pcw if kind == "pcw" else calibrate_igev)(model, left.float(), right.float())
+        (calibrate_pcw if pcw else calibrate_igev)(model, left.float(), right.float())
     gt = torch.rand((1, h, w), generator=g, dtype=torch.float64) * (TRAIN_DISP + 8) + 0.5
     gt[:, :h // 3, :5] = 0.0
     gt[:, h // 3:, :9] = 0.0
@@ -3170,8 +3437,8 @@ def split_step(inputs: dict, dev, mesh=None) -> dict:
 
 
 def model_split_step(inputs: dict, case: str, dev, mesh=None) -> dict:
-    """``SPLIT_MODEL_STEPS[case]``: the KITTI12 step (PCW, Adam) or the
-    KITTI15 step (IGEV, ``SPLIT_IGEV_ITERS`` GRU iterations, clip + AdamW)
+    """``SPLIT_MODEL_STEPS[case]``: the KITTI12 step (PCW or gwcnet-g, Adam)
+    or the KITTI15 step (IGEV, ``SPLIT_IGEV_ITERS`` GRU iterations, clip + AdamW)
     in float64 on the card (split over ``mesh``'s volume axis when given):
     the loss, gradients, statistics and parameters after the step, on the
     CPU."""
@@ -3186,13 +3453,15 @@ def model_split_step(inputs: dict, case: str, dev, mesh=None) -> dict:
     kind = SPLIT_MODEL_STEPS[case][0]
     x = inputs["model_steps"][case]
     dt = torch.float64
-    model = (PCWNet if kind == "pcw" else IGEVStereo)(TRAIN_DISP, True)
+    model = {"pcw": lambda: PCWNet(TRAIN_DISP, True),
+             "gwcnet-g": lambda: PCWNet(TRAIN_DISP, False, use_concat_volume=False),
+             "igev": lambda: IGEVStereo(TRAIN_DISP, True)}[kind]()
     model.load_state_dict(x["state"])
     model = model.to(dev, dt).train()
     if mesh is not None:
         ddp.sync_batch_norm(model, mesh)
         mesh.broadcast_parameters(model)
-    if kind == "pcw":
+    if kind != "igev":
         state = TrainState(model, make_optimizer(model), milestone_lr_schedule(1e-3, "10:2", 1))
         step = make_train_step(model, KITTI12_WEIGHTS, dp=mesh)
     else:
@@ -3569,6 +3838,7 @@ def main() -> int:
     from diffuvolume_tpu_torch.ops.kernels import _build
 
     t_start = time.perf_counter()
+    starts = {}  # phase → its start, seconds into the run
     dev = torch.device("cuda:0")
     # Phase 3's plain versions and library yardsticks compute float32 convs
     # and matmuls outside the pipelines: TF32 off for them, PyTorch's
@@ -3578,11 +3848,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    starts["1"] = time.perf_counter() - t_start
     log("== 1. card")
     card = card_line()
     log(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
 
+    starts["2"] = time.perf_counter() - t_start
     log("== 2. build")
     path, build_s = _build.build()
     _build.library()
@@ -3591,12 +3863,15 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log("  " + line.strip())
 
+    starts["3"] = time.perf_counter() - t_start
     log("== 3. kernels against their plain versions (every path's shapes)")
     ncdhw = kernel_checks(dev)
     checks = {**ncdhw, **head_checks(dev), **volume_cl_checks(dev), **front_checks(dev),
               **pcw_mul_checks(dev),
-              **conv_checks(dev, CONV_CASES, "ACV"), **layout_checks(dev)}
+              **conv_checks(dev, CONV_CASES, "ACV", iters=10), **layout_checks(dev)}
     checks["pcw_convs"] = conv_checks(dev, PCW_CONV_CASES, "PCW", iters=10)
+    checks["gwcnet_g_convs"] = conv_checks(dev, GWCNET_G_CONV_CASES, "gwcnet-g (its volume "
+                                           "convs at C_in 48; the rest as PCW's)", iters=10)
     igev = igev_volume_checks(dev)
     checks["igev_convs"] = conv_checks(dev, IGEV_CONV_CASES, "IGEV folded", iters=10)
     small = conv_checks(dev, IGEV_SMALL_CASES, "IGEV module", iters=10)
@@ -3615,13 +3890,16 @@ def main() -> int:
     t_checks = time.perf_counter() - t_start
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_defaults
 
+    starts["4"] = time.perf_counter() - t_start
     log("== 4. small input: each pipeline on the card against the CPU (float32)")
     agreement = small_agreement(dev)
 
     counters = kernel_counters()
     runs = {}
+    starts["5"] = time.perf_counter() - t_start
     log("== 5. ACV main path: two-pass DDIM-5, 512×960, B=1, bfloat16, folded (packed=True)")
     runs["acv_folded"] = main_path(dev, counters, packed=True, pairs=TIMED_PAIRS)
+    starts["6"] = time.perf_counter() - t_start
     log("== 6. ACV module path (packed=False), same inputs")
     runs["acv_module"] = main_path(dev, counters, packed=False, pairs=MODULE_TIMED_PAIRS)
     log("   ACV module path after route_conv3d (row 15), same inputs")
@@ -3629,8 +3907,12 @@ def main() -> int:
                                           pairs=ROUTED_TIMED_PAIRS["acv"], routed=True)
     census = {"acv_module_routed": census_fewer(runs, "acv_module", "acv_module_routed", {
         "conv_5d_dense": routed_launches("acv")["conv3d_packed"]})}
-    log(f"== 7. PCW path: two-pass KITTI12 DDIM-3, {PCW_H}×{PCW_W}, B=1, bfloat16, folded")
-    runs["pcw_folded"] = pcw_path(dev, counters, packed=True, pairs=PCW_TIMED_PAIRS)
+    starts["7"] = time.perf_counter() - t_start
+    log(f"== 7. PCW path: two-pass KITTI12 DDIM-3, {PCW_H}×{PCW_W}, B=1, bfloat16, folded; then "
+        f"gwcnet-g")
+    pcw_keep = {}
+    runs["pcw_folded"] = pcw_path(dev, counters, packed=True, pairs=PCW_TIMED_PAIRS,
+                                  keep=pcw_keep.setdefault("folded", {}))
     log("   PCW folded path with the flat refinement (row 18), same inputs")
     runs["pcw_folded_flat"] = pcw_path(dev, counters, packed=True, pairs=PCW_FLAT_TIMED_PAIRS,
                                        refine_flat=True)
@@ -3638,12 +3920,26 @@ def main() -> int:
     census["pcw_folded_flat"] = census_fewer(runs, "pcw_folded", "pcw_folded_flat", {
         k: ops[k] * (1 + PCW_STEPS) for k in ("batch_norm_4d", "conv_4d")})
     log("   PCW module path (packed=False), same inputs")
-    runs["pcw_module"] = pcw_path(dev, counters, packed=False, pairs=PCW_MODULE_TIMED_PAIRS)
+    runs["pcw_module"] = pcw_path(dev, counters, packed=False, pairs=PCW_MODULE_TIMED_PAIRS,
+                                  keep=pcw_keep.setdefault("module", {}))
     log("   PCW module path after route_conv3d (row 15), same inputs")
     runs["pcw_module_routed"] = pcw_path(dev, counters, packed=False,
                                          pairs=ROUTED_TIMED_PAIRS["pcw"], routed=True)
     census["pcw_module_routed"] = census_fewer(runs, "pcw_module", "pcw_module_routed", {
         "conv_5d_dense": routed_launches("pcw")["conv3d_packed"]})
+    log("   gwcnet-g (PCWNet without the concat volume) and its DDIM model, folded, the same "
+        "images")
+    finals = {}
+    runs["gwcnet_g_folded"] = pcw_path(dev, counters, packed=True, pairs=PCWG_TIMED_PAIRS,
+                                       concat=False, keep=finals.setdefault("folded", {}))
+    log("   gwcnet-g module path (packed=False), same inputs")
+    runs["gwcnet_g_module"] = pcw_path(dev, counters, packed=False,
+                                       pairs=PCWG_MODULE_TIMED_PAIRS, concat=False,
+                                       keep=finals.setdefault("module", {}))
+    agreement["gwcnet-g folded against module, 384×1248"] = fold_vs_module(dev, finals)
+    agreement["pcw bfloat16 folded against module, 384×1248"] = bf16_path_gap(
+        "PCW 384×1248", pcw_keep["folded"], pcw_keep["module"])
+    starts["8"] = time.perf_counter() - t_start
     log(f"== 8. IGEV path: two-pass KITTI15 DDIM-2, {IGEV_H}×{IGEV_W}, {IGEV_ITERS} GRU "
         f"iterations a rollout, B=1, bfloat16, folded")
     runs["igev_folded"] = igev_path(dev, counters, packed=True, pairs=IGEV_TIMED_PAIRS)
@@ -3654,13 +3950,15 @@ def main() -> int:
                                            pairs=ROUTED_TIMED_PAIRS["igev"], routed=True)
     census["igev_module_routed"] = census_fewer(runs, "igev_module", "igev_module_routed", {
         "conv_5d_dense": routed_launches("igev")["conv3d_packed"]})
+    starts["9"] = time.perf_counter() - t_start
     log(f"== 9. the evaluation entry point: cli/evaluate (ACV DDIM-5, random weights, "
         f"{EVAL_PAIRS} synthetic SceneFlow pairs {EVAL_H}×{EVAL_W} cropped to "
         f"{MAIN_H}×{MAIN_W}, float32), then tools/bench.py")
     runs["acv_evaluate_cli"] = evaluate_phase(dev, counters, card)
+    starts["10"] = time.perf_counter() - t_start
     log("== 10. training: the wrappers refuse tracked inputs, one ACV step on the card "
         "against the CPU, then cli/train.py: the ACV SceneFlow recipe at 256×512, batch 4, "
-        "with its epoch evaluation; PCW KITTI12 and IGEV KITTI15")
+        "with its epoch evaluation; PCW KITTI12 (pcwnet_ddim and gwcnet-g) and IGEV KITTI15")
     t_train = time.perf_counter()
     training = training_phase(dev, counters, card)
     training["elapsed_s"] = time.perf_counter() - t_train
@@ -3668,9 +3966,11 @@ def main() -> int:
     acv_train = training["recipes"]["acv_sceneflow"]
     runs["acv_train_cli"] = dict(launches=acv_train["launches"], launches_per_pair={
         k: v / 1 for k, v in acv_train["launches"].items()})
+    starts["11"] = time.perf_counter() - t_start
     log("== 11. IGEV's reference-faithful evaluation (quirk=True), data parallelism, the "
         "training step's profile")
     later = phase_11(dev, counters, runs, card)
+    starts["12"] = time.perf_counter() - t_start
     log("== 12. the cost volume's rows split over 2 processes on cuda:0 (gloo): the ACV, PCW "
         "and IGEV module path forwards and training steps, against the unsplit runs")
     split = phase_12(dev, counters, runs, card)
@@ -3703,7 +4003,7 @@ def main() -> int:
                    "ncdhw_volume_checks": {k: ncdhw[k] for k in ("concat_volume", "dhw_mul")},
                    "agreement": agreement, "runs": runs, "census_against": census,
                    "training": training, "phase_11": later, "phase_12": split,
-                   "elapsed_s": elapsed}, f,
+                   "elapsed_s": elapsed, "phase_start_s": starts}, f,
                   indent=1)
 
     print(json.dumps({"kernels": kernels}))

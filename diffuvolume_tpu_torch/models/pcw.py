@@ -3,12 +3,15 @@
 Counterpart of ``diffuvolume_tpu/models/pcw.py`` (``PCWNet``:
 ``build_cost_volume``, ``refine``, ``denoise``, the baseline eval forward,
 the training forward):
-Mish activations, a feature pyramid to 1/32 with a group-wise + concat
-volume at each of 1/4 … 1/32, a multi-scale ``HourglassUp`` that fuses them,
-three Mish hourglasses, and a full-resolution warp-correlation refinement.
-Module names follow the reference state dict (KITTI12 ``pwcnet_ddim.py``,
-the keys ``tools/weights.py:pcw_rules`` lists), so its checkpoints load with
-``load_state_dict``.  Images enter as ``(B, H, W, 3)`` and disparities leave
+Mish activations, a feature pyramid to 1/32 with a group-wise volume at
+each of 1/4 … 1/32 (with the concat volume beside it when
+``use_concat_volume``, the default; without it, the registry's ``gwcnet-g``),
+a multi-scale ``HourglassUp`` that fuses them, three Mish hourglasses, and a
+full-resolution warp-correlation refinement.  Module names follow the
+reference state dict (KITTI12 ``pwcnet_ddim.py``, the keys
+``tools/weights.py:pcw_rules`` lists; without the concat volume the
+feature extractor has no concat heads, as upstream ``PWCNet_G``), so its
+checkpoints load with ``load_state_dict``.  Images enter as ``(B, H, W, 3)`` and disparities leave
 as ``(B, H, W)``; inside, features are NCHW and volumes NCDHW.
 
 The volume work runs on the port's kernels: each scale's volume is built by
@@ -112,7 +115,8 @@ def _convbn3d_act(in_ch, out_ch, stride, act) -> nn.Sequential:
 class PCWFeatureExtractor(nn.Module):
     """Pyramid to 1/32 (pwcnet_ddim.py:12-128): ``(B, 3, H, W)`` → the gw
     features (320 channels at 1/4, 1/8, 1/16, 1/32), the concat features
-    (``concat_channels`` at each) and the 32-channel refinement feature."""
+    (``concat_channels`` at each; with 0 no concat heads and no such
+    features) and the 32-channel refinement feature."""
 
     def __init__(self, concat_channels: int = 12, act: str = "mish"):
         super().__init__()
@@ -133,10 +137,12 @@ class PCWFeatureExtractor(nn.Module):
         self.gw4 = _head2d(512, 320, 320, act)
         self.layer_refine = nn.Sequential(ConvBN(320, 128, 3, 1, 1), a(),
                                           ConvBN(128, 32, 1, 1, 0), a())
-        self.lastconv = _head2d(320, 128, concat_channels, act)
-        self.concat2 = _head2d(192, 128, concat_channels, act)
-        self.concat3 = _head2d(256, 128, concat_channels, act)
-        self.concat4 = _head2d(512, 128, concat_channels, act)
+        if concat_channels:
+            self.lastconv = _head2d(320, 128, concat_channels, act)
+            self.concat2 = _head2d(192, 128, concat_channels, act)
+            self.concat3 = _head2d(256, 128, concat_channels, act)
+            self.concat4 = _head2d(512, 128, concat_channels, act)
+        self.concat_channels = concat_channels
 
     def forward(self, x) -> dict[str, torch.Tensor]:
         x = self.layer1(self.firstconv(x))
@@ -147,21 +153,21 @@ class PCWFeatureExtractor(nn.Module):
         l6 = self.layer7(l5)
         l7 = self.layer9(l6)
         combine = torch.cat([l2, l3, l4], dim=1)  # 320 channels at 1/4
-        return {
-            "gw1": self.layer11(combine), "gw2": self.gw2(l5), "gw3": self.gw3(l6),
-            "gw4": self.gw4(l7),
-            "concat1": self.lastconv(combine), "concat2": self.concat2(l5),
-            "concat3": self.concat3(l6), "concat4": self.concat4(l7),
-            "refine": self.layer_refine(combine),
-        }
+        out = {"gw1": self.layer11(combine), "gw2": self.gw2(l5), "gw3": self.gw3(l6),
+               "gw4": self.gw4(l7), "refine": self.layer_refine(combine)}
+        if self.concat_channels:
+            out.update(concat1=self.lastconv(combine), concat2=self.concat2(l5),
+                       concat3=self.concat3(l6), concat4=self.concat4(l7))
+        return out
 
 
 class HourglassUp(nn.Module):
     """The multi-scale combining hourglass (pwcnet_ddim.py:131-205): strided
     3-D convs down to 1/32, each level fused with that scale's volume by a
-    conv over the concatenation, transposed convs back up with skips."""
+    conv over the concatenation, transposed convs back up with skips.
+    ``vol_ch``: each scale's volume's channels (2·ch by default)."""
 
-    def __init__(self, ch: int, act: str = "mish"):
+    def __init__(self, ch: int, act: str = "mish", vol_ch: int | None = None):
         super().__init__()
         self.act = ACTS[act]()
         self.conv1 = nn.Conv3d(ch, 2 * ch, 3, 2, 1, bias=False)
@@ -173,10 +179,10 @@ class HourglassUp(nn.Module):
         self.conv7 = ConvTransposeBN(4 * ch, 4 * ch)
         self.conv8 = ConvTransposeBN(4 * ch, 2 * ch)
         self.conv9 = ConvTransposeBN(2 * ch, ch)
-        # Each scale's volume has 2·ch channels (40 groups + 2 × 12 concat).
-        self.combine1 = _convbn3d_act(4 * ch, 2 * ch, 1, act)
-        self.combine2 = _convbn3d_act(6 * ch, 4 * ch, 1, act)
-        self.combine3 = _convbn3d_act(6 * ch, 4 * ch, 1, act)
+        v = 2 * ch if vol_ch is None else vol_ch
+        self.combine1 = _convbn3d_act(2 * ch + v, 2 * ch, 1, act)
+        self.combine2 = _convbn3d_act(4 * ch + v, 4 * ch, 1, act)
+        self.combine3 = _convbn3d_act(4 * ch + v, 4 * ch, 1, act)
         self.redir1 = convbn_3d(ch, ch, 1, 1, 0)
         self.redir2 = convbn_3d(2 * ch, 2 * ch, 1, 1, 0)
         self.redir3 = convbn_3d(4 * ch, 4 * ch, 1, 1, 0)
@@ -242,25 +248,30 @@ def _classif(act) -> nn.Sequential:
 
 
 class PCWNet(nn.Module):
-    """PCWNet with multi-scale volume fusion (the concat-volume variant),
-    optionally with the DiffuVolume time embedding (``diffusion=True``)."""
+    """PCWNet with multi-scale volume fusion, optionally with the
+    DiffuVolume time embedding (``diffusion=True``).  Each scale's volume is
+    the group-wise correlation (``num_groups`` channels), then with
+    ``use_concat_volume`` the 12 + 12 concat channels (KITTI12's
+    ``gwcnet-gc`` and ``pcwnet_ddim``); without it the correlation alone
+    (``gwcnet-g``)."""
 
     def __init__(self, max_disp: int = 192, diffusion: bool = True, scale: float = 1.0,
-                 num_groups: int = 40, concat_channels: int = 12, act: str = "mish"):
+                 num_groups: int = 40, act: str = "mish", use_concat_volume: bool = True):
         super().__init__()
         self.max_disp = max_disp
         self.diffusion = diffusion
         self.scale = scale
         self.num_groups = num_groups
-        self.concat_channels = concat_channels
+        self.use_concat_volume = use_concat_volume
+        self.concat_channels = 12 if use_concat_volume else 0
         self.act = act
         a = ACTS[act]
-        vol_ch = num_groups + 2 * concat_channels
-        self.feature_extraction = PCWFeatureExtractor(concat_channels, act)
+        vol_ch = num_groups + 2 * self.concat_channels
+        self.feature_extraction = PCWFeatureExtractor(self.concat_channels, act)
         self.dres0 = nn.Sequential(convbn_3d(vol_ch, 32, 3, 1, 1), a(),
                                    convbn_3d(32, 32, 3, 1, 1), a())
         self.dres1 = nn.Sequential(convbn_3d(32, 32, 3, 1, 1), a(), convbn_3d(32, 32, 3, 1, 1))
-        self.combine1 = HourglassUp(32, act)
+        self.combine1 = HourglassUp(32, act, vol_ch)
         if diffusion:
             self.time_embedding = DynamicHead(max_disp // 4)
         self.dres2 = HourglassMish(32, act)
@@ -292,13 +303,16 @@ class PCWNet(nn.Module):
                 {k: v[b:].contiguous() for k, v in feat.items()})
 
     def volumes(self, fl: dict, fr: dict) -> list[torch.Tensor]:
-        """The four scales' volumes ``(B, D_s, H_s, W_s, 64)`` channels-last:
-        group-wise correlation, then the concat halves with the reference
-        side zeroed where ``w < d`` too, as KITTI12's concat volume is."""
+        """The four scales' volumes ``(B, D_s, H_s, W_s, slot)`` channels-last,
+        the slot ``slot_width`` of the volume's channels: group-wise
+        correlation, then (with the concat volume, 40 + 12 + 12 in 64) the
+        concat halves with the reference side zeroed where ``w < d`` too, as
+        KITTI12's concat volume is; without it the 40 groups in 48."""
         md, g = self.max_disp, self.num_groups
+        cc = self.concat_channels
         return [gwc_volume_packed(fl[f"gw{i}"], fr[f"gw{i}"], md // (4 << (i - 1)), g,
-                                  cat_l=fl[f"concat{i}"], cat_r=fr[f"concat{i}"],
-                                  mask_ref=True)
+                                  cat_l=fl[f"concat{i}"] if cc else None,
+                                  cat_r=fr[f"concat{i}"] if cc else None, mask_ref=True)
                 for i in (1, 2, 3, 4)]
 
     @staticmethod
@@ -398,11 +412,14 @@ class PCWNet(nn.Module):
         fl = self.feature_extraction(left.to(dt).permute(0, 3, 1, 2).contiguous())
         fr = self.feature_extraction(right.to(dt).permute(0, 3, 1, 2).contiguous())
         self._cut(fl)
-        v1, v2, v3, v4 = (
-            torch.cat([build_gwc_volume(fl[f"gw{i}"], fr[f"gw{i}"], d, self.num_groups),
-                       build_concat_volume(fl[f"concat{i}"], fr[f"concat{i}"], d,
-                                           mask_ref=True)], dim=1)
-            for i, d in zip((1, 2, 3, 4), (self.max_disp // (4 << k) for k in range(4))))
+        def volume(i: int, d: int) -> torch.Tensor:
+            gwc = build_gwc_volume(fl[f"gw{i}"], fr[f"gw{i}"], d, self.num_groups)
+            if not self.use_concat_volume:
+                return gwc
+            return torch.cat([gwc, build_concat_volume(fl[f"concat{i}"], fr[f"concat{i}"], d,
+                                                       mask_ref=True)], dim=1)
+
+        v1, v2, v3, v4 = (volume(i, self.max_disp // (4 << (i - 1))) for i in (1, 2, 3, 4))
         cost0 = self.dres0(v1)
         cost0 = self.dres1(cost0) + cost0
         combine = self.combine1(cost0, v2, v3, v4)

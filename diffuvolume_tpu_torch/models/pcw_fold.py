@@ -11,7 +11,10 @@ are ``models/acv_fold.py``'s.
 ``fold_pcw(model)`` folds once into a ``FoldedPCW``; pass it to
 ``eval/pipeline.py:pcw_ddim_inference`` (fold again after changing the
 model's weights).  All four volumes (1/4 … 1/32) come channels-last from
-``gwc_volume_packed`` in 64-channel slots (40 groups + 12 + 12 concat).
+``gwc_volume_packed``, each in the slot ``slot_width`` gives its channels:
+40 groups + 12 + 12 concat in 64, or without the concat volume
+(``gwcnet-g``) the 40 groups in 48, the weights that read them zero-padded
+to the slot (the slot's fill is zero, so the padding is exact).
 ``HourglassUp``'s ``conv(concat(a, v))`` runs as two convs, the volume's
 part first as the residual of the other's: exact by linearity, and no
 concatenated copy (the JAX packed path does the same, ``pcw.py:549-569``).
@@ -52,6 +55,7 @@ from diffuvolume_tpu_torch.models.acv_fold import (
 )
 from diffuvolume_tpu_torch.models.layers import ConvBN
 from diffuvolume_tpu_torch.models.pcw import HourglassUp, PCWEntry, PCWNet, RefineNetV3
+from diffuvolume_tpu_torch.ops.cost_volume import slot_width
 from diffuvolume_tpu_torch.ops.kernels.concat_volume import dhw_mul
 from diffuvolume_tpu_torch.ops.kernels.conv2d import conv2d_flat
 from diffuvolume_tpu_torch.ops.kernels.conv3d_fold import (
@@ -67,12 +71,13 @@ from diffuvolume_tpu_torch.ops.kernels.fused_head import (
 )
 
 
-def _split(fc: FoldedConv, c: int) -> tuple[FoldedConv, FoldedConv]:
+def _split(fc: FoldedConv, c: int, v_slot: int) -> tuple[FoldedConv, FoldedConv]:
     """A conv over ``concat(a, v)`` as its ``a`` part (with the bias) and
     its ``v`` part (without): the weight's first ``c`` input channels and
-    the rest."""
+    the rest, zero-padded to the volume's ``v_slot`` channels."""
+    v = fc.w[:, :, :, c:]
     return (FoldedConv(fc.w[:, :, :, :c].contiguous(), fc.b),
-            FoldedConv(fc.w[:, :, :, c:].contiguous(), None))
+            FoldedConv(F.pad(v, (0, 0, 0, v_slot - v.shape[3])).contiguous(), None))
 
 
 class FoldedHourglassUp(NamedTuple):
@@ -96,11 +101,12 @@ class FoldedHourglassUp(NamedTuple):
     redir3: FoldedConv
 
 
-def fold_hourglass_up(hg: HourglassUp) -> FoldedHourglassUp:
+def fold_hourglass_up(hg: HourglassUp, v_slot: int) -> FoldedHourglassUp:
+    """``hg`` folded for volumes in ``v_slot``-channel slots."""
     ch = hg.conv1.weight.shape[1]
-    c1, c1v = _split(fold_convbn(hg.combine1[0]), 2 * ch)
-    c2, c2v = _split(fold_convbn(hg.combine2[0]), 4 * ch)
-    c3, c3v = _split(fold_convbn(hg.combine3[0]), 4 * ch)
+    c1, c1v = _split(fold_convbn(hg.combine1[0]), 2 * ch, v_slot)
+    c2, c2v = _split(fold_convbn(hg.combine2[0]), 4 * ch, v_slot)
+    c3, c3v = _split(fold_convbn(hg.combine3[0]), 4 * ch, v_slot)
     return FoldedHourglassUp(
         fold_head(hg.conv1), c1, c1v, fold_convbn(hg.conv2[0]),
         fold_head(hg.conv3), c2, c2v, fold_convbn(hg.conv4[0]),
@@ -221,11 +227,13 @@ class FoldedPCW:
         self.model = model
         self.act = model.act
         self.refine = fold_refine(model.refinenet3) if refine_flat else None
-        self.dres0_0 = fold_convbn(model.dres0[0])
+        # The volumes' slot: 64 (40 + 12 + 12), or 48 without the concat volume.
+        slot = slot_width(model.num_groups + 2 * model.concat_channels)
+        self.dres0_0 = fold_convbn(model.dres0[0], slot)
         self.dres0_1 = fold_convbn(model.dres0[2])
         self.dres1_0 = fold_convbn(model.dres1[0])
         self.dres1_1 = fold_convbn(model.dres1[2])
-        self.combine1 = fold_hourglass_up(model.combine1)
+        self.combine1 = fold_hourglass_up(model.combine1, slot)
         self.dres2 = fold_hourglass(model.dres2)
         self.dres3 = fold_hourglass(model.dres3)
         self.dres4 = fold_hourglass(model.dres4)

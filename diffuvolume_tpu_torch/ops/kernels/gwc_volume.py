@@ -12,8 +12,9 @@ Kernels: ``csrc/gwc_volume.cu``.
   timing.
 * ``gwc_volume_packed`` replaces ``gwc_volume_packed`` of the same file: the
   volume written straight into the channels-last slot that the folded conv
-  chain reads, with the concat halves fused in (the ACV attention chain's 40
-  channels in a 48 slot; PCW's 40 + 12 + 12 in 64).  Plain version:
+  chain reads, with the concat halves fused in where a model has them (the
+  ACV attention chain's 40 channels in a 48 slot; PCW's 40 + 12 + 12 in 64,
+  or its 40 alone in 48 without the concat volume).  Plain version:
   ``ops/cost_volume.py:gwc_volume_slot``.  ``slot_plan`` reports the tile
   the kernel's plan picks on a device (W positions and disparities a block,
   threads, shared memory; ``csrc/gwc_volume.cu`` ``slot_plan``), made once a

@@ -10,13 +10,13 @@ the package has them); the ``diffuvolume_tpu_torch`` package and its kernels
 come from ``--root`` (for example the parent commit, unpacked with
 ``git archive``).  Run it by its file path, as above: ``python -m`` would
 import this checkout's package first.  Rows 5–9, 14 and 15 at every shape of
-every path and row 18 at the refinement's 11 convs, both dtypes checked,
-bf16 timed.  ``--rows stride1`` limits it to the stride-1 rows (5, 6, 9, 14,
+every path (``gwcnet-g``'s volume convs at C_in 48 among them) and row 18
+at the refinement's 11 convs, both dtypes checked, bf16 timed.  ``--rows stride1`` limits it to the stride-1 rows (5, 6, 9, 14,
 15, 18); ``--rows k1`` to row 9 at every shape of the ACV, PCW and IGEV
 folded paths (with ``F.linear`` and ``F.conv3d`` as yardsticks); ``--rows
 head`` to rows 1 and 17 at the ACV and PCW shapes, both align-corners
 conventions (float32 timed); ``--rows front`` to row 16 at every shape of the
-ACV, PCW and IGEV folded paths and row 10 (both stencils and the fused
+ACV, PCW, IGEV and ``gwcnet-g`` folded paths and row 10 (both stencils and the fused
 pair; ``chip_smoke.front_checks``); a package from before the fused pair
 (``--root`` of an older checkout) reports no plans and runs the pair as two
 launches (``_older_front``).  ``--rows volume``: row 3 in both forms (the
@@ -287,6 +287,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     out = {"root": root, "card": cs.card_line(), "paths": {}}
     paths = [("ACV", cs.CONV_CASES), ("PCW", cs.PCW_CONV_CASES),
+             ("gwcnet-g", cs.GWCNET_G_CONV_CASES),
              ("IGEV folded", cs.IGEV_CONV_CASES), ("IGEV module", cs.IGEV_SMALL_CASES),
              *((f"{m.upper()} module, routed", c) for m, c in cs.PACKED_CASES.items())]
     kinds = {"stride1": ("p", "k1"), "k1": ("k1",), "head": (), "front": (), "volume": (),

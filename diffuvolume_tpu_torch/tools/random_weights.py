@@ -119,12 +119,14 @@ def tame_residual_branches(model: nn.Module) -> nn.Module:
     return model
 
 
-def random_pcw(max_disp: int, diffusion: bool, generator: torch.Generator) -> PCWNet:
+def random_pcw(max_disp: int, diffusion: bool, generator: torch.Generator,
+               use_concat_volume: bool = True) -> PCWNet:
     """An eval-mode ``PCWNet`` on the CPU in float32, every weight and
     BatchNorm statistic drawn from ``generator``: the JAX package's
     initialisation, ``_draw_batchnorm``, then each 2-D residual block's
     ``conv2`` BatchNorm weight times ``PCW_RESIDUAL_BN_SCALE``."""
-    model = PCWNet(max_disp=max_disp, diffusion=diffusion).init_weights(generator)
+    model = PCWNet(max_disp=max_disp, diffusion=diffusion,
+                   use_concat_volume=use_concat_volume).init_weights(generator)
     _draw_batchnorm(model, generator)
     return tame_residual_branches(model).eval()
 
@@ -147,25 +149,30 @@ def calibrate_pcw(model: PCWNet, left: torch.Tensor, right: torch.Tensor,
     return model
 
 
-def random_pcw_pair(max_disp: int, generator: torch.Generator) -> tuple[PCWNet, PCWNet]:
-    """``(baseline, ddim)`` PCWNets; the DDIM model shares the baseline's
-    weights and draws only its time embedding."""
-    baseline = random_pcw(max_disp, False, generator)
-    ddim = random_pcw(max_disp, True, generator)
+def random_pcw_pair(max_disp: int, generator: torch.Generator,
+                    use_concat_volume: bool = True) -> tuple[PCWNet, PCWNet]:
+    """``(baseline, ddim)`` PCWNets (``gwcnet-gc`` and ``pcwnet_ddim``; without
+    ``use_concat_volume`` ``gwcnet-g`` and ``pcwnet_ddim`` without the
+    concat volume); the DDIM model shares the baseline's weights and draws
+    only its time embedding."""
+    baseline = random_pcw(max_disp, False, generator, use_concat_volume)
+    ddim = random_pcw(max_disp, True, generator, use_concat_volume)
     ddim.load_state_dict(baseline.state_dict(), strict=False)
     return baseline, ddim
 
 
 @torch.no_grad()
-def seeded_pcw_path(device, h: int = 384, w: int = 1248, max_disp: int = 192):
+def seeded_pcw_path(device, h: int = 384, w: int = 1248, max_disp: int = 192,
+                    use_concat_volume: bool = True):
     """The PCW path's inputs from seed 0: ``(baseline, ddim, left, right)``,
-    the models from ``random_pcw_pair`` in bfloat16 on ``device``, calibrated
-    by ``calibrate_pcw`` on the images (logit std 10, residual 1 px), the
-    images ``(1, h, w, 3)`` float32 with std 0.3, the right shifted 3 px."""
+    the models from ``random_pcw_pair`` (with or without the concat volume)
+    in bfloat16 on ``device``, calibrated by ``calibrate_pcw`` on the images
+    (logit std 10, residual 1 px), the images ``(1, h, w, 3)`` float32 with
+    std 0.3, the right shifted 3 px."""
     g = torch.Generator().manual_seed(0)
     left = (torch.randn((1, h, w, 3), generator=g) * 0.3).to(device)
     right = torch.roll(left, -3, dims=2)
-    baseline, ddim = random_pcw_pair(max_disp, g)
+    baseline, ddim = random_pcw_pair(max_disp, g, use_concat_volume)
     baseline = baseline.to(device, torch.bfloat16)
     ddim = ddim.to(device, torch.bfloat16)
     calibrate_pcw(baseline, left, right)

@@ -176,9 +176,11 @@ def _hourglass_up(tp: str, fn: str) -> list[Rule]:
     return rules
 
 
-def pcw_rules(diffusion: bool = True) -> list[Rule]:
-    """Every PCWNet (KITTI12 ``pwcnet_ddim.py``, the concat-volume variant)
-    state-dict key with its flax variable path."""
+def pcw_rules(diffusion: bool = True, use_concat_volume: bool = True) -> list[Rule]:
+    """Every PCWNet (KITTI12 ``pwcnet_ddim.py``) state-dict key with its
+    flax variable path; without ``use_concat_volume`` no concat heads
+    (``lastconv``, ``concat2..4``), as upstream ``PWCNet_G`` has none (the
+    JAX package's ``convert_torch_pcw.pcw_rules``)."""
     fe = "feature_extraction"
     rules = []
     for i, seq in enumerate((0, 2, 4)):
@@ -189,7 +191,10 @@ def pcw_rules(diffusion: bool = True) -> list[Rule]:
     ):
         for i in range(blocks):
             rules += _basic_block(f"{fe}.{layer}.{i}", f"{fe}/{layer}_{i}", i == 0 and ds_first)
-    for head in ("gw2", "gw3", "gw4", "layer11", "lastconv", "concat2", "concat3", "concat4"):
+    heads = ("gw2", "gw3", "gw4", "layer11")
+    if use_concat_volume:
+        heads += ("lastconv", "concat2", "concat3", "concat4")
+    for head in heads:
         rules += _head2d(f"{fe}.{head}", f"{fe}/{head}")
     rules += _convbn(f"{fe}.layer_refine.0", f"{fe}/layer_refine_0")
     rules += _convbn(f"{fe}.layer_refine.2", f"{fe}/layer_refine_1")
@@ -349,9 +354,12 @@ def state_dict_from_jax(variables, diffusion: bool = True) -> dict[str, torch.Te
     return state_dict_from_rules(variables, acv_rules(diffusion))
 
 
-def pcw_state_dict_from_jax(variables, diffusion: bool = True) -> dict[str, torch.Tensor]:
-    """The port's ``PCWNet`` state dict from the JAX package's variables."""
-    return state_dict_from_rules(variables, pcw_rules(diffusion))
+def pcw_state_dict_from_jax(variables, diffusion: bool = True,
+                            use_concat_volume: bool = True) -> dict[str, torch.Tensor]:
+    """The port's ``PCWNet`` state dict from the JAX package's variables.
+    Without ``use_concat_volume`` the JAX model's 1-channel concat heads,
+    which nothing reads, are left out."""
+    return state_dict_from_rules(variables, pcw_rules(diffusion, use_concat_volume))
 
 
 def igev_state_dict_from_jax(variables, diffusion: bool = True) -> dict[str, torch.Tensor]:

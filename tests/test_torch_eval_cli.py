@@ -171,15 +171,14 @@ def test_save_disp_writes_each_pair(sceneflow, tmp_path, monkeypatch):
 
 def test_registry_names_match_jax():
     """Every name of the JAX registry; each builds the port's model with
-    the JAX registry's ``diffusion`` setting; ``gwcnet-g`` is not ported."""
+    the JAX registry's ``diffusion`` setting; ``gwcnet-g`` without the
+    concat volume."""
     assert set(MODELS) == set(J_MODELS)
     for name in MODELS:
-        if name == "gwcnet-g":
-            with pytest.raises(NotImplementedError):
-                build_model(name, max_disp=MAXDISP)
-            continue
         m = build_model(name, max_disp=MAXDISP)
         assert m.diffusion == name.endswith("_ddim") and m.max_disp == MAXDISP
+        if name.startswith(("gwcnet", "pcwnet")):
+            assert m.use_concat_volume == (name != "gwcnet-g")
 
 
 def test_entry_points_refuse_to_run_without_a_card(sceneflow, monkeypatch):

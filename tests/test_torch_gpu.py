@@ -1639,3 +1639,74 @@ def test_train_step_on_the_card_reaches_every_parameter(dev, model_name):
     assert torch.isfinite(out["loss"]) and [f.launches for f in counters] == before
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+# -- gwcnet-g: PCWNet without the concat volume -------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h,w", [(48, 96, 312), (24, 48, 156), (12, 24, 78), (6, 12, 39)])
+def test_gwc_volume_packed_gwcnet_g(dev, dtype, d, h, w):
+    """Row 16 at gwcnet-g's four scales of 384×1248: the 40 groups alone
+    (``cc = 0``) in a 48-channel slot, float32 to 1e-5 relative, bf16 to one
+    ulp; the fill zero."""
+    left, right = (_randn(dev, 1, 320, h, w, seed=s).to(dtype) for s in (300, 301))
+    got = kg.gwc_volume_packed(left, right, d, 40, mask_ref=True)
+    want = plain.gwc_volume_slot(left, right, d, 40, 48, mask_ref=True)
+    torch.cuda.synchronize()
+    assert got.shape == (1, d, h, w, 48) and not got[..., 40:].any()
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=rel, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn,cout,shape,act", [
+    ("conv3d_fold_x2", 32, (1, 48, 96, 312), "mish"),   # dres0_0 at 1/4
+    ("conv3d_fold_p", 64, (1, 24, 48, 156), None),      # combine1's volume part at 1/8
+    ("conv3d_fold_p", 128, (1, 12, 24, 78), None),      # combine2's at 1/16
+    ("conv3d_fold_p", 128, (1, 6, 12, 39), None),       # combine3's at 1/32
+])
+def test_gwcnet_g_volume_convs(dev, dtype, fn, cout, shape, act):
+    """Rows 6 and 5 at C_in 48 (40 data channels, the slot's fill zero in x
+    and w) at gwcnet-g's shapes of 384×1248, against the plain version."""
+    x, wt, bias = _conv_inputs(dev, dtype, shape, 48, cout, 3, seed=302)
+    x[..., 40:] = 0
+    wt[..., 40:, :] = 0
+    bias = bias if fn == "conv3d_fold_x2" else None
+    got = getattr(kconv, fn)(x, wt, bias, act=act)
+    want = kconv.conv3d_fold_plain(x, wt, bias, 1, None, act)
+    torch.cuda.synchronize()
+    atol, rtol = CONV_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@torch.no_grad()
+def test_gwcnet_g_folded_pair_matches_module_pair(dev):
+    """gwcnet-g and ``pcwnet_ddim(use_concat_volume=False)`` at 64×64,
+    float32: the folded pair against the module pair on the card (the same
+    draws) within 1e-2 px on the baseline and 0.1 px max, 5e-3 px mean on
+    the output; the folded pair launches row 16 8 times and row 6 twice."""
+    from diffuvolume_tpu_torch.eval.pipeline import pcw_ddim_inference
+    from diffuvolume_tpu_torch.models.pcw_fold import fold_pcw
+    from diffuvolume_tpu_torch.tools.random_weights import calibrate_pcw, random_pcw_pair
+
+    left = _randn(dev, 1, 64, 64, 3, seed=303) * 0.3
+    right = torch.roll(left, -3, 2)
+    bm, dm = (m.to(dev) for m in random_pcw_pair(192, torch.Generator().manual_seed(0),
+                                                 use_concat_volume=False))
+    calibrate_pcw(bm, left, right)
+    dm.load_state_dict(bm.state_dict(), strict=False)
+    out = {}
+    for packed in (True, False):
+        models = (fold_pcw(bm), fold_pcw(dm)) if packed else (bm, dm)
+        before = kg.gwc_volume_packed.launches, kconv.conv3d_fold_x2.launches
+        out[packed] = pcw_ddim_inference(*models, left, right, device=dev, packed=packed,
+                                         generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        if packed:
+            assert (kg.gwc_volume_packed.launches - before[0],
+                    kconv.conv3d_fold_x2.launches - before[1]) == (8, 2)
+    (ff, fb), (mf, mb) = out[True], out[False]
+    assert torch.isfinite(ff).all() and ff.shape == (1, 64, 64)
+    assert (fb - mb).abs().max() < 1e-2
+    err = (ff - mf).abs()
+    assert err.max() < 0.1 and err.mean() < 5e-3, (float(err.max()), float(err.mean()))

@@ -205,10 +205,10 @@ def one_formula(model):
 
 
 def recipe_step(kind: str, model, batch: dict, t, noise, dp=None, iters: int = ITERS) -> dict:
-    """One step of the KITTI12 recipe (``kind`` "pcw": six heads, Adam) or
-    the KITTI15 one ("igev": ``iters`` GRU iterations, clip + AdamW) with
-    the draws given; its metrics."""
-    if kind == "pcw":
+    """One step of the KITTI12 recipe (``kind`` "pcw" or "gwcnet-g": six
+    heads, Adam) or the KITTI15 one ("igev": ``iters`` GRU iterations, clip
+    + AdamW) with the draws given; its metrics."""
+    if kind in ("pcw", "gwcnet-g"):
         state = TrainState(model, make_optimizer(model), milestone_lr_schedule(1e-3, "10:2", 1))
         step = make_train_step(model, KITTI12_WEIGHTS, dp=dp)
     else:
@@ -238,7 +238,9 @@ def split_recipe_rank(rank: int, port: int, inputs: str, out: str) -> None:
     """One rank of a 1 × 2 grid running ``recipe_step`` on ``inputs``
     (``kind``, ``max_disp``, ``iters``, the model's ``state``, ``batch``,
     ``t``, ``noise``; float64): its loss and last head's rows to ``out``.
-    The JAX parity files run it beside their JAX step."""
+    The JAX parity files run it beside their JAX step.  ``kind`` "pcw" and
+    "igev" are the DDIM models, "gwcnet-g" PCWNet without diffusion or the
+    concat volume."""
     from diffuvolume_tpu_torch.models.igev.model import IGEVStereo
     from diffuvolume_tpu_torch.models.pcw import PCWNet
 
@@ -246,7 +248,9 @@ def split_recipe_rank(rank: int, port: int, inputs: str, out: str) -> None:
     x = torch.load(inputs)
     mesh = ddp.init(rank, 2, "cpu", f"tcp://localhost:{port}", n_volume=2)
     try:
-        model = (PCWNet if x["kind"] == "pcw" else IGEVStereo)(x["max_disp"], True)
+        model = {"pcw": lambda md: PCWNet(md, True),
+                 "gwcnet-g": lambda md: PCWNet(md, False, use_concat_volume=False),
+                 "igev": lambda md: IGEVStereo(md, True)}[x["kind"]](x["max_disp"])
         model.load_state_dict(x["state"])
         model = ddp.sync_batch_norm(model.double().train(), mesh)
         res = recipe_step(x["kind"], model, x["batch"], x["t"], x["noise"], mesh, x["iters"])
