@@ -16,6 +16,7 @@ import torch
 from diffuvolume_tpu_torch.diffusion import schedule as sched_lib
 from diffuvolume_tpu_torch.diffusion.codec import encode_disparity_volume
 from diffuvolume_tpu_torch.ops.regression import resize_bilinear
+from diffuvolume_tpu_torch.utils.spans import DDIM_STEP, H2D, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,80 +130,82 @@ def ddim_sample(
     aux = denoise_aux_init
     step_disps, decisions = [], []
     for i in range(cfg.sampling_steps):
-        time, time_next = (int(v) for v in coefs["pairs"][i])
-        sigma = float(coefs["sigma"][i])
-        c = float(coefs["c"][i])
-        sqrt_alpha_next = float(coefs["sqrt_alpha_next"][i])
-        t_vec = torch.full((b,), time, dtype=torch.int32, device=dev)
+        with span(DDIM_STEP):
+            time, time_next = (int(v) for v in coefs["pairs"][i])
+            sigma = float(coefs["sigma"][i])
+            c = float(coefs["c"][i])
+            sqrt_alpha_next = float(coefs["sqrt_alpha_next"][i])
+            t_vec = torch.full((b,), time, dtype=torch.int32, device=dev)
 
-        if denoise_aux_init is not None:
-            out = denoise_fn(latent, t_vec, aux)
-            aux = out[3]
-        else:
-            out = denoise_fn(latent, t_vec)
-        disp, unc = out[0].float(), out[1].float()
+            if denoise_aux_init is not None:
+                out = denoise_fn(latent, t_vec, aux)
+                aux = out[3]
+            else:
+                out = denoise_fn(latent, t_vec)
+            disp, unc = out[0].float(), out[1].float()
 
-        x_start = encode_disparity_volume(reencode_fn(disp), cfg.num_bins, cfg.scale)
-        x_start = x_start.clamp(-cfg.scale, cfg.scale)
+            x_start = encode_disparity_volume(reencode_fn(disp), cfg.num_bins, cfg.scale)
+            x_start = x_start.clamp(-cfg.scale, cfg.scale)
 
-        if cfg.invert_from == "transformed":
-            if len(out) < 3:
-                raise ValueError(
-                    "invert_from='transformed' needs denoise_fn to return the "
-                    "time-embedded [0,1]-rescaled volume as a 3rd output"
-                )
-            x_t = out[2].float()
-        elif cfg.invert_from == "latent":
-            x_t = latent
-        else:
-            raise ValueError(cfg.invert_from)
-        pred_noise = sched_lib.predict_noise_from_start(sched, x_t, t_vec, x_start)
+            if cfg.invert_from == "transformed":
+                if len(out) < 3:
+                    raise ValueError(
+                        "invert_from='transformed' needs denoise_fn to return the "
+                        "time-embedded [0,1]-rescaled volume as a 3rd output"
+                    )
+                x_t = out[2].float()
+            elif cfg.invert_from == "latent":
+                x_t = latent
+            else:
+                raise ValueError(cfg.invert_from)
+            pred_noise = sched_lib.predict_noise_from_start(sched, x_t, t_vec, x_start)
 
-        gap = (disp - baseline_disp).abs()
-        taken = {}
-        if cfg.renewal:
-            taken["renew_gap"] = (gap, cfg.consistency_tau)
-            if cfg.use_uncertainty:
-                taken["renew_unc"] = (unc, cfg.uncertainty_tau)
-            keep = torch.stack([stat < tau for stat, tau in taken.values()]).all(0)
-            m = resize_bilinear(keep.float(), (h4, w4), h_axis=1, w_axis=2)
-            new_mask = (mask + m).clamp(0.0, 1.0)
-            if not (cfg.skip_mask_update_on_last and i == cfg.sampling_steps - 1):
-                mask = new_mask
+            gap = (disp - baseline_disp).abs()
+            taken = {}
+            if cfg.renewal:
+                taken["renew_gap"] = (gap, cfg.consistency_tau)
+                if cfg.use_uncertainty:
+                    taken["renew_unc"] = (unc, cfg.uncertainty_tau)
+                keep = torch.stack([stat < tau for stat, tau in taken.values()]).all(0)
+                m = resize_bilinear(keep.float(), (h4, w4), h_axis=1, w_axis=2)
+                new_mask = (mask + m).clamp(0.0, 1.0)
+                if not (cfg.skip_mask_update_on_last and i == cfg.sampling_steps - 1):
+                    mask = new_mask
 
-        if cfg.hard_clamp_tau is not None:
-            taken["clamp_gap"] = (gap, cfg.hard_clamp_tau)
-            disp = torch.where(gap < cfg.hard_clamp_tau, disp, baseline_disp)
-        decisions.append(taken)
+            if cfg.hard_clamp_tau is not None:
+                taken["clamp_gap"] = (gap, cfg.hard_clamp_tau)
+                disp = torch.where(gap < cfg.hard_clamp_tau, disp, baseline_disp)
+            decisions.append(taken)
 
-        z = injected("z", i)
-        if z is None:
-            z = _draw("normal", latent.shape, latent, generator)
-        updated = x_start * sqrt_alpha_next + c * pred_noise + sigma * z
+            z = injected("z", i)
+            if z is None:
+                z = _draw("normal", latent.shape, latent, generator)
+            updated = x_start * sqrt_alpha_next + c * pred_noise + sigma * z
 
-        r_inj = injected("replace", i)
-        if cfg.replace_mode == "uniform":
-            replacement = r_inj if r_inj is not None else _draw(
-                "uniform", latent.shape, latent, generator)
-        elif cfg.replace_mode in ("qsample", "qsample_compound"):
-            eps = r_inj if r_inj is not None else _draw(
-                "normal", latent.shape, latent, generator)
-            replacement = sched_lib.q_sample(sched, replace_src, t_vec, eps)
-            if cfg.replace_mode == "qsample_compound" and time_next >= 0:
-                replace_src = replacement
-        else:
-            raise ValueError(cfg.replace_mode)
-        if cfg.renewal:
-            updated = torch.where(mask[:, None] == 0, replacement, updated)
+            r_inj = injected("replace", i)
+            if cfg.replace_mode == "uniform":
+                replacement = r_inj if r_inj is not None else _draw(
+                    "uniform", latent.shape, latent, generator)
+            elif cfg.replace_mode in ("qsample", "qsample_compound"):
+                eps = r_inj if r_inj is not None else _draw(
+                    "normal", latent.shape, latent, generator)
+                replacement = sched_lib.q_sample(sched, replace_src, t_vec, eps)
+                if cfg.replace_mode == "qsample_compound" and time_next >= 0:
+                    replace_src = replacement
+            else:
+                raise ValueError(cfg.replace_mode)
+            if cfg.renewal:
+                updated = torch.where(mask[:, None] == 0, replacement, updated)
 
-        latent = x_start if time_next < 0 else updated
-        step_disps.append(disp)
+            latent = x_start if time_next < 0 else updated
+            step_disps.append(disp)
 
     steps = torch.stack(step_disps)
     if not cfg.use_ensemble:
         final = steps[-1]
     else:
-        w = torch.tensor(list(cfg.ensemble_weights), dtype=torch.float32, device=dev)
+        with span(H2D):
+            w = torch.tensor(list(cfg.ensemble_weights), dtype=torch.float32, device=dev)
         if w.shape[0] != cfg.sampling_steps + 1:
             raise ValueError("ensemble weights cover [baseline, step_1..step_N]")
         stacked = torch.cat([baseline_disp[None], steps], dim=0)

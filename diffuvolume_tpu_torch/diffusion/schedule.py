@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from diffuvolume_tpu_torch.utils.spans import H2D, span
+
 
 def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
     """Cosine beta schedule, clipped to [0, 0.999] (float64)."""
@@ -68,10 +70,11 @@ def make_schedule(
         posterior_mean_coef1=betas * np.sqrt(alphas_cumprod_prev) / (1.0 - alphas_cumprod),
         posterior_mean_coef2=(1.0 - alphas_cumprod_prev) * np.sqrt(alphas) / (1.0 - alphas_cumprod),
     )
-    return DiffusionSchedule(**{
-        k: torch.as_tensor(v.astype(np.float32), device=device).to(dtype)
-        for k, v in arrays.items()
-    })
+    buffers = {}
+    for k, v in arrays.items():
+        with span(H2D):
+            buffers[k] = torch.as_tensor(v.astype(np.float32), device=device).to(dtype)
+    return DiffusionSchedule(**buffers)
 
 
 def extract(a: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:

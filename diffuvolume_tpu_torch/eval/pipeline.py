@@ -59,6 +59,7 @@ from diffuvolume_tpu_torch.models.pcw_fold import FoldedPCW, fold_pcw
 from diffuvolume_tpu_torch.ops.kernels.concat_volume import concat_volume
 from diffuvolume_tpu_torch.ops.regression import resize_bilinear
 from diffuvolume_tpu_torch.utils.device import resolve_device
+from diffuvolume_tpu_torch.utils.spans import INFER, PREP, span
 
 _FOLDS = {FoldedACV: fold_acv, FoldedPCW: fold_pcw, FoldedIGEV: fold_igev}
 
@@ -158,11 +159,12 @@ def acv_prep(baseline_model: ACVNet | FoldedACV, ddim_model: ACVNet | FoldedACV,
     ``packed``."""
     baseline_model, ddim_model = (_on_path(m, packed, FoldedACV)
                                   for m in (baseline_model, ddim_model))
-    baseline_disp = baseline_model(left, right)[-1]
-    cl, cr, att = ddim_model.build_cost_volume(left, right)
-    entry = ConcatEntry(concat_volume(cl, cr, cfg.num_bins, channels_last=packed), att)
-    baseline_latent = _baseline_latent(baseline_disp, cfg, left.shape[1] // 4,
-                                       left.shape[2] // 4)
+    with span(PREP):
+        baseline_disp = baseline_model(left, right)[-1]
+        cl, cr, att = ddim_model.build_cost_volume(left, right)
+        entry = ConcatEntry(concat_volume(cl, cr, cfg.num_bins, channels_last=packed), att)
+        baseline_latent = _baseline_latent(baseline_disp, cfg, left.shape[1] // 4,
+                                           left.shape[2] // 4)
     return baseline_disp, baseline_latent, entry
 
 
@@ -198,13 +200,14 @@ def acv_ddim_inference(
 
     Returns ``(final_disp (B,H,W), baseline_disp (B,H,W))``, float32.
     """
-    dev, (baseline_model, ddim_model), left, right = _inputs(
-        (baseline_model, ddim_model), FoldedACV, packed, left, right, device)
-    with float32_exact(baseline_model, ddim_model):
-        baseline_disp, baseline_latent, entry = acv_prep(
-            baseline_model, ddim_model, left, right, cfg, packed)
-        return _sample(sampler_args(ddim_model, entry, (left.shape[1], left.shape[2])),
-                       baseline_disp, baseline_latent, cfg, dev, generator, noise_source)
+    with span(INFER):
+        dev, (baseline_model, ddim_model), left, right = _inputs(
+            (baseline_model, ddim_model), FoldedACV, packed, left, right, device)
+        with float32_exact(baseline_model, ddim_model):
+            baseline_disp, baseline_latent, entry = acv_prep(
+                baseline_model, ddim_model, left, right, cfg, packed)
+            return _sample(sampler_args(ddim_model, entry, (left.shape[1], left.shape[2])),
+                           baseline_disp, baseline_latent, cfg, dev, generator, noise_source)
 
 
 @torch.no_grad()
@@ -216,10 +219,11 @@ def pcw_prep(baseline_model: PCWNet | FoldedPCW, ddim_model: PCWNet | FoldedPCW,
     volume is channels-last when ``packed``."""
     baseline_model, ddim_model = (_on_path(m, packed, FoldedPCW)
                                   for m in (baseline_model, ddim_model))
-    baseline_disp = baseline_model(left, right)[-1]
-    combine, _, fl, fr = ddim_model.build_cost_volume(left, right)
-    baseline_latent = _baseline_latent(baseline_disp, cfg, left.shape[1] // 4,
-                                       left.shape[2] // 4)
+    with span(PREP):
+        baseline_disp = baseline_model(left, right)[-1]
+        combine, _, fl, fr = ddim_model.build_cost_volume(left, right)
+        baseline_latent = _baseline_latent(baseline_disp, cfg, left.shape[1] // 4,
+                                           left.shape[2] // 4)
     return baseline_disp, baseline_latent, PCWEntry(combine, fl, fr)
 
 
@@ -249,13 +253,14 @@ def pcw_ddim_inference(
 
     Returns ``(final_disp (B,H,W), baseline_disp (B,H,W))``, float32.
     """
-    dev, (baseline_model, ddim_model), left, right = _inputs(
-        (baseline_model, ddim_model), FoldedPCW, packed, left, right, device)
-    with float32_exact(baseline_model, ddim_model):
-        baseline_disp, baseline_latent, entry = pcw_prep(
-            baseline_model, ddim_model, left, right, cfg, packed)
-        return _sample(sampler_args(ddim_model, entry, (left.shape[1], left.shape[2])),
-                       baseline_disp, baseline_latent, cfg, dev, generator, noise_source)
+    with span(INFER):
+        dev, (baseline_model, ddim_model), left, right = _inputs(
+            (baseline_model, ddim_model), FoldedPCW, packed, left, right, device)
+        with float32_exact(baseline_model, ddim_model):
+            baseline_disp, baseline_latent, entry = pcw_prep(
+                baseline_model, ddim_model, left, right, cfg, packed)
+            return _sample(sampler_args(ddim_model, entry, (left.shape[1], left.shape[2])),
+                           baseline_disp, baseline_latent, cfg, dev, generator, noise_source)
 
 
 @torch.no_grad()
@@ -269,10 +274,11 @@ def igev_prep(baseline_model: IGEVStereo | FoldedIGEV, ddim_model: IGEVStereo | 
     baseline_latent (B,D,H4,W4), IGEVEntry)``."""
     baseline_model, ddim_model = (_on_path(m, packed, FoldedIGEV)
                                   for m in (baseline_model, ddim_model))
-    baseline_disp = igev_forward(baseline_model, left, right, iters)
-    enc, pyramid = igev_encode(ddim_model, left, right, "lowband" if quirk else "band")
-    baseline_latent = _baseline_latent(baseline_disp, cfg, left.shape[1] // 4,
-                                       left.shape[2] // 4)
+    with span(PREP):
+        baseline_disp = igev_forward(baseline_model, left, right, iters)
+        enc, pyramid = igev_encode(ddim_model, left, right, "lowband" if quirk else "band")
+        baseline_latent = _baseline_latent(baseline_disp, cfg, left.shape[1] // 4,
+                                           left.shape[2] // 4)
     return baseline_disp, baseline_latent, IGEVEntry(enc, pyramid, iters)
 
 
@@ -309,13 +315,14 @@ def igev_ddim_inference(
 
     Returns ``(final_disp (B,H,W), baseline_disp (B,H,W))``, float32.
     """
-    dev, (baseline_model, ddim_model), left, right = _inputs(
-        (baseline_model, ddim_model), FoldedIGEV, packed, left, right, device)
-    with float32_exact(baseline_model, ddim_model):
-        baseline_disp, baseline_latent, entry = igev_prep(
-            baseline_model, ddim_model, left, right, cfg, packed, iters, quirk)
-        return _sample(sampler_args(ddim_model, entry, (left.shape[1], left.shape[2]), quirk),
-                       baseline_disp, baseline_latent, cfg, dev, generator, noise_source)
+    with span(INFER):
+        dev, (baseline_model, ddim_model), left, right = _inputs(
+            (baseline_model, ddim_model), FoldedIGEV, packed, left, right, device)
+        with float32_exact(baseline_model, ddim_model):
+            baseline_disp, baseline_latent, entry = igev_prep(
+                baseline_model, ddim_model, left, right, cfg, packed, iters, quirk)
+            return _sample(sampler_args(ddim_model, entry, (left.shape[1], left.shape[2]), quirk),
+                           baseline_disp, baseline_latent, cfg, dev, generator, noise_source)
 
 
 @torch.no_grad()
@@ -324,9 +331,10 @@ def igev_baseline_inference(model: IGEVStereo | FoldedIGEV, left, right, *, iter
                             packed: bool = True) -> torch.Tensor:
     """The frozen IGEV-Stereo alone (``baseline_inference`` with ``iters``):
     RAW ``(B, H, W, 3)`` images → ``(B, H, W)`` float32."""
-    dev, (model,), left, right = _inputs((model,), FoldedIGEV, packed, left, right, device)
-    with float32_exact(model):
-        return igev_forward(model, left, right, iters)
+    with span(INFER):
+        dev, (model,), left, right = _inputs((model,), FoldedIGEV, packed, left, right, device)
+        with float32_exact(model):
+            return igev_forward(model, left, right, iters)
 
 
 _BASELINE_FOLDS = ((ACVNet, FoldedACV), (PCWNet, FoldedPCW), (IGEVStereo, FoldedIGEV))
@@ -359,6 +367,7 @@ def baseline_inference(model, left, right, *, iters: int | None = None,
                                        device=device, packed=packed)
     if iters is not None:
         raise ValueError(f"a {kind[0].__name__} takes no GRU iterations")
-    dev, (model,), left, right = _inputs((model,), kind[1], packed, left, right, device)
-    with float32_exact(model):
-        return model(left, right)[-1].float()
+    with span(INFER):
+        dev, (model,), left, right = _inputs((model,), kind[1], packed, left, right, device)
+        with float32_exact(model):
+            return model(left, right)[-1].float()

@@ -55,6 +55,7 @@ from diffuvolume_tpu_torch.ops.kernels.depthwise import depthwise_hw_p2
 from diffuvolume_tpu_torch.ops.kernels.fused_head import fused_upsample_softargmin
 from diffuvolume_tpu_torch.ops.kernels.gwc_volume import gwc_volume_packed
 from diffuvolume_tpu_torch.ops.kernels.layout import pack, unpack
+from diffuvolume_tpu_torch.utils.spans import FEATURES, span
 
 
 class FoldedConv(NamedTuple):
@@ -192,7 +193,8 @@ class FoldedACV:
         launch), then ``dres1_att_0`` on the slot."""
         m = self.model
         _check_geometry(m.max_disp // 4, left.shape[1] // 4, left.shape[2] // 4)
-        feat_l, feat_r = m.trunk(left, right)
+        with span(FEATURES):
+            feat_l, feat_r = m.trunk(left, right)
         vol = gwc_volume_packed(feat_l, feat_r, m.max_disp // 4, m.num_groups, self.att_slot)
         vol = depthwise_hw_p2(vol, *self.patch, *self.patch_l123)
         a = conv3d_fold_x2(vol, *self.dres1_att_0, act="relu")

@@ -69,6 +69,7 @@ from diffuvolume_tpu_torch.ops.kernels.fused_head import (
     fused_uncertainty_at,
     fused_upsample_softargmin,
 )
+from diffuvolume_tpu_torch.utils.spans import FEATURES, REFINE, span
 
 
 def _split(fc: FoldedConv, c: int, v_slot: int) -> tuple[FoldedConv, FoldedConv]:
@@ -245,7 +246,8 @@ class FoldedPCW:
         ``(combine (B, D, H4, W4, 32), cost0 (B, D, H4, W4, 32), fl, fr)``."""
         m, act = self.model, self.act
         _check_geometry(m.max_disp // 4, left.shape[1] // 4, left.shape[2] // 4)
-        fl, fr = m.features(left, right)
+        with span(FEATURES):
+            fl, fr = m.features(left, right)
         v1, v2, v3, v4 = m.volumes(fl, fr)
         y = conv3d_fold_p(conv3d_fold_x2(v1, *self.dres0_0, act=act), *self.dres0_1, act=act)
         z = conv3d_fold_p(y, *self.dres1_0, act=act)
@@ -268,10 +270,12 @@ class FoldedPCW:
         h = conv3d_fold_p(x, *self.classif3_0, act=act)
         cost3 = conv3d_fold_p(h, *self.classif3_1)[..., 0].float().contiguous()
         pred3, _ = fused_upsample_softargmin(cost3, m.max_disp, out_hw, align_corners=True)
-        if self.refine is None:
-            disp = m.refine(pred3, fl, fr, out_hw)
-        else:
-            disp = refine_flat(self.refine, m.refine_input(pred3, fl, fr, out_hw), pred3, act)
+        with span(REFINE):
+            if self.refine is None:
+                disp = m.refine(pred3, fl, fr, out_hw)
+            else:
+                disp = refine_flat(self.refine, m.refine_input(pred3, fl, fr, out_hw), pred3,
+                                   act)
         unc = (fused_uncertainty_at(cost3, disp, m.max_disp, out_hw, align_corners=True)
                if want_unc else None)
         return disp, unc

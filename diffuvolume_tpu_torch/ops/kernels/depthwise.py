@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from diffuvolume_tpu_torch.ops.kernels import _build
+from diffuvolume_tpu_torch.utils.spans import H2D, span
 
 
 def depthwise_hw_plain(x: torch.Tensor, wt: torch.Tensor, dil: tuple[int, ...]) -> torch.Tensor:
@@ -65,7 +66,8 @@ def depthwise_plan(planes: int, h: int, w: int, c: int, dtype: torch.dtype, dm1:
 
 @functools.lru_cache(maxsize=32)
 def _device_dil(dil: tuple[int, ...], device: torch.device) -> torch.Tensor:
-    return torch.tensor(dil, dtype=torch.int32, device=device)
+    with span(H2D):
+        return torch.tensor(dil, dtype=torch.int32, device=device)
 
 
 def _check(x: torch.Tensor, wt: torch.Tensor, dil) -> tuple[int, ...]:

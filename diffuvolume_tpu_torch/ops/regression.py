@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from diffuvolume_tpu_torch.parallel.volume_sharding import band_of, current_volume_spec, halo
+from diffuvolume_tpu_torch.utils.spans import H2D, span
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -107,9 +108,10 @@ def resize_linear(
     in_size = x.shape[axis]
     if in_size == out_size:
         return x
-    m = torch.as_tensor(
-        _interp_matrix(in_size, out_size, align_corners), device=x.device
-    ).to(x.dtype)
+    with span(H2D):
+        m = torch.as_tensor(
+            _interp_matrix(in_size, out_size, align_corners), device=x.device
+        ).to(x.dtype)
     moved = x.movedim(axis, -1)
     return torch.matmul(moved, m.t()).movedim(-1, axis)
 
@@ -199,8 +201,9 @@ def regress_head(cost: torch.Tensor, max_disp: int, out_hw: tuple[int, int],
         if current_volume_spec() is None:
             return upsample_cost_and_regress(cost, max_disp, out_hw, align_corners)[0]
         first, n, rows = band_of(cost)
-        m = torch.as_tensor(band_rows_matrix(first, n, rows, out_hw[0], align_corners),
-                            device=cost.device).to(cost.dtype)
+        with span(H2D):
+            m = torch.as_tensor(band_rows_matrix(first, n, rows, out_hw[0], align_corners),
+                                device=cost.device).to(cost.dtype)
         up = resize_linear(halo(cost, 1, 1), max_disp, 1, align_corners)
         up = torch.matmul(up.movedim(2, -1), m.t()).movedim(-1, 2)
         prob = torch.softmax(resize_linear(up, out_hw[1], 3, align_corners), dim=1)

@@ -1,4 +1,4 @@
-"""Stage timings on the card, speed of light against its peaks, traces.
+"""Stage timings on the card, speed of light against its peaks.
 
 Counterpart of ``diffuvolume_tpu/tools/profiling.py``:
 
@@ -12,17 +12,14 @@ Counterpart of ``diffuvolume_tpu/tools/profiling.py``:
   short stages take the profiler's reading;
 * ``device_time_by_group``: a profiler session's kernel time by the
   kernel groups of ``GROUPS`` (the port's kernels by source, cuDNN,
-  matmuls, BatchNorm, the optimiser, copies, elementwise);
-* ``trace``: a torch.profiler session written as a Chrome trace.
+  matmuls, BatchNorm, the optimiser, copies, elementwise).
 
 Needs a CUDA device for every reading; nothing here falls back to the CPU.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import os
 import re
 import statistics
 from typing import Callable
@@ -186,16 +183,3 @@ def time_stage(fn: Callable, *args, iters: int = 5, warmup: int = 1, method: str
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-@contextlib.contextmanager
-def trace(path: str):
-    """A torch.profiler session over the block (host and device), written
-    to ``path`` as a Chrome trace; yields the profiler."""
-    _check_card()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-        torch.cuda.synchronize()
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    prof.export_chrome_trace(path)

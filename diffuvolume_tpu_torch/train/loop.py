@@ -39,6 +39,7 @@ from diffuvolume_tpu_torch.ops.regression import resize_bilinear
 from diffuvolume_tpu_torch.parallel.volume_sharding import constrain_volume, volume_sharding
 from diffuvolume_tpu_torch.train.loss import SCENEFLOW_WEIGHTS, multi_scale_loss, sequence_loss
 from diffuvolume_tpu_torch.train.lr import Schedule
+from diffuvolume_tpu_torch.utils.spans import TRAIN_BACKWARD, TRAIN_FORWARD, TRAIN_OPTIMIZER, span
 
 TIMESTEPS = 1000
 
@@ -139,11 +140,13 @@ def _draws(b: int, shape, dev, generator, t, noise, dp):
 
 
 def _update(state: TrainState, loss: torch.Tensor, dp) -> None:
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    with span(TRAIN_BACKWARD):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
     if dp is not None:
         dp.all_reduce_gradients(p for g in state.optimizer.param_groups for p in g["params"])
-    apply_gradients(state)
+    with span(TRAIN_OPTIMIZER):
+        apply_gradients(state)
 
 
 def make_train_step(model, weights=SCENEFLOW_WEIGHTS, bf16: bool = False,
@@ -167,15 +170,16 @@ def make_train_step(model, weights=SCENEFLOW_WEIGHTS, bf16: bool = False,
         b, h, w = disp_gt.shape
         max_disp = model.max_disp
         dev = disp_gt.device
-        mask = (disp_gt < max_disp) & (disp_gt > 0)
-        disp_q = _quarter_gt(disp_gt, max_disp - 1)
-        t, noise = _draws(b, (max_disp // 4, h // 4, w // 4), dev, generator, t, noise, dp)
-        model.train()
-        with _autocast(dev, bf16):
-            preds = model.train_forward(left, right, disp_q, t, noise)
-        # The heads' rows (this rank's band under the volume split).
-        disp_gt, mask = constrain_volume(disp_gt), constrain_volume(mask)
-        loss = multi_scale_loss(preds, disp_gt, mask, weights, reduce)
+        with span(TRAIN_FORWARD):
+            mask = (disp_gt < max_disp) & (disp_gt > 0)
+            disp_q = _quarter_gt(disp_gt, max_disp - 1)
+            t, noise = _draws(b, (max_disp // 4, h // 4, w // 4), dev, generator, t, noise, dp)
+            model.train()
+            with _autocast(dev, bf16):
+                preds = model.train_forward(left, right, disp_q, t, noise)
+            # The heads' rows (this rank's band under the volume split).
+            disp_gt, mask = constrain_volume(disp_gt), constrain_volume(mask)
+            loss = multi_scale_loss(preds, disp_gt, mask, weights, reduce)
         _update(state, loss, dp)
         loss = loss.detach()
         return {"loss": loss if dp is None else dp.sum(loss),
@@ -203,21 +207,22 @@ def make_igev_train_step(model, iters: int = 22, bf16: bool = False, dp=None) ->
     def split_step(state, batch, generator, t, noise) -> dict:
         left, right, disp_gt = batch["left"], batch["right"], batch["disp_gt"]
         valid = batch.get("valid")
-        if valid is None:
-            valid = (disp_gt > 0).float()
         b, h, w = disp_gt.shape
         dev = disp_gt.device
-        disp_q = _quarter_gt(disp_gt, 4.0 * (num_bins - 1))
-        t, noise = _draws(b, (num_bins, h // 4, w // 4), dev, generator, t, noise, dp)
-        x_start = encode_disparity_volume(disp_q, num_bins, model.scale)
-        noisy = q_sample(make_schedule(TIMESTEPS, device=dev), x_start, t, noise)
-        model.train()
-        with _autocast(dev, bf16):
-            init_up, disp_ups = igev_train_forward(model, left, right, iters, noisy, t)
-        # The iterates' rows (this rank's band under the volume split).
-        disp_gt, valid = constrain_volume(disp_gt), constrain_volume(valid)
-        loss = sequence_loss(disp_ups, init_up, disp_gt, valid, max_disp=model.max_disp,
-                             reduce=reduce)
+        with span(TRAIN_FORWARD):
+            if valid is None:
+                valid = (disp_gt > 0).float()
+            disp_q = _quarter_gt(disp_gt, 4.0 * (num_bins - 1))
+            t, noise = _draws(b, (num_bins, h // 4, w // 4), dev, generator, t, noise, dp)
+            x_start = encode_disparity_volume(disp_q, num_bins, model.scale)
+            noisy = q_sample(make_schedule(TIMESTEPS, device=dev), x_start, t, noise)
+            model.train()
+            with _autocast(dev, bf16):
+                init_up, disp_ups = igev_train_forward(model, left, right, iters, noisy, t)
+            # The iterates' rows (this rank's band under the volume split).
+            disp_gt, valid = constrain_volume(disp_gt), constrain_volume(valid)
+            loss = sequence_loss(disp_ups, init_up, disp_gt, valid, max_disp=model.max_disp,
+                                 reduce=reduce)
         _update(state, loss, dp)
         mask = (valid >= 0.5) & (disp_gt < model.max_disp)
         loss = loss.detach()
