@@ -7,7 +7,8 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
   2. build the kernels from ``diffuvolume_tpu_torch/csrc`` (nvcc, sm_90a);
   3. each kernel against its plain PyTorch version on the card, at every
      shape the paths (ACV, PCW, IGEV; the flat refinement's 2-D convs, row
-     18; the routed module paths' 3-D convs, row 15) give it, in float32 (TF32 off)
+     18, its 1×1 downsamples, row 9, and its input's pack, row 11; the
+     routed module paths' 3-D convs, row 15) give it, in float32 (TF32 off)
      and bfloat16: max-abs error against the stated tolerance, the kernel's
      time on the card (torch.profiler's device time, CUDA events and the
      host's time to issue a call beside it; the plain versions under CUDA
@@ -23,7 +24,8 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      attention chain runs, asserted equal to two single launches), timed
      on the card (torch.profiler's device time, as the convs); the convs (rows 5-9, 14, 15 with the epilogue
      — none, ReLU, Mish, LeakyReLU, × post_mul — each path gives each shape;
-     row 18 at the refinement's 11 convs; gwcnet-g's volume convs at C_in
+     row 18 at the refinement's 11 convs, bare and with a residual and
+     Mish; row 9 at its three downsamples; gwcnet-g's volume convs at C_in
      48, rows 5 and 6) timed on the card (torch.profiler's
      device time; CUDA events and the host's time to issue a call beside
      it; row 9 beside ``F.linear`` on the (positions, C_in) view and
@@ -38,7 +40,8 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      IGEV) on the card against the same pipeline on the CPU (plain
      versions), float32, same seeded weights and injected draws, on the
      folded path and on the module path, PCW's folded path with the flat
-     refinement (``fold_pcw(..., refine_flat=True)``) and the three module
+     refinement forced (``fold_pcw(..., refine_flat=True)``; a float32
+     model keeps the module refinement by default) and the three module
      paths with their 3-D convs routed (``route_conv3d``); gwcnet-g (PCWNet
      without the concat volume) with its DDIM model as PCW, folded, module
      and routed (its row-15 launches a pair asserted); then IGEV's folded
@@ -56,11 +59,14 @@ Phases (any fault exits non-zero; nothing runs without a CUDA device):
      after ``route_conv3d`` (row 15 launches asserted, the census's cuDNN
      3-D convs fewer by exactly as many), 1 timed pair;
   7. the PCW path: PCWNet two-pass KITTI12 DDIM-3 at 384×1248, batch 1,
-     bfloat16 model, folded path; one warm-up pair, 6 timed pairs, launch
-     counts (asserted), a census with no 3-D BatchNorm and no 3-D conv, a
-     finite (1, 384, 1248) output; then with the flat refinement (row 18,
-     44 launches a pair asserted, the census's 2-D BatchNorms and cuDNN 2-D
-     convs fewer by the refinement's, derived from the model), 3 timed pairs;
+     bfloat16 model, folded path with the flat refinement (row 18, 44
+     launches a pair, row 9's 12 downsamples and row 11's 4 packs,
+     asserted); one warm-up
+     pair, 6 timed pairs, launch counts (asserted), a census with no 3-D
+     BatchNorm and no 3-D conv, a finite (1, 384, 1248) output; then with
+     the module refinement (``refine_flat=False``; the census's 2-D
+     BatchNorms and cuDNN 2-D convs more by the refinement's, derived from
+     the model), 3 timed pairs;
      its module path, 1 timed pair, and routed, 1 timed pair; then gwcnet-g
      and ``pcwnet_ddim(use_concat_volume=False)`` the same way, folded (3
      timed pairs) and module (1), launches asserted from
@@ -179,7 +185,7 @@ PCW_H, PCW_W = 384, 1248
 PCW_D4, PCW_H4, PCW_W4 = MAIN_DISP // 4, PCW_H // 4, PCW_W // 4
 PCW_CC, PCW_SLOT, PCW_STEPS = 12, 64, 3
 PCW_TIMED_PAIRS = 6
-PCW_FLAT_TIMED_PAIRS = 3
+PCW_MODULE_REFINE_TIMED_PAIRS = 3
 PCW_MODULE_TIMED_PAIRS = 1
 P1, P2, P3, P4 = ((PCW_D4 >> k, PCW_H4 >> k, PCW_W4 >> k) for k in range(4))
 # The PCW volumes: (scale, D, H, W), each 40 groups + 12 + 12 in a 64 slot;
@@ -1085,6 +1091,14 @@ REFINE_CASES = [
     RefineCase("conv7.conv2 32→32", 32, 32, 32, 1),
     RefineCase("conv8 32→1, no bias", 32, 32, 1, 1, bias=False),
 ]
+# The folded refinement's three 1×1 downsamples on row 9 at D = 1, 384×1248:
+# BatchNorm folded into the bias, no act (the block's conv2 takes the result
+# as its residual); once per refinement.
+REFINE_DOWN_CASES = [
+    ConvCase("conv1x1_fold_p", f"refinement downsample {ci}→{co}, no act", "k1", ci, co,
+             (1, PCW_H, PCW_W), 1 + PCW_STEPS, act=None)
+    for ci, co in ((128, 96), (96, 64), (64, 32))
+]
 
 
 def case_inputs(case: ConvCase, dev, dtype, seed: int) -> dict:
@@ -1348,19 +1362,27 @@ def layout_plan_line(plan: dict | None) -> str:
 # pair): the hourglass bottleneck around the attention block (one of each
 # per hourglass).  The patch volume is built in its slot (row 16).
 LAYOUT_CASES = [("128, quarter", 128, 128, QUARTER, 14)]
+# Row 11 at the PCW folded refinement's input: its 146 channels (a ragged
+# last 8 × 8 block) into the zero-filled 160 slot at D = 1, once per
+# refinement.
+REFINE_PACK_CASES = [("PCW refinement input, 146 in 160", 146, 160, (1, PCW_H, PCW_W),
+                      1 + PCW_STEPS)]
 
 
 def layout_checks(dev) -> dict:
     """Phase 3, rows 11-12: pack (NCDHW → NDHWC, slot fill) and unpack, exact
     in float32 and bf16; bf16 timed on the card (``device_times``) beside the
-    library copy, with the transpose's plan."""
+    library copy, with the transpose's plan.  ``pack`` and ``unpack`` at
+    the ACV path's ``LAYOUT_CASES``; ``pcw_refine_pack`` the PCW
+    refinement's input (``REFINE_PACK_CASES``)."""
     from diffuvolume_tpu_torch.ops.kernels import layout as kl
 
     g = torch.Generator().manual_seed(4)
     out = {}
-    for name in ("pack", "unpack"):
+    for key, name, cases in (("pack", "pack", LAYOUT_CASES), ("unpack", "unpack", LAYOUT_CASES),
+                             ("pcw_refine_pack", "pack", REFINE_PACK_CASES)):
         errs, rec = {}, []
-        for label, c, c_slot, (d, h, w), per_pair in LAYOUT_CASES:
+        for label, c, c_slot, (d, h, w), per_pair in cases:
             log(f"{name} {label}: C {c}, (D,H,W) ({d},{h},{w})")
             s = d * h * w
             x32 = torch.randn((1, c, d, h, w) if name == "pack" else (1, d, h, w, c),
@@ -1393,7 +1415,7 @@ def layout_checks(dev) -> dict:
             r = rec[-1]
             log(f"  bf16 {on_card(t)}; plain {r['plain_ms']:.4f}, library {on_card(lib)}, "
                 f"bound {b_ms:.4f} ms by bytes; {per_pair} per pair{layout_plan_line(plan)}")
-        out[name] = mixed(rec, errs)
+        out[key] = mixed(rec, errs)
     return out
 
 
@@ -1410,7 +1432,8 @@ def flat_plan(c: RefineCase, dev, tc: int = -1) -> dict | None:
 def refine_checks(dev, iters: int = 10) -> dict:
     """Phase 3, row 18: ``conv2d_flat`` at each of the folded refinement's
     11 convs at 384×1248, float32 and bfloat16 against ``conv2d_flat_plain``
-    (``CONV_TOL``); the kernel's and the library's time on the card
+    (``CONV_TOL``), bare and with a residual and Mish in the epilogue; the
+    kernel's and the library's time on the card
     (``device_times``: torch.profiler, with CUDA events and the host's time
     to issue a call beside; the library is bf16 ``F.conv2d`` with the bias,
     dilated, channels-last, on the same slot input), the plain version's
@@ -1441,7 +1464,13 @@ def refine_checks(dev, iters: int = 10) -> dict:
             torch.cuda.synchronize()
             e[tag] = check(tag, got, want, *CONV_TOL[tag])
             errs[tag] = max(errs.get(tag, 0.0), e[tag])
-            del got, want
+            res = (want.float() * 0.5).to(dt)
+            got = k2.conv2d_flat(x, w, bias, c.dil, residual=res, act="mish")
+            want = k2.conv2d_flat_plain(x, w, bias, c.dil, residual=res, act="mish")
+            torch.cuda.synchronize()
+            e[f"{tag}_res_mish"] = check(f"{tag} + residual, Mish", got, want, *CONV_TOL[tag])
+            errs[tag] = max(errs[tag], e[f"{tag}_res_mish"])
+            del got, want, res
         xb, wb = x32.bfloat16(), w32.bfloat16()
         del x32, w32
         x_cl = xb.permute(0, 3, 1, 2)
@@ -1882,9 +1911,10 @@ def pcw_expected_launches(packed: bool, refine_flat: bool = False, routed: bool 
                           concat: bool = True) -> dict:
     """PCW launches per pair: 2 volume builds (4 scales each, on both paths),
     4 aggregation passes (one fused head each, and with the flat refinement
-    the 11 convs of ``REFINE_CASES`` each), 3 DDIM steps (the noise
-    multiply and the uncertainty at the refined disparity); the folded
-    path's convs are ``pcw_conv_cases(concat)``.  A routed module path adds
+    the 11 convs of ``REFINE_CASES``, the 3 downsamples on row 9 and the
+    input's pack on row 11 each), 3 DDIM steps (the noise multiply and the
+    uncertainty at the refined disparity); the folded path's convs are
+    ``pcw_conv_cases(concat)``.  A routed module path adds
     ``routed_launches``.  ``concat=False``: gwcnet-g and its DDIM model,
     PCWNet without the concat volume."""
     out = {"gwc_volume_packed": 8, "fused_head": 4, "fused_uncertainty_at": PCW_STEPS,
@@ -1893,6 +1923,9 @@ def pcw_expected_launches(packed: bool, refine_flat: bool = False, routed: bool 
         out[case.row] = out.get(case.row, 0) + (case.per_pair if packed else 0)
     if refine_flat:
         out["conv2d_flat"] = sum(c.per_pair for c in REFINE_CASES)
+        out["conv1x1_fold_p"] = out.get("conv1x1_fold_p", 0) + sum(
+            c.per_pair for c in REFINE_DOWN_CASES)
+        out["pack"] = sum(c[-1] for c in REFINE_PACK_CASES)
     if routed:
         out.update(routed_launches("pcw" if concat else "gwcnet_g"))
     return out
@@ -2066,13 +2099,13 @@ def refine_ops(net) -> dict:
             "conv_4d": len(convs), "conv3x3": sum(m.kernel_size == (3, 3) for m in convs)}
 
 
-def pcw_path(dev, counters, packed: bool, pairs: int, refine_flat: bool = False,
+def pcw_path(dev, counters, packed: bool, pairs: int, refine_module: bool = False,
              routed: bool = False, concat: bool = True, keep: dict | None = None) -> dict:
     """Phase 7: PCWNet two-pass KITTI12 DDIM-3 at 384×1248, bfloat16 model;
-    folded with the flat refinement when ``refine_flat`` (its convs checked
-    against ``REFINE_CASES``), the module path after ``route_conv3d`` when
-    ``routed``; without ``concat``, gwcnet-g and its DDIM model (PCWNet
-    without the concat volume).  ``keep``: ``drive``'s, and ``keep["inputs"]``
+    folded with the flat refinement (its convs checked against
+    ``REFINE_CASES``) unless ``refine_module``, the module path after
+    ``route_conv3d`` when ``routed``; without ``concat``, gwcnet-g and its
+    DDIM model (PCWNet without the concat volume).  ``keep``: ``drive``'s, and ``keep["inputs"]``
     the unfolded models and the images."""
     from diffuvolume_tpu_torch.diffusion import ddim_sample, make_schedule
     from diffuvolume_tpu_torch.diffusion.ddim import KITTI12_DDIM as cfg
@@ -2085,8 +2118,9 @@ def pcw_path(dev, counters, packed: bool, pairs: int, refine_flat: bool = False,
     if keep is not None:
         keep["inputs"] = (bm, dm, left, right)
     ops = refine_ops(bm.refinenet3)
+    refine_flat = packed and not refine_module
     if packed:  # folded once, as a caller running many pairs does
-        bm, dm = fold_pcw(bm, refine_flat), fold_pcw(dm, refine_flat)
+        bm, dm = (fold_pcw(m, refine_flat=False if refine_module else None) for m in (bm, dm))
     elif routed:
         bm, dm = route_conv3d(bm), route_conv3d(dm)
     if refine_flat:
@@ -3879,6 +3913,8 @@ def main() -> int:
     checks["unpack_hwdc"], checks["conv3d_fold_small"] = igev["unpack_hwdc"], small[
         "conv3d_fold_small"]
     checks["conv2d_flat"] = refine_checks(dev)
+    checks["pcw_refine_downsamples"] = conv_checks(
+        dev, REFINE_DOWN_CASES, "PCW folded refinement's 1×1 downsamples", iters=10)
     packed_checks = {m: conv_checks(dev, cases, f"{m.upper()} module, routed", iters=10)
                      for m, cases in PACKED_CASES.items()}
     errs = {t: max(p["conv3d_packed"]["errs"][t] for p in packed_checks.values())
@@ -3913,11 +3949,12 @@ def main() -> int:
     pcw_keep = {}
     runs["pcw_folded"] = pcw_path(dev, counters, packed=True, pairs=PCW_TIMED_PAIRS,
                                   keep=pcw_keep.setdefault("folded", {}))
-    log("   PCW folded path with the flat refinement (row 18), same inputs")
-    runs["pcw_folded_flat"] = pcw_path(dev, counters, packed=True, pairs=PCW_FLAT_TIMED_PAIRS,
-                                       refine_flat=True)
-    ops = runs["pcw_folded_flat"]["refine_ops"]
-    census["pcw_folded_flat"] = census_fewer(runs, "pcw_folded", "pcw_folded_flat", {
+    log("   PCW folded path with the module refinement (cuDNN), same inputs")
+    runs["pcw_folded_module_refine"] = pcw_path(dev, counters, packed=True,
+                                                pairs=PCW_MODULE_REFINE_TIMED_PAIRS,
+                                                refine_module=True)
+    ops = runs["pcw_folded"]["refine_ops"]
+    census["pcw_folded"] = census_fewer(runs, "pcw_folded_module_refine", "pcw_folded", {
         k: ops[k] * (1 + PCW_STEPS) for k in ("batch_norm_4d", "conv_4d")})
     log("   PCW module path (packed=False), same inputs")
     runs["pcw_module"] = pcw_path(dev, counters, packed=False, pairs=PCW_MODULE_TIMED_PAIRS,

@@ -1,11 +1,17 @@
-// 3×3 dilated 2-D convolution + bias on channels-last (NHWC) tensors:
-//   out (B, H, W, Co) = conv(x (B, H, W, Ci), w (3, 3, Ci, Co); pad d, dilation d) + bias
-// with w in (kh, kw, Ci, Co) order and bias (Co,) float32 or null; a float32
-// accumulator and one rounding to the input's dtype.
+// 3×3 dilated 2-D convolution with a fused epilogue on channels-last (NHWC)
+// tensors:
+//   out (B, H, W, Co) = act(conv(x (B, H, W, Ci), w (3, 3, Ci, Co); pad d, dilation d)
+//                           + bias (+ res))
+// with w in (kh, kw, Ci, Co) order, bias (Co,) float32 or null, res
+// (B, H, W, Co) in the input's dtype or null, act one of conv_igemm.cuh's
+// Act; a float32 accumulator and epilogue, one rounding to the input's
+// dtype.
 //   Replaces diffuvolume_tpu/ops/pallas/conv2d.py:54 conv2d_flat: every 3×3
 //   conv of PCWNet's full-resolution refinement net (models/pcw.py
 //   _refine_flat of the JAX package): 146 (in a 160 slot) → 128 … 32 → 1
-//   channels at dilations 1 to 16, 11 a refinement.
+//   channels at dilations 1 to 16, 11 a refinement, with the BatchNorm
+//   folded into the weights and the Mish and the blocks' residual adds in
+//   the epilogue.
 //   Plain version: ops/kernels/conv2d.py conv2d_flat_plain.
 //
 // What bounds it on the H100: bf16 tensor-core operations for conv1 … conv6
@@ -44,17 +50,18 @@ struct Params {
   const void* x;
   const void* w;       // (3, 3, C_in, C_out)
   const float* bias;   // (C_out,) or null
+  const void* res;     // (B, H, W, C_out) or null
   void* out;
-  int b, h, wd, cin, cout, dil;
+  int b, h, wd, cin, cout, dil, act;
 };
 
 // The stride-1 kernel's parameters for one plane: D 1, padding d.
 inline igemm::Params plane_params(const Params& q) {
   igemm::Params p;
-  p.x = q.x; p.w = q.w; p.bias = q.bias; p.res = nullptr; p.post_mul = nullptr; p.out = q.out;
+  p.x = q.x; p.w = q.w; p.bias = q.bias; p.res = q.res; p.post_mul = nullptr; p.out = q.out;
   p.b = q.b; p.d_in = 1; p.h_in = q.h; p.w_in = q.wd; p.cin = q.cin;
   p.d_out = 1; p.h_out = q.h; p.w_out = q.wd; p.cout = q.cout;
-  p.ks = 3; p.stride = 1; p.pad = q.dil; p.act = igemm::kActNone;
+  p.ks = 3; p.stride = 1; p.pad = q.dil; p.act = q.act;
   return p;
 }
 
@@ -85,21 +92,23 @@ __global__ void conv2d_f32(Params p) {
     }
   }
   if (p.bias) acc += p.bias[co];
-  static_cast<float*>(p.out)[e] = acc;
+  if (p.res) acc += static_cast<const float*>(p.res)[e];
+  static_cast<float*>(p.out)[e] = igemm::activate(acc, p.act);
 }
 
 }  // namespace conv2d
 }  // namespace dv
 
 // bf16 launches on `plan` (int[kPlanInts] from dv_conv2d_flat_plan for this
-// shape, dilation and device); float32 takes none (null).
-DV_EXPORT int dv_conv2d_flat(const void* x, const void* w, const void* bias, void* out,
-                             const int* plan, int b, int h, int wd, int cin, int cout, int dil,
-                             int dtype, int device, void* stream) {
+// shape, dilation and device); float32 takes none (null).  res may be null;
+// act: igemm::Act.
+DV_EXPORT int dv_conv2d_flat(const void* x, const void* w, const void* bias, const void* res,
+                             void* out, const int* plan, int b, int h, int wd, int cin, int cout,
+                             int dil, int act, int dtype, int device, void* stream) {
   if (cudaError_t e = dv::begin(device)) return static_cast<int>(e);
   dv::conv2d::Params q;
-  q.x = x; q.w = w; q.bias = static_cast<const float*>(bias); q.out = out;
-  q.b = b; q.h = h; q.wd = wd; q.cin = cin; q.cout = cout; q.dil = dil;
+  q.x = x; q.w = w; q.bias = static_cast<const float*>(bias); q.res = res; q.out = out;
+  q.b = b; q.h = h; q.wd = wd; q.cin = cin; q.cout = cout; q.dil = dil; q.act = act;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != dv::kBF16) {
     const long long total = static_cast<long long>(b) * h * wd * cout;

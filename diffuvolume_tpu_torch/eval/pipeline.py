@@ -20,13 +20,13 @@ raises; it does not switch path.  Folding costs a few hundred small device
 ops: a caller that runs many pairs passes ``fold_acv(model)`` /
 ``fold_pcw(model)`` / ``fold_igev(model)`` for each model, folded once.
 
-Two opt-in paths, the counterparts of the JAX package's environment
-switches, are reached through the models passed in, with no argument here:
-``fold_pcw(model, refine_flat=True)`` (with ``packed=True``) runs PCW's
-refinement net on the folded 2-D conv kernel (``DIFFU_PCW_REFINE_FLAT=1``),
-and models passed through ``models/layers.py:route_conv3d`` (with
-``packed=False``) run the module path's eligible 3×3×3 convs on
-``conv3d_packed`` (``DIFFU_PALLAS_CONV3D=1``).
+Two paths behind the JAX package's environment switches are reached
+through the models passed in, with no argument here: ``fold_pcw(model)``
+(with ``packed=True``) runs a bfloat16 PCW's refinement net on the folded
+2-D conv kernel (``DIFFU_PCW_REFINE_FLAT=1``; ``refine_flat=False`` keeps
+the module refinement), and models passed through
+``models/layers.py:route_conv3d`` (with ``packed=False``) run the module
+path's eligible 3×3×3 convs on ``conv3d_packed`` (``DIFFU_PALLAS_CONV3D=1``).
 
 Precision.  A call with float32 models computes in float32 on the card as
 the JAX reference does: each entry point turns TF32 off for cuDNN's convs
@@ -245,8 +245,8 @@ def pcw_ddim_inference(
     KITTI12 sampler variant, ``KITTI12_DDIM``).
 
     Arguments as ``acv_ddim_inference``'s, with ``PCWNet``s (``diffusion``
-    off / on) or their ``fold_pcw`` results (``fold_pcw(model,
-    refine_flat=True)``: the refinement net on ``conv2d_flat`` too).  The
+    off / on) or their ``fold_pcw`` results (a bfloat16 model's refinement
+    net on ``conv2d_flat`` too).  The
     folded path needs H, W and
     ``max_disp`` to be multiples of 32 (three stride-2 levels below 1/4);
     it raises on any other shape.

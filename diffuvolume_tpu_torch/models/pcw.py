@@ -19,8 +19,8 @@ The volume work runs on the port's kernels: each scale's volume is built by
 ``dhw_mul`` with one map, the head by ``fused_upsample_softargmin`` and the
 renewal score against the refined disparity by ``fused_uncertainty_at``.
 The 2-D and 3-D convolutions are PyTorch convolutions; ``models/pcw_fold.py``
-runs the 3-D ones on the port's kernels, and with ``refine_flat=True`` the
-refinement net's too; ``layers.route_conv3d`` runs this path's eligible
+runs the 3-D ones on the port's kernels, and a bfloat16 model's refinement
+net too; ``layers.route_conv3d`` runs this path's eligible
 3×3×3 convs on ``conv3d_packed``.  Eval runs one 2B trunk pass for
 both views.  ``train_forward`` runs the differentiable plain ops (the
 kernels have no backward) and one trunk pass a view.

@@ -23,15 +23,17 @@ transposed conv and redir3) runs on the kernels too.  The 2-D trunk, the
 refinement's input (resize, warp, signed correlation, ``dispupsample``) and
 the time embedding run as they are on the module path.
 
-``fold_pcw(model, refine_flat=True)`` also folds the refinement net
-(``RefineNetV3``), the counterpart of the JAX package's ``_refine_flat``
+``fold_pcw`` also folds the refinement net (``RefineNetV3``) of a bfloat16
+model, the counterpart of the JAX package's ``_refine_flat``
 (``DIFFU_PCW_REFINE_FLAT=1``): each 3×3 conv's BatchNorm folded into its
 weight and bias in float32, every 3×3 conv (``conv8``, 32 → 1 without
-BatchNorm, too) on ``conv2d_flat`` (TPU row 18) channels-last, the three
-1×1 ``downsample`` projections as a matmul over channels, Mish and the
-residual adds as PyTorch elementwise ops.  The 146-channel input goes in a
-zero-filled 160-channel slot, ``conv1``'s weight zero-padded to match.  The
-default stays the module refinement, as in the JAX package.
+BatchNorm, too) on ``conv2d_flat`` (TPU row 18) channels-last with the Mish
+and the residual blocks' adds in its epilogue, the three 1×1 ``downsample``
+projections on ``conv1x1_fold_p`` (row 9) with their BatchNorm folded.  The
+146-channel input is packed channels-last into a zero-filled 160-channel
+slot (``layout.pack``, row 11), ``conv1``'s weight zero-padded to match.  A float32 model keeps the module refinement on
+cuDNN, the JAX package's default: ``conv2d_flat``'s float32 form is a plain
+FMA kernel.  ``refine_flat=True`` / ``False`` forces one or the other.
 
 The path needs D, H/4 and W/4 to be multiples of 8 (three stride-2 levels
 that the transposed convs undo); on any other shape it raises.
@@ -69,6 +71,7 @@ from diffuvolume_tpu_torch.ops.kernels.fused_head import (
     fused_uncertainty_at,
     fused_upsample_softargmin,
 )
+from diffuvolume_tpu_torch.ops.kernels.layout import pack
 from diffuvolume_tpu_torch.utils.spans import FEATURES, REFINE, span
 
 
@@ -140,8 +143,6 @@ def hourglass_up_folded(hg: FoldedHourglassUp, x: torch.Tensor, v2: torch.Tensor
 # vectors for the kernel's copies.
 REFINE_SLOT = 160
 
-_ACT_FNS = {"mish": F.mish, "relu": torch.relu}
-
 
 class FoldedConv2d(NamedTuple):
     w: torch.Tensor               # (3, 3, C_in, C_out), model dtype
@@ -165,7 +166,7 @@ def fold_convbn2d(m: ConvBN, c_slot: int | None = None) -> FoldedConv2d:
 class FoldedBlock(NamedTuple):
     conv1: FoldedConv2d
     conv2: FoldedConv2d
-    down_w: torch.Tensor          # (C_in, C_out), model dtype
+    down_w: torch.Tensor          # (1, 1, 1, C_in, C_out), model dtype
     down_b: torch.Tensor          # (C_out,) float32
 
 
@@ -184,7 +185,8 @@ def fold_refine(net: RefineNetV3) -> FoldedRefine:
         down = blk.downsample[0].weight
         blocks.append(FoldedBlock(
             fold_convbn2d(blk.conv1[0]), fold_convbn2d(blk.conv2),
-            (down.float()[:, :, 0, 0] * scale[:, None]).t().to(down.dtype).contiguous(),
+            (down.float() * scale[:, None, None, None]).permute(2, 3, 1, 0)[None]
+            .to(down.dtype).contiguous(),
             shift.contiguous()))
     return FoldedRefine(
         (fold_convbn2d(net.conv1[0], REFINE_SLOT),
@@ -196,19 +198,18 @@ def fold_refine(net: RefineNetV3) -> FoldedRefine:
 def refine_flat(fr: FoldedRefine, x: torch.Tensor, disp: torch.Tensor, act: str) -> torch.Tensor:
     """The folded refinement net on the ``(B, 146, H, W)`` input ``x``
     (``_refine_flat``, ``pcw.py:684-743`` of the JAX package): conv1 … conv4
-    with the activation, three residual blocks (act(conv1) → conv2, + the
-    1×1 downsample), conv8; returns ``disp + residual`` ``(B, H, W)``
+    with the activation, three residual blocks (act(conv1) → conv2 + the
+    1×1 downsample), conv8; each conv's activation and residual in its
+    epilogue, the input packed channels-last into its zero-filled slot by
+    row 11's transposer.  Returns ``disp + residual`` ``(B, H, W)``
     float32."""
-    a = _ACT_FNS[act]
-    b, c, h, w = x.shape
-    y = x.new_zeros((b, h, w, REFINE_SLOT))
-    y[..., :c] = x.permute(0, 2, 3, 1)
+    y = pack(x[:, :, None], REFINE_SLOT)[:, 0]
     for fc in fr.convs:
-        y = a(conv2d_flat(y, *fc))
+        y = conv2d_flat(y, *fc, act=act)
     for blk in fr.blocks:
-        o = conv2d_flat(a(conv2d_flat(y, *blk.conv1)), *blk.conv2)
-        ds = (torch.matmul(y, blk.down_w).float() + blk.down_b).to(y.dtype)
-        y = o + ds
+        o = conv2d_flat(y, *blk.conv1, act=act)
+        ds = conv1x1_fold_p(y[:, None], blk.down_w, blk.down_b)[:, 0]
+        y = conv2d_flat(o, *blk.conv2, residual=ds)
     return disp.float() + conv2d_flat(y, *fr.conv8)[..., 0].float()
 
 
@@ -222,11 +223,13 @@ class FoldedPCW:
     """An eval ``PCWNet`` with its 3-D conv chains folded (see the module
     docstring).  Holds the model for the modules it runs unfolded."""
 
-    def __init__(self, model: PCWNet, refine_flat: bool = False):
+    def __init__(self, model: PCWNet, refine_flat: bool | None = None):
         if model.training:
             raise ValueError("BatchNorm folding needs an eval-mode model")
         self.model = model
         self.act = model.act
+        if refine_flat is None:
+            refine_flat = model.dtype == torch.bfloat16
         self.refine = fold_refine(model.refinenet3) if refine_flat else None
         # The volumes' slot: 64 (40 + 12 + 12), or 48 without the concat volume.
         slot = slot_width(model.num_groups + 2 * model.concat_channels)
@@ -259,7 +262,7 @@ class FoldedPCW:
         """``(B, D, H4, W4, 32)`` volume → ``(disp_finetune, unc)`` at
         ``out_hw`` (``_pcw_aggregate_packed``): three Mish hourglasses, the
         classif3 head, the fused head, the refinement net (folded on
-        ``conv2d_flat`` when folded with ``refine_flat``), and the
+        ``conv2d_flat`` where ``fold_pcw`` folded it), and the
         uncertainty against the refined disparity (None unless
         ``want_unc``)."""
         m, act = self.model, self.act
@@ -300,8 +303,9 @@ class FoldedPCW:
     __call__ = forward
 
 
-def fold_pcw(model: PCWNet, refine_flat: bool = False) -> FoldedPCW:
-    """Fold ``model`` (eval) into a ``FoldedPCW``; with ``refine_flat`` its
-    refinement net too (every 3×3 conv on ``conv2d_flat``)."""
+def fold_pcw(model: PCWNet, refine_flat: bool | None = None) -> FoldedPCW:
+    """Fold ``model`` (eval) into a ``FoldedPCW``, with its refinement net
+    (every 3×3 conv on ``conv2d_flat``) where ``refine_flat`` is True, or is
+    None and the model is bfloat16."""
     with torch.no_grad():
         return FoldedPCW(model, refine_flat)

@@ -69,8 +69,8 @@ SIGNATURES = {
     "dv_unpack": [_P, _P, _P, _I, _I, _L],
     # x, out, plan|0 (TRANSPOSE_PLAN_KEYS, a one-channel slot), b, d, s, c_slot, co
     "dv_unpack_hwdc": [_P, _P, _P, _I, _I, _L, _I, _I],
-    # x, w, bias|0, out, plan|0, b, h, w, cin, cout, dilation
-    "dv_conv2d_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+    # x, w, bias|0, res|0, out, plan|0, b, h, w, cin, cout, dilation, act
+    "dv_conv2d_flat": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
 }
 _TAIL = [_I, _I, _P]
 

@@ -7,20 +7,20 @@ and ``tools/bench_igev.py`` (``--model igev``: KITTI15 IGEV-Stereo DDIM-2
 at 384×1248, ``--iters`` GRU iterations a rollout), with their flags:
 
     python -m diffuvolume_tpu_torch.tools.bench [--model acv|pcw|igev] [--height H]
-        [--width W] [--iters N] [--reps N] [--f32] [--refine-flat]
+        [--width W] [--iters N] [--reps N] [--f32] [--refine-module]
 
 Weights and images come from seed 0 (``tools/random_weights.py``
 ``seeded_main_path`` / ``seeded_pcw_path`` / ``seeded_igev_path``: bf16
 models, ``--f32`` casts them to float32); both models run the folded path,
-folded once (``--refine-flat``: PCW's refinement net on the flat 2-D conv
-kernel, the JAX package's ``DIFFU_PCW_REFINE_FLAT=1``).  One warm-up pair
-(it builds the kernels), then ``--reps`` timed pairs, each ended by a
-synchronise, then one pair under torch.profiler for the card's busy time.
-Prints one JSON line: pairs/s (reps over their wall time) with the median,
-p10 and p90 of the per-pair rate, wall ms a pair, device-busy ms a pair
-(the profiled pair's kernels summed) and the idle share it leaves, CUDA
-events around each timed pair (median), and the card's name and power
-limit.  Needs a CUDA device.
+folded once (a bfloat16 PCW's refinement net on the flat 2-D conv kernel;
+``--refine-module``: the module refinement, the JAX package's default).
+One warm-up pair (it builds the kernels), then ``--reps`` timed pairs, each
+ended by a synchronise, then one pair under torch.profiler for the card's
+busy time.  Prints one JSON line: pairs/s (reps over their wall time) with
+the median, p10 and p90 of the per-pair rate, wall ms a pair, device-busy
+ms a pair (the profiled pair's kernels summed) and the idle share it
+leaves, CUDA events around each timed pair (median), and the card's name
+and power limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -58,8 +58,8 @@ def parse_args(argv=None):
     p.add_argument("--iters", type=int, default=32, help="IGEV GRU iterations a rollout")
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--f32", action="store_true", help="float32 models (default bfloat16)")
-    p.add_argument("--refine-flat", action="store_true",
-                   help="PCW: the refinement net on the flat 2-D conv kernel")
+    p.add_argument("--refine-module", action="store_true",
+                   help="PCW: the module refinement net (cuDNN), not the flat 2-D conv kernel")
     return p.parse_args(argv)
 
 
@@ -75,11 +75,12 @@ def setup(args, dev: torch.device):
 
     h, w = DEFAULT_HW[args.model]
     h, w = args.height or h, args.width or w
-    if args.refine_flat and args.model != "pcw":
-        raise ValueError("--refine-flat is PCW's")
+    if args.refine_module and args.model != "pcw":
+        raise ValueError("--refine-module is PCW's")
     seeded, fold, pipeline, cfg, kw = {
         "acv": (rw.seeded_main_path, fold_acv, pl.acv_ddim_inference, SCENEFLOW_DDIM, {}),
-        "pcw": (rw.seeded_pcw_path, lambda m: fold_pcw(m, refine_flat=args.refine_flat),
+        "pcw": (rw.seeded_pcw_path,
+                lambda m: fold_pcw(m, refine_flat=False if args.refine_module else None),
                 pl.pcw_ddim_inference, KITTI12_DDIM, {}),
         "igev": (rw.seeded_igev_path, fold_igev, pl.igev_ddim_inference, KITTI15_DDIM,
                  {"iters": args.iters}),
@@ -142,7 +143,7 @@ def main(argv=None) -> dict:
     if args.model == "igev":
         metric += f"_iters{args.iters}"
     rec = {
-        "metric": metric, "model": args.model, "refine_flat": args.refine_flat,
+        "metric": metric, "model": args.model, "refine_module": args.refine_module,
         "dtype": "float32" if args.f32 else "bfloat16", "height": h, "width": w,
         "reps": args.reps, "pairs_per_s": args.reps / float(np.sum(walls)),
         "pairs_per_s_median": float(np.median(rates)),

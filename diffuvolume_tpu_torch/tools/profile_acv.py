@@ -1,15 +1,15 @@
 """Where one pair spends its device time.
 
     python -m diffuvolume_tpu_torch.tools.profile_acv [--model acv|pcw|igev]
-        [--pairs N] [--path folded|module] [--refine-flat] [--routed] [--tf32-off]
+        [--pairs N] [--path folded|module] [--refine-module] [--routed] [--tf32-off]
 
 Runs the inputs of ``chip_smoke.py``'s paths: ACV two-pass DDIM-5 at
 512×960 (``--model acv``, the default), PCW two-pass KITTI12 DDIM-3 at
 384×1248 (``--model pcw``) or IGEV-Stereo two-pass KITTI15 DDIM-2 at
 384×1248 with 32 GRU iterations a rollout (``--model igev``), batch 1,
 bfloat16, on the folded path
-(``packed=True``, the default) or the module path; ``--refine-flat`` folds
-PCW with ``refine_flat=True`` (the refinement's convs on row 18),
+(``packed=True``, the default) or the module path; ``--refine-module`` folds
+PCW with ``refine_flat=False`` (the module refinement on cuDNN, not row 18),
 ``--routed`` runs the module path after ``route_conv3d`` (its 3×3×3 convs on
 row 15).  ``--tf32-off`` turns TF32 off globally for cuDNN and matmuls
 first (to compare with a profile taken that way; the pipelines set their own
@@ -18,8 +18,8 @@ warm-up pair, then ``N`` pairs under ``torch.profiler``.
 Prints the device time per pair by kernel group and the top kernels, the
 wall time per pair (profiled, and over ``N`` pairs run without the
 profiler, which adds host time of its own) and the device's idle share (1 − device busy / unprofiled wall), and writes them
-to ``chiprun_out/profile_<model>_<path>[_flat|_routed].json``.  Needs a CUDA
-device.
+to ``profile_<model>_<path>[_refine_module|_routed].json`` in the output
+directory.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -56,16 +56,16 @@ def main(argv=None) -> int:
     ap.add_argument("--model", choices=("acv", "pcw", "igev"), default="acv")
     ap.add_argument("--pairs", type=int, default=2)
     ap.add_argument("--path", choices=("folded", "module"), default="folded")
-    ap.add_argument("--refine-flat", action="store_true",
-                    help="PCW folded: the refinement net on conv2d_flat")
+    ap.add_argument("--refine-module", action="store_true",
+                    help="PCW folded: the module refinement net, not conv2d_flat")
     ap.add_argument("--routed", action="store_true",
                     help="module path: the 3x3x3 convs on conv3d_packed (route_conv3d)")
     ap.add_argument("--tf32-off", action="store_true",
                     help="TF32 off globally for cuDNN and matmuls")
     args = ap.parse_args(argv)
     packed = args.path == "folded"
-    if args.refine_flat and not (packed and args.model == "pcw"):
-        ap.error("--refine-flat is PCW's folded path's")
+    if args.refine_module and not (packed and args.model == "pcw"):
+        ap.error("--refine-module is PCW's folded path's")
     if args.routed and packed:
         ap.error("--routed is the module path's")
     dev = resolve_device(None)
@@ -78,7 +78,8 @@ def main(argv=None) -> int:
     elif args.model == "pcw":
         bm, dm, left, right = seeded_pcw_path(dev)
         cfg, infer = KITTI12_DDIM, pcw_ddim_inference
-        fold = lambda m: fold_pcw(m, refine_flat=args.refine_flat)  # noqa: E731
+        flat = False if args.refine_module else None
+        fold = lambda m: fold_pcw(m, refine_flat=flat)  # noqa: E731
     else:
         bm, dm, left, right = seeded_igev_path(dev)
         cfg, infer, fold = KITTI15_DDIM, igev_ddim_inference, fold_igev
@@ -86,7 +87,7 @@ def main(argv=None) -> int:
         bm, dm = fold(bm), fold(dm)
     elif args.routed:
         bm, dm = route_conv3d(bm), route_conv3d(dm)
-    variant = "_flat" if args.refine_flat else "_routed" if args.routed else ""
+    variant = "_refine_module" if args.refine_module else "_routed" if args.routed else ""
 
     def pair(i):
         gen = torch.Generator(device=dev).manual_seed(i)

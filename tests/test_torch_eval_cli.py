@@ -192,5 +192,5 @@ def test_entry_points_refuse_to_run_without_a_card(sceneflow, monkeypatch):
     with pytest.raises(SystemExit):
         bench.main(["--model", "igev", "--reps", "1"])
     args = bench.parse_args([])
-    assert (args.model, args.reps, args.iters, args.f32, args.refine_flat) == (
+    assert (args.model, args.reps, args.iters, args.f32, args.refine_module) == (
         "acv", 5, 32, False, False)

@@ -677,16 +677,23 @@ def test_igev_launch_counts(dev):
 # -- rows 18 and 15: the refinement's dilated 2-D conv, the module paths' packed conv ----
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cin,real_cin,cout,shape,d,bias", [
-    (128, 128, 128, (1, 12, 70), 1, True),     # W past one 64 tile, ragged
-    (128, 128, 96, (1, 9, 33), 2, True),       # C_out 96: three 32 tiles
-    (64, 64, 64, (2, 40, 37), 16, True),       # d 16: the strip 96 wide, rows all in padding
-    (160, 146, 128, (1, 10, 20), 1, True),     # the 146-channel input in its 160 slot
-    (32, 32, 1, (1, 7, 130), 1, False),        # conv8: C_out 1, no bias
-    (96, 96, 96, (1, 5, 9), 8, True),          # d past H and W
-    (24, 24, 16, (1, 6, 11), 4, False),        # C_in 24: a zero-filled half chunk
+@pytest.mark.parametrize("cin,real_cin,cout,shape,d,bias,epilogue", [
+    (128, 128, 128, (1, 12, 70), 1, True, False),    # W past one 64 tile, ragged
+    (128, 128, 96, (1, 9, 33), 2, True, False),      # C_out 96: three 32 tiles
+    (64, 64, 64, (2, 40, 37), 16, True, False),      # d 16: the strip 96 wide, rows all in padding
+    (160, 146, 128, (1, 10, 20), 1, True, False),    # the 146-channel input in its 160 slot
+    (32, 32, 1, (1, 7, 130), 1, False, False),       # conv8: C_out 1, no bias
+    (96, 96, 96, (1, 5, 9), 8, True, False),         # d past H and W
+    (24, 24, 16, (1, 6, 11), 4, False, False),       # C_in 24: a zero-filled half chunk
+    # the refinement's widths with a residual and Mish in the epilogue
+    (160, 146, 128, (1, 12, 70), 1, True, True),
+    (128, 128, 128, (1, 20, 40), 4, True, True),
+    (128, 128, 96, (1, 20, 40), 8, True, True),
+    (96, 96, 64, (1, 40, 37), 16, True, True),
+    (64, 64, 32, (2, 9, 33), 2, True, True),
+    (32, 32, 1, (1, 7, 130), 1, False, True),        # the head member
 ])
-def test_conv2d_flat(dev, dtype, cin, real_cin, cout, shape, d, bias):
+def test_conv2d_flat(dev, dtype, cin, real_cin, cout, shape, d, bias, epilogue):
     """Row 18 against its plain version: the CONV_TOL bounds; the slot's
     fill channels have zero input and weights."""
     from diffuvolume_tpu_torch.ops.kernels import conv2d as k2
@@ -698,8 +705,10 @@ def test_conv2d_flat(dev, dtype, cin, real_cin, cout, shape, d, bias):
     wt[:, :, real_cin:] = 0.0
     bv = _randn(dev, cout, seed=152) if bias else None
     x, wt = x.to(dtype), wt.to(dtype)
-    got = k2.conv2d_flat(x, wt, bv, d)
-    want = k2.conv2d_flat_plain(x, wt, bv, d)
+    res = _randn(dev, b, h, w, cout, seed=153).to(dtype) if epilogue else None
+    act = "mish" if epilogue else None
+    got = k2.conv2d_flat(x, wt, bv, d, residual=res, act=act)
+    want = k2.conv2d_flat_plain(x, wt, bv, d, residual=res, act=act)
     torch.cuda.synchronize()
     assert got.shape == (b, h, w, cout) and got.dtype == dtype
     atol, rtol = CONV_TOL[dtype]

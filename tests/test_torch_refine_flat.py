@@ -1,11 +1,14 @@
-"""Port parity for PCWNet's folded refinement net (``fold_pcw(...,
-refine_flat=True)``, every 3×3 conv on ``conv2d_flat``, TPU row 18), float32
-on the CPU.
+"""Port parity for PCWNet's folded refinement net (``fold_pcw``'s default
+for a bfloat16 model, ``refine_flat=True`` for float32: every 3×3 conv on
+``conv2d_flat``, TPU row 18, with Mish and the residual in its epilogue), on
+the CPU.
 
 * ``conv2d_flat_plain`` against the Pallas ``conv2d_flat`` in interpret mode
   at the JAX test's six (C_in, C_out, dilation) cases
   (``tests/test_pallas_conv3d.py:212-229``): 1e-4 absolute + 1e-4 relative,
-  as that test holds the kernel against XLA.
+  as that test holds the kernel against XLA; and with a residual and an
+  activation, against the Pallas conv's result + residual → act composed by
+  hand, in float32 and bfloat16 (one rounding: 1e-2).
 * The folded refinement against the JAX ``_refine_flat`` (interpret mode)
   and against the port's ``PCWNet.refine`` at 64×64: 2e-3, the bound
   ``tests/test_torch_pcw_pipeline.py`` holds the folded PCW path to (BatchNorm
@@ -13,7 +16,11 @@ on the CPU.
 * ``pcw_ddim_inference`` with ``fold_pcw(..., refine_flat=True)`` against the
   JAX ``pcw_ddim_inference`` with the JAX draws injected: 0.1 px max and 5e-3
   px mean on the output, 1e-2 px on the baseline.
+* ``fold_pcw``'s default by dtype, and the bfloat16 pipeline with the
+  folded refinement against the same with the module refinement.
 """
+
+import copy
 
 import numpy as np
 import jax
@@ -35,24 +42,46 @@ from diffuvolume_tpu_torch.models.pcw_fold import (
 )
 from diffuvolume_tpu_torch.ops.kernels import conv3d_fold as kconv
 from diffuvolume_tpu_torch.ops.kernels.conv2d import conv2d_flat, conv2d_flat_on, conv2d_flat_plain
+from diffuvolume_tpu_torch.ops.kernels.conv3d_fold import apply_act
 from torch_parity import jax_normal_draws, nchw, pcw_pair, stereo_pair, to_jax_variables
 
 H, W, MD = 64, 64, 192
 
 
-@pytest.mark.parametrize("c,co,d", [(128, 128, 1), (128, 96, 2), (96, 96, 8),
-                                    (64, 64, 16), (146, 128, 1), (32, 1, 1)])
-def test_conv2d_flat_plain_matches_pallas(c, co, d):
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+def _case(c, co, d, act=None, dtype=F32):
+    tail = "" if act is None else f"-{act}-{str(dtype)[6:]}"
+    return pytest.param(c, co, d, act, dtype, id=f"{c}-{co}-{d}{tail}")
+
+
+@pytest.mark.parametrize("c,co,d,act,dtype", [
+    _case(128, 128, 1), _case(128, 96, 2), _case(96, 96, 8), _case(64, 64, 16),
+    _case(146, 128, 1), _case(32, 1, 1),
+    # + residual → act in the epilogue
+    _case(32, 32, 1, "mish"), _case(32, 1, 16, "relu"), _case(32, 32, 16, "mish", BF16),
+    _case(32, 1, 1, "mish", BF16), _case(32, 32, 1, "relu", BF16),
+])
+def test_conv2d_flat_plain_matches_pallas(c, co, d, act, dtype):
     rng = np.random.default_rng(11)
-    x = rng.standard_normal((2, 16, 20, c)).astype(np.float32)
-    k = rng.standard_normal((3, 3, c, co)).astype(np.float32) * 0.1
-    b = rng.standard_normal((co,)).astype(np.float32)
-    want = np.asarray(j_conv2d_flat(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b),
-                                    dilation=d, tile_h=8, interpret=True))
-    got = conv2d_flat(torch.from_numpy(x), torch.from_numpy(k), torch.from_numpy(b), d)
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
-    np.testing.assert_array_equal(got.numpy(), conv2d_flat_plain(
-        torch.from_numpy(x), torch.from_numpy(k), torch.from_numpy(b), d).numpy())
+    x = torch.from_numpy(rng.standard_normal((2, 16, 20, c)).astype(np.float32)).to(dtype)
+    k = torch.from_numpy(rng.standard_normal((3, 3, c, co)).astype(np.float32) * 0.1).to(dtype)
+    b = torch.from_numpy(rng.standard_normal((co,)).astype(np.float32))
+    want = torch.from_numpy(np.array(j_conv2d_flat(
+        jnp.asarray(x.float().numpy()), jnp.asarray(k.float().numpy()), jnp.asarray(b.numpy()),
+        dilation=d, tile_h=8, interpret=True)))
+    res = None
+    if act is not None:
+        res = torch.from_numpy(rng.standard_normal((2, 16, 20, co)).astype(np.float32)).to(dtype)
+        want = apply_act(want + res.float(), act)
+    got = conv2d_flat(x, k, b, d, residual=res, act=act)
+    assert got.dtype == dtype
+    tol = 1e-4 if dtype == F32 else 1e-2
+    np.testing.assert_allclose(got.float().numpy(), want.to(dtype).float().numpy(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(got, conv2d_flat_plain(x, k, b, d, residual=res, act=act))
+    assert torch.equal(got, conv2d_flat_on(kconv.TC_MMA, x, k, b, d, residual=res, act=act))
 
 
 def test_conv2d_flat_refuses_bad_operands():
@@ -66,6 +95,11 @@ def test_conv2d_flat_refuses_bad_operands():
             conv2d_flat(x, torch.zeros((3, 3, 8, 8)), dilation=d)
     with pytest.raises(ValueError, match="float32"):
         conv2d_flat(x, torch.zeros((3, 3, 8, 8)), torch.zeros(8, dtype=torch.float64))
+    for res in (torch.zeros((1, 4, 4, 16)), torch.zeros((1, 4, 4, 8), dtype=torch.bfloat16)):
+        with pytest.raises(ValueError, match="residual"):
+            conv2d_flat(x, torch.zeros((3, 3, 8, 8)), residual=res)
+    with pytest.raises(ValueError, match="act"):
+        conv2d_flat(x, torch.zeros((3, 3, 8, 8)), act="gelu")
 
 
 @pytest.mark.parametrize("c,co", [(16, 8), (24, 1), (160, 128)])
@@ -111,6 +145,16 @@ def test_forced_tensor_core_forms_take_the_plain_version_on_the_cpu(tc):
         kconv.conv3d_fold_p_on(tc, x3, k3[:1, :1, :1].contiguous())
     with pytest.raises(ValueError, match="act"):
         kconv.conv3d_fold_p_on(tc, x3, k3, act="gelu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one intra-op thread: under the suite's parallel workers
+    its default pool contends with theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -162,7 +206,8 @@ def test_fold_refine_layout(setup):
     dils = [c.dil for c in fr.convs] + [c.dil for b in fr.blocks for c in (b.conv1, b.conv2)]
     assert dils == [1, 1, 2, 4, 8, 8, 16, 16, 1, 1] and fr.conv8.dil == 1
     assert fr.conv8.b is None and fr.conv8.w.shape == (3, 3, 32, 1)
-    assert [tuple(b.down_w.shape) for b in fr.blocks] == [(128, 96), (96, 64), (64, 32)]
+    assert [tuple(b.down_w.shape) for b in fr.blocks] == [(1, 1, 1, 128, 96), (1, 1, 1, 96, 64),
+                                                         (1, 1, 1, 64, 32)]
 
 
 @torch.no_grad()
@@ -178,3 +223,41 @@ def test_pipeline_with_flat_refinement(setup):
     err = np.abs(final - s["jfinal"])
     assert err.max() < 0.1 and err.mean() < 5e-3, (err.max(), err.mean())
     np.testing.assert_allclose(base.numpy(), s["jbase"], rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("refine_flat", [None, True, False])
+def test_fold_pcw_folds_the_refinement_of_a_bfloat16_model(setup, dtype, refine_flat):
+    """``fold_pcw``'s default follows the model's dtype: a bfloat16 model's
+    refinement is folded, a float32 model's stays the module's (cuDNN);
+    ``refine_flat`` forces either."""
+    m = setup["dm"] if dtype == F32 else copy.deepcopy(setup["dm"]).to(dtype)
+    folded = fold_pcw(m, refine_flat=refine_flat)
+    want = dtype == BF16 if refine_flat is None else refine_flat
+    assert (folded.refine is not None) == want
+    if want:
+        assert folded.refine.convs[0].w.dtype == dtype
+
+
+@torch.no_grad()
+def test_bfloat16_pipeline_takes_the_folded_refinement(setup):
+    """A bfloat16 model folded by ``fold_pcw`` runs its refinement on
+    ``conv2d_flat`` and agrees with the same pipeline on the module
+    refinement, the same draws, to bfloat16's rounding: the two round each
+    layer differently."""
+    s = setup
+    bm, dm = (copy.deepcopy(s[k]).to(BF16) for k in ("bm", "dm"))
+    outs = {}
+    for flat in (None, False):
+        fb, fd = fold_pcw(bm, refine_flat=flat), fold_pcw(dm, refine_flat=flat)
+        assert (fd.refine is not None) == (flat is None)
+        final, base = pcw_ddim_inference(fb, fd, s["left"], s["right"], device="cpu",
+                                         noise_source=s["ns"])
+        outs[flat] = final.numpy(), base.numpy()
+    (final, base), (m_final, m_base) = outs[None], outs[False]
+    assert final.shape == (1, H, W) and np.isfinite(final).all()
+    # 0.49 / 0.035 px on the output and 0.094 / 0.014 on the baseline (max /
+    # mean); dropping the epilogue's Mish or residual moves the means 1.8-5 px.
+    err, base_err = np.abs(final - m_final), np.abs(base - m_base)
+    assert 0 < err.max() < 2.0 and err.mean() < 0.1, (err.max(), err.mean())
+    assert base_err.max() < 0.5 and base_err.mean() < 0.05, (base_err.max(), base_err.mean())
