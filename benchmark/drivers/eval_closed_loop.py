@@ -35,7 +35,8 @@ def inputs(cell: dict, g: torch.Generator, dev):
     shape = (b, cfg["sampler"]["num_bins"], h // 4, w // 4)
     pool = []
     for _ in range(t["pool_batches"]):
-        left, right = weights.image_pairs(b, h, w, t["image_std"], t["shift_px"], g, dev)
+        left, right = weights.image_pairs(b, h, w, t["image_std"], t["shift_px"], g, dev,
+                                          t.get("image_mean", 0.0))
         pool.append((left, right, weights.sampler_draws(cfg["sampler"], shape, g, dev)))
     return pool
 

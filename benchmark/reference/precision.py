@@ -1,14 +1,14 @@
 """The reference in a lower precision than the configuration states: the
 control that the benchmark's comparison has to fail.
 
-``lower_precision(net, "float8")`` rounds every convolution's and linear
-layer's weight once, and its input at every call, to float8 e4m3 with one
-scale a tensor (the largest magnitude to 448), as a float8 GEMM takes its
-operands; the products and sums stay float32.  ``"bfloat16"`` rounds the
-same operands to bfloat16: the rounding that the evaluation's dtype
-brings, against which the program's gap to the float32 reference is
-measured.  Everything else (the volumes' construction, the softmax heads,
-the sampler) is unchanged.
+``lower_precision(net, "float8")`` rounds every convolution's (2-D or
+3-D, transposed or not) and linear layer's weight once, and its input at
+every call, to float8 e4m3 with one scale a tensor (the largest magnitude
+to 448), as a float8 GEMM takes its operands; the products and sums
+stay float32.  ``"bfloat16"`` rounds the same operands to bfloat16: the
+rounding that the evaluation's dtype brings, against which the program's
+gap to the float32 reference is measured.  Everything else (the volumes'
+construction, the softmax heads, the sampler) is unchanged.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def round_to(x: torch.Tensor, kind: str) -> torch.Tensor:
 @torch.no_grad()
 def lower_precision(net: nn.Module, kind: str) -> nn.Module:
     """Round ``net``'s conv and linear operands to ``kind``, in place."""
-    layers = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d, nn.Linear)
+    layers = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d, nn.Linear)
     for m in net.modules():
         if isinstance(m, layers):
             m.weight.copy_(round_to(m.weight, kind))

@@ -7,9 +7,9 @@ The initialisation is a frozen copy of the arithmetic of
 commit 0c541214e7bc0f7b596b9f45a2d9eed18cdd0d1b, drawn in a few large
 calls on the card instead of leaf by leaf on the host:
 
-* convolutions and transposed convolutions: normal(0, sqrt(2 / n)), n the
-  kernel's volume times its output channels; linear layers: Xavier
-  uniform; biases 0;
+* convolutions and transposed convolutions, 2-D and 3-D: normal(0,
+  sqrt(2 / n)), n the kernel's volume times its output channels; linear
+  layers: Xavier uniform; biases 0;
 * BatchNorm ``"identity"``: weight 1, bias 0, running mean 0, variance 1;
   ``"drawn"``: weight and running variance uniform in [0.5, 1.5), bias
   and running mean normal with std 0.1;
@@ -20,6 +20,10 @@ calls on the card instead of leaf by leaf on the host:
   weight is scaled so that its output on the first pair of the pool has
   standard deviation ``target`` (the heads' logits, PCW's refinement
   residual), measured on the reference in float32.
+
+A module registered under two names (IGEV-Stereo's ``norm3``, which is
+also ``downsample.1``) is drawn once, under the name ``named_modules``
+gives it, and the same tensors stand under its other names in the state.
 
 Then every tensor is rounded to the dtype it is served in.
 """
@@ -37,11 +41,16 @@ def draw_state(net: nn.Module, rules: dict, g: torch.Generator, dev) -> dict:
     device), float32 on ``dev``."""
     normal, uniform = [], []  # (name, shape, scale, offset)
     fixed = {}
-    for mname, m in net.named_modules():
+    first: dict[int, str] = {}  # a module's first name, by identity
+    aliases = []  # (another name, the first name)
+    for mname, m in net.named_modules(remove_duplicate=False):
+        if id(m) in first:
+            aliases.append((mname, first[id(m)]))
+            continue
+        first[id(m)] = mname
         p = f"{mname}." if mname else ""
-        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
-            transposed = isinstance(m, nn.ConvTranspose3d)
-            n = math.prod(m.kernel_size) * m.weight.shape[1 if transposed else 0]
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)):
+            n = math.prod(m.kernel_size) * m.weight.shape[1 if m.transposed else 0]
             normal.append((p + "weight", m.weight.shape, math.sqrt(2.0 / n), 0.0))
             if m.bias is not None:
                 fixed[p + "bias"] = torch.zeros(m.bias.shape, device=dev)
@@ -73,6 +82,9 @@ def draw_state(net: nn.Module, rules: dict, g: torch.Generator, dev) -> dict:
         flat = flat * scale + offset
         for (name, shape, _, _), part in zip(leaves, flat.split(sizes)):
             state[name] = part.view(shape)
+    for alias, name in aliases:
+        for key in [k for k in state if k.startswith(name + ".")]:
+            state[alias + key[len(name):]] = state[key]
     missing = set(net.state_dict()) ^ set(state)
     if missing:
         raise KeyError(f"the drawn state and the network differ in {sorted(missing)}")
@@ -143,10 +155,12 @@ class exact_float32:
         return False
 
 
-def image_pairs(n: int, h: int, w: int, std: float, shift: int, g, dev):
-    """``(left, right)`` ``(n, h, w, 3)`` float32: normal images of ``std``,
-    the right one the left shifted ``shift`` px."""
-    left = torch.randn((n, h, w, 3), generator=g, device=dev) * std
+def image_pairs(n: int, h: int, w: int, std: float, shift: int, g, dev, mean: float = 0.0):
+    """``(left, right)`` ``(n, h, w, 3)`` float32: normal images of ``std``
+    about ``mean`` (a traffic's ``image_mean``: 0 for normalised images,
+    mid-range for RAW ones in [0, 255]), the right one the left shifted
+    ``shift`` px."""
+    left = torch.randn((n, h, w, 3), generator=g, device=dev) * std + mean
     return left, torch.roll(left, -shift, dims=2)
 
 
